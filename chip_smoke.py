@@ -3,24 +3,44 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels from the sources in the checkout, holds each against its
-plain torch version at the main path's shapes, drives the main path (the sampling
-MPC walking the SRB harness, README quickstart) through the kernels, and times
-them. It imports neither JAX nor the JAX package. It exits non-zero without a
-CUDA device or without the package beside it.
+Builds the port's kernels from the sources in the checkout (one nvcc per source,
+all started together), holds each against its plain torch version at the main
+path's shapes, drives the slice's paths (the sampling MPC walking the SRB
+harness, README quickstart) through the kernels, and times them. It imports
+neither JAX nor the JAX package. It exits non-zero without a CUDA device or
+without the package beside it.
 
 Output: the card's name and power limit, one line per phase, a ``{"kernels": ...}``
 line, and as the last line ``{"ok": true, "device": {...}}``.
 
-Phases (each raises on failure):
+Phases (each raises on failure; every path is driven with all launch counts set
+to 0 just before it and read just after):
   1. K1a against its plain version on the same injected noise, N = 10 000,
-     H = 12, P = 96 (the main path's shape, the one the kernel instantiates).
+     H = 12, P = 96 (the main path's shape, the one the kernels instantiate).
   2. K1a's Philox noise: band statistics, the incumbent column, determinism, and
      the plain version reproducing the kernel's costs on the dumped noise.
-  3. The main path: SRBClosedLoopHarness(cfg, device="cuda").run(3.0, [0.3, 0, 0])
-     at N = 10 000 must walk, with the kernel launched once per MPC tick.
-  4. Times: the kernel and its plain version (CUDA events, median of 100
+  3. The first slice's path: SRBClosedLoopHarness(cfg, device="cuda").run(3.0,
+     [0.3, 0, 0]) at N = 10 000 (random sampling, one iteration) must walk,
+     with K1a launched once per MPC tick.
+  4. Times of K1a: the kernel and its plain version (CUDA events, median of 100
      launches), the per-tick solve with its host glue, the harness's rate.
+  5. K1b (MPPI) and K1c (CEM-MPPI) at N = 10 000: costs against the plain
+     version on the same injected noise; the optimizer step against the plain
+     combine on the kernel's own costs (beta exactly, parameters and sigma' to
+     1e-5, elite indices exactly); a NaN state, where every cost ties at 1e6;
+     Philox noise, dumped and checked the same way, bit-identical on a rerun.
+  6. K1d: three chained iterations of each method; iteration i repeats bit for
+     bit as one iteration from iteration i - 1's device outputs, and passes the
+     phase-5 checks on its dumped noise.
+  7. This slice's path: the same walk with MPPI and 3 chained iterations a tick
+     (three K1b launches chained by K1d) must walk; the profiler over 50 solve ticks
+     must see exactly one device-to-host copy a tick.
+  8. A CEM-MPPI closed loop (3 iterations a tick) for 3 s: finite GRFs and a
+     sigma inside [cem_sigma_min, cem_sigma_max] on every tick. The JAX
+     reference falls in this configuration too, so the walk is not asserted.
+  9. Times of K1b, K1c and K1d (MPPI x 3 as one solve, through its wrapper
+     sampling_chain), their plain versions and bounds, and the solve tick with its
+     host glue for MPPI x 3 and CEM x 3.
 """
 from __future__ import annotations
 
@@ -34,17 +54,25 @@ import numpy as np
 
 N_MAIN = 10_000
 TIMED_RUNS = 100
+PLAIN_RUNS = 30
+WALK_S, WALK_VEL = 3.0, np.array([0.3, 0.0, 0.0])
 # Published FP32 (non-tensor) peak and HBM rate of one H100 SXM at 700 W.
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-# Tolerances of the kernel against its plain version. Both run in float32 on the
-# card; they differ by FMA contraction in the kernel and by the order of the
+# Tolerances of the kernels against their plain version. Both run in float32 on
+# the card; they differ by FMA contraction in the kernel and by the order of the
 # basis product's sums (torch.matmul blocks it, the kernel sums each leg block
 # sequentially). Costs reach 1e3-1e6, so a relative bound with a small floor.
 COST_RTOL, COST_ATOL = 1e-4, 1e-2
 GRF_ATOL = 1e-3  # N: forces are O(100 N); ~1e-5 relative rounding
 STATE_ATOL = 1e-5  # one 0.02 s Euler step from O(1) states
 PARAM_ATOL = 1e-6  # the winner is incumbent + noise, rounded once
+# The MPPI / CEM step on the kernel's own costs: the weighted sums and the elite
+# variance run in another order than torch's (per block, then over blocks).
+COMBINE_ATOL = 1e-5
+# The JAX package's SRB harness on the CPU, same command (3 s at 0.3 m/s, N = 10 000):
+# distance (m), min z (m), max |roll|,|pitch| (rad); `python tests/test_torch_harness.py`.
+JAX_CPU_WALKS = {"mppi x 3": (0.9095, 0.3444, 0.0229), "cem_mppi x 3": (3.5631, -2.8293, 59.5867)}
 
 
 def log(msg):
@@ -61,6 +89,10 @@ def main_cfg(**over):
     from quadruped_pympc_tamols_torch import make_config
     return make_config("aliengo", mpc_type="sampling",
                        **{"sim.visual_foothold_adaptation": "blind", **over})
+
+
+def softmax_cfg(method):
+    return main_cfg(**{"mpc.sampling.method": method, "mpc.sampling.num_iterations": 3})
 
 
 def example_tick(cfg, plan):
@@ -97,32 +129,18 @@ def numpy_noise(plan, rng):
 
 
 def plain_on_device(plan, tick, incumbent, noise):
-    import torch
-    from quadruped_pympc_tamols_torch.ops.sampling_kernel import sampling_iteration_reference
-    dev = incumbent.device
-
-    def t(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
-
-    return sampling_iteration_reference(noise, incumbent, plan.W, t(tick.state12), t(tick.feet),
-                                        t(tick.ref12), t(tick.contact_seq), t(tick.share),
-                                        plan.dts, plan.q_diag, plan.srbd, plan.fm)
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+    t = sk.tick_tensors(tick, incumbent.device)
+    return sk.sampling_iteration_reference(noise, incumbent, plan.W, *t, plan.dts, plan.q_diag,
+                                           plan.srbd, plan.fm)
 
 
 def check_against_plain(plan, tick, incumbent, noise, costs_k, out_k, label):
     """Phase-1 checks; returns the error figures."""
-    import torch
-    from quadruped_pympc_tamols_torch.controllers.sampling.rollout import apply_force_model_rows
-    from quadruped_pympc_tamols_torch.dynamics.srbd import integrate_euler
-    from quadruped_pympc_tamols_torch.ops.sampling_kernel import OUT_WINNER
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
 
     ref = plain_on_device(plan, tick, incumbent, noise)
-    cost_err = (costs_k - ref.costs).abs()
-    bound = COST_ATOL + COST_RTOL * ref.costs.abs()
-    if not bool((cost_err <= bound).all()):
-        i = int(torch.argmax(cost_err - bound))
-        raise AssertionError(f"{label}: cost {i} kernel {float(costs_k[i])} plain "
-                             f"{float(ref.costs[i])}")
+    cost_err = check_costs(costs_k, ref.costs, label)
     k_idx, r_idx = int(out_k[25]), int(ref.best_index)
     if k_idx != r_idx:
         a, b = float(ref.costs[k_idx]), float(ref.costs[r_idx])
@@ -130,21 +148,15 @@ def check_against_plain(plan, tick, incumbent, noise, costs_k, out_k, label):
             raise AssertionError(f"{label}: argmin {k_idx} (cost {a}) vs plain {r_idx} ({b})")
     # The kernel's winner, extracted by the plain formulas.
     winner = incumbent + noise[:, k_idx]
-    rows = apply_force_model_rows(plan.W[0:12] @ winner, torch.as_tensor(tick.contact_seq[:, 0],
-                                  device=winner.device),
-                                  torch.as_tensor(tick.share[0], device=winner.device), plan.fm)
-    grfs = torch.stack(rows).reshape(12)
-    dev = winner.device
-    state = integrate_euler(torch.as_tensor(tick.state12, device=dev),
-                            torch.as_tensor(tick.feet, device=dev), grfs.reshape(4, 3),
-                            torch.as_tensor(tick.contact_seq[:, 0], device=dev), plan.srbd,
-                            float(plan.dts[0]))
+    t = sk.tick_tensors(tick, winner.device)
+    grfs, state = sk.step0_reference(winner, plan.W, t[0], t[1], t[3], t[4], plan.dts,
+                                     plan.srbd, plan.fm)
     errs = {
-        "cost": float(cost_err.max()),
+        "cost": cost_err,
         "best_cost": abs(float(out_k[0]) - float(ref.costs[k_idx])),
-        "grf": float((out_k[1:13] - grfs).abs().max()),
+        "grf": float((out_k[1:13] - grfs.reshape(12)).abs().max()),
         "state": float((out_k[13:25] - state).abs().max()),
-        "winner": float((out_k[OUT_WINNER:] - winner).abs().max()),
+        "winner": float((out_k[sk.OUT_WINNER:] - winner).abs().max()),
     }
     if errs["best_cost"] > COST_ATOL + COST_RTOL * abs(float(ref.costs[k_idx])):
         raise AssertionError(f"{label}: best cost {float(out_k[0])} vs {float(ref.costs[k_idx])}")
@@ -152,6 +164,58 @@ def check_against_plain(plan, tick, incumbent, noise, costs_k, out_k, label):
         if not errs[key] <= tol:
             raise AssertionError(f"{label}: {key} error {errs[key]} > {tol}")
     return errs, ref
+
+
+def check_costs(costs_k, costs_p, label) -> float:
+    """Kernel costs against plain costs; returns the largest absolute error."""
+    import torch
+    err = (costs_k - costs_p).abs()
+    bound = COST_ATOL + COST_RTOL * costs_p.abs()
+    if not bool((err <= bound).all()):
+        i = int(torch.argmax(err - bound))
+        raise AssertionError(f"{label}: cost {i} kernel {float(costs_k[i])} plain "
+                             f"{float(costs_p[i])}")
+    return float(err.max())
+
+
+def check_softmax(plan, knobs, tick, inc, noise, costs_k, out_k, sigma_k, elites_k, label):
+    """K1b / K1c checks: costs against the plain rollout on the same noise; the
+    optimizer step against the plain combine applied to the kernel's own costs;
+    the fully plain result's distance printed beside. Returns the error figures."""
+    import torch
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+
+    t = sk.tick_tensors(tick, inc.device)
+    plain = sm.softmax_iteration_reference(noise, inc, plan.W, *t, plan.dts, plan.q_diag,
+                                           plan.srbd, plan.fm, knobs)
+    errs = {"cost": check_costs(costs_k, plain.costs, label)}
+    ref = sm.softmax_combine_reference(costs_k, noise, inc, plan.W, t[0], t[1], t[3], t[4],
+                                       plan.dts, plan.srbd, plan.fm, knobs)
+    if float(out_k[0]) != float(ref.beta) or int(out_k[25]) != int(ref.best_index):
+        raise AssertionError(f"{label}: beta {float(out_k[0])} at {int(out_k[25])} vs "
+                             f"{float(ref.beta)} at {int(ref.best_index)}")
+    new_k = out_k[sk.OUT_WINNER:]
+
+    def gap(a, b):
+        d = (a - b).abs()
+        return float(torch.where(torch.isnan(a) & torch.isnan(b), torch.zeros_like(d), d).max())
+
+    errs["params"] = gap(new_k, ref.new_params)
+    errs["grf"] = gap(out_k[1:13], ref.grfs.reshape(12))
+    errs["state"] = gap(out_k[13:25], ref.next_state)
+    errs["params_vs_fully_plain"] = gap(new_k, plain.new_params)
+    tols = [("params", COMBINE_ATOL), ("grf", GRF_ATOL), ("state", STATE_ATOL)]
+    if knobs.cem:
+        if elites_k.tolist() != ref.elites.tolist():
+            raise AssertionError(f"{label}: elites {elites_k.tolist()} vs {ref.elites.tolist()}")
+        errs["sigma"] = gap(sigma_k, ref.sigma)
+        errs["sigma_vs_fully_plain"] = gap(sigma_k, plain.sigma)
+        tols.append(("sigma", COMBINE_ATOL))
+    for key, tol in tols:
+        if not errs[key] <= tol:
+            raise AssertionError(f"{label}: {key} error {errs[key]} > {tol}")
+    return errs
 
 
 def time_cuda(fn, runs=TIMED_RUNS, warmup=10) -> float:
@@ -185,23 +249,50 @@ def time_layer(obj, name, acc, key):
     setattr(obj, name, wrapped)
 
 
-def profile_ticks(mpc, st, ref, tick, n=50) -> dict:
-    """Device time per kernel and the device's busy share over n solve ticks,
-    from torch.profiler; "not measured" where the profiler sees no device time."""
+def tick_dicts(tick):
+    """The flagship tick as the controller's state and reference dicts."""
+    st, ref = {}, {}
+    legs = ("FL", "FR", "RL", "RR")
+    st.update(position=tick.state12[:3], linear_velocity=tick.state12[3:6],
+              orientation=tick.state12[6:9], angular_velocity=tick.state12[9:12],
+              **{f"foot_{n}": tick.feet[i] for i, n in enumerate(legs)})
+    ref.update(ref_position=tick.ref12[:3], ref_linear_velocity=tick.ref12[3:6],
+               ref_orientation=tick.ref12[6:9], ref_angular_velocity=tick.ref12[9:12],
+               **{f"ref_foot_{n}": tick.feet[i] for i, n in enumerate(legs)})
+    return st, ref
+
+
+def solve_tick_ms(mpc, tick, n=200) -> float:
+    """Median host milliseconds of one compute_control plus its summary read."""
+    from quadruped_pympc_tamols_torch.controllers.sampling import host_summary
+    st, ref = tick_dicts(tick)
+    ones = np.ones(4, np.float32)
+    ms = []
+    for i in range(n + 10):
+        t0 = time.perf_counter()
+        host_summary(mpc.compute_control(st, ref, tick.contact_seq, ones, ones))
+        if i >= 10:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
+def profile_ticks(mpc, tick, n=50) -> dict:
+    """Device time per kernel, the device's busy share and the device-to-host
+    copies over n solve ticks, from torch.profiler; "not measured" where the
+    profiler sees no device time. Nothing is caught: a failed tick or a profiler
+    that cannot start fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from quadruped_pympc_tamols_torch.controllers.sampling import host_summary
 
+    st, ref = tick_dicts(tick)
     ones = np.ones(4, np.float32)
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                host_summary(mpc.compute_control(st, ref, tick.contact_seq, ones, ones))
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-    except RuntimeError as e:  # the profiler could not start (no CUPTI access)
-        return {"not measured": str(e)}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            host_summary(mpc.compute_control(st, ref, tick.contact_seq, ones, ones))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
     per = {}
     for e in prof.key_averages():
         dev_us = getattr(e, "device_time_total", None)
@@ -218,23 +309,316 @@ def profile_ticks(mpc, st, ref, tick, n=50) -> dict:
         return {"not measured": "no device time in the trace"}
     return {"window_ms_per_tick": wall_us / n / 1e3,
             "device_busy_share": busy_us / wall_us,
+            "d2h_copies": sum(v[0] for k, v in kernels.items() if "DtoH" in k),
             "device_us_per_tick": {k: v[1] / n for k, v in sorted(kernels.items())}}
+
+
+def iteration_flops(plan) -> int:
+    """Operations one K1a iteration needs per sample: the basis product over each
+    force row's own-leg block only (H*12 x P_leg FMAs; make_rs_plan checks that W
+    is zero elsewhere), ~250 flops per rollout step (force model, torques,
+    rotations, gyroscopic term, Euler update, cost), ~30 flops per Box-Muller
+    normal."""
+    H, P_leg, P = plan.horizon, plan.params_per_leg, plan.num_parameters
+    return 2 * H * 12 * P_leg + 250 * H + 30 * P
+
+
+def bound_ms(flops, nbytes) -> tuple:
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
 def k1a_bound_ms(plan) -> tuple:
     """Least time of one K1a solve on an H100: (ms, "bytes" or "operations").
-
-    Operations per sample that the function needs: the basis product over each
-    force row's own-leg block only (H*12 x P_leg FMAs; make_rs_plan checks that W
-    is zero elsewhere), ~250 flops per rollout step (force model, torques,
-    rotations, gyroscopic term, Euler update, cost), ~30 flops per Box-Muller
-    normal. Bytes: the leg blocks of W and the incumbent read once, N costs and
-    the packed output written once."""
+    Bytes: the leg blocks of W and the incumbent read once, N costs and the packed
+    output written once."""
     H, P_leg, P, N = plan.horizon, plan.params_per_leg, plan.num_parameters, plan.num_samples
-    flops = N * (2 * H * 12 * P_leg + 250 * H + 30 * P)
-    nbytes = 4 * (H * 12 * P_leg + P + N + 26 + P)  # out: [cost, 12, 12, index, P]
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+    return bound_ms(N * iteration_flops(plan),
+                    4 * (H * 12 * P_leg + P + N + 26 + P))  # out: [cost, 12, 12, index, P]
+
+
+def softmax_bound_ms(plan, knobs, iterations=1) -> tuple:
+    """Least time of ``iterations`` K1b / K1c iterations on an H100. Per sample
+    per iteration, K1a's count plus ~2P + 20 flops for the weight, its
+    exponential and the weighted sum (regenerating the noise is the design's
+    choice and not counted; the K-elite selection and refit are O(N + K P)).
+    Bytes: W's leg blocks, the incumbent (and sigma) read, N costs, the packed
+    output (and sigma', elites) written, once per iteration."""
+    H, P_leg, P, N = plan.horizon, plan.params_per_leg, plan.num_parameters, plan.num_samples
+    flops = N * (iteration_flops(plan) + 2 * P + 20)
+    nbytes = 4 * (H * 12 * P_leg + P + N + 26 + P)
+    if knobs.cem:
+        nbytes += 4 * (2 * P + knobs.n_elite)
+    return bound_ms(iterations * flops, iterations * nbytes)
+
+
+# Launch counts by kernel: K1a counts in sampling_rs.launches, K1b and K1c in
+# softmax_iteration.launches["mppi"] and ["cem_mppi"]. K1d (chaining) launches
+# no kernel of its own: its launches are the K1a/K1b/K1c launches it issues.
+COUNTED = ("K1a", "K1b", "K1c")
+
+
+def reset_counts():
+    from quadruped_pympc_tamols_torch import ops
+    ops.sampling_rs.launches = 0
+    ops.softmax_iteration.launches.update(mppi=0, cem_mppi=0)
+
+
+def read_counts() -> dict:
+    from quadruped_pympc_tamols_torch import ops
+    sm = ops.softmax_iteration.launches
+    return {"K1a": ops.sampling_rs.launches, "K1b": sm["mppi"], "K1c": sm["cem_mppi"]}
+
+
+def walk(cfg, label, want_counts):
+    """The README quickstart walk on the card with the launch counts zeroed just
+    before and read just after; raises unless it walks the band of
+    tests/test_closed_loop_walking.py:18-29 with ``want_counts(ticks)`` launches."""
+    import torch
+    from quadruped_pympc_tamols_torch.sim import SRBClosedLoopHarness
+
+    h = SRBClosedLoopHarness(cfg, seed=0, device="cuda")
+    layer_s = {"planners": 0.0, "solve (controller + kernels + copy)": 0.0, "plant": 0.0}
+    time_layer(h.wb, "update_state_and_reference", layer_s, "planners")
+    time_layer(h.ctrl, "compute_control", layer_s, "solve (controller + kernels + copy)")
+    time_layer(h, "_plant_step", layer_s, "plant")
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = h.run(WALK_S, WALK_VEL)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    ticks = int(round(WALK_S / cfg.sim.dt)) // h._mpc_every
+    z = hist[:, 2]
+    dist = hist[-1, 0] - hist[0, 0]
+    if not np.all(np.isfinite(hist)):
+        raise AssertionError(f"{label}: state diverged")
+    if not (np.all(z > 0.15) and np.all(np.abs(hist[:, 6:8]) < 0.5)):
+        raise AssertionError(f"{label}: fell (min z {z.min()}, max |rp| "
+                             f"{np.abs(hist[:, 6:8]).max()})")
+    if not dist > 0.5 * WALK_VEL[0] * WALK_S:
+        raise AssertionError(f"{label}: walked {dist} m of {WALK_VEL[0] * WALK_S}")
+    if not abs(np.mean(z[len(z) // 2:]) - cfg.sim.ref_z) < 0.08:
+        raise AssertionError(f"{label}: mean height off the reference")
+    if counts != want_counts(ticks) or ticks == 0:
+        raise AssertionError(f"{label}: launches {counts} for {ticks} MPC ticks, want "
+                             f"{want_counts(ticks)}")
+    log(f"{label}: ok; walked {dist:.4f} m in {WALK_S} s, min z {z.min():.4f}, "
+        f"max |roll|,|pitch| {np.abs(hist[:, 6:8]).max():.4f}; launches {counts} for "
+        f"{ticks} ticks; wall {wall:.3f} s ({wall / WALK_S:.3f} s per simulated s); host "
+        f"time by layer {({k: round(v, 4) for k, v in layer_s.items()})} s, rest "
+        f"{wall - sum(layer_s.values()):.4f} s (swing feet, loop)")
+    return counts, wall, (dist, float(z.min()), float(np.abs(hist[:, 6:8]).max()))
+
+
+def counts_of(**nonzero):
+    """want_counts for ``walk``: the named kernels launched so many times per
+    tick, every other counted kernel not at all."""
+    return lambda ticks: {name: nonzero.get(name, 0) * ticks for name in COUNTED}
+
+
+def phase_softmax(dev, rng):
+    """Phase 5: K1b and K1c against the plain version at N = 10 000."""
+    import torch
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+
+    errs = {}
+    for method in ("mppi", "cem_mppi"):
+        cfg = softmax_cfg(method)
+        plan = sk.make_rs_plan(cfg, N_MAIN, dev)
+        knobs = sm.make_knobs(cfg)
+        tick = example_tick(cfg, plan)
+        P = plan.num_parameters
+        inc = torch.as_tensor(rng.standard_normal(P).astype(np.float32), device=dev)
+        sigma = torch.as_tensor(rng.uniform(0.3, 4.0, P).astype(np.float32), device=dev)
+        scale = sigma.cpu().numpy()[:, None] if knobs.cem else knobs.sigma_mppi
+        noise = (rng.standard_normal((P, N_MAIN)) * scale).astype(np.float32)
+        noise[:, 0] = 0.0
+        noise = torch.as_tensor(noise, device=dev)
+
+        def run(tk, seed=0, noise_in=None, noise_out=None):
+            return sm.softmax_iteration(plan, knobs, tk, inc, sigma, seed, 0, noise_in=noise_in,
+                                        noise_out=noise_out)
+
+        res = run(tick, noise_in=noise)
+        torch.cuda.synchronize()
+        e = check_softmax(plan, knobs, tick, inc, noise, *res, f"phase 5 {method}")
+        nan_tick = tick._replace(state12=np.full(12, np.nan, np.float32))
+        res_nan = run(nan_tick, noise_in=noise)
+        torch.cuda.synchronize()
+        check_softmax(plan, knobs, nan_tick, inc, noise, *res_nan, f"phase 5 {method} ties")
+        if not bool((res_nan[0] == 1.0e6).all()):
+            raise AssertionError(f"phase 5 {method}: a NaN state left unsaturated costs")
+        if knobs.cem and res_nan[3].tolist() != list(range(knobs.n_elite)):
+            raise AssertionError(f"phase 5 {method}: tied elites {res_nan[3].tolist()}")
+        dump = torch.empty(P, N_MAIN, device=dev)
+        res_px = run(tick, seed=1234, noise_out=dump)
+        res_px2 = run(tick, seed=1234)
+        torch.cuda.synchronize()
+        for a, b in zip(res_px, res_px2):
+            if a is not None and not torch.equal(a, b):
+                raise AssertionError(f"phase 5 {method}: a rerun gave other bits")
+        if not bool((dump[:, 0] == 0).all()):
+            raise AssertionError(f"phase 5 {method}: column 0 (the incumbent) is not zero")
+        std = (dump[:, 1:].double().std(dim=1) / (sigma.double() if knobs.cem
+                                                  else knobs.sigma_mppi))
+        if not bool(((std - 1.0).abs() < 6.0 / np.sqrt(2.0 * N_MAIN)).all()):  # 6 sd
+            raise AssertionError(f"phase 5 {method}: Philox noise std / sigma {std}")
+        e_px = check_softmax(plan, knobs, tick, inc, dump, *res_px, f"phase 5 {method} philox")
+        errs[method] = e
+        log(f"phase 5 {method} (N={N_MAIN}): ok; injected noise {e}; Philox noise {e_px}; "
+            f"NaN state: all costs 1e6, elites "
+            f"{res_nan[3].tolist() if knobs.cem else 'n/a'}")
+    return errs
+
+
+def phase_chain(dev, rng):
+    """Phase 6: K1d, three chained iterations of each method."""
+    import torch
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+
+    worst = 0.0
+    for method in ("random_sampling", "mppi", "cem_mppi"):
+        cfg = softmax_cfg(method)
+        plan = sk.make_rs_plan(cfg, N_MAIN, dev)
+        knobs = sm.make_knobs(cfg)
+        tick = example_tick(cfg, plan)
+        P = plan.num_parameters
+        inc = torch.as_tensor(rng.standard_normal(P).astype(np.float32), device=dev)
+        sig = torch.full((P,), cfg.mpc.sampling.sigma_cem_mppi, device=dev)
+        res = sm.sampling_chain(plan, knobs, tick, inc, sig, 77, 40, 3)
+        errs = []
+        for i, r in enumerate(res):
+            dump = torch.empty(P, N_MAIN, device=dev)
+            label = f"phase 6 {method} iteration {i}"
+            if method == "random_sampling":
+                one = sk.sampling_rs(plan, tick, inc, 77, 40 + i, noise_out=dump) + (sig, None)
+            else:
+                one = sm.softmax_iteration(plan, knobs, tick, inc, sig, 77, 40 + i,
+                                           noise_out=dump)
+            torch.cuda.synchronize()
+            for a, b in zip(one, r):
+                if a is not None and not torch.equal(a, b):
+                    raise AssertionError(f"{label}: the chain differs from one iteration")
+            if method == "random_sampling":
+                e, _ = check_against_plain(plan, tick, inc, dump, r.costs, r.out, label)
+            else:
+                e = check_softmax(plan, knobs, tick, inc, dump, *r, label)
+            errs.append(e)
+            worst = max(worst, e["cost"])
+            inc, sig = r.out[sk.OUT_WINNER:], r.sigma
+        log(f"phase 6 {method} x 3: ok; per iteration {errs}")
+    return worst
+
+
+def phase_cem_loop():
+    """Phase 8: CEM-MPPI x 3 in closed loop for 3 s on the card."""
+    import torch
+    from quadruped_pympc_tamols_torch.sim import SRBClosedLoopHarness
+
+    cfg = softmax_cfg("cem_mppi")
+    sp = cfg.mpc.sampling
+    h = SRBClosedLoopHarness(cfg, seed=0, device="cuda")
+    seen = []
+    solve = h.ctrl.controller.compute_control
+
+    def recorded(*a, **kw):
+        out = solve(*a, **kw)
+        seen.append((out.grfs, out.sigma))  # device tensors, each tick's own
+        return out
+
+    h.ctrl.controller.compute_control = recorded
+    reset_counts()
+    hist = h.run(WALK_S, WALK_VEL)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    ticks = int(round(WALK_S / cfg.sim.dt)) // h._mpc_every
+    want = counts_of(K1c=sp.num_iterations)(ticks)
+    if counts != want or len(seen) != ticks:
+        raise AssertionError(f"phase 8: launches {counts} for {ticks} ticks, want {want}")
+    grfs = torch.stack([g for g, _ in seen])
+    sig = torch.stack([s for _, s in seen])
+    if not bool(torch.isfinite(grfs).all()):
+        raise AssertionError("phase 8: non-finite GRFs")
+    if not bool(((sig >= sp.cem_sigma_min) & (sig <= sp.cem_sigma_max)).all()):
+        raise AssertionError(f"phase 8: sigma left [{sp.cem_sigma_min}, {sp.cem_sigma_max}]: "
+                             f"{float(sig.min())}, {float(sig.max())}")
+    fin = np.isfinite(hist).all(axis=1)
+    dist = hist[fin][-1, 0] - hist[0, 0]
+    stats = (float(dist), float(hist[fin, 2].min()), float(np.abs(hist[fin, 6:8]).max()))
+    log(f"phase 8: ok; {ticks} ticks with finite GRFs and sigma in [{float(sig.min()):.4f}, "
+        f"{float(sig.max()):.4f}]; launches {counts}; distance, min z, max |roll|,|pitch| "
+        f"{stats} over {int(fin.sum())} finite steps of {len(hist)} (JAX package on the CPU: "
+        f"{JAX_CPU_WALKS['cem_mppi x 3']})")
+    return counts, stats
+
+
+def phase_softmax_times(dev, rng):
+    """Phase 9: times of K1b, K1c and K1d and their plain versions."""
+    import torch
+    from quadruped_pympc_tamols_torch.controllers.sampling import SamplingMPC
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+
+    lib = sm.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = {}
+    for method in ("mppi", "cem_mppi"):
+        cfg = softmax_cfg(method)
+        plan = sk.make_rs_plan(cfg, N_MAIN, dev)
+        knobs = sm.make_knobs(cfg)
+        tick = example_tick(cfg, plan)
+        P = plan.num_parameters
+        inc = torch.as_tensor(rng.standard_normal(P).astype(np.float32), device=dev)
+        sig = torch.full((P,), cfg.mpc.sampling.sigma_cem_mppi, device=dev)
+        kn = knobs.struct()
+        # One iteration through the C entry with the argument blocks built once, so
+        # the events see the memset and launches, not Python's packing. K1d is
+        # timed through its wrapper, sampling_chain, as the solver calls it, and
+        # also (chain_prebuilt_ms) as three C-entry launches with prebuilt blocks.
+        args = [sk.kernel_args(plan, tick, 5, i) for i in range(3)]
+        ws = [sm.workspace(plan, knobs, dev) for _ in range(3)]
+
+        def one():
+            sm.launch(lib, args[0], kn, plan, ws[0], inc, sig, stream=stream)
+
+        def chained():
+            x, s = inc, sig
+            for i in range(3):
+                sm.launch(lib, args[i], kn, plan, ws[i], x, s, stream=stream)
+                x, s = ws[i].out[sk.OUT_WINNER:], ws[i].sigma
+
+        t = sk.tick_tensors(tick, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def plain(iterations=1):
+            x, s = inc, sig
+            for _ in range(iterations):
+                z = torch.randn(P, N_MAIN, device=dev, generator=gen)
+                noise = z * (s[:, None] if knobs.cem else knobs.sigma_mppi)
+                noise[:, 0] = 0.0
+                r = sm.softmax_iteration_reference(noise, x, plan.W, *t, plan.dts, plan.q_diag,
+                                                   plan.srbd, plan.fm, knobs)
+                x, s = r.new_params, r.sigma if knobs.cem else s
+
+        out[method] = {
+            "ms": time_cuda(one), "plain_ms": time_cuda(plain, runs=PLAIN_RUNS),
+            "chain_ms": time_cuda(lambda: sm.sampling_chain(plan, knobs, tick, inc, sig, 5, 0, 3)),
+            "chain_prebuilt_ms": time_cuda(chained),
+            "chain_plain_ms": time_cuda(lambda: plain(3), runs=PLAIN_RUNS // 3),
+            "bound": softmax_bound_ms(plan, knobs), "chain_bound": softmax_bound_ms(plan, knobs, 3),
+            "tick_ms": solve_tick_ms(SamplingMPC(cfg, device="cuda"), tick)}
+        log(f"phase 9 {method}: one iteration {out[method]['ms']:.4f} ms (median of "
+            f"{TIMED_RUNS}; memset + 3 launches), plain {out[method]['plain_ms']:.4f} ms, "
+            f"bound {out[method]['bound'][0]:.5f} ms ({out[method]['bound'][1]}); 3 chained "
+            f"through sampling_chain {out[method]['chain_ms']:.4f} ms, through the C entry with "
+            f"prebuilt argument blocks {out[method]['chain_prebuilt_ms']:.4f} ms, plain "
+            f"{out[method]['chain_plain_ms']:.4f} ms, "
+            f"bound {out[method]['chain_bound'][0]:.5f} ms; solve tick (3 iterations) with "
+            f"host glue {out[method]['tick_ms']:.4f} ms (median of 200)")
+    return out
 
 
 def main() -> int:
@@ -251,9 +635,10 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing: {e}", file=sys.stderr)
         return 2
-    from quadruped_pympc_tamols_torch.controllers.sampling import SamplingMPC, host_summary
+    from quadruped_pympc_tamols_torch.controllers.sampling import SamplingMPC
+    from quadruped_pympc_tamols_torch.ops import build
     from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
-    from quadruped_pympc_tamols_torch.sim import SRBClosedLoopHarness
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -265,12 +650,15 @@ def main() -> int:
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
     t0 = time.perf_counter()
-    lib_path = sk.build_library()
+    libs = build.build_all()
     sk.load_library()
-    log(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    sm.load_library()
+    log(f"build: {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.1f} s "
+        f"(one nvcc per source, started together)")
+    for lib_path in libs.values():
+        for line in lib_path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas: {line.strip()}")
 
     # -- phase 1: kernel against its plain version, same noise ------------------------
     rng = np.random.default_rng(0)
@@ -316,40 +704,10 @@ def main() -> int:
     errs2, _ = check_against_plain(plan, tick, inc, dump, costs_k, out_k, "philox")
     log(f"phase 2: ok; band (mean, std) {stats}; plain on dumped noise max abs err {errs2}")
 
-    # -- phase 3: the main path -------------------------------------------------------
-    h = SRBClosedLoopHarness(cfg, seed=0, device="cuda")
-    duration, vel = 3.0, np.array([0.3, 0.0, 0.0])
-    layer_s = {"planners": 0.0, "solve (controller + kernel + copy)": 0.0, "plant": 0.0}
-    time_layer(h.wb, "update_state_and_reference", layer_s, "planners")
-    time_layer(h.ctrl, "compute_control", layer_s, "solve (controller + kernel + copy)")
-    time_layer(h, "_plant_step", layer_s, "plant")
-    sk.sampling_rs.launches = 0
-    t0 = time.perf_counter()
-    hist = h.run(duration, vel)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = sk.sampling_rs.launches
-    ticks = int(round(duration / cfg.sim.dt)) // h._mpc_every
-    z = hist[:, 2]
-    dist = hist[-1, 0] - hist[0, 0]
-    if not np.all(np.isfinite(hist)):
-        raise AssertionError("phase 3: state diverged")
-    if not (np.all(z > 0.15) and np.all(np.abs(hist[:, 6:8]) < 0.5)):
-        raise AssertionError(f"phase 3: fell (min z {z.min()}, max |rp| "
-                             f"{np.abs(hist[:, 6:8]).max()})")
-    if not dist > 0.5 * vel[0] * duration:
-        raise AssertionError(f"phase 3: walked {dist} m of {vel[0] * duration}")
-    if not abs(np.mean(z[len(z) // 2:]) - cfg.sim.ref_z) < 0.08:
-        raise AssertionError("phase 3: mean height off the reference")
-    if launches != ticks or launches == 0:
-        raise AssertionError(f"phase 3: {launches} kernel launches for {ticks} MPC ticks")
-    log(f"phase 3: ok; walked {dist:.4f} m in {duration} s, min z {z.min():.4f}, "
-        f"max |roll|,|pitch| {np.abs(hist[:, 6:8]).max():.4f}; {launches} launches for "
-        f"{ticks} ticks; wall {wall:.3f} s ({wall / duration:.3f} s per simulated s); host "
-        f"time by layer {({k: round(v, 4) for k, v in layer_s.items()})} s, rest "
-        f"{wall - sum(layer_s.values()):.4f} s (swing feet, loop)")
+    # -- phase 3: the first slice's path ----------------------------------------------
+    counts_rs, wall, _ = walk(cfg, "phase 3", counts_of(K1a=1))
 
-    # -- phase 4: times ---------------------------------------------------------------
+    # -- phase 4: times of K1a --------------------------------------------------------
     noise = torch.as_tensor(numpy_noise(plan, rng), device=dev)
     inc = torch.as_tensor(rng.standard_normal(P).astype(np.float32), device=dev)
     # The kernel is timed through its C entry with the argument block built once,
@@ -371,46 +729,62 @@ def main() -> int:
     kernel_ms = time_cuda(launch)
     plain_ms = time_cuda(lambda: plain_on_device(plan, tick, inc, noise), runs=50)
     mpc = SamplingMPC(cfg, device="cuda")
-    st, ref = {}, {}
-    st.update(position=tick.state12[:3], linear_velocity=tick.state12[3:6],
-              orientation=tick.state12[6:9], angular_velocity=tick.state12[9:12],
-              **{f"foot_{n}": tick.feet[i] for i, n in enumerate(("FL", "FR", "RL", "RR"))})
-    ref.update(ref_position=tick.ref12[:3], ref_linear_velocity=tick.ref12[3:6],
-               ref_orientation=tick.ref12[6:9], ref_angular_velocity=tick.ref12[9:12],
-               **{f"ref_foot_{n}": tick.feet[i] for i, n in enumerate(("FL", "FR", "RL", "RR"))})
-    ones = np.ones(4, np.float32)
-    tick_ms = []
-    for i in range(210):
-        t0 = time.perf_counter()
-        host_summary(mpc.compute_control(st, ref, tick.contact_seq, ones, ones))
-        if i >= 10:
-            tick_ms.append((time.perf_counter() - t0) * 1e3)
-    tick_med = statistics.median(tick_ms)
-    bound_ms, bound_by = k1a_bound_ms(plan)
-    log(f"phase 4: profile of 50 solve ticks: {profile_ticks(mpc, st, ref, tick)}")
+    tick_med = solve_tick_ms(mpc, tick)
+    k1a_bound, k1a_by = k1a_bound_ms(plan)
+    log(f"phase 4: profile of 50 solve ticks: {profile_ticks(mpc, tick)}")
     log(f"phase 4: K1a {kernel_ms:.4f} ms (median of {TIMED_RUNS}, two launches + memset), "
-        f"plain version {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); solve tick "
-        f"with host glue {tick_med:.4f} ms (median of 200); harness {wall / duration:.3f} s "
+        f"plain version {plain_ms:.4f} ms, bound {k1a_bound:.5f} ms ({k1a_by}); solve tick "
+        f"with host glue {tick_med:.4f} ms (median of 200); harness {wall / WALK_S:.3f} s "
         f"wall per simulated s")
 
-    kernels = [{
-        "name": "sampling_rs (K1a)",
-        "route": "cuda",
-        "source": "quadruped_pympc_tamols_torch/ops/csrc/sampling_rs.cu",
-        "replaces": "quadruped_pympc_tamols_tpu/ops/rollout_pallas.py:818",
-        "launches": launches,
-        "max_abs_err": errs_main["cost"],
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-        "grf_max_abs_err": errs_main["grf"],
-        "state_max_abs_err": errs_main["state"],
-        "solve_tick_ms": tick_med,
-        "harness_s_per_sim_s": wall / duration,
-    }]
+    # -- phases 5-6: K1b, K1c and K1d against their plain version ---------------------
+    errs_sm = phase_softmax(dev, rng)
+    chain_err = phase_chain(dev, rng)
+
+    # -- phase 7: this slice's path, MPPI x 3 -----------------------------------------
+    mcfg = softmax_cfg("mppi")
+    counts_mppi, wall_mppi, _ = walk(mcfg, "phase 7", counts_of(K1b=3))
+    prof = profile_ticks(SamplingMPC(mcfg, device="cuda"), tick)
+    log(f"phase 7: profile of 50 MPPI x 3 solve ticks: {prof}")
+    if prof.get("d2h_copies") != 50:
+        raise AssertionError(f"phase 7: {prof.get('d2h_copies')} device-to-host copies in 50 "
+                             "ticks, want one a tick")
+
+    # -- phase 8: CEM-MPPI closed loop ------------------------------------------------
+    counts_cem, _ = phase_cem_loop()
+
+    # -- phase 9: times of K1b, K1c, K1d ----------------------------------------------
+    t9 = phase_softmax_times(dev, rng)
+
+    def row(name, source, launches, err, ms, plain, bound, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"quadruped_pympc_tamols_torch/ops/csrc/{source}",
+                "replaces": "quadruped_pympc_tamols_tpu/ops/rollout_pallas.py:818",
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None, **extra}
+
+    kernels = [
+        row("sampling_rs (K1a)", "sampling_rs.cu", counts_rs["K1a"], errs_main["cost"],
+            kernel_ms, plain_ms, (k1a_bound, k1a_by), grf_max_abs_err=errs_main["grf"],
+            state_max_abs_err=errs_main["state"],
+            solve_tick_ms=tick_med, harness_s_per_sim_s=wall / WALK_S),
+        row("softmax_iteration, mppi (K1b)", "sampling_softmax.cu", counts_mppi["K1b"],
+            errs_sm["mppi"]["cost"], t9["mppi"]["ms"], t9["mppi"]["plain_ms"],
+            t9["mppi"]["bound"], params_max_abs_err=errs_sm["mppi"]["params"]),
+        row("softmax_iteration, cem_mppi (K1c)", "sampling_softmax.cu", counts_cem["K1c"],
+            errs_sm["cem_mppi"]["cost"], t9["cem_mppi"]["ms"], t9["cem_mppi"]["plain_ms"],
+            t9["cem_mppi"]["bound"], params_max_abs_err=errs_sm["cem_mppi"]["params"],
+            sigma_max_abs_err=errs_sm["cem_mppi"]["sigma"],
+            solve_tick_ms=t9["cem_mppi"]["tick_ms"]),
+        # K1d has no kernel of its own: its launches are the K1b launches that
+        # sampling_chain issued in the MPPI x 3 walk (3 a tick), counted by K1b's
+        # wrapper; its ms is sampling_chain's, wrapper included.
+        row("sampling_chain (K1d, MPPI x 3)", "sampling_softmax.cu", counts_mppi["K1b"],
+            chain_err, t9["mppi"]["chain_ms"], t9["mppi"]["chain_plain_ms"],
+            t9["mppi"]["chain_bound"], launches_are="K1b launches issued by sampling_chain",
+            ms_c_entry_prebuilt_args=t9["mppi"]["chain_prebuilt_ms"],
+            solve_tick_ms=t9["mppi"]["tick_ms"], harness_s_per_sim_s=wall_mppi / WALK_S),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

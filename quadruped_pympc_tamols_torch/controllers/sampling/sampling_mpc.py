@@ -7,22 +7,24 @@ solution shift (:513-561), swing-foot substitution (:588-595), the gravity share
 or static-equilibrium share, the sampling iteration(s), and the winner's step-0
 GRFs and one-step predicted state (:707-746).
 
-Where the iteration runs:
+Where the iterations run:
 
-* CUDA: ``random_sampling`` with one iteration goes through the hand-written
-  kernel ``ops.sampling_kernel.sampling_rs`` (K1a). The tick's inputs ride the
-  launch as its by-value argument block and the outputs stay on the card; the
-  host copies back one 25-float summary [best cost, GRFs (12), predicted state
-  (12)] per tick (``SamplingMPC`` starts that copy, ``host_summary`` reads it).
-  MPPI, CEM-MPPI, chained iterations and the ZMP-band cost raise
-  NotImplementedError: their kernels (K1b-K1d) are still to be ported. So do
-  parametrizations other than cubic splines with 2 splines at horizon 12, the
-  only shape the kernel's source instantiates.
-* CPU: the plain torch version, for all three methods. ``random_sampling`` runs
-  the kernel's plain version ``sampling_iteration_reference`` through the same
-  wrapper.
+* CUDA: the hand-written kernels, all three methods at any ``num_iterations``:
+  ``random_sampling`` through K1a (``ops.sampling_kernel.sampling_rs``), ``mppi``
+  through K1b and ``cem_mppi`` through K1c (``ops.sampling_softmax.
+  softmax_iteration``), chained
+  on the card by K1d (``ops.sampling_softmax.sampling_chain``): each iteration
+  reads the previous one's parameters (and CEM sigma) from device memory. The
+  tick's inputs ride each launch as its by-value argument block and the outputs
+  stay on the card; the host copies back one 25-float summary [best cost, GRFs
+  (12), predicted state (12)] per tick (``SamplingMPC`` starts that copy,
+  ``host_summary`` reads it). The ZMP-band cost raises NotImplementedError, and
+  so do parametrizations other than cubic splines with 2 splines at horizon 12,
+  the only shape the kernels' sources instantiate.
+* CPU: the kernels' plain versions through the same wrappers, for all three
+  methods and the ZMP-band cost.
 
-Random numbers: a ``SamplingState`` carries a (seed, offset) pair. The kernel keys
+Random numbers: a ``SamplingState`` carries a (seed, offset) pair. The kernels key
 Philox4x32-10 on it; the CPU path seeds a ``torch.Generator`` from it. Each
 iteration advances the offset by one. The streams differ by construction, so the
 tests compare the two paths with injected or zero noise.
@@ -36,11 +38,10 @@ import numpy as np
 import torch
 
 from ...config import Config
-from ...dynamics.srbd import integrate_euler
 from ...ops import sampling_kernel as rs
+from ...ops import sampling_softmax as sm
 from ...utils.device import resolve_device
-from .rollout import (apply_force_model_rows, equilibrium_share, gravity_share,
-                      rollout_costs_soa)
+from .rollout import equilibrium_share, gravity_share
 from .splines import make_shift_basis
 
 _LEGS = ("FL", "FR", "RL", "RR")
@@ -95,22 +96,16 @@ def make_sampling_solver(cfg: Config, num_samples: int | None = None, method: st
     """
     device = resolve_device(device)
     sp = cfg.mpc.sampling
-    method = method or sp.method
-    if method not in ("random_sampling", "mppi", "cem_mppi"):
-        raise ValueError(f"unknown sampling method {method!r}")
+    knobs = sm.make_knobs(cfg, method)
+    if sp.num_iterations < 1:
+        raise ValueError(f"sampling.num_iterations must be >= 1, got {sp.num_iterations}")
     N = num_samples or sp.num_samples
     plan = rs.make_rs_plan(cfg, N, device)
     H = plan.horizon
     P_leg, P = plan.params_per_leg, plan.num_parameters
     if device.type == "cuda":
-        if method != "random_sampling" or sp.num_iterations != 1:
-            raise NotImplementedError(
-                f"method {method!r} with {sp.num_iterations} iteration(s) has no CUDA kernel "
-                "yet: only random_sampling with one iteration (K1a) is ported; MPPI, CEM-MPPI "
-                "and chained iterations are ROADMAP queue 2 (K1b-K1d)")
-        rs.check_kernel_shape(plan)
+        sm.check_kernel_knobs(plan, knobs)
 
-    srbd = plan.srbd
     mass = float(np.float32(cfg.robot.mass))
     shift_W = torch.as_tensor(make_shift_basis(sp.parametrization, H, sp.num_splines,
                                                1.0 / cfg.sim.mpc_frequency), device=device)
@@ -129,42 +124,6 @@ def make_sampling_solver(cfg: Config, num_samples: int | None = None, method: st
                                      mass, 9.81, cfg.mpc.grf_max).numpy()
         share = gravity_share(c, mass)
         return share[:, None].expand(H, 4).numpy()
-
-    def _noise(gen, sigma):
-        """(P, N) MPPI / CEM exploration noise, column 0 zero (reference :804-812,
-        :951-958)."""
-        if method == "mppi":
-            z = sp.sigma_mppi * torch.randn(P, N - 1, generator=gen)
-        else:
-            z = torch.randn(P, N - 1, generator=gen) * sigma.cpu()[:, None]
-        return torch.cat([torch.zeros(P, 1), z], dim=1).to(device)
-
-    def _softmax_iterations(best, sigma, seed, offset, tick: rs.TickInputs):
-        """Plain MPPI / CEM-MPPI iterations (CPU only)."""
-        state12, feet, ref12, contact, share = (torch.as_tensor(x, device=device) for x in tick)
-        for _ in range(sp.num_iterations):
-            noise = _noise(rs.cpu_generator(seed, offset), sigma)
-            offset += 1
-            params = best[:, None] + noise
-            raw = (plan.W @ params).reshape(H, 12, N)
-            costs = rollout_costs_soa(state12, feet, ref12, raw, contact, share, plan.dts,
-                                      plan.q_diag, srbd, plan.fm, rs.COST_SATURATION,
-                                      zmp_weight=sp.zmp_weight, zmp_margin=sp.zmp_margin)
-            best_cost = torch.min(costs)
-            # MPPI softmax update (reference :827-836).
-            w = torch.exp(-(costs - best_cost) / sp.mppi_temperature)
-            w = w / torch.sum(w)
-            best = best + noise @ w
-            if method == "cem_mppi":
-                # Elite sigma refit (reference :1075-1081).
-                elite = noise[:, torch.topk(-costs, sp.cem_elite).indices]
-                var = torch.var(elite, dim=1, unbiased=True) + 1e-8
-                sigma = torch.clamp(torch.sqrt(var), sp.cem_sigma_min, sp.cem_sigma_max)
-        rows = apply_force_model_rows(plan.W[0:12] @ best, contact[:, 0], share[0], plan.fm)
-        grfs = torch.stack(rows).reshape(4, 3)
-        predicted = integrate_euler(state12, feet, grfs, contact[:, 0], srbd, float(plan.dts[0]))
-        summary = torch.cat([best_cost.reshape(1), grfs.reshape(12), predicted])
-        return summary, best, costs, sigma, offset
 
     def solve(state12, feet, ref12, ref_feet, contact_seq, current_contact, previous_contact,
               sampling_state: SamplingState):
@@ -194,17 +153,11 @@ def make_sampling_solver(cfg: Config, num_samples: int | None = None, method: st
         feet_eff = np.where(cur[:, None] == 0.0, ref_feet, feet).astype(np.float32)
         share = _share(contact_seq, state12, feet_eff)
         tick = rs.TickInputs(state12, feet_eff, ref12, contact_seq, share)
-        seed, offset, sigma = sampling_state.seed, sampling_state.offset, sampling_state.sigma
-
-        if method == "random_sampling":
-            for _ in range(sp.num_iterations):
-                costs, packed = rs.sampling_rs(plan, tick, best, seed, offset)
-                offset += 1
-                best = packed[rs.OUT_WINNER:]
-            summary = packed[0:25]
-        else:
-            summary, best, costs, sigma, offset = _softmax_iterations(best, sigma, seed, offset,
-                                                                      tick)
+        seed, offset = sampling_state.seed, sampling_state.offset
+        costs, packed, sigma, _ = sm.sampling_chain(plan, knobs, tick, best, sampling_state.sigma,
+                                                    seed, offset, sp.num_iterations)[-1]
+        offset += sp.num_iterations
+        best, summary = packed[rs.OUT_WINNER:], packed[0:25]
 
         out = SolveOutput(grfs=summary[1:13].reshape(4, 3),
                           footholds=no_footholds,

@@ -33,75 +33,10 @@
 // semantics). Clamps propagate NaN as torch.clamp does. The random numbers go
 // through __fmul_rn/__fadd_rn so that both kernels derive bit-identical
 // parameters for the winner. Build without --use_fast_math: the saturation
-// depends on isnan/isinf.
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define RS_HMAX 16
-#define RS_BLOCK 64
-#define RS_OUT_WINNER 26  // out = [cost, grf(12), state(12), index, winner(P)]
-
-struct RSModel {
-  float mass, gravity;
-  float inertia[9];
-  float inertia_inv[9];
-  float scale_x, scale_y, grf_min, grf_max, mu;
-};
-
-// Everything a solve needs besides W, the incumbent and the outputs. Passed by
-// value as a kernel parameter, so the per-tick inputs ride the launch itself.
-struct RSArgs {
-  int num_samples;  // N
-  int horizon;      // H
-  int band1;        // first sample of the sigma2 band (1 + N/3)
-  int band2;        // first sample of the uniform band (1 + 2*(N/3))
-  unsigned long long seed;
-  unsigned long long offset;
-  float dts[RS_HMAX];
-  float q_diag[12];
-  RSModel model;
-  float sigma1, sigma2, sigma3;
-  float state[12];
-  float feet[12];               // leg-major xyz
-  float ref[12];
-  float contact[RS_HMAX * 4];   // step-major: n*4 + leg
-  float share[RS_HMAX * 4];     // step-major: n*4 + leg
-};
-
-__device__ __forceinline__ float max_nan(float x, float y) { return (x > y || x != x) ? x : y; }
-__device__ __forceinline__ float min_nan(float x, float y) { return (x < y || x != x) ? x : y; }
-__device__ __forceinline__ float clip_nan(float x, float lo, float hi) {
-  return min_nan(max_nan(x, lo), hi);
-}
-
-// Philox4x32-10 (Salmon et al., SC'11).
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-    const unsigned int hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const unsigned int hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
-
-// Uniform in [0, 1) from the top 24 bits.
-__device__ __forceinline__ float u01(unsigned int x) {
-  return __fmul_rn((float)(x >> 8), 1.0f / 16777216.0f);
-}
-
-__device__ __forceinline__ float2 box_muller(unsigned int a, unsigned int b) {
-  const float u1 = __fsub_rn(1.0f, u01(a));  // (0, 1]: the log is finite
-  const float u2 = u01(b);
-  const float r = __fsqrt_rn(__fmul_rn(-2.0f, logf(u1)));
-  float s, c;
-  sincospif(__fmul_rn(2.0f, u2), &s, &c);
-  return make_float2(__fmul_rn(r, c), __fmul_rn(r, s));
-}
+// depends on isnan/isinf. The device code it shares with sampling_softmax.cu
+// (Philox, Box-Muller, the clamps, the SRB step, the rollout cost, the step-0
+// extraction) lives in sampling_common.cuh.
+#include "sampling_common.cuh"
 
 // Noise of parameters 4k..4k+3 of sample i. Counter (i, k, offset), key seed.
 // Sample 0 is the incumbent; [1, band1) ~ N(0, s1), [band1, band2) ~ N(0, s2),
@@ -110,104 +45,15 @@ __device__ __forceinline__ float4 rs_noise4(unsigned long long seed, unsigned lo
                                             int band1, int band2, float s1, float s2, float s3,
                                             int i, int k) {
   if (i == 0) return make_float4(0.f, 0.f, 0.f, 0.f);
-  const uint4 ctr = make_uint4((unsigned int)i, (unsigned int)k,
-                               (unsigned int)(offset & 0xffffffffull),
-                               (unsigned int)(offset >> 32));
-  const uint2 key = make_uint2((unsigned int)(seed & 0xffffffffull), (unsigned int)(seed >> 32));
-  const uint4 x = philox4x32_10(ctr, key);
+  const uint4 x = philox_words(seed, offset, i, k);
   if (i >= band2) {
     const float w = __fmul_rn(2.0f, s3);
     return make_float4(__fadd_rn(-s3, __fmul_rn(w, u01(x.x))), __fadd_rn(-s3, __fmul_rn(w, u01(x.y))),
                        __fadd_rn(-s3, __fmul_rn(w, u01(x.z))), __fadd_rn(-s3, __fmul_rn(w, u01(x.w))));
   }
   const float s = (i < band1) ? s1 : s2;
-  const float2 z01 = box_muller(x.x, x.y);
-  const float2 z23 = box_muller(x.z, x.w);
-  return make_float4(__fmul_rn(z01.x, s), __fmul_rn(z01.y, s), __fmul_rn(z23.x, s),
-                     __fmul_rn(z23.y, s));
-}
-
-// One Euler step of the SRB model under the force model, in the order of
-// operations of controllers/sampling/rollout.py. s (12) is updated in place and
-// f (12) receives the clamped forces.
-__device__ __forceinline__ void srb_step(float* s, const float* raw, const float* c,
-                                         const float* sh, float dt, const float* feet,
-                                         const RSModel& m, float* f) {
-  const float px = s[0], py = s[1], pz = s[2];
-  const float vx = s[3], vy = s[4], vz = s[5];
-  const float rr = s[6], pp = s[7], yy = s[8];
-  const float wx = s[9], wy = s[10], wz = s[11];
-  float Fx = 0.f, Fy = 0.f, Fz = 0.f, Tx = 0.f, Ty = 0.f, Tz = 0.f;
-#pragma unroll
-  for (int leg = 0; leg < 4; ++leg) {
-    const float cl = c[leg];
-    float fx = raw[leg * 3 + 0] * (cl * m.scale_x);
-    float fy = raw[leg * 3 + 1] * (cl * m.scale_y);
-    const float fz = clip_nan((sh[leg] + raw[leg * 3 + 2]) * cl, m.grf_min, m.grf_max);
-    const float lim = m.mu * fz;
-    fx = clip_nan(fx, -lim, lim);
-    fy = clip_nan(fy, -lim, lim);
-    f[leg * 3 + 0] = fx;
-    f[leg * 3 + 1] = fy;
-    f[leg * 3 + 2] = fz;
-    Fx = Fx + fx;
-    Fy = Fy + fy;
-    Fz = Fz + fz;
-    const float rx = feet[leg * 3 + 0] - px;
-    const float ry = feet[leg * 3 + 1] - py;
-    const float rz = feet[leg * 3 + 2] - pz;
-    Tx = Tx + (ry * fz - rz * fy);
-    Ty = Ty + (rz * fx - rx * fz);
-    Tz = Tz + (rx * fy - ry * fx);
-  }
-  const float ax = Fx / m.mass, ay = Fy / m.mass, az = Fz / m.mass - m.gravity;
-  const float sr = sinf(rr), cr = cosf(rr);
-  const float sp = sinf(pp), cp = cosf(pp);
-  const float sy = sinf(yy), cy = cosf(yy);
-  const float tp = sp / cp;
-  const float r_dot = wx + sr * tp * wy + cr * tp * wz;
-  const float p_dot = cr * wy - sr * wz;
-  const float y_dot = (sr * wy + cr * wz) / cp;
-  const float tbx = cp * cy * Tx + cp * sy * Ty - sp * Tz;
-  const float tby = (sr * sp * cy - cr * sy) * Tx + (sr * sp * sy + cr * cy) * Ty + sr * cp * Tz;
-  const float tbz = (cr * sp * cy + sr * sy) * Tx + (cr * sp * sy - sr * cy) * Ty + cr * cp * Tz;
-  const float* I = m.inertia;
-  const float* Ii = m.inertia_inv;
-  const float Iwx = I[0] * wx + I[1] * wy + I[2] * wz;
-  const float Iwy = I[3] * wx + I[4] * wy + I[5] * wz;
-  const float Iwz = I[6] * wx + I[7] * wy + I[8] * wz;
-  const float gx = wy * Iwz - wz * Iwy;
-  const float gy = wz * Iwx - wx * Iwz;
-  const float gz = wx * Iwy - wy * Iwx;
-  const float mx = tbx - gx, my = tby - gy, mz = tbz - gz;
-  const float wdx = Ii[0] * mx + Ii[1] * my + Ii[2] * mz;
-  const float wdy = Ii[3] * mx + Ii[4] * my + Ii[5] * mz;
-  const float wdz = Ii[6] * mx + Ii[7] * my + Ii[8] * mz;
-  s[0] = px + vx * dt;
-  s[1] = py + vy * dt;
-  s[2] = pz + vz * dt;
-  s[3] = vx + ax * dt;
-  s[4] = vy + ay * dt;
-  s[5] = vz + az * dt;
-  s[6] = rr + r_dot * dt;
-  s[7] = pp + p_dot * dt;
-  s[8] = yy + y_dot * dt;
-  s[9] = wx + wdx * dt;
-  s[10] = wy + wdy * dt;
-  s[11] = wz + wdz * dt;
-}
-
-// raw[r] = sum_j W_blk[row0 + r][j] * prm[leg(r) * PL + j] for the 12 rows of one step.
-template <int PL>
-__device__ __forceinline__ void step_forces(const float* w_rows, const float* prm, float* raw) {
-#pragma unroll
-  for (int r = 0; r < 12; ++r) {
-    const int leg = r / 3;
-    float acc = 0.f;
-#pragma unroll
-    for (int j = 0; j < PL; ++j) acc = fmaf(w_rows[r * PL + j], prm[leg * PL + j], acc);
-    raw[r] = acc;
-  }
+  const float4 z = normals4(x);
+  return make_float4(__fmul_rn(z.x, s), __fmul_rn(z.y, s), __fmul_rn(z.z, s), __fmul_rn(z.w, s));
 }
 
 template <int H, int PL>
@@ -232,61 +78,22 @@ rs_rollout_kernel(const RSArgs a, const float* __restrict__ w_blk,
     for (int k = 0; k < P / 4; ++k) {
       float4 z;
       if (noise_in != nullptr) {
-        z = make_float4(noise_in[(size_t)(4 * k + 0) * N + i], noise_in[(size_t)(4 * k + 1) * N + i],
-                        noise_in[(size_t)(4 * k + 2) * N + i], noise_in[(size_t)(4 * k + 3) * N + i]);
+        z = load_noise4(noise_in, N, i, k);
       } else {
         z = rs_noise4(a.seed, a.offset, a.band1, a.band2, a.sigma1, a.sigma2, a.sigma3, i, k);
       }
-      if (noise_out != nullptr) {
-        noise_out[(size_t)(4 * k + 0) * N + i] = z.x;
-        noise_out[(size_t)(4 * k + 1) * N + i] = z.y;
-        noise_out[(size_t)(4 * k + 2) * N + i] = z.z;
-        noise_out[(size_t)(4 * k + 3) * N + i] = z.w;
-      }
+      if (noise_out != nullptr) store_noise4(noise_out, N, i, k, z);
       prm[4 * k + 0] = __fadd_rn(inc_s[4 * k + 0], z.x);
       prm[4 * k + 1] = __fadd_rn(inc_s[4 * k + 1], z.y);
       prm[4 * k + 2] = __fadd_rn(inc_s[4 * k + 2], z.z);
       prm[4 * k + 3] = __fadd_rn(inc_s[4 * k + 3], z.w);
     }
 
-    const RSModel md = a.model;
-    float st[12], ft[12], ref[12];
-#pragma unroll
-    for (int j = 0; j < 12; ++j) {
-      st[j] = a.state[j];
-      ft[j] = a.feet[j];
-      ref[j] = a.ref[j];
-    }
-    float cost = 0.f;
-#pragma unroll
-    for (int n = 0; n < H; ++n) {
-      float raw[12], f[12], c[4], sh[4];
-      step_forces<PL>(&w_s[n * 12 * PL], prm, raw);
-#pragma unroll
-      for (int leg = 0; leg < 4; ++leg) {
-        c[leg] = a.contact[n * 4 + leg];
-        sh[leg] = a.share[n * 4 + leg];
-      }
-      srb_step(st, raw, c, sh, a.dts[n], ft, md, f);
-#pragma unroll
-      for (int j = 0; j < 12; ++j) {
-        const float w = a.q_diag[j];
-        if (w != 0.f) {
-          const float e = st[j] - ref[j];
-          cost = cost + w * e * e;
-        }
-      }
-    }
-    if (isnan(cost) || isinf(cost)) cost = 1.0e6f;
+    const float cost = rollout_cost<H, PL>(a, w_s, prm);
     costs[i] = cost;
-    key = ((unsigned long long)__float_as_uint(cost) << 32) | (unsigned long long)(unsigned int)i;
+    key = cost_key(cost, i);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long other = __shfl_xor_sync(0xffffffffu, key, off);
-    key = other < key ? other : key;
-  }
-  if ((threadIdx.x & 31) == 0 && key != ~0ull) atomicMin(argmin, key);
+  fold_argmin(key, argmin);
 }
 
 template <int H, int PL>
@@ -302,8 +109,7 @@ rs_extract_kernel(const RSArgs a, const float* __restrict__ w_blk,
   for (int k = threadIdx.x; k < P / 4; k += blockDim.x) {
     float4 z;
     if (noise_in != nullptr) {
-      z = make_float4(noise_in[(size_t)(4 * k + 0) * N + idx], noise_in[(size_t)(4 * k + 1) * N + idx],
-                      noise_in[(size_t)(4 * k + 2) * N + idx], noise_in[(size_t)(4 * k + 3) * N + idx]);
+      z = load_noise4(noise_in, N, idx, k);
     } else {
       z = rs_noise4(a.seed, a.offset, a.band1, a.band2, a.sigma1, a.sigma2, a.sigma3, idx, k);
     }
@@ -317,29 +123,8 @@ rs_extract_kernel(const RSArgs a, const float* __restrict__ w_blk,
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    float prm[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) prm[p] = prm_s[p];
-    const RSModel md = a.model;
-    float st[12], ft[12], raw[12], f[12], c[4], sh[4];
-#pragma unroll
-    for (int j = 0; j < 12; ++j) {
-      st[j] = a.state[j];
-      ft[j] = a.feet[j];
-    }
-#pragma unroll
-    for (int leg = 0; leg < 4; ++leg) {
-      c[leg] = a.contact[leg];
-      sh[leg] = a.share[leg];
-    }
-    step_forces<PL>(w_blk, prm, raw);
-    srb_step(st, raw, c, sh, a.dts[0], ft, md, f);
+    step0_extract<PL>(a, w_blk, prm_s, out);
     out[0] = __uint_as_float((unsigned int)(key >> 32));
-#pragma unroll
-    for (int j = 0; j < 12; ++j) {
-      out[1 + j] = f[j];
-      out[13 + j] = st[j];
-    }
     out[25] = (float)idx;
   }
 }

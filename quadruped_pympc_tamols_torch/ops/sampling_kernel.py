@@ -17,17 +17,13 @@ runs ``sampling_iteration_reference``, the plain torch version of the same
 function. There is no fallback from one to the other.
 
 The kernel is built with ``nvcc`` at first use from the source in this package
-into ``quadruped_pympc_tamols_torch/_build/`` and bound with ``ctypes``.
+into ``quadruped_pympc_tamols_torch/_build/`` and bound with ``ctypes``
+(``ops/build.py``).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
@@ -38,11 +34,7 @@ from ..controllers.sampling.rollout import (ForceModelParams, apply_force_model_
                                             rollout_costs_soa)
 from ..controllers.sampling.splines import make_step_major_basis, num_params_per_leg
 from ..dynamics.srbd import SRBDParams, integrate_euler, make_params
-
-SOURCE = Path(__file__).resolve().parent / "csrc" / "sampling_rs.cu"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from . import build
 
 KERNEL_HORIZON = 12  # the horizon the CUDA source instantiates
 KERNEL_PARAMS_PER_LEG = 24  # cubic splines, 2 splines, at H = 12 (the main path)
@@ -159,19 +151,41 @@ def make_rs_plan(cfg: Config, num_samples: int, device) -> RSPlan:
 
 
 def check_kernel_shape(plan: RSPlan) -> None:
-    """Raise NotImplementedError for what the CUDA kernel does not compute: a shape
-    its source does not instantiate, or the ZMP-band cost."""
+    """Raise NotImplementedError for what the CUDA kernels (K1a-K1d) do not
+    compute: a shape their sources do not instantiate, or the ZMP-band cost."""
     if plan.zmp_weight > 0.0:
         raise NotImplementedError(
-            "sampling.zmp_weight > 0: the CUDA sampling kernel has no ZMP-band cost yet")
+            "sampling.zmp_weight > 0: the CUDA sampling kernels have no ZMP-band cost yet "
+            "(the plain path, device='cpu', has it)")
     if plan.horizon != KERNEL_HORIZON or plan.params_per_leg != KERNEL_PARAMS_PER_LEG:
         raise NotImplementedError(
-            f"the CUDA sampling kernel is built for horizon {KERNEL_HORIZON} with "
+            f"the CUDA sampling kernels are built for horizon {KERNEL_HORIZON} with "
             f"{KERNEL_PARAMS_PER_LEG} parameters per leg (cubic splines, 2 splines), not "
             f"horizon {plan.horizon} with {plan.params_per_leg}")
 
 
 # -- the plain version ------------------------------------------------------------
+
+def rollout_costs_reference(params, W, state12, feet, ref12, contact_seq, share, dts, q_diag,
+                            srbd: SRBDParams, fm: ForceModelParams, zmp_weight: float = 0.0,
+                            zmp_margin: float = 0.04):
+    """(N,) costs of the (P, N) candidate parameters: the basis product and the
+    plain rollout, NaN/Inf saturated to 1e6."""
+    H = contact_seq.shape[1]
+    raw = (W @ params).reshape(H, 12, params.shape[1])
+    return rollout_costs_soa(state12, feet, ref12, raw, contact_seq, share, dts, q_diag, srbd,
+                             fm, COST_SATURATION, zmp_weight=zmp_weight, zmp_margin=zmp_margin)
+
+
+def step0_reference(params, W, state12, feet, contact_seq, share, dts, srbd: SRBDParams,
+                    fm: ForceModelParams):
+    """Step-0 GRFs (4, 3) and the one-step Euler state (12,) under parameters (P,)."""
+    rows = apply_force_model_rows(W[0:12] @ params, contact_seq[:, 0], share[0], fm)
+    grfs = torch.stack(rows).reshape(4, 3)
+    next_state = integrate_euler(state12, feet, grfs, contact_seq[:, 0], srbd,
+                                 float(np.float32(dts[0])))
+    return grfs, next_state
+
 
 def sampling_iteration_reference(noise, incumbent, W, state12, feet, ref12, contact_seq,
                                  share, dts, q_diag, srbd: SRBDParams,
@@ -185,17 +199,12 @@ def sampling_iteration_reference(noise, incumbent, W, state12, feet, ref12, cont
     winner's parameters, its step-0 GRFs and its one-step Euler state. The
     ZMP-band cost (``zmp_weight > 0``) exists only here, not in the kernel."""
     params = incumbent[:, None] + noise
-    H = contact_seq.shape[1]
-    raw = (W @ params).reshape(H, 12, params.shape[1])
-    costs = rollout_costs_soa(state12, feet, ref12, raw, contact_seq, share, dts, q_diag,
-                              srbd, fm, COST_SATURATION, zmp_weight=zmp_weight,
-                              zmp_margin=zmp_margin)
+    costs = rollout_costs_reference(params, W, state12, feet, ref12, contact_seq, share, dts,
+                                    q_diag, srbd, fm, zmp_weight, zmp_margin)
     best = torch.argmin(costs)
     winner = params[:, best]
-    rows = apply_force_model_rows(W[0:12] @ winner, contact_seq[:, 0], share[0], fm)
-    grfs = torch.stack(rows).reshape(4, 3)
-    next_state = integrate_euler(state12, feet, grfs, contact_seq[:, 0], srbd,
-                                 float(np.float32(dts[0])))
+    grfs, next_state = step0_reference(winner, W, state12, feet, contact_seq, share, dts, srbd,
+                                       fm)
     return ReferenceResult(costs, best, costs[best], winner, grfs, next_state)
 
 
@@ -232,15 +241,15 @@ def pack_result(best_cost, grfs, next_state, best_index, winner) -> torch.Tensor
     return torch.cat([head, winner])
 
 
+def tick_tensors(tick: TickInputs, device) -> tuple:
+    """(state12, feet, ref12, contact_seq, share) as float32 tensors on ``device``."""
+    return tuple(torch.as_tensor(np.asarray(x, np.float32), device=device) for x in tick)
+
+
 def _reference_from_tick(plan: RSPlan, tick: TickInputs, incumbent, noise):
-    dev = incumbent.device
-
-    def t(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
-
-    res = sampling_iteration_reference(noise, incumbent, plan.W, t(tick.state12), t(tick.feet),
-                                       t(tick.ref12), t(tick.contact_seq), t(tick.share),
-                                       plan.dts, plan.q_diag, plan.srbd, plan.fm,
+    state12, feet, ref12, contact, share = tick_tensors(tick, incumbent.device)
+    res = sampling_iteration_reference(noise, incumbent, plan.W, state12, feet, ref12, contact,
+                                       share, plan.dts, plan.q_diag, plan.srbd, plan.fm,
                                        plan.zmp_weight, plan.zmp_margin)
     return res.costs, pack_result(res.best_cost, res.grfs, res.next_state, res.best_index,
                                   res.winner)
@@ -251,39 +260,11 @@ def _reference_from_tick(plan: RSPlan, tick: TickInputs, incumbent, noise):
 _LIB = None
 
 
-def _nvcc() -> str:
-    candidates = [shutil.which("nvcc"),
-                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")]
-    for c in candidates:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found: the CUDA sampling kernel cannot be built")
-
-
-def build_library() -> Path:
-    """Compile sampling_rs.cu into _build/ (once per source version) and return
-    the shared library's path. The compiler's -Xptxas -v report sits beside it."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libsampling_rs_{tag}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".so.tmp{os.getpid()}")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
-
-
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; raises on any failure."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build_library()))
+        lib = build.load("sampling_rs")
         lib.rs_args_size.restype = ctypes.c_int
         lib.rs_args_size.argtypes = []
         if lib.rs_args_size() != ctypes.sizeof(RSArgs):
@@ -309,7 +290,7 @@ def kernel_args(plan: RSPlan, tick: TickInputs, seed: int, offset: int) -> RSArg
     return a
 
 
-def _check_cuda(name, x, shape):
+def check_cuda(name, x, shape):
     if not (x.is_cuda and x.dtype == torch.float32 and x.is_contiguous()
             and tuple(x.shape) == tuple(shape)):
         raise ValueError(f"{name} must be a contiguous CUDA float32 tensor of shape {shape}, "
@@ -338,10 +319,10 @@ def sampling_rs(plan: RSPlan, tick: TickInputs, incumbent: torch.Tensor, seed: i
     if incumbent.device.type != "cuda":
         raise ValueError(f"unsupported device {incumbent.device}")
     check_kernel_shape(plan)
-    _check_cuda("incumbent", incumbent, (P,))
+    check_cuda("incumbent", incumbent, (P,))
     for name, x in (("noise_in", noise_in), ("noise_out", noise_out)):
         if x is not None:
-            _check_cuda(name, x, (P, N))
+            check_cuda(name, x, (P, N))
     lib = load_library()
     dev = incumbent.device
     costs = torch.empty(N, dtype=torch.float32, device=dev)

@@ -1,0 +1,330 @@
+"""MPPI, CEM-MPPI and chained iterations: CUDA kernels K1b, K1c and K1d, their
+plain version and wrappers.
+
+The kernels (``csrc/sampling_softmax.cu``) replace the mppi and cem_mppi variants
+of the Pallas TPU kernel ``quadruped_pympc_tamols_tpu/ops/rollout_pallas.py:
+make_pallas_iteration(...).kernel``, in the XLA solver's forms (JAX
+``controllers/sampling/sampling_mpc.py:166-176``): the new parameters are
+``incumbent + noise @ w`` with softmax weights ``w = exp(-(c - beta)/T)``
+normalized, ``beta`` the lowest cost; CEM-MPPI draws its noise with a
+per-parameter sigma and refits it from the ``cem_elite`` lowest-cost samples'
+noise (variance with ddof 1, + 1e-8, square root, clipped). Elites are taken in
+(cost, index) order, lowest index first on equal costs, as ``jax.lax.top_k`` takes
+them. One iteration is a memset and three launches (rollout, per-block weighted
+sums, one-block finish); every sum runs in a fixed order, so a run repeats its
+bits. The step-0 GRFs and one-step state come from the new parameters (the
+mean), not from a sample. See the source for the design.
+
+K1d, chained iterations (``num_chained > 1`` in the Pallas kernel), is
+``sampling_chain``: iteration i + 1 reads iteration i's parameters, and its sigma
+for CEM, from device memory, with the Philox offset one higher. The host neither
+copies nor waits between iterations; they are successive K1a, K1b or K1c launches
+on one stream, so K1d has no kernel and no launch count of its own.
+
+The wrapper ``softmax_iteration`` runs K1b or K1c as ``knobs.method`` says and
+counts each launch in ``softmax_iteration.launches[knobs.method]``. On CUDA
+tensors it launches the kernel or raises; on CPU tensors it runs the plain
+version (``softmax_iteration_reference``), with noise from
+``cpu_generator(seed, offset)``. There is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from ..config import Config
+from ..controllers.sampling.rollout import ForceModelParams
+from ..dynamics.srbd import SRBDParams
+from . import build
+from . import sampling_kernel as rs
+
+BLOCK = 64  # samples per block of the rollout and weights launches (RS_BLOCK)
+MAX_ELITE = 32  # SM_KMAX
+
+
+class SMKnobs(ctypes.Structure):
+    """Mirror of ``struct SMKnobs`` in sampling_softmax.cu (checked against its size)."""
+
+    _fields_ = [("cem", ctypes.c_int), ("n_elite", ctypes.c_int),
+                ("temperature", ctypes.c_float), ("sigma_mppi", ctypes.c_float),
+                ("sigma_min", ctypes.c_float), ("sigma_max", ctypes.c_float)]
+
+
+@dataclasses.dataclass(frozen=True)
+class Knobs:
+    """The optimizer's constants (config ``mpc.sampling``)."""
+
+    method: str  # "random_sampling", "mppi" or "cem_mppi"
+    temperature: float
+    sigma_mppi: float
+    n_elite: int
+    sigma_min: float
+    sigma_max: float
+
+    @property
+    def cem(self) -> bool:
+        return self.method == "cem_mppi"
+
+    def struct(self) -> SMKnobs:
+        return SMKnobs(int(self.cem), self.n_elite, self.temperature, self.sigma_mppi,
+                       self.sigma_min, self.sigma_max)
+
+
+def make_knobs(cfg: Config, method: str | None = None) -> Knobs:
+    sp = cfg.mpc.sampling
+    method = method or sp.method
+    if method not in ("random_sampling", "mppi", "cem_mppi"):
+        raise ValueError(f"unknown sampling method {method!r}")
+    return Knobs(method, float(sp.mppi_temperature), float(sp.sigma_mppi), int(sp.cem_elite),
+                 float(sp.cem_sigma_min), float(sp.cem_sigma_max))
+
+
+def check_kernel_knobs(plan: rs.RSPlan, knobs: Knobs) -> None:
+    """Raise for what the CUDA kernels do not take: K1a's shapes (see
+    ``check_kernel_shape``), a temperature <= 0, or an elite count outside
+    [2, min(32, N)]."""
+    rs.check_kernel_shape(plan)
+    if knobs.method == "random_sampling":
+        return
+    if not knobs.temperature > 0.0:
+        raise ValueError(f"sampling.mppi_temperature must be > 0, got {knobs.temperature}")
+    if knobs.cem and not 2 <= knobs.n_elite <= min(MAX_ELITE, plan.num_samples):
+        raise NotImplementedError(
+            f"the CUDA CEM-MPPI kernel takes 2 to {min(MAX_ELITE, plan.num_samples)} elites, "
+            f"not {knobs.n_elite}")
+
+
+# -- the plain version ------------------------------------------------------------
+
+class SoftmaxResult(NamedTuple):
+    costs: torch.Tensor  # (N,)
+    beta: torch.Tensor  # 0-d, the lowest cost
+    best_index: torch.Tensor  # 0-d int64, the first sample with cost beta
+    new_params: torch.Tensor  # (P,)
+    sigma: torch.Tensor | None  # (P,) refit sigma (CEM), else None
+    elites: torch.Tensor | None  # (K,) elite indices in (cost, index) order (CEM), else None
+    grfs: torch.Tensor  # (4, 3) step-0 GRFs of new_params
+    next_state: torch.Tensor  # (12,) one-step Euler state under them
+
+
+def mppi_update(costs, noise, incumbent, temperature: float):
+    """(beta, incumbent + noise @ w) with w the normalized softmax weights
+    exp(-(c - beta)/T) (JAX ``sampling_mpc.py:166-170``)."""
+    beta = torch.min(costs)
+    w = torch.exp(-(costs - beta) / temperature)
+    w = w / torch.sum(w)
+    return beta, incumbent + noise @ w
+
+
+def cem_elites(costs, n_elite: int):
+    """Indices of the ``n_elite`` lowest costs in (cost, index) order: on equal costs
+    the lowest index first, as ``jax.lax.top_k(-costs, n_elite)`` takes them."""
+    return torch.argsort(costs, stable=True)[:n_elite]
+
+
+def cem_refit(noise, elites, sigma_min: float, sigma_max: float):
+    """Sigma from the elites' noise: sqrt(var (ddof 1) + 1e-8), clipped (JAX
+    ``sampling_mpc.py:173-176``)."""
+    var = torch.var(noise[:, elites], dim=1, unbiased=True) + 1e-8
+    return torch.clamp(torch.sqrt(var), sigma_min, sigma_max)
+
+
+def softmax_combine_reference(costs, noise, incumbent, W, state12, feet, contact_seq, share,
+                              dts, srbd: SRBDParams, fm: ForceModelParams,
+                              knobs: Knobs) -> SoftmaxResult:
+    """The optimizer step of an MPPI / CEM-MPPI iteration on given costs (N,): the
+    softmax update, for CEM the elites and the refit, and the step-0 GRFs and
+    one-step state of the new parameters."""
+    beta, new_params = mppi_update(costs, noise, incumbent, knobs.temperature)
+    sigma = elites = None
+    if knobs.cem:
+        elites = cem_elites(costs, knobs.n_elite)
+        sigma = cem_refit(noise, elites, knobs.sigma_min, knobs.sigma_max)
+    grfs, next_state = rs.step0_reference(new_params, W, state12, feet, contact_seq, share, dts,
+                                          srbd, fm)
+    return SoftmaxResult(costs, beta, torch.argmin(costs), new_params, sigma, elites, grfs,
+                         next_state)
+
+
+def softmax_iteration_reference(noise, incumbent, W, state12, feet, ref12, contact_seq, share,
+                                dts, q_diag, srbd: SRBDParams, fm: ForceModelParams,
+                                knobs: Knobs, zmp_weight: float = 0.0,
+                                zmp_margin: float = 0.04) -> SoftmaxResult:
+    """Plain torch version of kernels K1b (``knobs.method == "mppi"``) and K1c
+    (``"cem_mppi"``): one iteration on the given noise.
+
+    Arguments as ``sampling_iteration_reference``: noise (P, N) (column 0 the
+    incumbent's zero), incumbent (P,), W (H*12, P), the tick's tensors on one
+    device, dts and q_diag host arrays. The ZMP-band cost exists only here."""
+    costs = rs.rollout_costs_reference(incumbent[:, None] + noise, W, state12, feet, ref12,
+                                       contact_seq, share, dts, q_diag, srbd, fm, zmp_weight,
+                                       zmp_margin)
+    return softmax_combine_reference(costs, noise, incumbent, W, state12, feet, contact_seq,
+                                     share, dts, srbd, fm, knobs)
+
+
+def sample_noise_reference(num_parameters: int, num_samples: int, knobs: Knobs,
+                           generator: torch.Generator, sigma=None) -> torch.Tensor:
+    """(P, N) MPPI / CEM exploration noise on the CPU, column 0 zero (reference
+    centroidal_nmpc_jax.py:804-812, :951-958); the kernels draw the same
+    distribution from Philox."""
+    P, N = num_parameters, num_samples
+    if knobs.cem:
+        z = torch.randn(P, N - 1, generator=generator) * sigma.cpu()[:, None]
+    else:
+        z = knobs.sigma_mppi * torch.randn(P, N - 1, generator=generator)
+    return torch.cat([torch.zeros(P, 1), z], dim=1)
+
+
+def _plain(plan, knobs, tick, incumbent, sigma, seed, offset, noise_in, noise_out):
+    noise = noise_in if noise_in is not None else sample_noise_reference(
+        plan.num_parameters, plan.num_samples, knobs, rs.cpu_generator(seed, offset), sigma)
+    if noise_out is not None:
+        noise_out.copy_(noise)
+    state12, feet, ref12, contact, share = rs.tick_tensors(tick, incumbent.device)
+    res = softmax_iteration_reference(noise, incumbent, plan.W, state12, feet, ref12, contact,
+                                      share, plan.dts, plan.q_diag, plan.srbd, plan.fm, knobs,
+                                      plan.zmp_weight, plan.zmp_margin)
+    out = rs.pack_result(res.beta, res.grfs, res.next_state, res.best_index, res.new_params)
+    return res.costs, out, res.sigma, res.elites
+
+
+# -- the kernels ----------------------------------------------------------------------
+
+_LIB = None
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the K1b/K1c library; raises on any failure."""
+    global _LIB
+    if _LIB is None:
+        lib = build.load("sampling_softmax")
+        for name in ("sm_args_size", "sm_knobs_size", "sm_block", "sm_max_elite"):
+            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).argtypes = []
+        if (lib.sm_args_size() != ctypes.sizeof(rs.RSArgs)
+                or lib.sm_knobs_size() != ctypes.sizeof(SMKnobs)
+                or lib.sm_block() != BLOCK or lib.sm_max_elite() != MAX_ELITE):
+            raise RuntimeError("sampling_softmax.cu and its ctypes mirror disagree")
+        lib.sm_error_string.restype = ctypes.c_char_p
+        lib.sm_error_string.argtypes = [ctypes.c_int]
+        lib.sm_launch.restype = ctypes.c_int
+        lib.sm_launch.argtypes = ([ctypes.POINTER(rs.RSArgs), ctypes.POINTER(SMKnobs),
+                                   ctypes.c_int] + [ctypes.c_void_p] * 13)
+        _LIB = lib
+    return _LIB
+
+
+class Workspace(NamedTuple):
+    """One iteration's outputs and scratch on the card."""
+
+    costs: torch.Tensor  # (N,)
+    out: torch.Tensor  # (26 + P,) [beta, grf(12), state(12), index, new params(P)]
+    sigma: torch.Tensor | None  # (P,) CEM refit
+    elites: torch.Tensor | None  # (K,) int32 CEM elite indices
+    scratch: torch.Tensor  # int64: [argmin (1) | block keys (B*K, CEM) | partials (B*(P+1) f32)]
+
+
+def workspace(plan: rs.RSPlan, knobs: Knobs, device) -> Workspace:
+    P, N = plan.num_parameters, plan.num_samples
+    B = -(-N // BLOCK)
+    nkeys = B * knobs.n_elite if knobs.cem else 0
+    scratch = torch.empty(1 + nkeys + -(-B * (P + 1) // 2), dtype=torch.int64, device=device)
+    cem = knobs.cem
+    return Workspace(torch.empty(N, dtype=torch.float32, device=device),
+                     torch.empty(rs.OUT_WINNER + P, dtype=torch.float32, device=device),
+                     torch.empty(P, dtype=torch.float32, device=device) if cem else None,
+                     torch.empty(knobs.n_elite, dtype=torch.int32, device=device) if cem else None,
+                     scratch)
+
+
+def launch(lib, args: rs.RSArgs, kn: SMKnobs, plan: rs.RSPlan, ws: Workspace, incumbent, sigma,
+           noise_in=None, noise_out=None, stream=None) -> None:
+    """One K1b/K1c iteration through the C entry, into ``ws``; raises on a refused
+    launch. ``stream`` is the CUDA stream handle (the current stream if None)."""
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    nkeys = -(-plan.num_samples // BLOCK) * kn.n_elite if kn.cem else 0
+    base = ws.scratch.data_ptr()
+    if stream is None:
+        stream = torch.cuda.current_stream(incumbent.device).cuda_stream
+    rc = lib.sm_launch(ctypes.byref(args), ctypes.byref(kn), plan.params_per_leg,
+                       plan.W_blocks.data_ptr(), incumbent.data_ptr(),
+                       ptr(sigma) if kn.cem else None, ptr(noise_in), ptr(noise_out),
+                       ws.costs.data_ptr(), base, base + 8 * (1 + nkeys),
+                       base + 8 if kn.cem else None, ws.out.data_ptr(),
+                       ptr(ws.sigma), ptr(ws.elites), stream)
+    if rc != 0:
+        msg = "unsupported shape or knob" if rc < 0 else lib.sm_error_string(rc).decode()
+        raise RuntimeError(f"sampling_softmax launch failed ({rc}): {msg}")
+
+
+def softmax_iteration(plan: rs.RSPlan, knobs: Knobs, tick: rs.TickInputs,
+                      incumbent: torch.Tensor, sigma: torch.Tensor | None, seed: int, offset: int,
+                      noise_in: torch.Tensor | None = None,
+                      noise_out: torch.Tensor | None = None):
+    """One MPPI or CEM-MPPI iteration around ``incumbent`` (kernel K1b, or K1c when
+    ``knobs.cem``, on CUDA); ``sigma`` (P,) is CEM's per-parameter sigma and is
+    not read by MPPI.
+
+    Returns ``(costs (N,), out (26 + P,), sigma (P,), elites (K,))`` on the
+    incumbent's device, ``out`` packed as K1a's: [beta, step-0 GRFs (12), one-step
+    state (12), index of beta, new parameters (P)]. For CEM ``sigma`` is the refit
+    sigma, a new tensor (an iteration never writes the sigma it reads), and
+    ``elites`` the elite indices; for MPPI they are the given ``sigma`` and None.
+    ``noise_in`` (P, N) replaces the generated noise; ``noise_out`` (P, N)
+    receives the noise used. A CUDA launch adds one to
+    ``softmax_iteration.launches[knobs.method]``."""
+    P, N = plan.num_parameters, plan.num_samples
+    if incumbent.device.type == "cpu":
+        costs, out, new_sigma, elites = _plain(plan, knobs, tick, incumbent, sigma, seed, offset,
+                                               noise_in, noise_out)
+        return costs, out, new_sigma if knobs.cem else sigma, elites
+    if incumbent.device.type != "cuda":
+        raise ValueError(f"unsupported device {incumbent.device}")
+    check_kernel_knobs(plan, knobs)
+    rs.check_cuda("incumbent", incumbent, (P,))
+    if knobs.cem:
+        rs.check_cuda("sigma", sigma, (P,))
+    for name, x in (("noise_in", noise_in), ("noise_out", noise_out)):
+        if x is not None:
+            rs.check_cuda(name, x, (P, N))
+    ws = workspace(plan, knobs, incumbent.device)
+    launch(load_library(), rs.kernel_args(plan, tick, seed, offset), knobs.struct(), plan, ws,
+           incumbent, sigma, noise_in, noise_out)
+    softmax_iteration.launches[knobs.method] += 1
+    return ws.costs, ws.out, ws.sigma if knobs.cem else sigma, ws.elites
+
+
+class IterationResult(NamedTuple):
+    costs: torch.Tensor  # (N,)
+    out: torch.Tensor  # (26 + P,) packed as K1a's; out[26:] are the next incumbent
+    sigma: torch.Tensor  # (P,) the sigma after the iteration
+    elites: torch.Tensor | None  # (K,) CEM elite indices, else None
+
+
+def sampling_chain(plan: rs.RSPlan, knobs: Knobs, tick: rs.TickInputs, incumbent: torch.Tensor,
+                   sigma: torch.Tensor, seed: int, offset: int, iterations: int) -> list:
+    """``iterations`` chained iterations of ``knobs.method`` (K1d on CUDA when
+    iterations > 1): iteration i samples around iteration i - 1's result (the
+    winner, or the softmax mean and, for CEM, its refit sigma) with Philox offset
+    ``offset + i``, all on the incumbent's device. Returns one
+    ``IterationResult`` per iteration."""
+    results = []
+    for it in range(iterations):
+        if knobs.method == "random_sampling":
+            costs, out = rs.sampling_rs(plan, tick, incumbent, seed, offset + it)
+            elites = None
+        else:
+            costs, out, sigma, elites = softmax_iteration(plan, knobs, tick, incumbent, sigma,
+                                                          seed, offset + it)
+        results.append(IterationResult(costs, out, sigma, elites))
+        incumbent = out[rs.OUT_WINNER:]
+    return results
+
+
+softmax_iteration.launches = {"mppi": 0, "cem_mppi": 0}

@@ -1,9 +1,14 @@
-"""Kernel K1a (ops/csrc/sampling_rs.cu) against its plain torch version on the card.
+"""Kernels K1a (ops/csrc/sampling_rs.cu), K1b, K1c and K1d (ops/csrc/sampling_softmax.cu)
+against their plain torch versions on the card.
 
 Runs only where CUDA is present (it skips elsewhere): on the H100, run
 ``python -m pytest tests/test_torch_cuda_kernel.py -m cuda``. Tolerances as in
-chip_smoke.py phase 1: costs rtol 1e-4 / atol 1e-2, GRFs atol 1e-3 N, the
-predicted state atol 1e-5 (FMA contraction and the order of the basis sums)."""
+chip_smoke.py: costs rtol 1e-4 / atol 1e-2, GRFs atol 1e-3 N, the predicted state
+atol 1e-5 (FMA contraction and the order of the basis sums). The MPPI / CEM
+optimizer step is held against the plain combine applied to the kernel's own
+costs and the same noise (the weights amplify cost rounding through exp): beta
+exactly, the new parameters and sigma' to atol 1e-5 (sums in another order),
+the elite indices exactly."""
 import numpy as np
 import pytest
 import torch
@@ -11,6 +16,7 @@ import torch
 from quadruped_pympc_tamols_torch import make_config
 from quadruped_pympc_tamols_torch.controllers.sampling.rollout import gravity_share
 from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
 
 pytestmark = pytest.mark.cuda
 
@@ -66,13 +72,113 @@ def test_kernel_matches_plain_version(cuda_device, num_samples):
         torch.testing.assert_close(out[13:25], ref.next_state, rtol=0, atol=1e-5)
 
 
+def _check_combine(plan, knobs, tick, inc, noise, costs, out, sigma, elites, dev):
+    """The kernel's optimizer step against the plain combine on its own costs."""
+    t = sk.tick_tensors(tick, dev)
+    ref = sm.softmax_combine_reference(costs, noise, inc, plan.W, t[0], t[1], t[3], t[4],
+                                       plan.dts, plan.srbd, plan.fm, knobs)
+    assert float(out[0]) == float(ref.beta)
+    assert int(out[25]) == int(ref.best_index)
+    torch.testing.assert_close(out[sk.OUT_WINNER:], ref.new_params, rtol=0, atol=1e-5)
+    torch.testing.assert_close(out[1:13], ref.grfs.reshape(12), rtol=0, atol=1e-3)
+    torch.testing.assert_close(out[13:25], ref.next_state, rtol=0, atol=1e-5, equal_nan=True)
+    if knobs.cem:
+        assert elites.tolist() == ref.elites.tolist()
+        torch.testing.assert_close(sigma, ref.sigma, rtol=0, atol=1e-5)
+
+
+def _check_costs(plan, tick, inc, noise, costs, dev):
+    t = sk.tick_tensors(tick, dev)
+    ref = sk.rollout_costs_reference(inc[:, None] + noise, plan.W, t[0], t[1], t[2], t[3], t[4],
+                                     plan.dts, plan.q_diag, plan.srbd, plan.fm)
+    torch.testing.assert_close(costs, ref, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("num_samples", [10_000, 1000, 97])
+@pytest.mark.parametrize("method", ["mppi", "cem_mppi"])
+def test_softmax_kernel_matches_plain_version(cuda_device, method, num_samples):
+    """K1b / K1c on injected noise; then on a NaN state, where every cost saturates
+    to 1e6 and the elites must be samples 0..K-1 (jax.lax.top_k's ties)."""
+    cfg = make_config("aliengo", **{"sim.visual_foothold_adaptation": "blind"})
+    plan = sk.make_rs_plan(cfg, num_samples, cuda_device)
+    knobs = sm.make_knobs(cfg, method)
+    tick = _tick(cfg)
+    rng = np.random.default_rng(num_samples + 1)
+    P = plan.num_parameters
+    inc = torch.as_tensor(rng.standard_normal(P).astype(np.float32), device=cuda_device)
+    sigma = torch.as_tensor(rng.uniform(0.3, 4.0, P).astype(np.float32), device=cuda_device)
+    noise = torch.as_tensor(rng.standard_normal((P, num_samples)).astype(np.float32),
+                            device=cuda_device) * (sigma[:, None] if knobs.cem else 3.0)
+    noise[:, 0] = 0.0
+    nan_state = tick._replace(state12=np.full(12, np.nan, np.float32))
+    for tk in (tick, nan_state):
+        want = dict(sm.softmax_iteration.launches)
+        want[method] += 1
+        costs, out, sig, el = sm.softmax_iteration(plan, knobs, tk, inc, sigma, 0, 0,
+                                                   noise_in=noise)
+        assert sm.softmax_iteration.launches == want
+        torch.cuda.synchronize()
+        _check_costs(plan, tk, inc, noise, costs, cuda_device)
+        _check_combine(plan, knobs, tk, inc, noise, costs, out, sig, el, cuda_device)
+    assert bool((costs == 1.0e6).all())
+    if knobs.cem:
+        assert el.tolist() == list(range(knobs.n_elite))
+
+
+@pytest.mark.parametrize("num_samples", [10_000, 1000, 97])
+def test_chained_kernels_match_single_iterations(cuda_device, num_samples):
+    """K1d: three chained iterations of each method with Philox noise. Iteration i
+    repeats bit for bit as one iteration from iteration i - 1's device outputs at
+    offset + i, and its dumped noise passes the plain checks."""
+    cfg = make_config("aliengo", **{"sim.visual_foothold_adaptation": "blind"})
+    plan = sk.make_rs_plan(cfg, num_samples, cuda_device)
+    tick = _tick(cfg)
+    P = plan.num_parameters
+    rng = np.random.default_rng(7)
+    inc0 = torch.as_tensor(rng.standard_normal(P).astype(np.float32), device=cuda_device)
+    sig0 = torch.full((P,), 3.0, device=cuda_device)
+    for method in ("random_sampling", "mppi", "cem_mppi"):
+        knobs = sm.make_knobs(cfg, method)
+        want = [sk.sampling_rs.launches, dict(sm.softmax_iteration.launches)]
+        if method == "random_sampling":
+            want[0] += 3
+        else:
+            want[1][method] += 3
+        res = sm.sampling_chain(plan, knobs, tick, inc0, sig0, 11, 5, 3)
+        assert [sk.sampling_rs.launches, sm.softmax_iteration.launches] == want
+        assert len(res) == 3
+        inc, sig = inc0, sig0
+        for i, r in enumerate(res):
+            dump = torch.empty(P, num_samples, device=cuda_device)
+            if method == "random_sampling":
+                costs, out = sk.sampling_rs(plan, tick, inc, 11, 5 + i, noise_out=dump)
+            else:
+                costs, out, s2, el = sm.softmax_iteration(plan, knobs, tick, inc, sig, 11, 5 + i,
+                                                          noise_out=dump)
+                assert torch.equal(s2, r.sigma)
+                assert (el is None and r.elites is None) or torch.equal(el, r.elites)
+            torch.cuda.synchronize()
+            assert torch.equal(costs, r.costs) and torch.equal(out, r.out)
+            _check_costs(plan, tick, inc, dump, costs, cuda_device)
+            if method == "random_sampling":
+                k = int(out[25])
+                torch.testing.assert_close(out[sk.OUT_WINNER:], inc + dump[:, k], rtol=0,
+                                           atol=1e-6)
+            else:
+                _check_combine(plan, knobs, tick, inc, dump, costs, out, s2, el, cuda_device)
+            inc, sig = r.out[sk.OUT_WINNER:], r.sigma
+
+
 def test_cuda_solver_refuses_unported_paths(cuda_device):
     from quadruped_pympc_tamols_torch.controllers.sampling import make_sampling_solver
     base = {"sim.visual_foothold_adaptation": "blind"}
-    for over in ({"mpc.sampling.method": "mppi"}, {"mpc.sampling.method": "cem_mppi"},
-                 {"mpc.sampling.num_iterations": 2}, {"mpc.sampling.zmp_weight": 500.0},
+    for over in ({"mpc.sampling.zmp_weight": 500.0},
                  {"mpc.sampling.parametrization": "linear_spline"},
                  {"mpc.sampling.parametrization": "zero_order"}):
         with pytest.raises(NotImplementedError):
             make_sampling_solver(make_config("aliengo", **base, **over), 1000,
                                  device=cuda_device)
+    for method in ("mppi", "cem_mppi"):
+        for iterations in (1, 3):
+            over = {"mpc.sampling.method": method, "mpc.sampling.num_iterations": iterations}
+            make_sampling_solver(make_config("aliengo", **base, **over), 1000, device=cuda_device)

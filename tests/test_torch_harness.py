@@ -31,15 +31,21 @@ def _assert_walking(cfg, hist, vel, duration):
     assert abs(np.mean(z[len(z) // 2:]) - cfg.sim.ref_z) < 0.08
 
 
-@pytest.mark.parametrize("vel", [(0.3, 0.0, 0.0), (0.0, 0.2, 0.0)])
-def test_zero_noise_closed_loop_matches_jax(vel):
+@pytest.mark.parametrize("vel, method", [((0.3, 0.0, 0.0), "random_sampling"),
+                                         ((0.0, 0.2, 0.0), "random_sampling"),
+                                         ((0.3, 0.0, 0.0), "mppi")],
+                         ids=["vel0", "vel1", "mppi3"])
+def test_zero_noise_closed_loop_matches_jax(vel, method):
     """0.3 s (30 MPC ticks) at zero exploration noise: every solve returns the
     warm-started incumbent, so both stacks are deterministic. State histories
     agree to atol 1e-3: the plants integrate in float32 and the swing curves run in
     float32 (JAX, jitted) against float64 (port, numpy), which moves the feet by
-    ~1e-7 m a step and the base by well under a millimetre over 150 steps."""
+    ~1e-7 m a step and the base by well under a millimetre over 150 steps. MPPI
+    runs the slice's walking configuration, 3 chained iterations a tick."""
     over = {**BLIND, "mpc.sampling.num_samples": 32,
-            "mpc.sampling.sigma_random": (0.0, 0.0, 0.0)}
+            "mpc.sampling.sigma_random": (0.0, 0.0, 0.0), "mpc.sampling.sigma_mppi": 0.0,
+            "mpc.sampling.method": method,
+            "mpc.sampling.num_iterations": 3 if method == "mppi" else 1}
     jc = jax_make_config("aliengo", mpc_type="sampling", **over)
     tc = config_from_dict(dataclasses.asdict(jc))
     jh = JaxHarness(jc, seed=0)
@@ -144,3 +150,29 @@ def test_wb_interface_references_match_jax():
                     "ref_linear_velocity", "ref_orientation", "ref_position"):
             np.testing.assert_allclose(tr[key], jr[key], atol=1e-12)
     np.testing.assert_array_equal(twb.current_contact, jwb.current_contact)
+
+
+def reference_walks(num_samples=10_000, duration=3.0, vel=(0.3, 0.0, 0.0)):
+    """The JAX package's SRB harness walking the README quickstart for the
+    sampling methods and iteration counts of the port's slices: (method,
+    iterations, distance (m), min z (m), max |roll|,|pitch| (rad))."""
+    rows = []
+    for method, iterations in (("mppi", 1), ("mppi", 3), ("random_sampling", 3),
+                               ("cem_mppi", 1), ("cem_mppi", 3)):
+        cfg = jax_make_config("aliengo", mpc_type="sampling", **{
+            **BLIND, "mpc.sampling.num_samples": num_samples, "mpc.sampling.method": method,
+            "mpc.sampling.num_iterations": iterations})
+        hist = JaxHarness(cfg, seed=0).run(duration, np.asarray(vel))
+        rows.append((method, iterations, hist[-1, 0] - hist[0, 0], hist[:, 2].min(),
+                     np.abs(hist[:, 6:8]).max()))
+    return rows
+
+
+if __name__ == "__main__":
+    # python tests/test_torch_harness.py: the JAX reference's walks on the CPU, on
+    # the platform the tests use (tests/conftest.py), for PERF.md.
+    import conftest  # noqa: F401
+
+    for row in reference_walks():
+        print("method %s, iterations %d: walked %.4f m, min z %.4f m, max |roll|,|pitch| "
+              "%.4f rad" % row, flush=True)

@@ -125,6 +125,18 @@ def test_softmax_methods_match_xla_at_zero_noise(method):
         np.testing.assert_allclose(tnew.sigma.numpy(), np.asarray(jout.sigma), atol=1e-6)
 
 
+@pytest.mark.parametrize("method", ["random_sampling", "mppi"])
+def test_chained_solve_matches_xla_at_zero_noise(method):
+    """Three chained iterations a solve (num_iterations = 3) against the XLA
+    solver's scan; the offset advances by one per iteration."""
+    jc, tc = _cfgs(**{"mpc.sampling.method": method, "mpc.sampling.num_iterations": 3})
+    xla, P = jax_solver(jc, num_samples=N)
+    jout, tout, tnew = _run_both(xla, P, tc, _incumbent(P, 5), np.ones(4, np.float32),
+                                 np.ones(4, np.float32))
+    _assert_same(jout, tout)
+    assert tnew.offset == 3
+
+
 def test_liftoff_reset_and_swing_feet_match_xla():
     """FR lifts off this tick: its incumbent block resets to zero, and its foot is
     replaced by its reference foothold."""
