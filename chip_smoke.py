@@ -41,6 +41,18 @@ to 0 just before it and read just after):
   9. Times of K1b, K1c and K1d (MPPI x 3 as one solve, through its wrapper
      sampling_chain), their plain versions and bounds, and the solve tick with its
      host glue for MPPI x 3 and CEM x 3.
+ 10. K1e (gait-adaptive groups, K = 3) for each method at N = 10 000, 9999 samples
+     evaluated: against the plain version on injected numpy noise and on its
+     dumped Philox noise (band edges of N over 9999 samples), bit-identical on a
+     rerun; a NaN state, where every cost is 1e6 plus its group's offset, so the
+     winner is the first sample of the lowest-offset group, CEM's elites its first
+     samples, and the solver maps that group to its frequency.
+ 11. This slice's path: the gait-adaptive quickstart walk (mpc.optimize_step_freq)
+     for random sampling and MPPI must walk with K1e launched once a tick and K1a-K1c
+     never; a CEM-MPPI gait-adaptive closed loop keeps finite GRFs and its sigma in
+     range; the profiler over 50 solve ticks must see one device-to-host copy a tick.
+ 12. Times of K1e per method, its plain version and bound, and the gait-adaptive
+     solve tick with its host glue.
 """
 from __future__ import annotations
 
@@ -71,8 +83,13 @@ PARAM_ATOL = 1e-6  # the winner is incumbent + noise, rounded once
 # variance run in another order than torch's (per block, then over blocks).
 COMBINE_ATOL = 1e-5
 # The JAX package's SRB harness on the CPU, same command (3 s at 0.3 m/s, N = 10 000):
-# distance (m), min z (m), max |roll|,|pitch| (rad); `python tests/test_torch_harness.py`.
-JAX_CPU_WALKS = {"mppi x 3": (0.9095, 0.3444, 0.0229), "cem_mppi x 3": (3.5631, -2.8293, 59.5867)}
+# distance (m), min z (m), max |roll|,|pitch| (rad); `python tests/test_torch_harness.py`
+# (with the argument `gait` for the gait-adaptive rows).
+JAX_CPU_WALKS = {"mppi x 3": (0.9095, 0.3444, 0.0229), "cem_mppi x 3": (3.5631, -2.8293, 59.5867),
+                 "gait random_sampling": (0.8505, 0.3470, 0.0360),
+                 "gait mppi": (0.9036, 0.3484, 0.0260)}
+GAIT_FREQS = (2.4, 1.3, 2.0)  # phase 10: the lowest offset (1.3 Hz, 0) is not the first group
+GAIT_PHASE = np.array([0.3, 0.8, 0.8, 0.3], np.float32)
 
 
 def log(msg):
@@ -93,6 +110,10 @@ def main_cfg(**over):
 
 def softmax_cfg(method):
     return main_cfg(**{"mpc.sampling.method": method, "mpc.sampling.num_iterations": 3})
+
+
+def gait_cfg(method, **over):
+    return main_cfg(**{"mpc.optimize_step_freq": True, "mpc.sampling.method": method, **over})
 
 
 def example_tick(cfg, plan):
@@ -178,11 +199,17 @@ def check_costs(costs_k, costs_p, label) -> float:
     return float(err.max())
 
 
+def gap(a, b) -> float:
+    """Largest absolute difference, NaN against NaN counting as 0."""
+    import torch
+    d = (a - b).abs()
+    return float(torch.where(torch.isnan(a) & torch.isnan(b), torch.zeros_like(d), d).max())
+
+
 def check_softmax(plan, knobs, tick, inc, noise, costs_k, out_k, sigma_k, elites_k, label):
     """K1b / K1c checks: costs against the plain rollout on the same noise; the
     optimizer step against the plain combine applied to the kernel's own costs;
     the fully plain result's distance printed beside. Returns the error figures."""
-    import torch
     from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
     from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
 
@@ -196,11 +223,6 @@ def check_softmax(plan, knobs, tick, inc, noise, costs_k, out_k, sigma_k, elites
         raise AssertionError(f"{label}: beta {float(out_k[0])} at {int(out_k[25])} vs "
                              f"{float(ref.beta)} at {int(ref.best_index)}")
     new_k = out_k[sk.OUT_WINNER:]
-
-    def gap(a, b):
-        d = (a - b).abs()
-        return float(torch.where(torch.isnan(a) & torch.isnan(b), torch.zeros_like(d), d).max())
-
     errs["params"] = gap(new_k, ref.new_params)
     errs["grf"] = gap(out_k[1:13], ref.grfs.reshape(12))
     errs["state"] = gap(out_k[13:25], ref.next_state)
@@ -262,15 +284,29 @@ def tick_dicts(tick):
     return st, ref
 
 
-def solve_tick_ms(mpc, tick, n=200) -> float:
-    """Median host milliseconds of one compute_control plus its summary read."""
-    from quadruped_pympc_tamols_torch.controllers.sampling import host_summary
+def tick_call(mpc, tick):
+    """One control tick on the flagship inputs as a function: compute_control and
+    the read of its one host summary (and, gait-adaptive, of its frequency)."""
+    from quadruped_pympc_tamols_torch.controllers.sampling import (GaitAdaptiveSamplingMPC,
+                                                                   host_best_freq, host_summary)
     st, ref = tick_dicts(tick)
     ones = np.ones(4, np.float32)
+    if isinstance(mpc, GaitAdaptiveSamplingMPC):
+        def call():
+            out = mpc.compute_control(st, ref, tick.contact_seq, ones, ones, GAIT_PHASE, 1.4, 1)
+            host_summary(out)
+            host_best_freq(out)
+        return call
+    return lambda: host_summary(mpc.compute_control(st, ref, tick.contact_seq, ones, ones))
+
+
+def solve_tick_ms(mpc, tick, n=200) -> float:
+    """Median host milliseconds of one compute_control plus its summary read."""
+    call = tick_call(mpc, tick)
     ms = []
     for i in range(n + 10):
         t0 = time.perf_counter()
-        host_summary(mpc.compute_control(st, ref, tick.contact_seq, ones, ones))
+        call()
         if i >= 10:
             ms.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(ms)
@@ -283,14 +319,12 @@ def profile_ticks(mpc, tick, n=50) -> dict:
     that cannot start fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from quadruped_pympc_tamols_torch.controllers.sampling import host_summary
 
-    st, ref = tick_dicts(tick)
-    ones = np.ones(4, np.float32)
+    call = tick_call(mpc, tick)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            host_summary(mpc.compute_control(st, ref, tick.contact_seq, ones, ones))
+            call()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     per = {}
@@ -352,22 +386,43 @@ def softmax_bound_ms(plan, knobs, iterations=1) -> tuple:
     return bound_ms(iterations * flops, iterations * nbytes)
 
 
+def group_bound_ms(gplan, knobs) -> tuple:
+    """Least time of one K1e solve on an H100: per evaluated sample (K*Ng) K1a's
+    count, plus the softmax's ~2P + 20 flops for MPPI / CEM. Bytes: the per-tick
+    group buffer (K basis blocks, contact and share columns, offsets), the static
+    step-0 rows, the incumbent (and sigma) read; K*Ng costs and the packed output
+    (and sigma', elites) written."""
+    p = gplan.base
+    H, P_leg, P, n, K = p.horizon, p.params_per_leg, p.num_parameters, gplan.num_used, \
+        gplan.num_groups
+    softmax = knobs.method != "random_sampling"
+    flops = n * (iteration_flops(p) + (2 * P + 20 if softmax else 0))
+    nbytes = 4 * (K * (H * 12 * P_leg + 8 * H + 1) + 12 * P_leg + P + n + 26 + P)
+    if knobs.cem:
+        nbytes += 4 * (2 * P + knobs.n_elite)
+    return bound_ms(flops, nbytes)
+
+
 # Launch counts by kernel: K1a counts in sampling_rs.launches, K1b and K1c in
-# softmax_iteration.launches["mppi"] and ["cem_mppi"]. K1d (chaining) launches
-# no kernel of its own: its launches are the K1a/K1b/K1c launches it issues.
-COUNTED = ("K1a", "K1b", "K1c")
+# softmax_iteration.launches["mppi"] and ["cem_mppi"], K1e in
+# sampling_groups.launches[method]. K1d (chaining) launches no kernel of its own:
+# its launches are the K1a/K1b/K1c launches it issues.
+COUNTED = ("K1a", "K1b", "K1c", "K1e_rs", "K1e_mppi", "K1e_cem")
 
 
 def reset_counts():
     from quadruped_pympc_tamols_torch import ops
     ops.sampling_rs.launches = 0
     ops.softmax_iteration.launches.update(mppi=0, cem_mppi=0)
+    ops.sampling_groups.sampling_groups.launches.update(random_sampling=0, mppi=0, cem_mppi=0)
 
 
 def read_counts() -> dict:
     from quadruped_pympc_tamols_torch import ops
     sm = ops.softmax_iteration.launches
-    return {"K1a": ops.sampling_rs.launches, "K1b": sm["mppi"], "K1c": sm["cem_mppi"]}
+    sg = ops.sampling_groups.sampling_groups.launches
+    return {"K1a": ops.sampling_rs.launches, "K1b": sm["mppi"], "K1c": sm["cem_mppi"],
+            "K1e_rs": sg["random_sampling"], "K1e_mppi": sg["mppi"], "K1e_cem": sg["cem_mppi"]}
 
 
 def walk(cfg, label, want_counts):
@@ -513,12 +568,13 @@ def phase_chain(dev, rng):
     return worst
 
 
-def phase_cem_loop():
-    """Phase 8: CEM-MPPI x 3 in closed loop for 3 s on the card."""
+def cem_loop(cfg, label, want_counts, jax_walk=None):
+    """A CEM-MPPI closed loop for 3 s on the card: finite GRFs and a sigma inside
+    [cem_sigma_min, cem_sigma_max] on every tick, ``want_counts(ticks)`` launches.
+    The JAX reference falls in such loops, so the walk is not asserted."""
     import torch
     from quadruped_pympc_tamols_torch.sim import SRBClosedLoopHarness
 
-    cfg = softmax_cfg("cem_mppi")
     sp = cfg.mpc.sampling
     h = SRBClosedLoopHarness(cfg, seed=0, device="cuda")
     seen = []
@@ -535,23 +591,23 @@ def phase_cem_loop():
     torch.cuda.synchronize()
     counts = read_counts()
     ticks = int(round(WALK_S / cfg.sim.dt)) // h._mpc_every
-    want = counts_of(K1c=sp.num_iterations)(ticks)
+    want = want_counts(ticks)
     if counts != want or len(seen) != ticks:
-        raise AssertionError(f"phase 8: launches {counts} for {ticks} ticks, want {want}")
+        raise AssertionError(f"{label}: launches {counts} for {ticks} ticks, want {want}")
     grfs = torch.stack([g for g, _ in seen])
     sig = torch.stack([s for _, s in seen])
     if not bool(torch.isfinite(grfs).all()):
-        raise AssertionError("phase 8: non-finite GRFs")
+        raise AssertionError(f"{label}: non-finite GRFs")
     if not bool(((sig >= sp.cem_sigma_min) & (sig <= sp.cem_sigma_max)).all()):
-        raise AssertionError(f"phase 8: sigma left [{sp.cem_sigma_min}, {sp.cem_sigma_max}]: "
+        raise AssertionError(f"{label}: sigma left [{sp.cem_sigma_min}, {sp.cem_sigma_max}]: "
                              f"{float(sig.min())}, {float(sig.max())}")
     fin = np.isfinite(hist).all(axis=1)
     dist = hist[fin][-1, 0] - hist[0, 0]
     stats = (float(dist), float(hist[fin, 2].min()), float(np.abs(hist[fin, 6:8]).max()))
-    log(f"phase 8: ok; {ticks} ticks with finite GRFs and sigma in [{float(sig.min()):.4f}, "
+    log(f"{label}: ok; {ticks} ticks with finite GRFs and sigma in [{float(sig.min()):.4f}, "
         f"{float(sig.max()):.4f}]; launches {counts}; distance, min z, max |roll|,|pitch| "
-        f"{stats} over {int(fin.sum())} finite steps of {len(hist)} (JAX package on the CPU: "
-        f"{JAX_CPU_WALKS['cem_mppi x 3']})")
+        f"{stats} over {int(fin.sum())} finite steps of {len(hist)}"
+        + (f" (JAX package on the CPU: {jax_walk})" if jax_walk else ""))
     return counts, stats
 
 
@@ -621,6 +677,216 @@ def phase_softmax_times(dev, rng):
     return out
 
 
+def check_groups(gplan, knobs, tick, groups, inc, noise, res, label) -> dict:
+    """K1e checks: costs against the plain group rollout on the same noise; the best
+    index the argmin of the kernel's own costs; the optimizer step against the plain
+    one on those costs (the winner and its step-0 extraction, or K1b/K1c's combine).
+    Returns the error figures."""
+    import torch
+    from quadruped_pympc_tamols_torch.ops import sampling_groups as sg
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+
+    costs_k, out_k, sigma_k, elites_k = res
+    p, dev = gplan.base, inc.device
+    t = sk.tick_tensors(tick, dev)
+    g = [torch.as_tensor(x, device=dev) for x in (groups.contact, groups.share, groups.offsets)]
+    plain = sg.group_costs_reference(inc[:, None] + noise, groups.dense(dev), *g, t[0], t[1],
+                                     t[2], p.dts, p.q_diag, p.srbd, p.fm)
+    errs = {"cost": check_costs(costs_k, plain, label)}
+    k = int(out_k[25])
+    if k != int(torch.argmin(costs_k)) or float(out_k[0]) != float(costs_k[k]):
+        raise AssertionError(f"{label}: best {k} ({float(out_k[0])}) is not the argmin of the "
+                             "kernel's costs")
+    new_k = out_k[sk.OUT_WINNER:]
+    if knobs.method == "random_sampling":
+        winner = inc + noise[:, k]
+        grfs, state = sk.step0_reference(winner, p.W, t[0], t[1], t[3], t[4], p.dts, p.srbd, p.fm)
+        errs.update(winner=gap(new_k, winner), grf=gap(out_k[1:13], grfs.reshape(12)),
+                    state=gap(out_k[13:25], state))
+        tols = [("winner", PARAM_ATOL), ("grf", GRF_ATOL), ("state", STATE_ATOL)]
+    else:
+        ref = sm.softmax_combine_reference(costs_k, noise, inc, p.W, t[0], t[1], t[3], t[4], p.dts,
+                                           p.srbd, p.fm, knobs)
+        errs.update(params=gap(new_k, ref.new_params), grf=gap(out_k[1:13], ref.grfs.reshape(12)),
+                    state=gap(out_k[13:25], ref.next_state))
+        tols = [("params", COMBINE_ATOL), ("grf", GRF_ATOL), ("state", STATE_ATOL)]
+        if knobs.cem:
+            if elites_k.tolist() != ref.elites.tolist():
+                raise AssertionError(f"{label}: elites {elites_k.tolist()} vs "
+                                     f"{ref.elites.tolist()}")
+            errs["sigma"] = gap(sigma_k, ref.sigma)
+            tols.append(("sigma", COMBINE_ATOL))
+    for key, tol in tols:
+        if not errs[key] <= tol:
+            raise AssertionError(f"{label}: {key} error {errs[key]} > {tol}")
+    errs["best_group"] = k // gplan.group_size
+    return errs
+
+
+def phase_groups(dev, rng):
+    """Phase 10: K1e against its plain version at N = 10 000, K = 3."""
+    import torch
+    from quadruped_pympc_tamols_torch.controllers.sampling import (GaitAdaptiveSamplingMPC,
+                                                                   group_operators, host_best_freq)
+    from quadruped_pympc_tamols_torch.ops import sampling_groups as sg
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+
+    errs = {}
+    ones = np.ones(4, np.float32)
+    for method in ("random_sampling", "mppi", "cem_mppi"):
+        label = f"phase 10 {method}"
+        cfg = gait_cfg(method, **{"mpc.step_freq_available": GAIT_FREQS})
+        gplan = sg.make_group_plan(cfg, N_MAIN, dev)
+        knobs = sm.make_knobs(cfg)
+        P, n, Ng = gplan.base.num_parameters, gplan.num_used, gplan.group_size
+        if (n, Ng) != (3 * (N_MAIN // 3), N_MAIN // 3):
+            raise AssertionError(f"{label}: {n} samples in groups of {Ng}")
+        tick = example_tick(cfg, gplan.base)
+        groups = group_operators(cfg, GAIT_PHASE, np.asarray(GAIT_FREQS, np.float32))
+        inc = torch.as_tensor(rng.standard_normal(P).astype(np.float32), device=dev)
+        sigma = torch.as_tensor(rng.uniform(0.3, 4.0, P).astype(np.float32), device=dev)
+        if method == "random_sampling":
+            noise = numpy_noise(gplan.base, rng)[:, :n]
+        else:
+            scale = sigma.cpu().numpy()[:, None] if knobs.cem else knobs.sigma_mppi
+            noise = (rng.standard_normal((P, n)) * scale).astype(np.float32)
+            noise[:, 0] = 0.0
+        noise = torch.as_tensor(np.ascontiguousarray(noise), device=dev)
+
+        def run(tk, seed=0, noise_in=None, noise_out=None):
+            return sg.sampling_groups(gplan, knobs, tk, groups, inc, sigma, seed, 0,
+                                      noise_in=noise_in, noise_out=noise_out)
+
+        res = run(tick, noise_in=noise)
+        torch.cuda.synchronize()
+        e = check_groups(gplan, knobs, tick, groups, inc, noise, res, label)
+        # A NaN state: every cost is 1e6 plus its group's offset.
+        nan_tick = tick._replace(state12=np.full(12, np.nan, np.float32))
+        res_nan = run(nan_tick, noise_in=noise)
+        torch.cuda.synchronize()
+        check_groups(gplan, knobs, nan_tick, groups, inc, noise, res_nan, f"{label} ties")
+        offs = torch.as_tensor(groups.offsets, device=dev).repeat_interleave(Ng)
+        low = int(np.argmin(groups.offsets))
+        if not torch.equal(res_nan[0], 1.0e6 + offs) or int(res_nan[1][25]) != low * Ng:
+            raise AssertionError(f"{label}: NaN state: winner {int(res_nan[1][25])}, want "
+                                 f"{low * Ng}, or costs other than 1e6 + offset")
+        elites = res_nan[3].tolist() if knobs.cem else None
+        if knobs.cem and elites != list(range(low * Ng, low * Ng + knobs.n_elite)):
+            raise AssertionError(f"{label}: tied elites {elites}")
+        # Philox noise: dumped, rerun, bands of N over the 9999 evaluated samples.
+        dump = torch.empty(P, n, device=dev)
+        res_px = run(tick, seed=1234, noise_out=dump)
+        res_px2 = run(tick, seed=1234)
+        torch.cuda.synchronize()
+        for a, b in zip(res_px, res_px2):
+            if a is not None and not torch.equal(a, b):
+                raise AssertionError(f"{label}: a rerun gave other bits")
+        if not bool((dump[:, 0] == 0).all()):
+            raise AssertionError(f"{label}: column 0 (the incumbent) is not zero")
+        if method == "random_sampling":
+            s1, s2, s3 = gplan.base.sigma_random
+            b1, b2 = sk.band_edges(N_MAIN)
+            bands = (("gauss1", 1, b1, s1), ("gauss2", b1, b2, s2),
+                     ("uniform", b2, n, s3 / np.sqrt(3.0)))
+            for name, lo, hi, sd in bands:
+                band = dump[:, lo:hi].double()
+                if abs(float(band.mean())) > 0.01 * sd or abs(float(band.std()) / sd - 1.0) > 0.02:
+                    raise AssertionError(f"{label}: band {name} [{lo}, {hi}) mean "
+                                         f"{float(band.mean())} std {float(band.std())}")
+            if float(dump[:, b2:].abs().max()) > s3:
+                raise AssertionError(f"{label}: uniform band leaves +-{s3}")
+            noise_note = f"bands [1, {b1}), [{b1}, {b2}), [{b2}, {n})"
+        else:
+            std = dump[:, 1:].double().std(dim=1) / (sigma.double() if knobs.cem
+                                                      else knobs.sigma_mppi)
+            if not bool(((std - 1.0).abs() < 6.0 / np.sqrt(2.0 * n)).all()):  # 6 sd
+                raise AssertionError(f"{label}: Philox noise std / sigma {std}")
+            noise_note = "std / sigma within 6 sd of 1"
+        e_px = check_groups(gplan, knobs, tick, groups, inc, dump, res_px, f"{label} philox")
+        # The solver maps the best group to its frequency: on the NaN state the
+        # lowest-offset group wins when the candidates are optimized, else the nominal.
+        mpc = GaitAdaptiveSamplingMPC(cfg, device=dev)
+        st, ref = tick_dicts(nan_tick)
+        freqs = [host_best_freq(mpc.compute_control(st, ref, tick.contact_seq, ones, ones,
+                                                    GAIT_PHASE, 1.4, opt)) for opt in (1, 0)]
+        if freqs != [float(np.float32(GAIT_FREQS[low])), float(np.float32(1.4))]:
+            raise AssertionError(f"{label}: best frequencies {freqs}")
+        errs[method] = e
+        log(f"{label} (N={N_MAIN}, K=3, {n} evaluated in groups of {Ng}): ok; injected noise "
+            f"{e}; Philox noise {e_px} ({noise_note}); NaN state: costs 1e6 + offsets "
+            f"{groups.offsets.tolist()}, winner {low * Ng}, elites {elites}; solver frequencies "
+            f"{freqs}")
+    return errs
+
+
+def phase_group_times(dev, rng):
+    """Phase 12: times of K1e per method, its plain version and its bound."""
+    import dataclasses
+
+    import torch
+    from quadruped_pympc_tamols_torch.controllers.sampling import (GaitAdaptiveSamplingMPC,
+                                                                   group_operators)
+    from quadruped_pympc_tamols_torch.ops import sampling_groups as sg
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+
+    lib = sg.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = {}
+    for method in ("random_sampling", "mppi", "cem_mppi"):
+        cfg = gait_cfg(method)
+        gplan = sg.make_group_plan(cfg, N_MAIN, dev)
+        knobs = sm.make_knobs(cfg)
+        tick = example_tick(cfg, gplan.base)
+        groups = group_operators(cfg, GAIT_PHASE,
+                                 np.asarray(cfg.mpc.step_freq_available, np.float32))
+        p, P, n = gplan.base, gplan.base.num_parameters, gplan.num_used
+        inc = torch.as_tensor(rng.standard_normal(P).astype(np.float32), device=dev)
+        sig = torch.full((P,), cfg.mpc.sampling.sigma_cem_mppi, device=dev)
+        # Through the C entry with the argument block and the group buffer built once,
+        # so the events see the memset and the launches; the wrapper (which also
+        # packs, pins and copies the group buffer) is timed beside.
+        buf = torch.as_tensor(sg.pack_groups(groups), device=dev)
+        args = sk.kernel_args(p, tick, 5, 0)
+        args.num_samples = n
+        ws = sm.workspace(dataclasses.replace(p, num_samples=n), knobs, dev)
+        t = sk.tick_tensors(tick, dev)
+        g = [torch.as_tensor(x, device=dev) for x in (groups.contact, groups.share, groups.offsets)]
+        Wg = groups.dense(dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def plain():
+            z = torch.randn(P, n, device=dev, generator=gen)
+            noise = z * (sig[:, None] if knobs.cem else knobs.sigma_mppi)
+            noise[:, 0] = 0.0
+            sg.group_iteration_reference(noise, inc, Wg, *g, p.W, *t, p.dts, p.q_diag, p.srbd,
+                                         p.fm, knobs)
+
+        host_us = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            group_operators(cfg, GAIT_PHASE, np.asarray(cfg.mpc.step_freq_available, np.float32))
+            host_us.append((time.perf_counter() - t0) * 1e6)
+        out[method] = {
+            "operators_us": statistics.median(host_us),
+            "ms": time_cuda(lambda: sg.launch(lib, args, knobs, gplan, ws, buf, inc, sig,
+                                              stream=stream)),
+            "wrapper_ms": time_cuda(lambda: sg.sampling_groups(gplan, knobs, tick, groups, inc,
+                                                               sig, 5, 0)),
+            "plain_ms": time_cuda(plain, runs=PLAIN_RUNS),
+            "bound": group_bound_ms(gplan, knobs),
+            "tick_ms": solve_tick_ms(GaitAdaptiveSamplingMPC(cfg, device="cuda"), tick)}
+        r = out[method]
+        log(f"phase 12 {method}: K1e {r['ms']:.4f} ms (median of {TIMED_RUNS}, C entry with "
+            f"prebuilt arguments), through its wrapper {r['wrapper_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms ({r['bound'][1]}); "
+            f"gait-adaptive solve tick with host glue {r['tick_ms']:.4f} ms (median of 200), "
+            f"of which the host's group_operators {r['operators_us']:.1f} us (median of 200)")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -635,8 +901,10 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing: {e}", file=sys.stderr)
         return 2
-    from quadruped_pympc_tamols_torch.controllers.sampling import SamplingMPC
+    from quadruped_pympc_tamols_torch.controllers.sampling import (GaitAdaptiveSamplingMPC,
+                                                                   SamplingMPC)
     from quadruped_pympc_tamols_torch.ops import build
+    from quadruped_pympc_tamols_torch.ops import sampling_groups as sg
     from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
     from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
 
@@ -653,6 +921,7 @@ def main() -> int:
     libs = build.build_all()
     sk.load_library()
     sm.load_library()
+    sg.load_library()
     log(f"build: {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.1f} s "
         f"(one nvcc per source, started together)")
     for lib_path in libs.values():
@@ -751,10 +1020,31 @@ def main() -> int:
                              "ticks, want one a tick")
 
     # -- phase 8: CEM-MPPI closed loop ------------------------------------------------
-    counts_cem, _ = phase_cem_loop()
+    counts_cem, _ = cem_loop(softmax_cfg("cem_mppi"), "phase 8", counts_of(K1c=3),
+                             JAX_CPU_WALKS["cem_mppi x 3"])
 
     # -- phase 9: times of K1b, K1c, K1d ----------------------------------------------
     t9 = phase_softmax_times(dev, rng)
+
+    # -- phase 10: K1e against its plain version ---------------------------------------
+    errs_g = phase_groups(dev, rng)
+
+    # -- phase 11: this slice's path, gait-adaptive sampling ---------------------------
+    walks = {}
+    for method, key in (("random_sampling", "K1e_rs"), ("mppi", "K1e_mppi")):
+        walks[method] = walk(gait_cfg(method), f"phase 11 {method}", counts_of(**{key: 1}))
+        log(f"phase 11 {method}: JAX package on the CPU (distance, min z, max |roll|,|pitch|): "
+            f"{JAX_CPU_WALKS['gait ' + method]}")
+    counts_gcem, _ = cem_loop(gait_cfg("cem_mppi"), "phase 11 cem_mppi", counts_of(K1e_cem=1))
+    prof = profile_ticks(GaitAdaptiveSamplingMPC(gait_cfg("random_sampling"), device="cuda"),
+                         tick)
+    log(f"phase 11: profile of 50 gait-adaptive solve ticks: {prof}")
+    if prof.get("d2h_copies") != 50:
+        raise AssertionError(f"phase 11: {prof.get('d2h_copies')} device-to-host copies in 50 "
+                             "ticks, want one a tick")
+
+    # -- phase 12: times of K1e ---------------------------------------------------------
+    t12 = phase_group_times(dev, rng)
 
     def row(name, source, launches, err, ms, plain, bound, **extra):
         return {"name": name, "route": "cuda",
@@ -785,6 +1075,18 @@ def main() -> int:
             ms_c_entry_prebuilt_args=t9["mppi"]["chain_prebuilt_ms"],
             solve_tick_ms=t9["mppi"]["tick_ms"], harness_s_per_sim_s=wall_mppi / WALK_S),
     ]
+    for method, short, launches in (
+            ("random_sampling", "rs", walks["random_sampling"][0]["K1e_rs"]),
+            ("mppi", "mppi", walks["mppi"][0]["K1e_mppi"]),
+            ("cem_mppi", "cem", counts_gcem["K1e_cem"])):
+        r, e = t12[method], errs_g[method]
+        extra = {f"{k}_max_abs_err": e[k] for k in ("grf", "state", "params", "sigma") if k in e}
+        if method in walks:
+            extra["harness_s_per_sim_s"] = walks[method][1] / WALK_S
+        kernels.append(row(f"sampling_groups, {method} (K1e-{short})", "sampling_groups.cu",
+                           launches, e["cost"], r["ms"], r["plain_ms"], r["bound"],
+                           ms_through_wrapper=r["wrapper_ms"], solve_tick_ms=r["tick_ms"],
+                           host_group_operators_us=r["operators_us"], **extra))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -56,8 +56,9 @@ class SolveOutput(NamedTuple):
     costs: Any  # (N,) every rollout cost of the last iteration
     sigma: Any  # (P,) CEM sigma state (unchanged unless cem_mppi)
     best_freq: Any  # scalar step frequency
-    summary: Any = None  # (25,) [best_cost, grfs (12), predicted_state (12)]
+    summary: Any = None  # [best_cost, grfs (12), state (12)] (+ best index: gait-adaptive)
     ready: Any = None  # CUDA event after which a host ``summary`` is filled, or None
+    group_freqs: Any = None  # (K,) host candidate frequencies of a gait-adaptive solve
 
 
 @dataclasses.dataclass
@@ -178,17 +179,26 @@ class SamplingMPC:
     once; read the result with ``host_summary``.
     """
 
+    make_solver = staticmethod(make_sampling_solver)
+
     def __init__(self, cfg: Config, num_samples: int | None = None, method: str | None = None,
                  seed: int = 42, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.solve, self.num_parameters = make_sampling_solver(cfg, num_samples, method,
-                                                               self.device)
+        self.solve, self.num_parameters = self.make_solver(cfg, num_samples, method, self.device)
         self.seed = seed
         self.reset()
 
     def compute_control(self, state_current: dict, ref_state: dict, contact_sequence,
                         current_contact, previous_contact) -> SolveOutput:
+        state12, feet, ref12, ref_feet = self._arrays(state_current, ref_state)
+        out, self.state = self.solve(state12, feet, ref12, ref_feet, contact_sequence,
+                                     current_contact, previous_contact, self.state)
+        return self._start_copy(out)
+
+    @staticmethod
+    def _arrays(state_current: dict, ref_state: dict):
+        """(state12, feet (4, 3), ref12, ref_feet (4, 3)) from the dict schema."""
         state12 = np.concatenate([
             np.asarray(state_current["position"]).reshape(3),
             np.asarray(state_current["linear_velocity"]).reshape(3),
@@ -202,10 +212,12 @@ class SamplingMPC:
             np.asarray(ref_state["ref_angular_velocity"]).reshape(3)])
         ref_feet = np.stack([np.asarray(ref_state[f"ref_foot_{leg}"]).reshape(3)
                              for leg in _LEGS])
-        out, self.state = self.solve(state12, feet, ref12, ref_feet, contact_sequence,
-                                     current_contact, previous_contact, self.state)
+        return state12, feet, ref12, ref_feet
+
+    def _start_copy(self, out: SolveOutput) -> SolveOutput:
+        """On CUDA, start the tick's one device-to-host copy, of the summary."""
         if self.device.type == "cuda":
-            host = torch.empty(25, dtype=torch.float32, pin_memory=True)
+            host = torch.empty(out.summary.shape[0], dtype=torch.float32, pin_memory=True)
             host.copy_(out.summary, non_blocking=True)
             ready = torch.cuda.Event()
             ready.record()

@@ -3,15 +3,16 @@
 Counterpart of ``quadruped_pympc_tamols_tpu/interfaces/controller_interface.py``
 (reference interfaces/srbd_controller_interface.py:27-245): builds the controller
 from the config, reads its one host summary per tick, masks the returned GRFs by
-the current contact (:225-230) and undoes the float32 recentering. This slice
-ports the sampling family; the gradient family and the gait-adaptive sampler
-(``mpc.optimize_step_freq``) raise NotImplementedError until their slices.
+the current contact (:225-230) and undoes the float32 recentering. The sampling family is ported,
+with the gait-adaptive sampler (``mpc.optimize_step_freq``); the gradient family
+raises NotImplementedError until its slice.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..config import Config
+from ..controllers.sampling.gait_adaptive import GaitAdaptiveSamplingMPC, host_best_freq
 from ..controllers.sampling.sampling_mpc import SamplingMPC, host_summary
 from ..utils.legs import Legs
 
@@ -43,10 +44,9 @@ class SRBDControllerInterface:
                 f"mpc.type={self.type!r}: the gradient family is not ported yet (ROADMAP "
                 "queue 1 item 13)")
         if cfg.mpc.optimize_step_freq:
-            raise NotImplementedError(
-                "mpc.optimize_step_freq: gait-adaptive sampling is not ported yet (ROADMAP "
-                "queue 1 item 10, kernel K1e)")
-        self.controller = SamplingMPC(cfg, seed=seed, device=device)
+            self.controller = GaitAdaptiveSamplingMPC(cfg, seed=seed, device=device)
+        else:
+            self.controller = SamplingMPC(cfg, seed=seed, device=device)
         self._inflight = None
 
     def compute_control(self, state_current: dict, ref_state: dict, contact_sequence,
@@ -60,8 +60,14 @@ class SRBDControllerInterface:
         prev = np.asarray(previous_contact if previous_contact is not None else cur, np.float32)
         state_current, ref_state, shift = recenter_state_and_reference(state_current, ref_state)
 
-        out = self.controller.compute_control(state_current, ref_state, contact_sequence,
-                                              cur, prev)
+        if self.cfg.mpc.optimize_step_freq:
+            out = self.controller.compute_control(
+                state_current, ref_state, contact_sequence, cur, prev,
+                phase_signal if phase_signal is not None else np.zeros(4),
+                self.best_sample_freq, optimize_swing)
+        else:
+            out = self.controller.compute_control(state_current, ref_state, contact_sequence,
+                                                  cur, prev)
         if self.cfg.mpc.sampling.pipelined:
             # Async pipelining (config sampling.pipelined): return the PREVIOUS
             # tick's solution, whose summary copy has completed during the plant
@@ -71,6 +77,8 @@ class SRBDControllerInterface:
             if prev_out is not None:
                 out = prev_out
         grfs, predicted, _ = host_summary(out)
+        if self.cfg.mpc.optimize_step_freq and optimize_swing:
+            self.best_sample_freq = host_best_freq(out)
         footholds = np.stack([np.asarray(ref_state[f"ref_foot_{leg}"]).reshape(3)
                               for leg in ("FL", "FR", "RL", "RR")])
 

@@ -6,6 +6,9 @@ from .sampling_kernel import (
     sampling_iteration_reference,
     sampling_rs,
 )
+# The module, not its wrapper of the same name: ``ops.sampling_groups.sampling_groups``.
+from . import sampling_groups
+from .sampling_groups import GroupInputs, GroupPlan, group_iteration_reference, make_group_plan
 from .sampling_softmax import (
     Knobs,
     make_knobs,
@@ -15,13 +18,18 @@ from .sampling_softmax import (
 )
 
 __all__ = [
+    "GroupInputs",
+    "GroupPlan",
     "Knobs",
     "RSPlan",
     "TickInputs",
+    "group_iteration_reference",
     "load_library",
+    "make_group_plan",
     "make_knobs",
     "make_rs_plan",
     "sampling_chain",
+    "sampling_groups",
     "sampling_iteration_reference",
     "sampling_rs",
     "softmax_iteration",

@@ -21,7 +21,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("sampling_rs", "sampling_softmax")  # csrc/<name>.cu, one library each
+SOURCES = ("sampling_rs", "sampling_softmax", "sampling_groups")  # csrc/<name>.cu, one library each
 
 _LIBS: dict = {}
 

@@ -1,8 +1,8 @@
-// Device code shared by the sampling-MPC kernels (sampling_rs.cu, K1a, and
-// sampling_softmax.cu, K1b-K1d): the per-tick argument block, Philox4x32-10 and
-// Box-Muller, the NaN-propagating clamps, one SRB Euler step under the force
-// model, the per-leg basis product, one sample's H-step rollout cost, the argmin
-// fold and the step-0 extraction.
+// Device code shared by the sampling-MPC kernels (sampling_rs.cu, K1a;
+// sampling_softmax.cu, K1b-K1d; sampling_groups.cu, K1e): the per-tick argument
+// block, Philox4x32-10 and Box-Muller, the NaN-propagating clamps, one SRB Euler
+// step under the force model, the per-leg basis product, one sample's H-step
+// rollout cost, the argmin fold and the step-0 extraction.
 //
 // The random numbers go through __fmul_rn/__fadd_rn so that a kernel that
 // regenerates a sample's noise from its Philox counter gets the same bits as the
@@ -195,9 +195,12 @@ __device__ __forceinline__ void step_forces(const float* w_rows, const float* pr
 }
 
 // Cost of one sample's H-step rollout under parameters prm (4*PL), NaN/Inf -> 1e6.
-// w_s holds the (H*12, PL) own-leg blocks of the basis.
+// w_s holds the (H*12, PL) own-leg blocks of the basis, contact and share the
+// step-major (n*4 + leg) stance masks and per-leg shares.
 template <int H, int PL>
-__device__ __forceinline__ float rollout_cost(const RSArgs& a, const float* w_s, const float* prm) {
+__device__ __forceinline__ float rollout_cost_cols(const RSArgs& a, const float* w_s,
+                                                   const float* contact, const float* share,
+                                                   const float* prm) {
   const RSModel md = a.model;
   float st[12], ft[12], ref[12];
 #pragma unroll
@@ -213,8 +216,8 @@ __device__ __forceinline__ float rollout_cost(const RSArgs& a, const float* w_s,
     step_forces<PL>(&w_s[n * 12 * PL], prm, raw);
 #pragma unroll
     for (int leg = 0; leg < 4; ++leg) {
-      c[leg] = a.contact[n * 4 + leg];
-      sh[leg] = a.share[n * 4 + leg];
+      c[leg] = contact[n * 4 + leg];
+      sh[leg] = share[n * 4 + leg];
     }
     srb_step(st, raw, c, sh, a.dts[n], ft, md, f);
 #pragma unroll
@@ -228,6 +231,12 @@ __device__ __forceinline__ float rollout_cost(const RSArgs& a, const float* w_s,
   }
   if (isnan(cost) || isinf(cost)) cost = 1.0e6f;
   return cost;
+}
+
+// The same under the argument block's own contact and share columns.
+template <int H, int PL>
+__device__ __forceinline__ float rollout_cost(const RSArgs& a, const float* w_s, const float* prm) {
+  return rollout_cost_cols<H, PL>(a, w_s, a.contact, a.share, prm);
 }
 
 // The (cost bits << 32 | index) key. Costs are >= 0 (sums of non-negative

@@ -1,0 +1,56 @@
+// K1a's random-sampling noise and winner extraction, shared by sampling_rs.cu
+// (K1a) and sampling_groups.cu (K1e).
+#pragma once
+
+#include "sampling_common.cuh"
+
+// Noise of parameters 4k..4k+3 of sample i. Counter (i, k, offset), key seed.
+// Sample 0 is the incumbent; [1, band1) ~ N(0, s1), [band1, band2) ~ N(0, s2),
+// the rest ~ U[-s3, s3).
+__device__ __forceinline__ float4 rs_noise4(unsigned long long seed, unsigned long long offset,
+                                            int band1, int band2, float s1, float s2, float s3,
+                                            int i, int k) {
+  if (i == 0) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const uint4 x = philox_words(seed, offset, i, k);
+  if (i >= band2) {
+    const float w = __fmul_rn(2.0f, s3);
+    return make_float4(__fadd_rn(-s3, __fmul_rn(w, u01(x.x))), __fadd_rn(-s3, __fmul_rn(w, u01(x.y))),
+                       __fadd_rn(-s3, __fmul_rn(w, u01(x.z))), __fadd_rn(-s3, __fmul_rn(w, u01(x.w))));
+  }
+  const float s = (i < band1) ? s1 : s2;
+  const float4 z = normals4(x);
+  return make_float4(__fmul_rn(z.x, s), __fmul_rn(z.y, s), __fmul_rn(z.z, s), __fmul_rn(z.w, s));
+}
+
+template <int H, int PL>
+__global__ void __launch_bounds__(RS_BLOCK)
+rs_extract_kernel(const RSArgs a, const float* __restrict__ w_blk,
+                  const float* __restrict__ incumbent, const float* __restrict__ noise_in,
+                  const unsigned long long* __restrict__ argmin, float* __restrict__ out) {
+  constexpr int P = 4 * PL;
+  __shared__ float prm_s[P];
+  const unsigned long long key = *argmin;
+  const int idx = (int)(key & 0xffffffffull);
+  const int N = a.num_samples;
+  for (int k = threadIdx.x; k < P / 4; k += blockDim.x) {
+    float4 z;
+    if (noise_in != nullptr) {
+      z = load_noise4(noise_in, N, idx, k);
+    } else {
+      z = rs_noise4(a.seed, a.offset, a.band1, a.band2, a.sigma1, a.sigma2, a.sigma3, idx, k);
+    }
+    const float v[4] = {z.x, z.y, z.z, z.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float p = __fadd_rn(incumbent[4 * k + j], v[j]);
+      prm_s[4 * k + j] = p;
+      out[RS_OUT_WINNER + 4 * k + j] = p;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    step0_extract<PL>(a, w_blk, prm_s, out);
+    out[0] = __uint_as_float((unsigned int)(key >> 32));
+    out[25] = (float)idx;
+  }
+}

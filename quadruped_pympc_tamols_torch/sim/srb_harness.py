@@ -87,6 +87,9 @@ class SRBClosedLoopHarness:
                 phase_signal=self.wb.pgg.phase_signal,
                 optimize_swing=optimize_swing)
         self._step += 1
+        # Between MPC ticks too, with the last solved frequency (as the JAX harness).
+        if optimize_swing and cfg.mpc.optimize_step_freq:
+            self.wb.pgg.step_freq = float(self.best_freq)
 
         self.x = self._plant_step()
 

@@ -1,5 +1,5 @@
 """Kernels K1a (ops/csrc/sampling_rs.cu), K1b, K1c and K1d (ops/csrc/sampling_softmax.cu)
-against their plain torch versions on the card.
+and K1e (ops/csrc/sampling_groups.cu) against their plain torch versions on the card.
 
 Runs only where CUDA is present (it skips elsewhere): on the H100, run
 ``python -m pytest tests/test_torch_cuda_kernel.py -m cuda``. Tolerances as in
@@ -15,6 +15,7 @@ import torch
 
 from quadruped_pympc_tamols_torch import make_config
 from quadruped_pympc_tamols_torch.controllers.sampling.rollout import gravity_share
+from quadruped_pympc_tamols_torch.ops import sampling_groups as sg
 from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
 from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
 
@@ -169,6 +170,74 @@ def test_chained_kernels_match_single_iterations(cuda_device, num_samples):
             inc, sig = r.out[sk.OUT_WINNER:], r.sigma
 
 
+def _check_group_kernel(plan, knobs, tick, groups, inc, noise, costs, out, sig, el, dev):
+    """K1e's costs against the plain group rollout on the same noise, and its
+    optimizer step against the plain one on its own costs."""
+    t = sk.tick_tensors(tick, dev)
+    g = [torch.as_tensor(x, device=dev) for x in (groups.contact, groups.share, groups.offsets)]
+    ref = sg.group_costs_reference(inc[:, None] + noise, groups.dense(dev), *g, t[0], t[1], t[2],
+                                   plan.base.dts, plan.base.q_diag, plan.base.srbd, plan.base.fm)
+    torch.testing.assert_close(costs, ref, rtol=1e-4, atol=1e-2)
+    if knobs.method != "random_sampling":
+        _check_combine(plan.base, knobs, tick, inc, noise, costs, out, sig, el, dev)
+        return
+    k = int(out[25])
+    assert k == int(torch.argmin(costs)) and float(out[0]) == float(costs[k])
+    winner = inc + noise[:, k]
+    torch.testing.assert_close(out[sk.OUT_WINNER:], winner, rtol=0, atol=1e-6)
+    grfs, state = sk.step0_reference(winner, plan.base.W, t[0], t[1], t[3], t[4], plan.base.dts,
+                                     plan.base.srbd, plan.base.fm)
+    torch.testing.assert_close(out[1:13], grfs.reshape(12), rtol=0, atol=1e-3)
+    torch.testing.assert_close(out[13:25], state, rtol=0, atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.parametrize("method", ["random_sampling", "mppi", "cem_mppi"])
+def test_group_kernel_matches_plain_version(cuda_device, method):
+    """K1e at N = 10 000: three groups of 3333, sample 9999 not evaluated. On
+    injected noise; on a NaN state, where every cost is 1e6 plus its group's offset,
+    so the winner is the first sample of the 1.3 Hz group and CEM's elites its first
+    samples; on Philox noise, dumped, bit-identical on a rerun."""
+    from quadruped_pympc_tamols_torch.controllers.sampling import group_operators
+    cfg = make_config("aliengo", **{"sim.visual_foothold_adaptation": "blind",
+                                    "mpc.optimize_step_freq": True,
+                                    "mpc.step_freq_available": (2.4, 1.3, 2.0)})
+    plan = sg.make_group_plan(cfg, 10_000, cuda_device)
+    assert (plan.group_size, plan.num_used) == (3333, 9999)
+    knobs = sm.make_knobs(cfg, method)
+    tick = _tick(cfg)
+    groups = group_operators(cfg, np.array([0.3, 0.8, 0.8, 0.3], np.float32),
+                             np.asarray(cfg.mpc.step_freq_available, np.float32))
+    rng = np.random.default_rng(12)
+    P, n = plan.base.num_parameters, plan.num_used
+    inc = torch.as_tensor(rng.standard_normal(P).astype(np.float32), device=cuda_device)
+    sigma = torch.as_tensor(rng.uniform(0.3, 4.0, P).astype(np.float32), device=cuda_device)
+    noise = torch.as_tensor(rng.standard_normal((P, n)).astype(np.float32),
+                            device=cuda_device) * (sigma[:, None] if knobs.cem else 3.0)
+    noise[:, 0] = 0.0
+    nan_state = tick._replace(state12=np.full(12, np.nan, np.float32))
+    for tk in (tick, nan_state):
+        want = dict(sg.sampling_groups.launches)
+        want[method] += 1
+        res = sg.sampling_groups(plan, knobs, tk, groups, inc, sigma, 0, 0, noise_in=noise)
+        assert sg.sampling_groups.launches == want
+        torch.cuda.synchronize()
+        _check_group_kernel(plan, knobs, tk, groups, inc, noise, *res, cuda_device)
+    costs, out, _, el = res
+    offsets = torch.as_tensor(groups.offsets, device=cuda_device).repeat_interleave(3333)
+    assert torch.equal(costs, 1.0e6 + offsets)
+    assert int(out[25]) == 3333
+    if knobs.cem:
+        assert el.tolist() == list(range(3333, 3333 + knobs.n_elite))
+    dump = torch.empty(P, n, device=cuda_device)
+    res = sg.sampling_groups(plan, knobs, tick, groups, inc, sigma, 5, 2, noise_out=dump)
+    res2 = sg.sampling_groups(plan, knobs, tick, groups, inc, sigma, 5, 2)
+    torch.cuda.synchronize()
+    for a, b in zip(res, res2):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert bool((dump[:, 0] == 0).all())
+    _check_group_kernel(plan, knobs, tick, groups, inc, dump, *res, cuda_device)
+
+
 def test_cuda_solver_refuses_unported_paths(cuda_device):
     from quadruped_pympc_tamols_torch.controllers.sampling import make_sampling_solver
     base = {"sim.visual_foothold_adaptation": "blind"}
@@ -182,3 +251,12 @@ def test_cuda_solver_refuses_unported_paths(cuda_device):
         for iterations in (1, 3):
             over = {"mpc.sampling.method": method, "mpc.sampling.num_iterations": iterations}
             make_sampling_solver(make_config("aliengo", **base, **over), 1000, device=cuda_device)
+    from quadruped_pympc_tamols_torch.controllers.sampling import make_gait_adaptive_solver
+    gait = {**base, "mpc.optimize_step_freq": True}
+    for over in ({"mpc.sampling.zmp_weight": 500.0},
+                 {"mpc.sampling.parametrization": "linear_spline"}, {"mpc.horizon": 10}):
+        with pytest.raises(NotImplementedError):
+            make_gait_adaptive_solver(make_config("aliengo", **gait, **over), 1000,
+                                      device=cuda_device)
+    for method in ("random_sampling", "mppi", "cem_mppi"):
+        make_gait_adaptive_solver(make_config("aliengo", **gait), 1000, method, cuda_device)

@@ -106,8 +106,7 @@ def test_pipelined_interface_returns_previous_tick():
 
 
 def test_unported_options_raise():
-    for over in ({"sim.visual_foothold_adaptation": "tamols"}, {"mpc.optimize_step_freq": True},
-                 {"mpc.type": "nominal"}):
+    for over in ({"sim.visual_foothold_adaptation": "tamols"}, {"mpc.type": "nominal"}):
         cfg = make_config("aliengo", **{**BLIND, "mpc.sampling.num_samples": 32, **over})
         with pytest.raises(NotImplementedError):
             SRBClosedLoopHarness(cfg, device="cpu")
@@ -152,27 +151,35 @@ def test_wb_interface_references_match_jax():
     np.testing.assert_array_equal(twb.current_contact, jwb.current_contact)
 
 
-def reference_walks(num_samples=10_000, duration=3.0, vel=(0.3, 0.0, 0.0)):
+WALKED = ((("mppi", 1), ("mppi", 3), ("random_sampling", 3), ("cem_mppi", 1), ("cem_mppi", 3)),
+          (("random_sampling", 1), ("mppi", 1)))
+
+
+def reference_walks(num_samples=10_000, duration=3.0, vel=(0.3, 0.0, 0.0), gait_adaptive=False):
     """The JAX package's SRB harness walking the README quickstart for the
-    sampling methods and iteration counts of the port's slices: (method,
-    iterations, distance (m), min z (m), max |roll|,|pitch| (rad))."""
+    sampling methods and iteration counts of the port's slices, or with
+    ``mpc.optimize_step_freq`` for the gait-adaptive slice: (method, iterations,
+    distance (m), min z (m), max |roll|,|pitch| (rad), step frequency at the end)."""
     rows = []
-    for method, iterations in (("mppi", 1), ("mppi", 3), ("random_sampling", 3),
-                               ("cem_mppi", 1), ("cem_mppi", 3)):
+    for method, iterations in WALKED[gait_adaptive]:
         cfg = jax_make_config("aliengo", mpc_type="sampling", **{
             **BLIND, "mpc.sampling.num_samples": num_samples, "mpc.sampling.method": method,
-            "mpc.sampling.num_iterations": iterations})
-        hist = JaxHarness(cfg, seed=0).run(duration, np.asarray(vel))
+            "mpc.sampling.num_iterations": iterations, "mpc.optimize_step_freq": gait_adaptive})
+        h = JaxHarness(cfg, seed=0)
+        hist = h.run(duration, np.asarray(vel))
         rows.append((method, iterations, hist[-1, 0] - hist[0, 0], hist[:, 2].min(),
-                     np.abs(hist[:, 6:8]).max()))
+                     np.abs(hist[:, 6:8]).max(), h.wb.pgg.step_freq))
     return rows
 
 
 if __name__ == "__main__":
-    # python tests/test_torch_harness.py: the JAX reference's walks on the CPU, on
-    # the platform the tests use (tests/conftest.py), for PERF.md.
+    # python tests/test_torch_harness.py [gait]: the JAX reference's walks on the
+    # CPU, on the platform the tests use (tests/conftest.py), for PERF.md; with
+    # "gait", the gait-adaptive walks (mpc.optimize_step_freq).
+    import sys
+
     import conftest  # noqa: F401
 
-    for row in reference_walks():
+    for row in reference_walks(gait_adaptive=sys.argv[1:] == ["gait"]):
         print("method %s, iterations %d: walked %.4f m, min z %.4f m, max |roll|,|pitch| "
-              "%.4f rad" % row, flush=True)
+              "%.4f rad, step frequency %.4f Hz" % row, flush=True)
