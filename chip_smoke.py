@@ -10,8 +10,10 @@ harness, README quickstart) through the kernels, and times them. It imports
 neither JAX nor the JAX package. It exits non-zero without a CUDA device or
 without the package beside it.
 
-Output: the card's name and power limit, one line per phase, a ``{"kernels": ...}``
-line, and as the last line ``{"ok": true, "device": {...}}``.
+Output: the card's name and power limit, one line per phase, for each row the
+rollout pass's device time and its kernel's registers, shared memory and spills
+(from the build's ``-Xptxas -v`` log), a ``{"kernels": ...}`` line, and as the
+last line ``{"ok": true, "device": {...}}``.
 
 Phases (each raises on failure; every path is driven with all launch counts set
 to 0 just before it and read just after):
@@ -347,6 +349,46 @@ def profile_ticks(mpc, tick, n=50) -> dict:
             "device_us_per_tick": {k: v[1] / n for k, v in sorted(kernels.items())}}
 
 
+def rollout_profile(fn, n=50) -> tuple:
+    """(kernel name, mean device us a launch) of the rollout pass over n calls of
+    fn, from torch.profiler (fn is warm). Raises if the trace holds no device time
+    or no rollout kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "cuda_time_total", 0.0)
+        if "rollout_kernel" in e.key and dev_us > 0:
+            return e.key.split("(")[0], dev_us / e.count
+    raise AssertionError("the profiler saw no rollout kernel")
+
+
+def ptxas_rollout(log_path) -> dict:
+    """Registers, shared memory, stack and spills of the rollout kernel, from the
+    library's ``-Xptxas -v`` log."""
+    import re
+    entry, found = False, {}
+    for line in log_path.read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = "rollout_kernel" in line
+        elif entry and "spill" in line:
+            stack, stores, loads = map(int, re.findall(r"(\d+) bytes", line))
+            found.update(stack_bytes=stack, spill_store_bytes=stores, spill_load_bytes=loads)
+        elif entry and "registers" in line:
+            found["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            found["smem_bytes"] = int(m.group(1)) if m else 0
+    if "registers" not in found:
+        raise AssertionError(f"no rollout kernel in {log_path.name}")
+    return found
+
+
 def iteration_flops(plan) -> int:
     """Operations one K1a iteration needs per sample: the basis product over each
     force row's own-leg block only (H*12 x P_leg FMAs; make_rs_plan checks that W
@@ -660,9 +702,10 @@ def phase_softmax_times(dev, rng):
                 x, s = r.new_params, r.sigma if knobs.cem else s
 
         out[method] = {
-            "ms": time_cuda(one), "plain_ms": time_cuda(plain, runs=PLAIN_RUNS),
+            "ms": time_cuda(one), "rollout": rollout_profile(one),
+            "plain_ms": time_cuda(plain, runs=PLAIN_RUNS),
             "chain_ms": time_cuda(lambda: sm.sampling_chain(plan, knobs, tick, inc, sig, 5, 0, 3)),
-            "chain_prebuilt_ms": time_cuda(chained),
+            "chain_prebuilt_ms": time_cuda(chained), "chain_rollout": rollout_profile(chained),
             "chain_plain_ms": time_cuda(lambda: plain(3), runs=PLAIN_RUNS // 3),
             "bound": softmax_bound_ms(plan, knobs), "chain_bound": softmax_bound_ms(plan, knobs, 3),
             "tick_ms": solve_tick_ms(SamplingMPC(cfg, device="cuda"), tick)}
@@ -869,10 +912,13 @@ def phase_group_times(dev, rng):
             t0 = time.perf_counter()
             group_operators(cfg, GAIT_PHASE, np.asarray(cfg.mpc.step_freq_available, np.float32))
             host_us.append((time.perf_counter() - t0) * 1e6)
+
+        def launch():
+            sg.launch(lib, args, knobs, gplan, ws, buf, inc, sig, stream=stream)
+
         out[method] = {
             "operators_us": statistics.median(host_us),
-            "ms": time_cuda(lambda: sg.launch(lib, args, knobs, gplan, ws, buf, inc, sig,
-                                              stream=stream)),
+            "ms": time_cuda(launch), "rollout": rollout_profile(launch),
             "wrapper_ms": time_cuda(lambda: sg.sampling_groups(gplan, knobs, tick, groups, inc,
                                                                sig, 5, 0)),
             "plain_ms": time_cuda(plain, runs=PLAIN_RUNS),
@@ -996,6 +1042,7 @@ def main() -> int:
             raise RuntimeError(f"rs_launch returned {rc}")
 
     kernel_ms = time_cuda(launch)
+    rollout = {"K1a": rollout_profile(launch)}
     plain_ms = time_cuda(lambda: plain_on_device(plan, tick, inc, noise), runs=50)
     mpc = SamplingMPC(cfg, device="cuda")
     tick_med = solve_tick_ms(mpc, tick)
@@ -1087,6 +1134,21 @@ def main() -> int:
                            launches, e["cost"], r["ms"], r["plain_ms"], r["bound"],
                            ms_through_wrapper=r["wrapper_ms"], solve_tick_ms=r["tick_ms"],
                            host_group_operators_us=r["operators_us"], **extra))
+    # The rollout pass of each row: its device time a launch (K1d: a launch of its
+    # chain) and the ptxas report of its library's rollout kernel.
+    rollout.update({"K1b": t9["mppi"]["rollout"], "K1c": t9["cem_mppi"]["rollout"],
+                    "K1d": t9["mppi"]["chain_rollout"], "K1e-rs": t12["random_sampling"]["rollout"],
+                    "K1e-mppi": t12["mppi"]["rollout"], "K1e-cem": t12["cem_mppi"]["rollout"]})
+    library = {"K1a": "sampling_rs", "K1b": "sampling_softmax", "K1c": "sampling_softmax",
+               "K1d": "sampling_softmax", "K1e-rs": "sampling_groups",
+               "K1e-mppi": "sampling_groups", "K1e-cem": "sampling_groups"}
+    for r, (short, (kname, us)) in zip(kernels, rollout.items()):
+        if f"({short}" not in r["name"]:
+            raise AssertionError(f"rollout times out of order: {short} for {r['name']}")
+        ptx = ptxas_rollout(libs[library[short]].with_suffix(".log"))
+        r["rollout_kernel_us"] = us
+        log(f"rollout pass of {short}: {kname} {us:.2f} us a launch (torch.profiler, mean of 50 "
+            f"calls); ptxas: {ptx}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,18 @@
 // Device code shared by the sampling-MPC kernels (sampling_rs.cu, K1a;
 // sampling_softmax.cu, K1b-K1d; sampling_groups.cu, K1e): the per-tick argument
-// block, Philox4x32-10 and Box-Muller, the NaN-propagating clamps, one SRB Euler
-// step under the force model, the per-leg basis product, one sample's H-step
-// rollout cost, the argmin fold and the step-0 extraction.
+// block, Philox4x32-10 and Box-Muller, the NaN-propagating clamps, the force
+// model and the SRB Euler step, the argmin fold, the step-0 extraction, and the
+// one rollout pass that all of them launch (rollout_kernel, at the end).
+//
+// What bounds the rollout pass on an H100: neither bytes (~0.05-0.2 MB a solve)
+// nor FP32 throughput (~0.13 GFLOP a solve, ~2 us at peak) but latency. One
+// thread per sample gave 10 000 threads, under one warp per scheduler on 132
+// SMs, each running a ~13k-instruction dependent chain. So a sample is spread
+// over four lanes, one per leg (40 000 threads): each lane draws its leg's noise
+// and computes its leg's basis rows and forces, and the lanes share the body
+// update's sines, cosines and divisions; blocks of ROLLOUT_SAMPLES samples (625
+// at N = 10 000) spread evenly over the SMs, and the basis reaches shared memory
+// by a bulk asynchronous copy that overlaps the noise.
 //
 // The random numbers go through __fmul_rn/__fadd_rn so that a kernel that
 // regenerates a sample's noise from its Philox counter gets the same bits as the
@@ -14,7 +24,13 @@
 #include <stdint.h>
 
 #define RS_HMAX 16
-#define RS_BLOCK 64
+#define RS_BLOCK 64  // threads of the extraction and weights kernels, one sample each
+// The rollout pass: lanes per sample (one per leg), samples per block, and the
+// blocks per SM its register budget must allow (65 536 / (8 * 64) = 128 a thread).
+#define ROLLOUT_LANES 4
+#define ROLLOUT_SAMPLES 16
+#define ROLLOUT_THREADS (ROLLOUT_LANES * ROLLOUT_SAMPLES)
+#define ROLLOUT_MIN_BLOCKS 8
 #define RS_OUT_WINNER 26  // out = [cost, grf(12), state(12), index, parameters(P)]
 
 struct RSModel {
@@ -111,44 +127,84 @@ __device__ __forceinline__ void store_noise4(float* __restrict__ noise, int N, i
   noise[(size_t)(4 * k + 3) * N + i] = z.w;
 }
 
-// One Euler step of the SRB model under the force model, in the order of
-// operations of controllers/sampling/rollout.py. s (12) is updated in place and
-// f (12) receives the clamped forces.
-__device__ __forceinline__ void srb_step(float* s, const float* raw, const float* c,
-                                         const float* sh, float dt, const float* feet,
-                                         const RSModel& m, float* f) {
+// One leg's forces under the force model from its three raw basis rows: the x
+// and y rows scaled by the stance mask, z the gravity share plus its row under
+// the stance mask and clamped to [grf_min, grf_max], x and y clamped to the
+// friction cone mu * fz.
+__device__ __forceinline__ void leg_forces(float raw_x, float raw_y, float raw_z, float cl,
+                                           float sh, const RSModel& m, float& fx, float& fy,
+                                           float& fz) {
+  fx = raw_x * (cl * m.scale_x);
+  fy = raw_y * (cl * m.scale_y);
+  fz = clip_nan((sh + raw_z) * cl, m.grf_min, m.grf_max);
+  const float lim = m.mu * fz;
+  fx = clip_nan(fx, -lim, lim);
+  fy = clip_nan(fy, -lim, lim);
+}
+
+// Value v of lane q of this sample's ROLLOUT_LANES lanes.
+__device__ __forceinline__ float from_lane(float v, int q) {
+  return __shfl_sync(0xffffffffu, v, q, ROLLOUT_LANES);
+}
+
+// One Euler step of the SRB body under the clamped forces f (12, leg-major), in
+// the order of operations of controllers/sampling/rollout.py: the force and
+// torque sums over legs 0..3 in that order, then the body update. s (12) is
+// updated in place. LANES: the four lanes of a sample call it together on the
+// same s and f and share the step's branchy library calls: lane `leg` makes one
+// sincosf (roll, pitch, yaw, yaw) and one IEEE division (Fx, Fy or Fz by the
+// mass, or sin/cos of the pitch), exchanged by shuffles. The same functions of
+// the same operands, so the same bits as one thread making every call, but three
+// such calls a lane and step in place of eleven (y_dot's division stays on every
+// lane).
+template <bool LANES>
+__device__ __forceinline__ void srb_body(float* s, const float* f, float dt, const float* feet,
+                                         const RSModel& m, int leg) {
   const float px = s[0], py = s[1], pz = s[2];
   const float vx = s[3], vy = s[4], vz = s[5];
   const float rr = s[6], pp = s[7], yy = s[8];
   const float wx = s[9], wy = s[10], wz = s[11];
   float Fx = 0.f, Fy = 0.f, Fz = 0.f, Tx = 0.f, Ty = 0.f, Tz = 0.f;
 #pragma unroll
-  for (int leg = 0; leg < 4; ++leg) {
-    const float cl = c[leg];
-    float fx = raw[leg * 3 + 0] * (cl * m.scale_x);
-    float fy = raw[leg * 3 + 1] * (cl * m.scale_y);
-    const float fz = clip_nan((sh[leg] + raw[leg * 3 + 2]) * cl, m.grf_min, m.grf_max);
-    const float lim = m.mu * fz;
-    fx = clip_nan(fx, -lim, lim);
-    fy = clip_nan(fy, -lim, lim);
-    f[leg * 3 + 0] = fx;
-    f[leg * 3 + 1] = fy;
-    f[leg * 3 + 2] = fz;
+  for (int q = 0; q < 4; ++q) {
+    const float fx = f[q * 3 + 0], fy = f[q * 3 + 1], fz = f[q * 3 + 2];
     Fx = Fx + fx;
     Fy = Fy + fy;
     Fz = Fz + fz;
-    const float rx = feet[leg * 3 + 0] - px;
-    const float ry = feet[leg * 3 + 1] - py;
-    const float rz = feet[leg * 3 + 2] - pz;
+    const float rx = feet[q * 3 + 0] - px;
+    const float ry = feet[q * 3 + 1] - py;
+    const float rz = feet[q * 3 + 2] - pz;
     Tx = Tx + (ry * fz - rz * fy);
     Ty = Ty + (rz * fx - rx * fz);
     Tz = Tz + (rx * fy - ry * fx);
   }
-  const float ax = Fx / m.mass, ay = Fy / m.mass, az = Fz / m.mass - m.gravity;
-  const float sr = sinf(rr), cr = cosf(rr);
-  const float sp = sinf(pp), cp = cosf(pp);
-  const float sy = sinf(yy), cy = cosf(yy);
-  const float tp = sp / cp;
+  float ax, ay, az, sr, cr, sp, cp, sy, cy, tp;
+  if constexpr (LANES) {
+    float sn, cs;
+    sincosf(leg == 0 ? rr : leg == 1 ? pp : yy, &sn, &cs);
+    sr = from_lane(sn, 0);
+    cr = from_lane(cs, 0);
+    sp = from_lane(sn, 1);
+    cp = from_lane(cs, 1);
+    sy = from_lane(sn, 2);
+    cy = from_lane(cs, 2);
+    const float q = (leg == 0 ? Fx : leg == 1 ? Fy : leg == 2 ? Fz : sp) / (leg == 3 ? cp : m.mass);
+    ax = from_lane(q, 0);
+    ay = from_lane(q, 1);
+    az = from_lane(q, 2) - m.gravity;
+    tp = from_lane(q, 3);
+  } else {
+    ax = Fx / m.mass;
+    ay = Fy / m.mass;
+    az = Fz / m.mass - m.gravity;
+    sr = sinf(rr);
+    cr = cosf(rr);
+    sp = sinf(pp);
+    cp = cosf(pp);
+    sy = sinf(yy);
+    cy = cosf(yy);
+    tp = sp / cp;
+  }
   const float r_dot = wx + sr * tp * wy + cr * tp * wz;
   const float p_dot = cr * wy - sr * wz;
   const float y_dot = (sr * wy + cr * wz) / cp;
@@ -181,6 +237,18 @@ __device__ __forceinline__ void srb_step(float* s, const float* raw, const float
   s[11] = wz + wdz * dt;
 }
 
+// One Euler step of the SRB model under the force model, all four legs in one
+// thread. s (12) is updated in place and f (12) receives the clamped forces.
+__device__ __forceinline__ void srb_step(float* s, const float* raw, const float* c,
+                                         const float* sh, float dt, const float* feet,
+                                         const RSModel& m, float* f) {
+#pragma unroll
+  for (int leg = 0; leg < 4; ++leg)
+    leg_forces(raw[leg * 3 + 0], raw[leg * 3 + 1], raw[leg * 3 + 2], c[leg], sh[leg], m,
+               f[leg * 3 + 0], f[leg * 3 + 1], f[leg * 3 + 2]);
+  srb_body<false>(s, f, dt, feet, m, 0);
+}
+
 // raw[r] = sum_j W_blk[row0 + r][j] * prm[leg(r) * PL + j] for the 12 rows of one step.
 template <int PL>
 __device__ __forceinline__ void step_forces(const float* w_rows, const float* prm, float* raw) {
@@ -192,51 +260,6 @@ __device__ __forceinline__ void step_forces(const float* w_rows, const float* pr
     for (int j = 0; j < PL; ++j) acc = fmaf(w_rows[r * PL + j], prm[leg * PL + j], acc);
     raw[r] = acc;
   }
-}
-
-// Cost of one sample's H-step rollout under parameters prm (4*PL), NaN/Inf -> 1e6.
-// w_s holds the (H*12, PL) own-leg blocks of the basis, contact and share the
-// step-major (n*4 + leg) stance masks and per-leg shares.
-template <int H, int PL>
-__device__ __forceinline__ float rollout_cost_cols(const RSArgs& a, const float* w_s,
-                                                   const float* contact, const float* share,
-                                                   const float* prm) {
-  const RSModel md = a.model;
-  float st[12], ft[12], ref[12];
-#pragma unroll
-  for (int j = 0; j < 12; ++j) {
-    st[j] = a.state[j];
-    ft[j] = a.feet[j];
-    ref[j] = a.ref[j];
-  }
-  float cost = 0.f;
-#pragma unroll
-  for (int n = 0; n < H; ++n) {
-    float raw[12], f[12], c[4], sh[4];
-    step_forces<PL>(&w_s[n * 12 * PL], prm, raw);
-#pragma unroll
-    for (int leg = 0; leg < 4; ++leg) {
-      c[leg] = contact[n * 4 + leg];
-      sh[leg] = share[n * 4 + leg];
-    }
-    srb_step(st, raw, c, sh, a.dts[n], ft, md, f);
-#pragma unroll
-    for (int j = 0; j < 12; ++j) {
-      const float w = a.q_diag[j];
-      if (w != 0.f) {
-        const float e = st[j] - ref[j];
-        cost = cost + w * e * e;
-      }
-    }
-  }
-  if (isnan(cost) || isinf(cost)) cost = 1.0e6f;
-  return cost;
-}
-
-// The same under the argument block's own contact and share columns.
-template <int H, int PL>
-__device__ __forceinline__ float rollout_cost(const RSArgs& a, const float* w_s, const float* prm) {
-  return rollout_cost_cols<H, PL>(a, w_s, a.contact, a.share, prm);
 }
 
 // The (cost bits << 32 | index) key. Costs are >= 0 (sums of non-negative
@@ -281,4 +304,214 @@ __device__ __forceinline__ void step0_extract(const RSArgs& a, const float* w_bl
     out[1 + j] = f[j];
     out[13 + j] = st[j];
   }
+}
+
+// -- the rollout pass (K1a-K1e) ------------------------------------------------------
+//
+// One sample is one group of ROLLOUT_LANES = 4 lanes of a warp, one lane per leg.
+// The parameters are leg-major (prm[leg * PL + j]), and W is block-diagonal per
+// leg, so lane `leg` draws, holds and multiplies only its leg's PL parameters
+// (Philox chunks leg * PL/4 .. leg * PL/4 + PL/4 - 1, the same counters as one
+// thread per sample drew), and each step computes its leg's 3 raw force rows and
+// applies the force model to its leg. The four lanes then exchange their clamped
+// forces with __shfl_sync and run the body update of srb_body<true> on the same
+// twelve values, summing the legs in order 0..3, and share the step's
+// sine-cosine pairs and divisions. The same arithmetic as one thread per sample,
+// so the same bits.
+//
+// What the H100 showed (tools/rollout_variants.py times each choice): the pass
+// is bound by each sample's serial chain more than by the SM's issue rate (with
+// the step loop unrolled it takes as long at N = 1 250 as at N = 10 000).
+// Library sinf/cosf and IEEE divisions are branchy sequences that do not
+// overlap, so the lanes share a step's sines, cosines and four of its five
+// divisions; and the unrolled loop cost more in instruction fetch than its
+// scheduling freedom saved, so it is rolled.
+
+// Shared-memory address of a generic pointer into shared memory.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// An mbarrier that completes when one arrival and the announced bytes have landed.
+__device__ __forceinline__ void bulk_barrier_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// The one arrival, announcing the bytes the bulk copies will deliver.
+__device__ __forceinline__ void bulk_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :
+               : "r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// Hopper's bulk asynchronous copy (the TMA without a tensor map): bytes (a
+// multiple of 16) from 16-byte aligned global memory into 16-byte aligned shared
+// memory, completing on bar. One thread issues it; no thread moves the data.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      :
+      : "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Waits until bar's phase `parity` has completed.
+__device__ __forceinline__ void bulk_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "BULK_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@!P1 bra BULK_WAIT;\n"
+      "}\n"
+      :
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+}
+
+// One lane's share of a sample's H-step rollout cost, NaN/Inf -> 1e6: prm holds
+// this lane's leg's PL parameters, w_s the (H*12, PL) own-leg basis blocks, c_s
+// and sh_s the step-major (n*4 + leg) stance masks and per-leg shares. All four
+// lanes of the sample return the same cost.
+template <int H, int PL>
+__device__ __forceinline__ float lane_rollout_cost(const RSArgs& a, const float* w_s,
+                                                   const float* prm, const float* c_s,
+                                                   const float* sh_s, int leg) {
+  const RSModel md = a.model;
+  float st[12], ft[12], ref[12];
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    st[j] = a.state[j];
+    ft[j] = a.feet[j];
+    ref[j] = a.ref[j];
+  }
+  float cost = 0.f;
+#pragma unroll 1  // see the note above: rolled, the body fits the instruction cache
+  for (int n = 0; n < H; ++n) {
+    // This leg's rows n*12 + 3*leg + c, summed over j in order as step_forces
+    // does; they do not depend on the state, so they overlap the previous step's
+    // chain. The four legs' rows start 72 floats (8 banks) apart, so a warp's
+    // 16-byte reads touch four distinct bank quads and are otherwise broadcasts.
+    float raw[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float4* row = reinterpret_cast<const float4*>(&w_s[(n * 12 + 3 * leg + c) * PL]);
+      float acc = 0.f;
+#pragma unroll
+      for (int q = 0; q < PL / 4; ++q) {
+        const float4 w = row[q];
+        acc = fmaf(w.x, prm[4 * q + 0], acc);
+        acc = fmaf(w.y, prm[4 * q + 1], acc);
+        acc = fmaf(w.z, prm[4 * q + 2], acc);
+        acc = fmaf(w.w, prm[4 * q + 3], acc);
+      }
+      raw[c] = acc;
+    }
+    float fx, fy, fz, f[12];
+    leg_forces(raw[0], raw[1], raw[2], c_s[n * 4 + leg], sh_s[n * 4 + leg], md, fx, fy, fz);
+#pragma unroll
+    for (int q = 0; q < ROLLOUT_LANES; ++q) {
+      f[q * 3 + 0] = from_lane(fx, q);
+      f[q * 3 + 1] = from_lane(fy, q);
+      f[q * 3 + 2] = from_lane(fz, q);
+    }
+    srb_body<true>(st, f, a.dts[n], ft, md, leg);
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+      const float w = a.q_diag[j];
+      if (w != 0.f) {
+        const float e = st[j] - ref[j];
+        cost = cost + w * e * e;
+      }
+    }
+  }
+  if (isnan(cost) || isinf(cost)) cost = 1.0e6f;
+  return cost;
+}
+
+// The column source of K1a-K1c: one static basis (H*12, PL) for every sample and
+// the argument block's contact and share columns; no cost offset.
+template <int H, int PL>
+struct StaticSource {
+  const float* w_blk;  // 16-byte aligned
+  int group_size;      // N
+  int num_groups;      // 1
+
+  __device__ void stage(const RSArgs& a, float* c_s, float* sh_s) const {
+    for (int k = threadIdx.x; k < H * 4; k += blockDim.x) {
+      c_s[k] = a.contact[k];
+      sh_s[k] = a.share[k];
+    }
+  }
+  __device__ void copy(float* w_s, float*, float*, unsigned long long* bar) const {
+    bulk_expect(bar, H * 12 * PL * 4);
+    bulk_load(w_s, w_blk, H * 12 * PL * 4, bar);
+  }
+  __device__ float finish(float cost) const { return cost; }
+};
+
+// The rollout pass: grid (ceil(group_size / ROLLOUT_SAMPLES), num_groups), one
+// sample per ROLLOUT_LANES lanes. Sample j of group g is global sample
+// i = g * group_size + j. Noise(a, i, k) gives the noise of parameters
+// 4k..4k+3 of sample i (unless noise_in is given); Source gives the block's
+// basis, contact and share columns (bulk-copied or staged into shared memory) and
+// the cost's offset. Writes every cost and folds (cost bits << 32 | i) into one
+// 64-bit atomicMin. A sample past the group's end runs on the group's last
+// sample, so that every lane reaches the exchanges, and writes nothing.
+template <int H, int PL, class Noise, class Source>
+__global__ void __launch_bounds__(ROLLOUT_THREADS, ROLLOUT_MIN_BLOCKS)
+rollout_kernel(const RSArgs a, const Noise noise, const Source src,
+               const float* __restrict__ incumbent, const float* __restrict__ noise_in,
+               float* __restrict__ noise_out, float* __restrict__ costs,
+               unsigned long long* __restrict__ argmin) {
+  static_assert(ROLLOUT_LANES == 4, "one lane per leg");
+  static_assert(PL % 4 == 0 && (H * 12 * PL * 4) % 16 == 0 && (H * 4 * 4) % 16 == 0,
+                "bulk copies move multiples of 16 bytes; a leg owns whole Philox chunks");
+  constexpr int CH = PL / 4;  // Philox chunks of one leg
+  __shared__ __align__(16) float w_s[H * 12 * PL];
+  __shared__ __align__(16) float c_s[H * 4];
+  __shared__ __align__(16) float sh_s[H * 4];
+  __shared__ __align__(8) unsigned long long bar;
+  if (threadIdx.x == 0) bulk_barrier_init(&bar);
+  src.stage(a, c_s, sh_s);
+  __syncthreads();
+  if (threadIdx.x == 0) src.copy(w_s, c_s, sh_s, &bar);
+
+  // The noise and the parameters overlap the copy: they do not read it.
+  const int N = a.num_samples;
+  const int leg = threadIdx.x % ROLLOUT_LANES;
+  const int j = blockIdx.x * ROLLOUT_SAMPLES + threadIdx.x / ROLLOUT_LANES;
+  const bool live = j < src.group_size;
+  const int i = blockIdx.y * src.group_size + (live ? j : src.group_size - 1);
+  float prm[PL];
+#pragma unroll
+  for (int q = 0; q < CH; ++q) {
+    const int k = leg * CH + q;
+    const float4 z = noise_in != nullptr ? load_noise4(noise_in, N, i, k) : noise(a, i, k);
+    if (noise_out != nullptr && live) store_noise4(noise_out, N, i, k, z);
+    prm[4 * q + 0] = __fadd_rn(__ldg(&incumbent[4 * k + 0]), z.x);
+    prm[4 * q + 1] = __fadd_rn(__ldg(&incumbent[4 * k + 1]), z.y);
+    prm[4 * q + 2] = __fadd_rn(__ldg(&incumbent[4 * k + 2]), z.z);
+    prm[4 * q + 3] = __fadd_rn(__ldg(&incumbent[4 * k + 3]), z.w);
+  }
+  bulk_wait(&bar, 0);
+
+  const float cost = src.finish(lane_rollout_cost<H, PL>(a, w_s, prm, c_s, sh_s, leg));
+  if (live && leg == 0) costs[i] = cost;
+  fold_argmin(live ? cost_key(cost, i) : ~0ull, argmin);
+}
+
+// The rollout pass's launch geometry, for every kernel that runs it.
+template <int H, int PL, class Noise, class Source>
+static cudaError_t launch_rollout(const RSArgs& a, const Noise& noise, const Source& src,
+                                  const float* incumbent, const float* noise_in,
+                                  float* noise_out, float* costs, unsigned long long* argmin,
+                                  cudaStream_t stream) {
+  const dim3 grid((src.group_size + ROLLOUT_SAMPLES - 1) / ROLLOUT_SAMPLES, src.num_groups);
+  rollout_kernel<H, PL, Noise, Source><<<grid, ROLLOUT_THREADS, 0, stream>>>(
+      a, noise, src, incumbent, noise_in, noise_out, costs, argmin);
+  return cudaGetLastError();
 }

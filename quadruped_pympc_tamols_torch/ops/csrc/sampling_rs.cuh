@@ -22,6 +22,13 @@ __device__ __forceinline__ float4 rs_noise4(unsigned long long seed, unsigned lo
   return make_float4(__fmul_rn(z.x, s), __fmul_rn(z.y, s), __fmul_rn(z.z, s), __fmul_rn(z.w, s));
 }
 
+// K1a's noise for rollout_kernel.
+struct RandomBands {
+  __device__ float4 operator()(const RSArgs& a, int i, int k) const {
+    return rs_noise4(a.seed, a.offset, a.band1, a.band2, a.sigma1, a.sigma2, a.sigma3, i, k);
+  }
+};
+
 template <int H, int PL>
 __global__ void __launch_bounds__(RS_BLOCK)
 rs_extract_kernel(const RSArgs a, const float* __restrict__ w_blk,

@@ -12,7 +12,8 @@
 // function on one stream: each reads the previous one's parameters and sigma from
 // device memory. One iteration is a memset and three launches:
 //
-//   sm_rollout_kernel  one thread per sample: Philox4x32-10 normals times sigma
+//   rollout_kernel     the shared rollout pass of sampling_common.cuh, four lanes
+//                      per sample (one per leg): Philox4x32-10 normals times sigma
 //                      (sigma_mppi, or CEM's per-parameter sigma), params =
 //                      incumbent + noise, the H-step rollout of K1a, all N costs
 //                      written out, beta folded into a 64-bit atomicMin on
@@ -32,50 +33,14 @@
 //                      beta, new parameters (P)], plus sigma' (P) and the elite
 //                      indices (K) for CEM.
 //
-// What bounds it: operations, as K1a (the rollout is the same), plus ~2P + 20
-// flops per sample for the weight and the weighted sum. No float atomicAdd: every
-// sum runs in a fixed order, so the same inputs give the same bits from run to
-// run. At T = 1 most weights underflow to exactly 0, and those samples skip the
+// What bounds it: the rollout pass, as in K1a (latency; see sampling_common.cuh),
+// plus ~2P + 20 flops per sample for the weight and the weighted sum. No float
+// atomicAdd: every sum runs in a fixed order, so the same inputs give the same
+// bits from run to run. At T = 1 most weights underflow to exactly 0, and those samples skip the
 // regeneration. Keys order like (cost, index), so the elites are the lowest costs
 // with the lowest index first on ties, as jax.lax.top_k picks them: ties are real
 // at the 1e6 saturation.
 #include "sampling_softmax.cuh"
-
-template <int H, int PL>
-__global__ void __launch_bounds__(RS_BLOCK)
-sm_rollout_kernel(const RSArgs a, const SMKnobs kn, const float* __restrict__ w_blk,
-                  const float* __restrict__ incumbent, const float* __restrict__ sigma_in,
-                  const float* __restrict__ noise_in, float* __restrict__ noise_out,
-                  float* __restrict__ costs, unsigned long long* __restrict__ argmin) {
-  constexpr int P = 4 * PL;
-  __shared__ float w_s[H * 12 * PL];
-  __shared__ float inc_s[P];
-  __shared__ float sig_s[P];
-  for (int k = threadIdx.x; k < H * 12 * PL; k += blockDim.x) w_s[k] = w_blk[k];
-  for (int k = threadIdx.x; k < P; k += blockDim.x) inc_s[k] = incumbent[k];
-  load_sigma(kn, sigma_in, sig_s, P);
-  __syncthreads();
-
-  const int N = a.num_samples;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  unsigned long long key = ~0ull;
-  if (i < N) {
-    float prm[P];
-#pragma unroll
-    for (int k = 0; k < P / 4; ++k) {
-      const float4 z = noise4(a, noise_in, sig_s, i, k);
-      if (noise_out != nullptr) store_noise4(noise_out, N, i, k, z);
-      prm[4 * k + 0] = __fadd_rn(inc_s[4 * k + 0], z.x);
-      prm[4 * k + 1] = __fadd_rn(inc_s[4 * k + 1], z.y);
-      prm[4 * k + 2] = __fadd_rn(inc_s[4 * k + 2], z.z);
-      prm[4 * k + 3] = __fadd_rn(inc_s[4 * k + 3], z.w);
-    }
-    const float cost = rollout_cost<H, PL>(a, w_s, prm);
-    costs[i] = cost;
-    key = cost_key(cost, i);
-  }
-  fold_argmin(key, argmin);
-}
 
 template <int H, int PL>
 static int sm_launch_t(const RSArgs* a, const SMKnobs* kn, const float* w_blk,
@@ -85,11 +50,11 @@ static int sm_launch_t(const RSArgs* a, const SMKnobs* kn, const float* w_blk,
                        float* sigma_out, int* elites, cudaStream_t stream) {
   cudaError_t err = cudaMemsetAsync(argmin, 0xFF, sizeof(unsigned long long), stream);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (a->num_samples + RS_BLOCK - 1) / RS_BLOCK;
-  sm_rollout_kernel<H, PL><<<blocks, RS_BLOCK, 0, stream>>>(*a, *kn, w_blk, incumbent, sigma_in,
-                                                            noise_in, noise_out, costs, argmin);
-  err = cudaGetLastError();
+  err = launch_rollout<H, PL>(*a, scaled_normals(*kn, sigma_in),
+                             StaticSource<H, PL>{w_blk, a->num_samples, 1}, incumbent, noise_in,
+                             noise_out, costs, argmin, stream);
   if (err != cudaSuccess) return (int)err;
+  const int blocks = (a->num_samples + RS_BLOCK - 1) / RS_BLOCK;
   sm_weights_kernel<PL><<<blocks, RS_BLOCK, 0, stream>>>(*a, *kn, sigma_in, noise_in, costs,
                                                          argmin, partials, block_keys);
   err = cudaGetLastError();
@@ -108,6 +73,8 @@ int sm_knobs_size(void) { return (int)sizeof(SMKnobs); }
 
 int sm_block(void) { return RS_BLOCK; }
 
+int sm_rollout_samples(void) { return ROLLOUT_SAMPLES; }
+
 int sm_max_elite(void) { return SM_KMAX; }
 
 const char* sm_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
@@ -115,14 +82,16 @@ const char* sm_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 // One MPPI (kn->cem == 0) or CEM-MPPI iteration. Scratch: argmin (1), partials
 // (B, P + 1) and, for CEM, block_keys (B, K), with B = ceil(N / sm_block()).
 // sigma_in, sigma_out and elites are read or written only for CEM. Returns 0, a
-// CUDA error code, or -1 for a shape or knob this build does not take. Only the
-// main path's shape is built: horizon 12, 24 parameters per leg.
+// CUDA error code, or -1 for a shape or knob this build does not take or a basis
+// that is not 16-byte aligned. Only the main path's shape is built: horizon 12,
+// 24 parameters per leg.
 int sm_launch(const RSArgs* a, const SMKnobs* kn, int params_per_leg, const float* w_blk,
               const float* incumbent, const float* sigma_in, const float* noise_in,
               float* noise_out, float* costs, unsigned long long* argmin, float* partials,
               unsigned long long* block_keys, float* out, float* sigma_out, int* elites,
               void* stream) {
   if (a->horizon != 12 || params_per_leg != 24 || a->num_samples < 1) return -1;
+  if (((uintptr_t)w_blk & 15) != 0) return -1;
   if (!(kn->temperature > 0.f)) return -1;
   if (kn->cem && (kn->n_elite < 2 || kn->n_elite > SM_KMAX || kn->n_elite > a->num_samples))
     return -1;

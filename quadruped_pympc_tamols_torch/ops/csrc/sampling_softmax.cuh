@@ -27,6 +27,24 @@ __device__ __forceinline__ float4 sm_noise4(unsigned long long seed, unsigned lo
                      __fmul_rn(z.w, s.w));
 }
 
+// K1b/K1c's noise for rollout_kernel: sigma (P,) for CEM, nullptr for MPPI's
+// sigma_mppi.
+struct ScaledNormals {
+  const float* sigma;
+  float sigma_mppi;
+  __device__ float4 operator()(const RSArgs& a, int i, int k) const {
+    const float4 s = sigma != nullptr ? make_float4(__ldg(&sigma[4 * k]), __ldg(&sigma[4 * k + 1]),
+                                                    __ldg(&sigma[4 * k + 2]),
+                                                    __ldg(&sigma[4 * k + 3]))
+                                      : make_float4(sigma_mppi, sigma_mppi, sigma_mppi, sigma_mppi);
+    return sm_noise4(a.seed, a.offset, i, k, s);
+  }
+};
+
+static inline ScaledNormals scaled_normals(const SMKnobs& kn, const float* sigma_in) {
+  return ScaledNormals{kn.cem ? sigma_in : nullptr, kn.sigma_mppi};
+}
+
 // Sigma of every parameter into shared memory.
 __device__ __forceinline__ void load_sigma(const SMKnobs& kn, const float* sigma_in, float* sig_s,
                                            int P) {

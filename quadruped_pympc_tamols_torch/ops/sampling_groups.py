@@ -17,9 +17,9 @@ The step-0 GRFs and one-step state come from the host's contact sequence
 column 0, its gravity share and the counter-zero basis (the static basis's
 first 12 rows), not from the winning group.
 
-One solve is a memset, one group-aware rollout launch over a (ceil(Ng/64), K)
-grid, and then K1a's extraction launch or K1b/K1c's weights and finish launches
-over the K*Ng samples. The group's basis blocks, contact and share columns and
+One solve is a memset, one launch of the shared rollout pass over a
+(ceil(Ng/ROLLOUT_SAMPLES), K) grid, and then K1a's extraction launch or
+K1b/K1c's weights and finish launches over the K*Ng samples. The group's basis blocks, contact and share columns and
 offsets reach the card in one host-to-device copy a tick (from pinned memory);
 the basis does not fit in the by-value argument block.
 
@@ -193,12 +193,13 @@ def load_library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = build.load("sampling_groups")
-        for name in ("sg_args_size", "sg_knobs_size", "sg_block"):
+        for name in ("sg_args_size", "sg_knobs_size", "sg_block", "sg_rollout_samples"):
             getattr(lib, name).restype = ctypes.c_int
             getattr(lib, name).argtypes = []
         if (lib.sg_args_size() != ctypes.sizeof(rs.RSArgs)
                 or lib.sg_knobs_size() != ctypes.sizeof(sm.SMKnobs)
-                or lib.sg_block() != sm.BLOCK):
+                or lib.sg_block() != sm.BLOCK
+                or lib.sg_rollout_samples() != rs.ROLLOUT_SAMPLES):
             raise RuntimeError("sampling_groups.cu and its ctypes mirror disagree")
         lib.sg_error_string.restype = ctypes.c_char_p
         lib.sg_error_string.argtypes = [ctypes.c_int]
@@ -282,7 +283,8 @@ def launch(lib, args: rs.RSArgs, knobs: sm.Knobs, plan: GroupPlan, ws: sm.Worksp
                        base + 8 if knobs.cem else None, ws.out.data_ptr(), ptr(ws.sigma),
                        ptr(ws.elites), stream)
     if rc != 0:
-        msg = "unsupported shape or knob" if rc < 0 else lib.sg_error_string(rc).decode()
+        msg = ("unsupported shape, knob or alignment" if rc < 0
+               else lib.sg_error_string(rc).decode())
         raise RuntimeError(f"sampling_groups launch failed ({rc}): {msg}")
 
 

@@ -3,13 +3,17 @@
 The kernel (``csrc/sampling_rs.cu``) replaces the main-path variant of the Pallas
 TPU kernel ``quadruped_pympc_tamols_tpu/ops/rollout_pallas.py:
 make_pallas_iteration(...).kernel`` (random_sampling, one group, fused cross-tile
-combine, one iteration). It is bound by operations, not bytes: per sample a
-(H*12, P) basis product, an H-step SRB rollout and P normals, against a few
-hundred KB of inputs and outputs. The design keeps every sample's parameters in
-registers, reads only the nonzero leg block of the basis from shared memory,
-folds the argmin into one 64-bit atomicMin and regenerates the winner from its
-Philox counter in a second tiny launch, so neither the noise nor the forces ever
-reach device memory. See the source for the details.
+combine, one iteration). Per sample it does a (H*12, P) basis product, an H-step
+SRB rollout and P normals, against a few hundred KB of inputs and outputs: far
+from both the card's FP32 rate and its memory rate, it is bound by the latency
+of each sample's dependent chain. The rollout pass (shared with K1b-K1e, in
+``csrc/sampling_common.cuh``) therefore runs each sample on four lanes, one per
+leg, in blocks of ``ROLLOUT_SAMPLES`` samples; each lane keeps its leg's
+parameters in registers and reads only its leg's rows of the basis, which a
+bulk asynchronous copy brings into shared memory. The argmin folds into one
+64-bit atomicMin and the winner is regenerated from its Philox counter in a
+second tiny launch, so neither the noise nor the forces ever reach device
+memory. See the sources for the details.
 
 ``sampling_rs`` is the wrapper. On CUDA tensors it launches the kernel (two
 launches, counted once in ``sampling_rs.launches``) or raises; on CPU tensors it
@@ -38,6 +42,9 @@ from . import build
 
 KERNEL_HORIZON = 12  # the horizon the CUDA source instantiates
 KERNEL_PARAMS_PER_LEG = 24  # cubic splines, 2 splines, at H = 12 (the main path)
+# Samples per block of the rollout pass, four lanes each (ROLLOUT_SAMPLES in
+# csrc/sampling_common.cuh; every library's getter is checked against it).
+ROLLOUT_SAMPLES = 16
 _HMAX = 16
 OUT_WINNER = 26  # packed output: [cost, grf(12), state(12), index, winner(P)]
 COST_SATURATION = 1.0e6
@@ -267,8 +274,12 @@ def load_library() -> ctypes.CDLL:
         lib = build.load("sampling_rs")
         lib.rs_args_size.restype = ctypes.c_int
         lib.rs_args_size.argtypes = []
+        lib.rs_rollout_samples.restype = ctypes.c_int
+        lib.rs_rollout_samples.argtypes = []
         if lib.rs_args_size() != ctypes.sizeof(RSArgs):
             raise RuntimeError("RSArgs layout differs between sampling_rs.cu and ctypes")
+        if lib.rs_rollout_samples() != ROLLOUT_SAMPLES:
+            raise RuntimeError("sampling_rs.cu's rollout block differs from ROLLOUT_SAMPLES")
         lib.rs_error_string.restype = ctypes.c_char_p
         lib.rs_error_string.argtypes = [ctypes.c_int]
         lib.rs_launch.restype = ctypes.c_int
@@ -336,7 +347,7 @@ def sampling_rs(plan: RSPlan, tick: TickInputs, incumbent: torch.Tensor, seed: i
                        None if noise_out is None else noise_out.data_ptr(),
                        costs.data_ptr(), argmin.data_ptr(), out.data_ptr(), stream)
     if rc != 0:
-        msg = "unsupported shape" if rc < 0 else lib.rs_error_string(rc).decode()
+        msg = "unsupported shape or alignment" if rc < 0 else lib.rs_error_string(rc).decode()
         raise RuntimeError(f"sampling_rs launch failed ({rc}): {msg}")
     sampling_rs.launches += 1
     return costs, out

@@ -41,7 +41,7 @@ from ..dynamics.srbd import SRBDParams
 from . import build
 from . import sampling_kernel as rs
 
-BLOCK = 64  # samples per block of the rollout and weights launches (RS_BLOCK)
+BLOCK = 64  # samples per block of the weights launch (RS_BLOCK): sizes the partials and keys
 MAX_ELITE = 32  # SM_KMAX
 
 
@@ -202,12 +202,14 @@ def load_library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = build.load("sampling_softmax")
-        for name in ("sm_args_size", "sm_knobs_size", "sm_block", "sm_max_elite"):
+        for name in ("sm_args_size", "sm_knobs_size", "sm_block", "sm_rollout_samples",
+                     "sm_max_elite"):
             getattr(lib, name).restype = ctypes.c_int
             getattr(lib, name).argtypes = []
         if (lib.sm_args_size() != ctypes.sizeof(rs.RSArgs)
                 or lib.sm_knobs_size() != ctypes.sizeof(SMKnobs)
-                or lib.sm_block() != BLOCK or lib.sm_max_elite() != MAX_ELITE):
+                or lib.sm_block() != BLOCK or lib.sm_rollout_samples() != rs.ROLLOUT_SAMPLES
+                or lib.sm_max_elite() != MAX_ELITE):
             raise RuntimeError("sampling_softmax.cu and its ctypes mirror disagree")
         lib.sm_error_string.restype = ctypes.c_char_p
         lib.sm_error_string.argtypes = [ctypes.c_int]
@@ -259,7 +261,8 @@ def launch(lib, args: rs.RSArgs, kn: SMKnobs, plan: rs.RSPlan, ws: Workspace, in
                        base + 8 if kn.cem else None, ws.out.data_ptr(),
                        ptr(ws.sigma), ptr(ws.elites), stream)
     if rc != 0:
-        msg = "unsupported shape or knob" if rc < 0 else lib.sm_error_string(rc).decode()
+        msg = ("unsupported shape, knob or alignment" if rc < 0
+               else lib.sm_error_string(rc).decode())
         raise RuntimeError(f"sampling_softmax launch failed ({rc}): {msg}")
 
 

@@ -1,0 +1,122 @@
+#!/usr/bin/env python3
+"""Compare the sampling kernels' outputs of two checkouts bit for bit on one card.
+
+    python3 tools/cost_digest.py TREE_A TREE_B
+
+For each TREE (the root of a checkout of this repository), in a process of its
+own, imports that tree's ``quadruped_pympc_tamols_torch``, runs kernels K1a, K1b,
+K1c and K1e (each method) once at N = 10 000 on the card, on numpy noise from a
+seed and on Philox noise, and keeps every output. Then prints, for each output,
+whether the two trees' bits are equal, and where they are not, how many elements
+differ and the largest absolute difference. Exits 1 if any output differs.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+
+N = 10_000
+
+
+def run_tree(path: str) -> None:
+    """Child: this tree's outputs into the .npz named by argv[3]."""
+    import torch
+    from quadruped_pympc_tamols_torch import make_config
+    from quadruped_pympc_tamols_torch.controllers.sampling import group_operators
+    from quadruped_pympc_tamols_torch.controllers.sampling.rollout import gravity_share
+    from quadruped_pympc_tamols_torch.ops import sampling_groups as sg
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+
+    dev = torch.device("cuda:0")
+    base = {"sim.visual_foothold_adaptation": "blind"}
+    cfg = make_config("aliengo", mpc_type="sampling", **base)
+    H = cfg.mpc.horizon
+    state12 = np.zeros(12, np.float32)
+    state12[2], state12[3] = cfg.sim.ref_z - 0.03, 0.1
+    ref12 = np.zeros(12, np.float32)
+    ref12[2], ref12[3] = cfg.sim.ref_z, 0.2
+    feet = np.array([[0.25, 0.15, 0], [0.25, -0.15, 0], [-0.25, 0.15, 0], [-0.25, -0.15, 0]],
+                    np.float32)
+    seq = np.ones((4, H), np.float32)
+    seq[1, 6:] = seq[2, 6:] = 0.0
+    share = gravity_share(torch.from_numpy(seq), cfg.robot.mass)[:, None].expand(H, 4).numpy()
+    tick = sk.TickInputs(state12, feet, ref12, seq, np.ascontiguousarray(share))
+
+    plan = sk.make_rs_plan(cfg, N, dev)
+    P = plan.num_parameters
+    rng = np.random.default_rng(0)
+    inc = torch.as_tensor(rng.standard_normal(P).astype(np.float32), device=dev)
+    sigma = torch.as_tensor(rng.uniform(0.3, 4.0, P).astype(np.float32), device=dev)
+    noise = torch.as_tensor((rng.standard_normal((P, N)) * 3.0).astype(np.float32), device=dev)
+    noise[:, 0] = 0.0
+    res = {}
+
+    def keep(name, tensors):
+        for j, x in enumerate(tensors):
+            if x is not None:
+                res[f"{name}[{j}]"] = x.detach().cpu().numpy()
+
+    for label, kw in (("numpy noise", {"noise_in": noise}), ("philox", {})):
+        keep(f"K1a {label}", sk.sampling_rs(plan, tick, inc, 3, 1, **kw))
+        for method in ("mppi", "cem_mppi"):
+            knobs = sm.make_knobs(cfg, method)
+            keep(f"{method} {label}",
+                 sm.softmax_iteration(plan, knobs, tick, inc, sigma, 3, 1, **kw))
+    gcfg = make_config("aliengo", mpc_type="sampling",
+                       **{**base, "mpc.optimize_step_freq": True,
+                          "mpc.step_freq_available": (2.4, 1.3, 2.0)})
+    gplan = sg.make_group_plan(gcfg, N, dev)
+    groups = group_operators(gcfg, np.array([0.3, 0.8, 0.8, 0.3], np.float32),
+                             np.asarray(gcfg.mpc.step_freq_available, np.float32))
+    gnoise = noise[:, :gplan.num_used].contiguous()
+    for label, kw in (("numpy noise", {"noise_in": gnoise}), ("philox", {})):
+        for method in ("random_sampling", "mppi", "cem_mppi"):
+            knobs = sm.make_knobs(gcfg, method)
+            keep(f"K1e {method} {label}",
+                 sg.sampling_groups(gplan, knobs, tick, groups, inc, sigma, 3, 1, **kw))
+    torch.cuda.synchronize()
+    np.savez(sys.argv[3], **res)
+
+
+def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--child":
+        sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        run_tree(sys.argv[2])
+        return 0
+    if len(sys.argv) != 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = []
+        for k, tree in enumerate(sys.argv[1:]):
+            out = os.path.join(tmp, f"{k}.npz")
+            subprocess.run([sys.executable, os.path.abspath(__file__), "--child", tree, out],
+                           check=True)
+            outs.append(dict(np.load(out)))
+    a, b = outs
+    if a.keys() != b.keys():
+        print(f"the trees return different outputs: {sorted(a)} vs {sorted(b)}")
+        return 1
+    same = True
+    for name in a:
+        x, y = a[name], b[name]
+        equal = x.shape == y.shape and x.tobytes() == y.tobytes()
+        same &= equal
+        if equal:
+            print(f"{name}: bit-equal ({x.size} elements)")
+        else:
+            d = np.abs(x.astype(np.float64) - y.astype(np.float64))
+            print(f"{name}: {int((x != y).sum())} of {x.size} elements differ, largest "
+                  f"{float(np.nanmax(d))}")
+    print(json.dumps({"bit_equal": bool(same)}))
+    return 0 if same else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
