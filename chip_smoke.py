@@ -12,8 +12,9 @@ without the package beside it.
 
 Output: the card's name and power limit, one line per phase, for each row the
 rollout pass's device time and its kernel's registers, shared memory and spills
-(from the build's ``-Xptxas -v`` log), a ``{"kernels": ...}`` line, and as the
-last line ``{"ok": true, "device": {...}}``.
+(from the build's ``-Xptxas -v`` log), the same for the update pass of the MPPI
+and CEM rows (K1b-K1d, K1e-mppi, K1e-cem), a ``{"kernels": ...}`` line, and as
+the last line ``{"ok": true, "device": {...}}``.
 
 Phases (each raises on failure; every path is driven with all launch counts set
 to 0 just before it and read just after):
@@ -36,7 +37,8 @@ to 0 just before it and read just after):
      phase-5 checks on its dumped noise.
   7. This slice's path: the same walk with MPPI and 3 chained iterations a tick
      (three K1b launches chained by K1d) must walk; the profiler over 50 solve ticks
-     must see exactly one device-to-host copy a tick.
+     must see exactly one device-to-host copy a tick, and the rollout and update
+     kernels once an iteration each (a K1b iteration is a memset and two launches).
   8. A CEM-MPPI closed loop (3 iterations a tick) for 3 s: finite GRFs and a
      sigma inside [cem_sigma_min, cem_sigma_max] on every tick. The JAX
      reference falls in this configuration too, so the walk is not asserted.
@@ -346,13 +348,28 @@ def profile_ticks(mpc, tick, n=50) -> dict:
     return {"window_ms_per_tick": wall_us / n / 1e3,
             "device_busy_share": busy_us / wall_us,
             "d2h_copies": sum(v[0] for k, v in kernels.items() if "DtoH" in k),
-            "device_us_per_tick": {k: v[1] / n for k, v in sorted(kernels.items())}}
+            "device_us_per_tick": {k: v[1] / n for k, v in sorted(kernels.items())},
+            "launches": {k: v[0] for k, v in sorted(kernels.items())}}
 
 
-def rollout_profile(fn, n=50) -> tuple:
-    """(kernel name, mean device us a launch) of the rollout pass over n calls of
-    fn, from torch.profiler (fn is warm). Raises if the trace holds no device time
-    or no rollout kernel."""
+PASSES = {"rollout": "rollout_kernel", "update": "sm_update_kernel"}
+
+
+def once_an_iteration(tag, count, iterations):
+    """Raise unless the profiler's count of ``tag`` says one launch an iteration.
+    torch.profiler loses kernel records (on the H100 it has recorded 41 of 50 and
+    149 of 150), so a count down to half passes; two launches an iteration would
+    double it and none would leave it at 0, and a lost record never adds one."""
+    if not iterations / 2 < count <= iterations:
+        raise AssertionError(f"{tag}: {count} launches recorded in {iterations} iterations, "
+                             "want one an iteration")
+
+
+def pass_profile(fn, iterations, update, n=50) -> dict:
+    """{"rollout": (kernel name, mean device us a launch)} over n calls of fn (fn
+    is warm, ``iterations`` iterations a call), and "update" likewise where
+    ``update``, from torch.profiler. Raises if the trace holds no such kernel, or
+    one that ran other than once an iteration (see ``once_an_iteration``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -360,23 +377,29 @@ def rollout_profile(fn, n=50) -> tuple:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+    want = {k: v for k, v in PASSES.items() if k == "rollout" or update}
+    found = {}
     for e in prof.key_averages():
         dev_us = getattr(e, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "cuda_time_total", 0.0)
-        if "rollout_kernel" in e.key and dev_us > 0:
-            return e.key.split("(")[0], dev_us / e.count
-    raise AssertionError("the profiler saw no rollout kernel")
+        for short, tag in want.items():
+            if tag in e.key and dev_us > 0:
+                once_an_iteration(tag, e.count, n * iterations)
+                found[short] = (e.key.split("(")[0], dev_us / e.count)
+    if found.keys() != want.keys():
+        raise AssertionError(f"the profiler saw {sorted(found)} of {sorted(want)}")
+    return found
 
 
-def ptxas_rollout(log_path) -> dict:
-    """Registers, shared memory, stack and spills of the rollout kernel, from the
+def ptxas_of(log_path, kernel) -> dict:
+    """Registers, shared memory, stack and spills of ``kernel``, from the
     library's ``-Xptxas -v`` log."""
     import re
     entry, found = False, {}
     for line in log_path.read_text().splitlines():
         if "Compiling entry function" in line:
-            entry = "rollout_kernel" in line
+            entry = kernel in line
         elif entry and "spill" in line:
             stack, stores, loads = map(int, re.findall(r"(\d+) bytes", line))
             found.update(stack_bytes=stack, spill_store_bytes=stores, spill_load_bytes=loads)
@@ -385,7 +408,7 @@ def ptxas_rollout(log_path) -> dict:
             m = re.search(r"(\d+) bytes smem", line)
             found["smem_bytes"] = int(m.group(1)) if m else 0
     if "registers" not in found:
-        raise AssertionError(f"no rollout kernel in {log_path.name}")
+        raise AssertionError(f"no {kernel} in {log_path.name}")
     return found
 
 
@@ -416,8 +439,9 @@ def k1a_bound_ms(plan) -> tuple:
 def softmax_bound_ms(plan, knobs, iterations=1) -> tuple:
     """Least time of ``iterations`` K1b / K1c iterations on an H100. Per sample
     per iteration, K1a's count plus ~2P + 20 flops for the weight, its
-    exponential and the weighted sum (regenerating the noise is the design's
-    choice and not counted; the K-elite selection and refit are O(N + K P)).
+    exponential and the weighted sum (writing the noise and reading it back is
+    the design's choice and not counted; the K-elite selection and refit are
+    O(N + K P)).
     Bytes: W's leg blocks, the incumbent (and sigma) read, N costs, the packed
     output (and sigma', elites) written, once per iteration."""
     H, P_leg, P, N = plan.horizon, plan.params_per_leg, plan.num_parameters, plan.num_samples
@@ -702,15 +726,16 @@ def phase_softmax_times(dev, rng):
                 x, s = r.new_params, r.sigma if knobs.cem else s
 
         out[method] = {
-            "ms": time_cuda(one), "rollout": rollout_profile(one),
+            "ms": time_cuda(one), "passes": pass_profile(one, 1, True),
             "plain_ms": time_cuda(plain, runs=PLAIN_RUNS),
             "chain_ms": time_cuda(lambda: sm.sampling_chain(plan, knobs, tick, inc, sig, 5, 0, 3)),
-            "chain_prebuilt_ms": time_cuda(chained), "chain_rollout": rollout_profile(chained),
+            "chain_prebuilt_ms": time_cuda(chained),
+            "chain_passes": pass_profile(chained, 3, True),
             "chain_plain_ms": time_cuda(lambda: plain(3), runs=PLAIN_RUNS // 3),
             "bound": softmax_bound_ms(plan, knobs), "chain_bound": softmax_bound_ms(plan, knobs, 3),
             "tick_ms": solve_tick_ms(SamplingMPC(cfg, device="cuda"), tick)}
         log(f"phase 9 {method}: one iteration {out[method]['ms']:.4f} ms (median of "
-            f"{TIMED_RUNS}; memset + 3 launches), plain {out[method]['plain_ms']:.4f} ms, "
+            f"{TIMED_RUNS}; memset + 2 launches), plain {out[method]['plain_ms']:.4f} ms, "
             f"bound {out[method]['bound'][0]:.5f} ms ({out[method]['bound'][1]}); 3 chained "
             f"through sampling_chain {out[method]['chain_ms']:.4f} ms, through the C entry with "
             f"prebuilt argument blocks {out[method]['chain_prebuilt_ms']:.4f} ms, plain "
@@ -918,7 +943,8 @@ def phase_group_times(dev, rng):
 
         out[method] = {
             "operators_us": statistics.median(host_us),
-            "ms": time_cuda(launch), "rollout": rollout_profile(launch),
+            "ms": time_cuda(launch),
+            "passes": pass_profile(launch, 1, method != "random_sampling"),
             "wrapper_ms": time_cuda(lambda: sg.sampling_groups(gplan, knobs, tick, groups, inc,
                                                                sig, 5, 0)),
             "plain_ms": time_cuda(plain, runs=PLAIN_RUNS),
@@ -1042,7 +1068,7 @@ def main() -> int:
             raise RuntimeError(f"rs_launch returned {rc}")
 
     kernel_ms = time_cuda(launch)
-    rollout = {"K1a": rollout_profile(launch)}
+    passes = {"K1a": pass_profile(launch, 1, False)}
     plain_ms = time_cuda(lambda: plain_on_device(plan, tick, inc, noise), runs=50)
     mpc = SamplingMPC(cfg, device="cuda")
     tick_med = solve_tick_ms(mpc, tick)
@@ -1065,6 +1091,9 @@ def main() -> int:
     if prof.get("d2h_copies") != 50:
         raise AssertionError(f"phase 7: {prof.get('d2h_copies')} device-to-host copies in 50 "
                              "ticks, want one a tick")
+    for tag in PASSES.values():
+        once_an_iteration(f"phase 7 {tag}",
+                          sum(c for k, c in prof["launches"].items() if tag in k), 150)
 
     # -- phase 8: CEM-MPPI closed loop ------------------------------------------------
     counts_cem, _ = cem_loop(softmax_cfg("cem_mppi"), "phase 8", counts_of(K1c=3),
@@ -1134,21 +1163,23 @@ def main() -> int:
                            launches, e["cost"], r["ms"], r["plain_ms"], r["bound"],
                            ms_through_wrapper=r["wrapper_ms"], solve_tick_ms=r["tick_ms"],
                            host_group_operators_us=r["operators_us"], **extra))
-    # The rollout pass of each row: its device time a launch (K1d: a launch of its
-    # chain) and the ptxas report of its library's rollout kernel.
-    rollout.update({"K1b": t9["mppi"]["rollout"], "K1c": t9["cem_mppi"]["rollout"],
-                    "K1d": t9["mppi"]["chain_rollout"], "K1e-rs": t12["random_sampling"]["rollout"],
-                    "K1e-mppi": t12["mppi"]["rollout"], "K1e-cem": t12["cem_mppi"]["rollout"]})
+    # The rollout and update passes of each row: device time a launch (K1d: a
+    # launch of its chain) and the ptxas report of the kernel in the row's library.
+    passes.update({"K1b": t9["mppi"]["passes"], "K1c": t9["cem_mppi"]["passes"],
+                   "K1d": t9["mppi"]["chain_passes"],
+                   "K1e-rs": t12["random_sampling"]["passes"], "K1e-mppi": t12["mppi"]["passes"],
+                   "K1e-cem": t12["cem_mppi"]["passes"]})
     library = {"K1a": "sampling_rs", "K1b": "sampling_softmax", "K1c": "sampling_softmax",
                "K1d": "sampling_softmax", "K1e-rs": "sampling_groups",
                "K1e-mppi": "sampling_groups", "K1e-cem": "sampling_groups"}
-    for r, (short, (kname, us)) in zip(kernels, rollout.items()):
+    for r, (short, found) in zip(kernels, passes.items()):
         if f"({short}" not in r["name"]:
-            raise AssertionError(f"rollout times out of order: {short} for {r['name']}")
-        ptx = ptxas_rollout(libs[library[short]].with_suffix(".log"))
-        r["rollout_kernel_us"] = us
-        log(f"rollout pass of {short}: {kname} {us:.2f} us a launch (torch.profiler, mean of 50 "
-            f"calls); ptxas: {ptx}")
+            raise AssertionError(f"pass times out of order: {short} for {r['name']}")
+        for pass_name, (kname, us) in found.items():
+            ptx = ptxas_of(libs[library[short]].with_suffix(".log"), PASSES[pass_name])
+            r[f"{pass_name}_kernel_us"] = us
+            log(f"{pass_name} pass of {short}: {kname} {us:.2f} us a launch (torch.profiler, "
+                f"mean of 50 calls); ptxas: {ptx}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,7 @@
 #include <stdint.h>
 
 #define RS_HMAX 16
-#define RS_BLOCK 64  // threads of the extraction and weights kernels, one sample each
+#define RS_BLOCK 64  // threads of the extraction kernel; samples a block of the update pass
 // The rollout pass: lanes per sample (one per leg), samples per block, and the
 // blocks per SM its register budget must allow (65 536 / (8 * 64) = 128 a thread).
 #define ROLLOUT_LANES 4

@@ -6,7 +6,8 @@
 // XLA solver's forms (controllers/sampling/gait_adaptive.py:184-226). The N samples
 // are partitioned into K groups, one per candidate step frequency: group k holds
 // samples [k*Ng, (k+1)*Ng) with Ng = N / K, and the last N - K*Ng are not evaluated.
-// One solve is a memset and:
+// One solve is a memset (the argmin key and, for MPPI and CEM, the update pass's
+// ticket) and two launches:
 //
 //   rollout_kernel     the shared rollout pass of sampling_common.cuh over a grid
 //                      (ceil(Ng/16), K), four lanes per sample (one per leg), each
@@ -19,8 +20,8 @@
 //                      every cost written out and (cost bits << 32 | index) folded
 //                      into one 64-bit atomicMin.
 //   then, over the K*Ng samples, K1a's rs_extract_kernel (random sampling) or
-//   K1b/K1c's sm_weights_kernel and sm_finish_kernel (MPPI, CEM-MPPI): the argmin,
-//   or the softmax update with beta from the atomicMin, the elites and the refit.
+//   K1b/K1c's update pass sm_update_kernel (MPPI, CEM-MPPI): the argmin, or the
+//   softmax update with beta from the atomicMin, the elites and the refit.
 //   Their step-0 extraction reads step 0 of the argument block's contact and share
 //   (the host's contact sequence column and its gravity share) and the static
 //   basis's first 12 rows, which are the counter-zero basis: not the winning group's.
@@ -78,7 +79,7 @@ static int sg_launch_t(const RSArgs* a, const SMKnobs* kn, int method, int num_g
                        float* noise_out, float* costs, unsigned long long* argmin,
                        float* partials, unsigned long long* block_keys, float* out,
                        float* sigma_out, int* elites, cudaStream_t stream) {
-  cudaError_t err = cudaMemsetAsync(argmin, 0xFF, sizeof(unsigned long long), stream);
+  cudaError_t err = cudaMemsetAsync(argmin, 0xFF, 2 * sizeof(unsigned long long), stream);
   if (err != cudaSuccess) return (int)err;
   err = launch_rollout<H, PL>(*a, GroupNoise{method == 0, scaled_normals(*kn, sigma_in)},
                              GroupSource<H, PL>{groups, group_size, num_groups}, incumbent,
@@ -89,15 +90,9 @@ static int sg_launch_t(const RSArgs* a, const SMKnobs* kn, int method, int num_g
                                                          out);
     return (int)cudaGetLastError();
   }
-  const int blocks = (a->num_samples + RS_BLOCK - 1) / RS_BLOCK;
-  sm_weights_kernel<PL><<<blocks, RS_BLOCK, 0, stream>>>(*a, *kn, sigma_in, noise_in, costs,
-                                                         argmin, partials, block_keys);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sm_finish_kernel<PL><<<1, SM_FINISH_THREADS, 0, stream>>>(
-      *a, *kn, w0_blk, incumbent, sigma_in, noise_in, argmin, partials, block_keys, blocks, out,
-      sigma_out, elites);
-  return (int)cudaGetLastError();
+  return (int)launch_update<PL>(*a, *kn, w0_blk, incumbent, noise_in ? noise_in : noise_out,
+                                costs, argmin, partials, block_keys, out, sigma_out, elites,
+                                stream);
 }
 
 extern "C" {
@@ -116,10 +111,11 @@ const char* sg_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 // (kn->cem set for 2 only). a->num_samples is K * Ng, the samples evaluated, and
 // a->band1, a->band2 are N's band edges. groups: the per-group buffer described
 // above; w0_blk: the static basis's own-leg blocks, of which rows 0..11 are read.
-// Scratch as sm_launch: argmin (1), partials (B, P + 1) and, for CEM, block_keys
-// (B, K), with B = ceil(K * Ng / sg_block()). Returns 0, a CUDA error code, or -1
-// for a shape or knob this build does not take or a buffer that is not 16-byte
-// aligned (the bulk copy's rule). Only the main path's shape is built: horizon
+// Scratch, and for MPPI and CEM the noise buffer, as sm_launch: argmin (2),
+// partials (B, P + 1) and, for CEM, block_keys (B, K), with
+// B = ceil(K * Ng / sg_block()). Returns 0, a CUDA error code, or -1 for a shape
+// or knob this build does not take, no noise buffer, or a buffer that is not
+// 16-byte aligned (the bulk copy's and cp.async's rule). Only the main path's shape is built: horizon
 // 12, 24 parameters per leg.
 int sg_launch(const RSArgs* a, const SMKnobs* kn, int method, int params_per_leg, int num_groups,
               int group_size, const float* groups, const float* w0_blk, const float* incumbent,
@@ -132,7 +128,9 @@ int sg_launch(const RSArgs* a, const SMKnobs* kn, int method, int params_per_leg
   if (num_groups < 1 || num_groups > 65535 || group_size < 1 ||
       (long long)num_groups * group_size != a->num_samples)
     return -1;
-  if (method > 0 && !(kn->temperature > 0.f)) return -1;
+  if (method > 0 && (!(kn->temperature > 0.f) || (noise_in == nullptr && noise_out == nullptr) ||
+                     ((uintptr_t)partials & 15) != 0))
+    return -1;
   if (method == 2 && (kn->n_elite < 2 || kn->n_elite > SM_KMAX || kn->n_elite > a->num_samples))
     return -1;
   return sg_launch_t<12, 24>(a, kn, method, num_groups, group_size, groups, w0_blk, incumbent,

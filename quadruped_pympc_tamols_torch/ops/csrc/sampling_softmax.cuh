@@ -1,11 +1,10 @@
-// K1b/K1c's knobs, noise and optimizer-step kernels (weights, finish), shared by
-// sampling_softmax.cu (K1b-K1d) and sampling_groups.cu (K1e).
+// K1b/K1c's knobs, noise and optimizer step (the update pass, sm_update_kernel),
+// shared by sampling_softmax.cu (K1b-K1d) and sampling_groups.cu (K1e).
 #pragma once
 
 #include "sampling_common.cuh"
 
 #define SM_KMAX 32
-#define SM_FINISH_THREADS 128
 
 // The optimizer's constants, passed by value beside RSArgs (whose random-sampling
 // band fields these kernels do not read).
@@ -45,171 +44,412 @@ static inline ScaledNormals scaled_normals(const SMKnobs& kn, const float* sigma
   return ScaledNormals{kn.cem ? sigma_in : nullptr, kn.sigma_mppi};
 }
 
-// Sigma of every parameter into shared memory.
-__device__ __forceinline__ void load_sigma(const SMKnobs& kn, const float* sigma_in, float* sig_s,
-                                           int P) {
-  for (int k = threadIdx.x; k < P; k += blockDim.x) sig_s[k] = kn.cem ? sigma_in[k] : kn.sigma_mppi;
+// -- the update pass (K1b, K1c, K1e-mppi, K1e-cem) ------------------------------------
+//
+// One launch after rollout_kernel: grid ceil(N / RS_BLOCK), SM_UPDATE_THREADS
+// threads, thread t < RS_BLOCK holding sample blockIdx.x * RS_BLOCK + t. It reads
+// the noise the rollout pass used from a (P, N) buffer: the caller's noise_in, or
+// the noise the rollout pass wrote there. Every block writes one partial row of
+// (sum w * noise, sum w) over its samples and, for CEM, its K lowest keys in rank
+// order; the block that takes the last ticket then finishes the iteration.
+//
+// 1. Weights. w = exp(-(c - beta)/T). The block compacts the samples with w != 0,
+//    in thread order (a warp ballot and prefix), and loads their noise, one
+//    (sample, chunk of four parameters) pair a thread, SM_BATCH samples at a time,
+//    into a shared row buffer of w * noise; each column is then summed over the
+//    compacted rows in thread order. A zero row adds +0, a no-op on a sum that
+//    starts at +0, so the partial has the bits of the sum over all RS_BLOCK rows
+//    in thread order. On the flagship tick at T = 1 most weights are not 0
+//    (tools/pass_times.py counts them), so the noise is read back rather than
+//    regenerated from its Philox counters: on an H100, regenerating it made this
+//    pass 0.9-2.4 us slower (tools/update_variants.py, variant regenerate), while
+//    writing it moved the rollout pass by less than its run-to-run spread.
+// 2. The ticket. Each block fences its writes and takes a 64-bit atomic ticket
+//    that the iteration's memset set to all ones; the block whose atomicAdd
+//    returns B - 2 (unsigned) arrives last and finishes. No block waits for
+//    another, so no grid barrier and no cooperative launch.
+// 3. The finish, in the last block, as two groups that run at once. Warps 0-3
+//    copy the (B, P + 1) partials into shared memory with cp.async (from L2, all
+//    in flight together), sum each column over the blocks in block order (one
+//    column a thread), write incumbent + S / Z, and warp 0 extracts the step-0
+//    GRFs and state on four lanes, one per leg (srb_body<true>, as the rollout
+//    pass). For CEM, warps 4-15 copy the B*K candidate keys into shared memory,
+//    find t0, the K-th lowest of the B lists' heads (each list is a block's K
+//    lowest keys in rank order), gather the keys at or below it (at most K*K;
+//    they hold every elite) and rank them: the K lowest are the elites, in order,
+//    after three barriers and no round per elite. Then the group loads the K
+//    elites' noise and refits sigma per parameter in elite order.
+//
+// Every sum keeps the order of the two kernels this pass replaced (per block in
+// thread order, then over blocks in block order), so the bits are theirs; no
+// float atomics, so a rerun repeats them.
+
+#define SM_UPDATE_THREADS 512
+#define SM_UPDATE_MIN_BLOCKS 2  // 157 blocks at N = 10 000 resident at once on 132 SMs
+#define SM_COL_THREADS 128      // warps 0-3: the partials' column sums and the extraction
+#define SM_CEM_THREADS (SM_UPDATE_THREADS - SM_COL_THREADS)  // warps 4-15: elites and refit
+#define SM_RANK_LANES (SM_UPDATE_THREADS / RS_BLOCK)  // threads ranking one key of a block
+#define SM_BATCH 32          // nonzero-weight samples whose noise a round loads
+#define SM_TILE_ROWS 160     // partial rows copied into shared memory at once (a multiple of 4)
+#define SM_STAGE_KEYS 4096   // CEM candidate keys staged in shared memory (the rest read from L2)
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
 }
 
-__device__ __forceinline__ float4 noise4(const RSArgs& a, const float* noise_in, const float* sig_s,
-                                         int i, int k) {
-  if (noise_in != nullptr) return load_noise4(noise_in, a.num_samples, i, k);
-  return sm_noise4(a.seed, a.offset, i, k,
-                   make_float4(sig_s[4 * k], sig_s[4 * k + 1], sig_s[4 * k + 2], sig_s[4 * k + 3]));
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
 }
 
+// Named barrier ID of the THREADS threads that reach it.
+template <int ID, int THREADS>
+__device__ __forceinline__ void group_sync() {
+  asm volatile("bar.sync %0, %1;" ::"n"(ID), "n"(THREADS) : "memory");
+}
+
+// Bytes of the finish's partials tile, rounded to 16 so that what follows stays
+// aligned for cp.async.
+__host__ __device__ inline int sm_tile_bytes(int P, int num_blocks) {
+  const int rows = num_blocks < SM_TILE_ROWS ? num_blocks : SM_TILE_ROWS;
+  return (rows * (P + 1) * 4 + 15) / 16 * 16;
+}
+
+// Dynamic shared memory of the update pass: the batch's row buffer; in the last
+// block the same bytes hold the partials tile and, after it (CEM), the staged
+// candidate keys and the elites' candidates, then the elites' noise in their
+// place.
+static inline int sm_update_smem(int P, int cem, int n_elite, int num_blocks) {
+  const int batch = SM_BATCH * (P + 1) * 4;
+  int finish = sm_tile_bytes(P, num_blocks);
+  if (cem) {
+    const int m = num_blocks * n_elite;
+    const int keys = ((m < SM_STAGE_KEYS ? m : SM_STAGE_KEYS) + n_elite * n_elite) * 8;
+    const int noise = n_elite * P * 4;
+    finish += keys > noise ? keys : noise;
+  }
+  return batch > finish ? batch : finish;
+}
+
+// Step-0 GRFs (12) and one-step state (12) under parameters prm and the basis's
+// first 12 rows w_rows (12, PL), written to out[1..24], by the four lanes of each
+// group of a full warp (lane % 4 = leg): step0_extract's arithmetic, with the body
+// update of the rollout pass.
 template <int PL>
-__global__ void __launch_bounds__(RS_BLOCK)
-sm_weights_kernel(const RSArgs a, const SMKnobs kn, const float* __restrict__ sigma_in,
-                  const float* __restrict__ noise_in, const float* __restrict__ costs,
-                  const unsigned long long* __restrict__ argmin, float* __restrict__ partials,
-                  unsigned long long* __restrict__ block_keys) {
-  constexpr int P = 4 * PL;
-  constexpr int ROW = P + 1;  // odd: row writes and column reads are free of bank conflicts
-  __shared__ float sig_s[P];
-  __shared__ float acc_s[RS_BLOCK * ROW];
-  __shared__ unsigned long long key_s[RS_BLOCK];
-  load_sigma(kn, sigma_in, sig_s, P);
-  __syncthreads();
-
-  const int N = a.num_samples;
-  const int t = threadIdx.x;
-  const int i = blockIdx.x * RS_BLOCK + t;
-  const float beta = __uint_as_float((unsigned int)(*argmin >> 32));
-  float w = 0.f;
-  unsigned long long key = ~0ull;
-  if (i < N) {
-    const float c = costs[i];
-    w = expf(-(c - beta) / kn.temperature);
-    key = cost_key(c, i);
-  }
-  float* row = &acc_s[t * ROW];
-  for (int k = 0; k < P / 4; ++k) {
-    float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (w != 0.f) z = noise4(a, noise_in, sig_s, i, k);
-    row[4 * k + 0] = w * z.x;
-    row[4 * k + 1] = w * z.y;
-    row[4 * k + 2] = w * z.z;
-    row[4 * k + 3] = w * z.w;
-  }
-  row[P] = w;
-  key_s[t] = key;
-  __syncthreads();
-
-  for (int col = t; col < ROW; col += RS_BLOCK) {
-    float s = 0.f;
-    for (int u = 0; u < RS_BLOCK; ++u) s += acc_s[u * ROW + col];
-    partials[(size_t)blockIdx.x * ROW + col] = s;
-  }
-  if (kn.cem) {
-    // Rank of this key in the block; equal keys (only the ~0ull of missing
-    // samples) rank by thread.
-    int rank = 0;
-    for (int u = 0; u < RS_BLOCK; ++u) {
-      const unsigned long long ku = key_s[u];
-      rank += (ku < key || (ku == key && u < t)) ? 1 : 0;
-    }
-    if (rank < kn.n_elite) block_keys[(size_t)blockIdx.x * kn.n_elite + rank] = key;
-  }
-}
-
-// The lowest of every thread's v, returned to all threads of the block.
-__device__ __forceinline__ unsigned long long block_min(unsigned long long v,
-                                                        unsigned long long* red_s) {
+__device__ __forceinline__ void step0_extract_lanes(const RSArgs& a, const float* w_rows,
+                                                    const float* prm, float* out) {
+  const int leg = threadIdx.x % ROLLOUT_LANES;
+  const RSModel md = a.model;
+  float raw[3];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = o < v ? o : v;
+  for (int c = 0; c < 3; ++c) {
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < PL; ++j)
+      acc = fmaf(w_rows[(3 * leg + c) * PL + j], prm[leg * PL + j], acc);
+    raw[c] = acc;
   }
-  if ((threadIdx.x & 31) == 0) red_s[threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = red_s[0];
-  for (int wi = 1; wi < (int)(blockDim.x >> 5); ++wi) v = red_s[wi] < v ? red_s[wi] : v;
-  __syncthreads();
-  return v;
+  float fx, fy, fz, f[12], st[12], ft[12];
+  leg_forces(raw[0], raw[1], raw[2], a.contact[leg], a.share[leg], md, fx, fy, fz);
+#pragma unroll
+  for (int q = 0; q < ROLLOUT_LANES; ++q) {
+    f[q * 3 + 0] = from_lane(fx, q);
+    f[q * 3 + 1] = from_lane(fy, q);
+    f[q * 3 + 2] = from_lane(fz, q);
+  }
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    st[j] = a.state[j];
+    ft[j] = a.feet[j];
+  }
+  srb_body<true>(st, f, a.dts[0], ft, md, leg);
+  // Constant indices only, so that f and st stay in registers.
+  if (threadIdx.x < ROLLOUT_LANES) {
+    out[1 + 3 * leg + 0] = fx;
+    out[1 + 3 * leg + 1] = fy;
+    out[1 + 3 * leg + 2] = fz;
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j < 12; ++j) out[13 + j] = st[j];
+  }
 }
 
+// noise: the (P, N) noise of the iteration. partials (B, P + 1), 16-byte aligned,
+// and block_keys (B, K) are written and read in this launch, so they are neither
+// const nor __restrict__ (no read-only cache path), and the last block reads them
+// from L2 (cp.async.cg, __ldcg). ticket: the iteration's second scratch word, set
+// to all ones by its memset.
 template <int PL>
-__global__ void __launch_bounds__(SM_FINISH_THREADS)
-sm_finish_kernel(const RSArgs a, const SMKnobs kn, const float* __restrict__ w_blk,
-                 const float* __restrict__ incumbent, const float* __restrict__ sigma_in,
-                 const float* __restrict__ noise_in,
-                 const unsigned long long* __restrict__ argmin,
-                 const float* __restrict__ partials,
-                 const unsigned long long* __restrict__ block_keys, int num_blocks,
-                 float* __restrict__ out, float* __restrict__ sigma_out, int* __restrict__ elites) {
+__global__ void __launch_bounds__(SM_UPDATE_THREADS, SM_UPDATE_MIN_BLOCKS)
+sm_update_kernel(const RSArgs a, const SMKnobs kn, const float* __restrict__ w_blk,
+                 const float* __restrict__ incumbent, const float* __restrict__ noise,
+                 const float* __restrict__ costs, const unsigned long long* __restrict__ argmin,
+                 unsigned long long* ticket, float* partials, unsigned long long* block_keys,
+                 float* __restrict__ out, float* __restrict__ sigma_out,
+                 int* __restrict__ elites) {
   constexpr int P = 4 * PL;
+  constexpr int CH = P / 4;
   constexpr int ROW = P + 1;
+  static_assert(RS_BLOCK % 32 == 0 && SM_RANK_LANES * RS_BLOCK == SM_UPDATE_THREADS &&
+                    (SM_RANK_LANES & (SM_RANK_LANES - 1)) == 0,
+                "whole warps of samples; a power-of-two group of threads ranks each key");
+  static_assert(ROW <= SM_COL_THREADS && 3 * PL <= SM_COL_THREADS && P <= SM_CEM_THREADS &&
+                    SM_TILE_ROWS % 4 == 0,
+                "one column, basis chunk or parameter of the refit a thread; aligned tiles");
+  extern __shared__ __align__(16) unsigned char arena[];
+  __shared__ int nz_s[RS_BLOCK];
+  __shared__ float nzw_s[RS_BLOCK];
+  __shared__ unsigned long long key_s[RS_BLOCK];
+  __shared__ int count_s[RS_BLOCK / 32];
   __shared__ float sum_s[ROW];
   __shared__ float prm_s[P];
+  __shared__ __align__(16) float w0_s[12 * PL];
   __shared__ int elite_s[SM_KMAX];
-  __shared__ unsigned long long red_s[SM_FINISH_THREADS / 32];
-  const int t = threadIdx.x;
+  __shared__ unsigned long long t0_s;
+  __shared__ int ncand_s;
+  __shared__ int last_s;
   const int N = a.num_samples;
+  const int B = gridDim.x;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const float inc_t = t < P ? __ldg(&incumbent[t]) : 0.f;
 
-  for (int col = t; col < ROW; col += blockDim.x) {
-    float s = 0.f;
-    for (int b = 0; b < num_blocks; ++b) s += partials[(size_t)b * ROW + col];
-    sum_s[col] = s;
+  // 1. Weights and keys; the nonzero weights compacted in thread order.
+  const unsigned long long best_key = *argmin;
+  const float beta = __uint_as_float((unsigned int)(best_key >> 32));
+  const int i0 = blockIdx.x * RS_BLOCK;
+  float w = 0.f;
+  unsigned long long key = ~0ull;
+  if (t < RS_BLOCK && i0 + t < N) {
+    const float c = costs[i0 + t];
+    w = expf(-(c - beta) / kn.temperature);
+    key = cost_key(c, i0 + t);
+  }
+  unsigned int nz = 0u;
+  if (t < RS_BLOCK) {
+    nz = __ballot_sync(0xffffffffu, w != 0.f);
+    if (lane == 0) count_s[warp] = __popc(nz);
+    key_s[t] = key;
   }
   __syncthreads();
-  for (int p = t; p < P; p += blockDim.x) {
-    const float v = incumbent[p] + sum_s[p] / sum_s[P];
-    prm_s[p] = v;
-    out[RS_OUT_WINNER + p] = v;
+  int m = 0;
+#pragma unroll
+  for (int u = 0; u < RS_BLOCK / 32; ++u) m += count_s[u];
+  if (w != 0.f) {
+    int pos = __popc(nz & ((1u << lane) - 1u));
+    for (int u = 0; u < warp; ++u) pos += count_s[u];
+    nz_s[pos] = t;
+    nzw_s[pos] = w;
   }
+  __syncthreads();
 
-  if (kn.cem) {
-    // The e-th elite is the lowest key above the (e-1)-th: the candidates hold
-    // each block's K lowest keys, a superset of the global K lowest.
-    const int K = kn.n_elite;
-    const int M = num_blocks * K;
-    unsigned long long last = 0ull;
-    for (int e = 0; e < K; ++e) {
-      unsigned long long best = ~0ull;
-      for (int c = t; c < M; c += blockDim.x) {
-        const unsigned long long k = block_keys[c];
-        if ((e == 0 || k > last) && k < best) best = k;
-      }
-      last = block_min(best, red_s);
-      if (t == 0) elite_s[e] = (int)(last & 0xffffffffull);
+  // This block's partial row: the nonzero rows' (w * noise, w), SM_BATCH at a time.
+  float* buf_s = reinterpret_cast<float*>(arena);  // (SM_BATCH, ROW); ROW odd: no bank conflicts
+  float acc = 0.f;
+  for (int base = 0; base < m; base += SM_BATCH) {
+    const int nb = m - base < SM_BATCH ? m - base : SM_BATCH;
+    for (int j = t; j < nb * CH; j += SM_UPDATE_THREADS) {
+      const int r = j % nb, k = j / nb;
+      const float wr = nzw_s[base + r];
+      const float4 z = load_noise4(noise, N, i0 + nz_s[base + r], k);
+      float* row = &buf_s[r * ROW + 4 * k];
+      row[0] = __fmul_rn(wr, z.x);
+      row[1] = __fmul_rn(wr, z.y);
+      row[2] = __fmul_rn(wr, z.z);
+      row[3] = __fmul_rn(wr, z.w);
+    }
+    if (t < nb) buf_s[t * ROW + P] = nzw_s[base + t];
+    __syncthreads();
+    if (t < ROW) {
+#pragma unroll 8
+      for (int r = 0; r < nb; ++r) acc = __fadd_rn(acc, buf_s[r * ROW + t]);
     }
     __syncthreads();
-    for (int p = t; p < P; p += blockDim.x) {
-      const float s = sigma_in[p];
-      float x[SM_KMAX];
-      float mean = 0.f;
-      for (int e = 0; e < K; ++e) {
-        const int idx = elite_s[e];
-        float z;
-        if (noise_in != nullptr) {
-          z = noise_in[(size_t)p * N + idx];
-        } else if (idx == 0) {
-          z = 0.f;
-        } else {
-          const float4 z4 = normals4(philox_words(a.seed, a.offset, idx, p >> 2));
-          const int j = p & 3;
-          z = __fmul_rn(j == 0 ? z4.x : j == 1 ? z4.y : j == 2 ? z4.z : z4.w, s);
-        }
-        x[e] = z;
-        mean += z;
-      }
-      mean = mean / (float)K;
-      float ss = 0.f;
-      for (int e = 0; e < K; ++e) {
-        const float d = x[e] - mean;
-        ss += d * d;
-      }
-      const float var = ss / (float)(K - 1) + 1e-8f;
-      sigma_out[p] = clip_nan(sqrtf(var), kn.sigma_min, kn.sigma_max);
+  }
+  if (t < ROW) partials[(size_t)blockIdx.x * ROW + t] = acc;
+  if (kn.cem) {
+    // Rank of each key in the block, SM_RANK_LANES threads a key; equal keys (only
+    // the ~0ull of missing samples) rank by thread. The K lowest land in rank order.
+    constexpr int SPAN = RS_BLOCK / SM_RANK_LANES;
+    const int kt = t / SM_RANK_LANES, part = t % SM_RANK_LANES;
+    const unsigned long long kk = key_s[kt];
+    int rank = 0;
+#pragma unroll
+    for (int u = part * SPAN; u < (part + 1) * SPAN; ++u) {
+      const unsigned long long ku = key_s[u];
+      rank += (ku < kk || (ku == kk && u < kt)) ? 1 : 0;
     }
-    if (t < K) elites[t] = elite_s[t];
+#pragma unroll
+    for (int off = 1; off < SM_RANK_LANES; off <<= 1)
+      rank += __shfl_xor_sync(0xffffffffu, rank, off);
+    if (part == 0 && rank < kn.n_elite) block_keys[(size_t)blockIdx.x * kn.n_elite + rank] = kk;
   }
+
+  // 2. The ticket: the last block to arrive finishes.
+  __threadfence();
   __syncthreads();
-  if (t == 0) {
-    const unsigned long long key = *argmin;
-    step0_extract<PL>(a, w_blk, prm_s, out);
-    out[0] = __uint_as_float((unsigned int)(key >> 32));
-    out[25] = (float)(int)(key & 0xffffffffull);
+  if (t == 0) last_s = atomicAdd(ticket, 1ull) == (unsigned long long)(long long)(B - 2);
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+
+  // 3. The finish. Warps 0-3: the column sums over blocks in block order, the new
+  // parameters and the step-0 extraction.
+  float* tile_s = reinterpret_cast<float*>(arena);
+  if (t < SM_COL_THREADS) {
+    float s = 0.f;
+    for (int b0 = 0; b0 < B; b0 += SM_TILE_ROWS) {
+      const int rows = B - b0 < SM_TILE_ROWS ? B - b0 : SM_TILE_ROWS;
+      const float* src = partials + (size_t)b0 * ROW;  // 16-byte aligned: b0 % 4 == 0
+      const int n = rows * ROW;
+      for (int q = t; q < n / 4; q += SM_COL_THREADS) cp_async16(&tile_s[4 * q], &src[4 * q]);
+      for (int q = (n / 4) * 4 + t; q < n; q += SM_COL_THREADS) tile_s[q] = __ldcg(&src[q]);
+      if (b0 == 0 && t < 3 * PL)  // the step-0 basis rows (12, PL), 16-byte aligned
+        cp_async16(&w0_s[4 * t], &w_blk[4 * t]);
+      cp_async_wait_all();
+      group_sync<3, SM_COL_THREADS>();
+      if (t < ROW) {
+#pragma unroll 8
+        for (int r = 0; r < rows; ++r) s = __fadd_rn(s, tile_s[r * ROW + t]);
+      }
+      group_sync<3, SM_COL_THREADS>();
+    }
+    if (t < ROW) sum_s[t] = s;
+    group_sync<3, SM_COL_THREADS>();
+    if (t < P) {
+      const float v = inc_t + sum_s[t] / sum_s[P];
+      prm_s[t] = v;
+      out[RS_OUT_WINNER + t] = v;
+    }
+    group_sync<3, SM_COL_THREADS>();
+    if (warp == 0) {
+      step0_extract_lanes<PL>(a, w0_s, prm_s, out);
+      if (t == 0) {
+        out[0] = beta;
+        out[25] = (float)(int)(best_key & 0xffffffffull);
+      }
+    }
+    return;
   }
+  if (!kn.cem) return;
+
+  // CEM, warps 4-15 meanwhile: the K lowest of the B*K candidates, in order, then
+  // the refit.
+  const int ct = t - SM_COL_THREADS;
+  const int K = kn.n_elite;
+  const int mk = B * K;
+  unsigned long long* stage_s =
+      reinterpret_cast<unsigned long long*>(arena + sm_tile_bytes(P, B));
+  const int staged = mk < SM_STAGE_KEYS ? mk : SM_STAGE_KEYS;
+  for (int q = ct; q < staged / 2; q += SM_CEM_THREADS)
+    cp_async16(&stage_s[2 * q], &block_keys[2 * q]);  // block_keys is 16-byte aligned
+  if ((staged & 1) && ct == 0) stage_s[staged - 1] = __ldcg(&block_keys[staged - 1]);
+  if (ct == 0) ncand_s = 0;
+  cp_async_wait_all();
+  group_sync<1, SM_CEM_THREADS>();
+  // Each block's list holds its K lowest keys in order, so the K lists whose heads
+  // are the K lowest heads hold every elite: the elites are the K lowest keys at
+  // or below t0, the K-th lowest head (all keys when there are fewer lists than K),
+  // and there are at most K*K such candidates. Keys are unique, so each
+  // candidate's rank among them is its place.
+  unsigned long long* cand_s = stage_s + staged;  // (K*K)
+  if (K > B) {
+    if (ct == 0) t0_s = ~0ull - 1ull;  // every real key; not the missing samples' ~0ull
+  } else {
+    // Each head's rank among the heads, counted by G threads (a power of two that
+    // keeps G*B within the group), summed by shuffles; the staged heads first, in
+    // a loop without branches so that their loads overlap.
+    int G = 1;
+    while (2 * G * B <= SM_CEM_THREADS && G < 32) G *= 2;
+    const int staged_heads = min(B, (staged + K - 1) / K);
+    for (int g0 = 0; g0 < B * G; g0 += SM_CEM_THREADS) {
+      const int g = g0 + ct, b = g / G, part = g % G;
+      unsigned long long h = ~0ull;
+      int rank = 0;
+      if (b < B) {
+        h = b * K < staged ? stage_s[b * K] : __ldcg(&block_keys[b * K]);
+        int b2 = part;
+#pragma unroll 8
+        for (; b2 < staged_heads; b2 += G) rank += stage_s[b2 * K] < h ? 1 : 0;
+        for (; b2 < B; b2 += G) rank += __ldcg(&block_keys[b2 * K]) < h ? 1 : 0;
+      }
+      for (int off = 1; off < G; off <<= 1) rank += __shfl_xor_sync(0xffffffffu, rank, off);
+      if (b < B && part == 0 && rank == K - 1) t0_s = h;
+    }
+  }
+  group_sync<1, SM_CEM_THREADS>();
+  const unsigned long long t0 = t0_s;
+  for (int c = ct; c < mk; c += SM_CEM_THREADS) {
+    const unsigned long long k = c < staged ? stage_s[c] : __ldcg(&block_keys[c]);
+    if (k <= t0) cand_s[atomicAdd(&ncand_s, 1)] = k;
+  }
+  group_sync<1, SM_CEM_THREADS>();
+  const int nc = ncand_s;
+  for (int i = ct; i < nc; i += SM_CEM_THREADS) {
+    const unsigned long long ki = cand_s[i];
+    int rank = 0;
+#pragma unroll 8
+    for (int j = 0; j < nc; ++j) rank += cand_s[j] < ki ? 1 : 0;
+    if (rank < K) elite_s[rank] = (int)(ki & 0xffffffffull);
+  }
+  group_sync<1, SM_CEM_THREADS>();
+  // The elites' noise, one chunk of four parameters a thread, over the staged keys.
+  float* x_s = reinterpret_cast<float*>(stage_s);  // (K, P)
+  for (int j = ct; j < K * CH; j += SM_CEM_THREADS) {
+    const int e = j % K, k = j / K;
+    const float4 z = load_noise4(noise, N, elite_s[e], k);
+    float* xe = &x_s[e * P + 4 * k];
+    xe[0] = z.x;
+    xe[1] = z.y;
+    xe[2] = z.z;
+    xe[3] = z.w;
+  }
+  group_sync<1, SM_CEM_THREADS>();
+  if (ct < P) {
+    const int p = ct;
+    float mean = 0.f;
+#pragma unroll 4
+    for (int e = 0; e < K; ++e) mean += x_s[e * P + p];
+    mean = mean / (float)K;
+    float ss = 0.f;
+#pragma unroll 4
+    for (int e = 0; e < K; ++e) {
+      const float d = x_s[e * P + p] - mean;
+      ss += d * d;
+    }
+    const float var = ss / (float)(K - 1) + 1e-8f;
+    sigma_out[p] = clip_nan(sqrtf(var), kn.sigma_min, kn.sigma_max);
+  }
+  if (ct < K) elites[ct] = elite_s[ct];
+}
+
+// The update pass's launch, for K1b/K1c and K1e. argmin points at two words, the
+// argmin key and the ticket, both reset by the iteration's memset; noise is the
+// (P, N) noise the rollout pass read or wrote.
+template <int PL>
+static cudaError_t launch_update(const RSArgs& a, const SMKnobs& kn, const float* w_blk,
+                                 const float* incumbent, const float* noise, const float* costs,
+                                 unsigned long long* argmin, float* partials,
+                                 unsigned long long* block_keys, float* out, float* sigma_out,
+                                 int* elites, cudaStream_t stream) {
+  // Above 48 KB dynamic shared memory needs an opt-in, given once for the most
+  // this pass can ask for (a full tile, then the CEM stage).
+  static bool opted_in = false;
+  if (!opted_in) {
+    const int most = sm_tile_bytes(4 * PL, SM_TILE_ROWS) + (SM_STAGE_KEYS + SM_KMAX * SM_KMAX) * 8;
+    cudaError_t err = cudaFuncSetAttribute(sm_update_kernel<PL>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(sm_update_kernel<PL>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  const int blocks = (a.num_samples + RS_BLOCK - 1) / RS_BLOCK;
+  const int smem = sm_update_smem(4 * PL, kn.cem, kn.n_elite, blocks);
+  sm_update_kernel<PL><<<blocks, SM_UPDATE_THREADS, smem, stream>>>(
+      a, kn, w_blk, incumbent, noise, costs, argmin, argmin + 1, partials, block_keys, out,
+      sigma_out, elites);
+  return cudaGetLastError();
 }

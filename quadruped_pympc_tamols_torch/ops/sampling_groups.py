@@ -17,11 +17,11 @@ The step-0 GRFs and one-step state come from the host's contact sequence
 column 0, its gravity share and the counter-zero basis (the static basis's
 first 12 rows), not from the winning group.
 
-One solve is a memset, one launch of the shared rollout pass over a
-(ceil(Ng/ROLLOUT_SAMPLES), K) grid, and then K1a's extraction launch or
-K1b/K1c's weights and finish launches over the K*Ng samples. The group's basis blocks, contact and share columns and
-offsets reach the card in one host-to-device copy a tick (from pinned memory);
-the basis does not fit in the by-value argument block.
+One solve is a memset and two launches: the shared rollout pass over a
+(ceil(Ng/ROLLOUT_SAMPLES), K) grid, then K1a's extraction or K1b/K1c's update
+pass over the K*Ng samples. The groups' basis blocks, contact and share columns
+and offsets reach the card in one host-to-device copy a tick (from pinned
+memory); the basis does not fit in the by-value argument block.
 
 ``sampling_groups`` is the wrapper. On CUDA tensors it launches the kernel or
 raises; on CPU tensors it runs ``group_iteration_reference`` with noise from
@@ -269,19 +269,17 @@ def launch(lib, args: rs.RSArgs, knobs: sm.Knobs, plan: GroupPlan, ws: sm.Worksp
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    n = plan.num_used
-    nkeys = -(-n // sm.BLOCK) * knobs.n_elite if knobs.cem else 0
-    base = ws.scratch.data_ptr()
+    argmin, keys, partials = sm.scratch_pointers(ws, plan.num_used, knobs)
+    if noise_in is None and noise_out is None:
+        noise_out = ws.noise
     if stream is None:
         stream = torch.cuda.current_stream(incumbent.device).cuda_stream
-    softmax = knobs.method != "random_sampling"
     rc = lib.sg_launch(ctypes.byref(args), ctypes.byref(knobs.struct()), _METHOD[knobs.method],
                        plan.base.params_per_leg, plan.num_groups, plan.group_size,
                        groups_buf.data_ptr(), plan.base.W_blocks.data_ptr(), incumbent.data_ptr(),
                        ptr(sigma) if knobs.cem else None, ptr(noise_in), ptr(noise_out),
-                       ws.costs.data_ptr(), base, base + 8 * (1 + nkeys) if softmax else None,
-                       base + 8 if knobs.cem else None, ws.out.data_ptr(), ptr(ws.sigma),
-                       ptr(ws.elites), stream)
+                       ws.costs.data_ptr(), argmin, partials, keys, ws.out.data_ptr(),
+                       ptr(ws.sigma), ptr(ws.elites), stream)
     if rc != 0:
         msg = ("unsupported shape, knob or alignment" if rc < 0
                else lib.sg_error_string(rc).decode())

@@ -10,10 +10,11 @@ normalized, ``beta`` the lowest cost; CEM-MPPI draws its noise with a
 per-parameter sigma and refits it from the ``cem_elite`` lowest-cost samples'
 noise (variance with ddof 1, + 1e-8, square root, clipped). Elites are taken in
 (cost, index) order, lowest index first on equal costs, as ``jax.lax.top_k`` takes
-them. One iteration is a memset and three launches (rollout, per-block weighted
-sums, one-block finish); every sum runs in a fixed order, so a run repeats its
-bits. The step-0 GRFs and one-step state come from the new parameters (the
-mean), not from a sample. See the source for the design.
+them. One iteration is a memset and two launches: the rollout pass and the
+update pass, whose blocks each sum their samples' weighted noise and whose last
+block to arrive (an atomic ticket) finishes the step; every sum runs in a fixed
+order, so a run repeats its bits. The step-0 GRFs and one-step state come from
+the new parameters (the mean), not from a sample. See the source for the design.
 
 K1d, chained iterations (``num_chained > 1`` in the Pallas kernel), is
 ``sampling_chain``: iteration i + 1 reads iteration i's parameters, and its sigma
@@ -41,7 +42,7 @@ from ..dynamics.srbd import SRBDParams
 from . import build
 from . import sampling_kernel as rs
 
-BLOCK = 64  # samples per block of the weights launch (RS_BLOCK): sizes the partials and keys
+BLOCK = 64  # samples per block of the update pass (RS_BLOCK): sizes the partials and keys
 MAX_ELITE = 32  # SM_KMAX
 
 
@@ -227,20 +228,41 @@ class Workspace(NamedTuple):
     out: torch.Tensor  # (26 + P,) [beta, grf(12), state(12), index, new params(P)]
     sigma: torch.Tensor | None  # (P,) CEM refit
     elites: torch.Tensor | None  # (K,) int32 CEM elite indices
-    scratch: torch.Tensor  # int64: [argmin (1) | block keys (B*K, CEM) | partials (B*(P+1) f32)]
+    # int64: [argmin, ticket | block keys (B*K, CEM; an even count) | partials
+    # (B*(P+1) f32)]; the iteration's memset resets the first two words.
+    scratch: torch.Tensor
+    # (P, N): the noise the rollout pass writes and the update pass reads back when
+    # the caller passes neither noise_in nor noise_out (MPPI and CEM).
+    noise: torch.Tensor | None
+
+
+def _key_words(num_samples: int, knobs) -> int:
+    """int64 words of the block keys: B*K for CEM rounded up to even, so that the
+    partials after them are 16-byte aligned (the update pass copies them with
+    cp.async)."""
+    n = -(-num_samples // BLOCK) * knobs.n_elite if knobs.cem else 0
+    return n + n % 2
 
 
 def workspace(plan: rs.RSPlan, knobs: Knobs, device) -> Workspace:
     P, N = plan.num_parameters, plan.num_samples
     B = -(-N // BLOCK)
-    nkeys = B * knobs.n_elite if knobs.cem else 0
-    scratch = torch.empty(1 + nkeys + -(-B * (P + 1) // 2), dtype=torch.int64, device=device)
-    cem = knobs.cem
+    scratch = torch.empty(2 + _key_words(N, knobs) + -(-B * (P + 1) // 2), dtype=torch.int64,
+                          device=device)
+    cem, softmax = knobs.cem, knobs.method != "random_sampling"
     return Workspace(torch.empty(N, dtype=torch.float32, device=device),
                      torch.empty(rs.OUT_WINNER + P, dtype=torch.float32, device=device),
                      torch.empty(P, dtype=torch.float32, device=device) if cem else None,
                      torch.empty(knobs.n_elite, dtype=torch.int32, device=device) if cem else None,
-                     scratch)
+                     scratch,
+                     torch.empty(P, N, dtype=torch.float32, device=device) if softmax else None)
+
+
+def scratch_pointers(ws: Workspace, num_samples: int, knobs) -> tuple:
+    """(argmin and ticket, block keys or None, partials): the addresses of
+    ``ws.scratch``'s parts for ``num_samples`` samples (``knobs``: Knobs or SMKnobs)."""
+    base = ws.scratch.data_ptr()
+    return base, base + 16 if knobs.cem else None, base + 8 * (2 + _key_words(num_samples, knobs))
 
 
 def launch(lib, args: rs.RSArgs, kn: SMKnobs, plan: rs.RSPlan, ws: Workspace, incumbent, sigma,
@@ -250,15 +272,15 @@ def launch(lib, args: rs.RSArgs, kn: SMKnobs, plan: rs.RSPlan, ws: Workspace, in
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    nkeys = -(-plan.num_samples // BLOCK) * kn.n_elite if kn.cem else 0
-    base = ws.scratch.data_ptr()
+    argmin, keys, partials = scratch_pointers(ws, plan.num_samples, kn)
+    if noise_in is None and noise_out is None:
+        noise_out = ws.noise
     if stream is None:
         stream = torch.cuda.current_stream(incumbent.device).cuda_stream
     rc = lib.sm_launch(ctypes.byref(args), ctypes.byref(kn), plan.params_per_leg,
                        plan.W_blocks.data_ptr(), incumbent.data_ptr(),
                        ptr(sigma) if kn.cem else None, ptr(noise_in), ptr(noise_out),
-                       ws.costs.data_ptr(), base, base + 8 * (1 + nkeys),
-                       base + 8 if kn.cem else None, ws.out.data_ptr(),
+                       ws.costs.data_ptr(), argmin, partials, keys, ws.out.data_ptr(),
                        ptr(ws.sigma), ptr(ws.elites), stream)
     if rc != 0:
         msg = ("unsupported shape, knob or alignment" if rc < 0

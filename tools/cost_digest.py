@@ -6,12 +6,15 @@
 For each TREE (the root of a checkout of this repository), in a process of its
 own, imports that tree's ``quadruped_pympc_tamols_torch``, runs kernels K1a, K1b,
 K1c and K1e (each method) once at N = 10 000 on the card, on numpy noise from a
-seed and on Philox noise, and keeps every output. Then prints, for each output,
-whether the two trees' bits are equal, and where they are not, how many elements
-differ and the largest absolute difference. Exits 1 if any output differs.
+seed and on Philox noise, and keeps every output; K1b and K1c also at temperature
+1e6 (every weight nonzero) and on a NaN state (every cost tied at 1e6). Then
+prints, for each output, whether the two trees' bits are equal, and where they
+are not, how many elements differ and the largest absolute difference. Exits 1
+if any output differs.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -62,12 +65,18 @@ def run_tree(path: str) -> None:
             if x is not None:
                 res[f"{name}[{j}]"] = x.detach().cpu().numpy()
 
+    nan_tick = tick._replace(state12=np.full(12, np.nan, np.float32))
     for label, kw in (("numpy noise", {"noise_in": noise}), ("philox", {})):
         keep(f"K1a {label}", sk.sampling_rs(plan, tick, inc, 3, 1, **kw))
         for method in ("mppi", "cem_mppi"):
             knobs = sm.make_knobs(cfg, method)
             keep(f"{method} {label}",
                  sm.softmax_iteration(plan, knobs, tick, inc, sigma, 3, 1, **kw))
+            hot = dataclasses.replace(knobs, temperature=1e6)
+            keep(f"{method} T=1e6 {label}",
+                 sm.softmax_iteration(plan, hot, tick, inc, sigma, 3, 1, **kw))
+            keep(f"{method} NaN state {label}",
+                 sm.softmax_iteration(plan, knobs, nan_tick, inc, sigma, 3, 1, **kw))
     gcfg = make_config("aliengo", mpc_type="sampling",
                        **{**base, "mpc.optimize_step_freq": True,
                           "mpc.step_freq_available": (2.4, 1.3, 2.0)})

@@ -138,10 +138,10 @@ def time_copy(root: str, counts: list) -> dict:
         for _ in range(10):
             launch()
         torch.cuda.synchronize()
-        res["rollout_us"][n] = cs.rollout_profile(launch)[1]
+        res["rollout_us"][n] = cs.pass_profile(launch, 1, False)["rollout"][1]
         if n == 10_000:
             res["costs_sha256"] = hashlib.sha256(costs.cpu().numpy().tobytes()).hexdigest()[:16]
-    res["ptxas"] = cs.ptxas_rollout(libs["sampling_rs"].with_suffix(".log"))
+    res["ptxas"] = cs.ptxas_of(libs["sampling_rs"].with_suffix(".log"), "rollout_kernel")
     res["sass_instructions"] = sass_instructions(libs["sampling_rs"])
     return res
 
