@@ -3,30 +3,34 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels from the sources in the checkout (one nvcc per source,
-all started together), holds each against its plain torch version at the main
-path's shapes, drives the slice's paths (the sampling MPC walking the SRB
-harness, README quickstart) through the kernels, and times them. It imports
-neither JAX nor the JAX package. It exits non-zero without a CUDA device or
-without the package beside it.
+Builds the port's kernels from the sources in the checkout (one nvcc per source
+and (horizon, parameters per leg) pair, all started together), holds each against
+its plain torch version at the main path's shapes, drives the slices' paths (the
+sampling MPC walking the SRB harness, README quickstart) through the kernels, and
+times them; then the same for the linear-spline and zero-order parametrizations.
+It imports neither JAX nor the JAX package. It exits non-zero without a CUDA
+device or without the package beside it.
 
 Output: the card's name and power limit, one line per phase, for each row the
 rollout pass's device time and its kernel's registers, shared memory and spills
 (from the build's ``-Xptxas -v`` log), the same for the update pass of the MPPI
-and CEM rows (K1b-K1d, K1e-mppi, K1e-cem), a ``{"kernels": ...}`` line, and as
-the last line ``{"ok": true, "device": {...}}``.
+and CEM rows (K1b-K1d, K1e-mppi, K1e-cem), a ``{"kernels": ...}`` line (rows of
+the main path's cubic splines, then ``-lin`` and ``-zo`` rows), and as the last
+line ``{"ok": true, "device": {...}}``.
 
 Phases (each raises on failure; every path is driven with all launch counts set
 to 0 just before it and read just after):
   1. K1a against its plain version on the same injected noise, N = 10 000,
-     H = 12, P = 96 (the main path's shape, the one the kernels instantiate).
-  2. K1a's Philox noise: band statistics, the incumbent column, determinism, and
-     the plain version reproducing the kernel's costs on the dumped noise.
+     H = 12, P = 96 (the main path's shape: cubic splines, 2 splines).
+  2. K1a's Philox noise: band statistics, the incumbent column, determinism (bits
+     of a rerun), and the plain version reproducing the kernel's costs on the
+     dumped noise.
   3. The first slice's path: SRBClosedLoopHarness(cfg, device="cuda").run(3.0,
      [0.3, 0, 0]) at N = 10 000 (random sampling, one iteration) must walk,
      with K1a launched once per MPC tick.
   4. Times of K1a: the kernel and its plain version (CUDA events, median of 100
-     launches), the per-tick solve with its host glue, the harness's rate.
+     launches), the per-tick solve with its host glue, the harness's rate, and a
+     profile of 50 solve ticks (device time per recorded launch).
   5. K1b (MPPI) and K1c (CEM-MPPI) at N = 10 000: costs against the plain
      version on the same injected noise; the optimizer step against the plain
      combine on the kernel's own costs (beta exactly, parameters and sigma' to
@@ -57,6 +61,16 @@ to 0 just before it and read just after):
      range; the profiler over 50 solve ticks must see one device-to-host copy a tick.
  12. Times of K1e per method, its plain version and bound, and the gait-adaptive
      solve tick with its host glue.
+ 13. For linear splines (P = 36) and zero-order holds (P = 144): phases 1-2, 5-6
+     and 10, each kernel against its plain version on injected noise and on its
+     Philox noise, bit-equal on a rerun, and MPPI x 3 chained.
+ 14. Their paths, each with the launch counts zeroed before and read after: the
+     walks whose JAX reference walks (random sampling x 1 with either, 300 K1a
+     launches; MPPI x 3 with zero-order holds, 900 K1b launches) must walk; MPPI x 3
+     with linear splines, CEM-MPPI x 3 and the gait-adaptive solver's three
+     methods with either run TICK_LOOP ticks through their controller on the
+     flagship inputs, held per solve (finite summaries, CEM's sigma in range).
+ 15. Their times, as phases 4, 9 and 12, and the update pass's blocks an SM.
 """
 from __future__ import annotations
 
@@ -89,9 +103,21 @@ COMBINE_ATOL = 1e-5
 # The JAX package's SRB harness on the CPU, same command (3 s at 0.3 m/s, N = 10 000):
 # distance (m), min z (m), max |roll|,|pitch| (rad); `python tests/test_torch_harness.py`
 # (with the argument `gait` for the gait-adaptive rows).
-JAX_CPU_WALKS = {"mppi x 3": (0.9095, 0.3444, 0.0229), "cem_mppi x 3": (3.5631, -2.8293, 59.5867),
+JAX_CPU_WALKS = {"random_sampling x 1": (0.8959, 0.3307, 0.0440),
+                 "mppi x 3": (0.9095, 0.3444, 0.0229), "cem_mppi x 3": (3.5631, -2.8293, 59.5867),
                  "gait random_sampling": (0.8505, 0.3470, 0.0360),
-                 "gait mppi": (0.9036, 0.3484, 0.0260)}
+                 "gait mppi": (0.9036, 0.3484, 0.0260),
+                 "gait cem_mppi": (2.8593, 0.2533, 136.8255),
+                 "random_sampling x 1 linear_spline": (0.9304, 0.3454, 0.0271),
+                 "random_sampling x 1 zero_order": (0.7062, 0.3480, 0.4042),
+                 "mppi x 3 zero_order": (0.9069, 0.3476, 0.0249)}
+# The parametrizations the kernels are built for at horizon 12: the main path's
+# cubic splines (24 parameters per leg), then linear splines (9) and zero-order
+# holds (36), with the suffix of their rows in the kernels line.
+MAIN_PAR = "cubic_spline"
+NEW_PARS = ("linear_spline", "zero_order")
+PAR_SUFFIX = {"cubic_spline": "", "linear_spline": "-lin", "zero_order": "-zo"}
+TICK_LOOP = 30  # solve ticks of a path driven on the flagship inputs (phase 14)
 GAIT_FREQS = (2.4, 1.3, 2.0)  # phase 10: the lowest offset (1.3 Hz, 0) is not the first group
 GAIT_PHASE = np.array([0.3, 0.8, 0.8, 0.3], np.float32)
 
@@ -106,18 +132,20 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def main_cfg(**over):
+def main_cfg(par=MAIN_PAR, **over):
     from quadruped_pympc_tamols_torch import make_config
     return make_config("aliengo", mpc_type="sampling",
-                       **{"sim.visual_foothold_adaptation": "blind", **over})
+                       **{"sim.visual_foothold_adaptation": "blind",
+                          "mpc.sampling.parametrization": par, **over})
 
 
-def softmax_cfg(method):
-    return main_cfg(**{"mpc.sampling.method": method, "mpc.sampling.num_iterations": 3})
+def softmax_cfg(method, par=MAIN_PAR):
+    return main_cfg(par, **{"mpc.sampling.method": method, "mpc.sampling.num_iterations": 3})
 
 
-def gait_cfg(method, **over):
-    return main_cfg(**{"mpc.optimize_step_freq": True, "mpc.sampling.method": method, **over})
+def gait_cfg(method, par=MAIN_PAR, **over):
+    return main_cfg(par, **{"mpc.optimize_step_freq": True, "mpc.sampling.method": method,
+                            **over})
 
 
 def example_tick(cfg, plan):
@@ -316,39 +344,128 @@ def solve_tick_ms(mpc, tick, n=200) -> float:
     return statistics.median(ms)
 
 
-def profile_ticks(mpc, tick, n=50) -> dict:
-    """Device time per kernel, the device's busy share and the device-to-host
-    copies over n solve ticks, from torch.profiler; "not measured" where the
-    profiler sees no device time. Nothing is caught: a failed tick or a profiler
-    that cannot start fails the run."""
+# torch.profiler loses records on the H100: windows of 50 launches recorded 23
+# and 0 of them, one of 50 ticks 47 of 50 device-to-host copies. So every window
+# is the active step of a profiler schedule after a warm-up step of the same
+# work, with PROFILE_PAD_S of idle time before and after the work inside it
+# (``profile_window``; tools/profiler_windows.py counts the losses with and
+# without the pads), and a window that still recorded fewer than a check needs,
+# or nothing, is profiled again, up to PROFILE_WINDOWS windows in all; a lost
+# record never adds one, so a count above what the check allows fails at once.
+PROFILE_WINDOWS = 5
+PROFILE_PAD_S = 0.05
+
+
+def profile_window(run):
+    """torch.profiler over one call of ``run`` (which ends in a synchronize), after
+    a warm-up step of the same call, with PROFILE_PAD_S idle before and after it;
+    returns (the profiler, wall seconds of the profiled call)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        run()
+        prof.step()
+        time.sleep(PROFILE_PAD_S)
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+        time.sleep(PROFILE_PAD_S)
+        prof.step()
+    return prof, wall
+
+
+def host_d2h_copies(call, n) -> int:
+    """Device-to-host copies that n calls of ``call`` issue through torch's
+    dispatcher, counted on the host: every op that reads a CUDA tensor and yields
+    a CPU tensor or a Python scalar. Unlike the profiler's device records, none
+    is lost."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Count(TorchDispatchMode):
+        copies = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+            if any(t.is_cuda for t in ins) and any(
+                    isinstance(t, (bool, int, float)) or isinstance(t, torch.Tensor)
+                    and t.device.type == "cpu" for t in tree_leaves(out)):
+                Count.copies += 1
+            return out
+
+    with Count():
+        for _ in range(n):
+            call()
+    torch.cuda.synchronize()
+    return Count.copies
+
+
+def profile_ticks(mpc, tick, n=50, expect=None, d2h=None) -> dict:
+    """Device time per launch of each kernel (its device time over the launches
+    the profiler recorded, as ``pass_profile`` takes it), the recorded launches,
+    the device's busy share and the device-to-host copies over n solve ticks,
+    from torch.profiler; "not measured" where the profiler sees no device time.
+    A count short of the ticks' launches means lost records: the busy share
+    counts only what was recorded. ``expect`` maps a substring of device rows'
+    names to launches a tick: the rows' recorded launches must lie in (half, all]
+    of them (see ``once_an_iteration``), and a short window is profiled again
+    (PROFILE_WINDOWS). ``d2h``, where given, is the device-to-host copies a tick:
+    n more ticks must issue exactly that many through torch (``host_d2h_copies``),
+    and the profiler must record no more of them ("DtoH") than that. Nothing is
+    caught: a failed tick or a profiler that cannot start fails the run."""
+    import torch
 
     call = tick_call(mpc, tick)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    if d2h is not None:
+        copies = host_d2h_copies(call, n)
+        if copies != d2h * n:
+            raise AssertionError(f"{n} ticks issued {copies} device-to-host copies, "
+                                 f"want {d2h * n}")
+        expect = {**(expect or {}), "DtoH": d2h}
+
+    def ticks():
         for _ in range(n):
             call()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    per = {}
-    for e in prof.key_averages():
-        dev_us = getattr(e, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "cuda_time_total", 0.0)
-        if dev_us > 0 and e.key and not e.key.startswith("ProfilerStep"):
-            per[e.key] = (e.count, dev_us)
-    # Keep the device rows (kernels, Memcpy, Memset): aten:: rows repeat their
-    # children's device time, and runtime-API rows (cuda*) carry none of their own.
-    kernels = {k: v for k, v in per.items()
-               if not k.startswith("aten::") and not k.startswith("cuda")}
+
+    for window in range(PROFILE_WINDOWS):
+        prof, wall_s = profile_window(ticks)
+        wall_us = wall_s * 1e6
+        per = {}
+        for e in prof.key_averages():
+            dev_us = getattr(e, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "cuda_time_total", 0.0)
+            if dev_us > 0 and e.key and not e.key.startswith("ProfilerStep"):
+                per[e.key] = (e.count, dev_us)
+        # Keep the device rows (kernels, Memcpy, Memset): aten:: rows repeat their
+        # children's device time, and runtime-API rows (cuda*) carry none of their own.
+        kernels = {k: v for k, v in per.items()
+                   if not k.startswith("aten::") and not k.startswith("cuda")}
+        short = {}
+        for tag, per_tick in (expect or {}).items():
+            count, want = sum(v[0] for k, v in kernels.items() if tag in k), per_tick * n
+            if count > want:
+                raise AssertionError(f"{tag}: {count} recorded in {n} ticks, want {want}")
+            if count <= want / 2:
+                short[tag] = count
+        if not short:
+            break
+        if window == PROFILE_WINDOWS - 1:
+            raise AssertionError(f"{PROFILE_WINDOWS} profiler windows of {n} ticks recorded "
+                                 f"only {short} of {expect} a tick")
+        log(f"  profiler window {window + 1} recorded {short} in {n} ticks; profiling again")
     busy_us = sum(v[1] for v in kernels.values())
     if busy_us == 0:
         return {"not measured": "no device time in the trace"}
-    return {"window_ms_per_tick": wall_us / n / 1e3,
-            "device_busy_share": busy_us / wall_us,
+    return {"ticks": n, "window_ms_per_tick": wall_us / n / 1e3,
+            "device_busy_share_recorded": busy_us / wall_us,
             "d2h_copies": sum(v[0] for k, v in kernels.items() if "DtoH" in k),
-            "device_us_per_tick": {k: v[1] / n for k, v in sorted(kernels.items())},
+            "host_d2h_copies": None if d2h is None else d2h * n,
+            "device_us_per_launch": {k: v[1] / v[0] for k, v in sorted(kernels.items())},
             "launches": {k: v[0] for k, v in sorted(kernels.items())}}
 
 
@@ -368,27 +485,42 @@ def once_an_iteration(tag, count, iterations):
 def pass_profile(fn, iterations, update, n=50) -> dict:
     """{"rollout": (kernel name, mean device us a launch)} over n calls of fn (fn
     is warm, ``iterations`` iterations a call), and "update" likewise where
-    ``update``, from torch.profiler. Raises if the trace holds no such kernel, or
-    one that ran other than once an iteration (see ``once_an_iteration``)."""
+    ``update``, from torch.profiler. A window in which a pass recorded half of
+    its launches or fewer, or none, is profiled again (PROFILE_WINDOWS). Raises if
+    a kernel ran more than once an iteration, or if no window recorded more than
+    half of each pass's launches (see ``once_an_iteration``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def calls():
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+
     want = {k: v for k, v in PASSES.items() if k == "rollout" or update}
-    found = {}
-    for e in prof.key_averages():
-        dev_us = getattr(e, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "cuda_time_total", 0.0)
-        for short, tag in want.items():
-            if tag in e.key and dev_us > 0:
-                once_an_iteration(tag, e.count, n * iterations)
-                found[short] = (e.key.split("(")[0], dev_us / e.count)
-    if found.keys() != want.keys():
-        raise AssertionError(f"the profiler saw {sorted(found)} of {sorted(want)}")
+    for window in range(PROFILE_WINDOWS):
+        prof, _ = profile_window(calls)
+        found, counts = {}, {}
+        for e in prof.key_averages():
+            dev_us = getattr(e, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "cuda_time_total", 0.0)
+            for short, tag in want.items():
+                if tag in e.key and dev_us > 0:
+                    if e.count > n * iterations:
+                        once_an_iteration(tag, e.count, n * iterations)
+                    found[short] = (e.key.split("(")[0], dev_us / e.count)
+                    counts[tag] = e.count
+        if found.keys() == want.keys() and all(c > n * iterations / 2 for c in counts.values()):
+            break
+        if window == PROFILE_WINDOWS - 1:
+            if found.keys() != want.keys():
+                raise AssertionError(f"{PROFILE_WINDOWS} profiler windows saw only "
+                                     f"{sorted(found)} of {sorted(want)}")
+            break
+        log(f"  profiler window {window + 1} recorded {counts} of {n * iterations} launches "
+            f"each of {sorted(want.values())}; profiling again")
+    for tag, count in counts.items():
+        once_an_iteration(tag, count, n * iterations)
     return found
 
 
@@ -412,14 +544,20 @@ def ptxas_of(log_path, kernel) -> dict:
     return found
 
 
-def iteration_flops(plan) -> int:
-    """Operations one K1a iteration needs per sample: the basis product over each
-    force row's own-leg block only (H*12 x P_leg FMAs; make_rs_plan checks that W
-    is zero elsewhere), ~250 flops per rollout step (force model, torques,
-    rotations, gyroscopic term, Euler update, cost), ~30 flops per Box-Muller
-    normal."""
-    H, P_leg, P = plan.horizon, plan.params_per_leg, plan.num_parameters
-    return 2 * H * 12 * P_leg + 250 * H + 30 * P
+def iteration_flops(plan, nnz) -> int:
+    """Operations one K1a iteration needs per sample: one FMA per nonzero of the
+    own-leg basis blocks it evaluates (``nnz``; make_rs_plan checks that W is
+    zero outside them, and inside them a zero-order hold's row has one nonzero in
+    36, a linear spline's two in 9), ~250 flops per rollout step (force model,
+    torques, rotations, gyroscopic term, Euler update, cost), ~30 flops per
+    Box-Muller normal."""
+    return 2 * nnz + 250 * plan.horizon + 30 * plan.num_parameters
+
+
+def basis_nnz(blocks) -> int:
+    """Nonzeros of basis blocks (a tensor or an array)."""
+    import torch
+    return int(torch.count_nonzero(torch.as_tensor(blocks)))
 
 
 def bound_ms(flops, nbytes) -> tuple:
@@ -432,7 +570,7 @@ def k1a_bound_ms(plan) -> tuple:
     Bytes: the leg blocks of W and the incumbent read once, N costs and the packed
     output written once."""
     H, P_leg, P, N = plan.horizon, plan.params_per_leg, plan.num_parameters, plan.num_samples
-    return bound_ms(N * iteration_flops(plan),
+    return bound_ms(N * iteration_flops(plan, basis_nnz(plan.W_blocks)),
                     4 * (H * 12 * P_leg + P + N + 26 + P))  # out: [cost, 12, 12, index, P]
 
 
@@ -445,16 +583,17 @@ def softmax_bound_ms(plan, knobs, iterations=1) -> tuple:
     Bytes: W's leg blocks, the incumbent (and sigma) read, N costs, the packed
     output (and sigma', elites) written, once per iteration."""
     H, P_leg, P, N = plan.horizon, plan.params_per_leg, plan.num_parameters, plan.num_samples
-    flops = N * (iteration_flops(plan) + 2 * P + 20)
+    flops = N * (iteration_flops(plan, basis_nnz(plan.W_blocks)) + 2 * P + 20)
     nbytes = 4 * (H * 12 * P_leg + P + N + 26 + P)
     if knobs.cem:
         nbytes += 4 * (2 * P + knobs.n_elite)
     return bound_ms(iterations * flops, iterations * nbytes)
 
 
-def group_bound_ms(gplan, knobs) -> tuple:
+def group_bound_ms(gplan, knobs, groups) -> tuple:
     """Least time of one K1e solve on an H100: per evaluated sample (K*Ng) K1a's
-    count, plus the softmax's ~2P + 20 flops for MPPI / CEM. Bytes: the per-tick
+    count with its group's basis block, plus the softmax's ~2P + 20 flops for MPPI
+    / CEM. Bytes: the per-tick
     group buffer (K basis blocks, contact and share columns, offsets), the static
     step-0 rows, the incumbent (and sigma) read; K*Ng costs and the packed output
     (and sigma', elites) written."""
@@ -462,7 +601,8 @@ def group_bound_ms(gplan, knobs) -> tuple:
     H, P_leg, P, n, K = p.horizon, p.params_per_leg, p.num_parameters, gplan.num_used, \
         gplan.num_groups
     softmax = knobs.method != "random_sampling"
-    flops = n * (iteration_flops(p) + (2 * P + 20 if softmax else 0))
+    flops = sum(gplan.group_size * iteration_flops(p, basis_nnz(b)) for b in groups.blocks)
+    flops += n * (2 * P + 20 if softmax else 0)
     nbytes = 4 * (K * (H * 12 * P_leg + 8 * H + 1) + 12 * P_leg + P + n + 26 + P)
     if knobs.cem:
         nbytes += 4 * (2 * P + knobs.n_elite)
@@ -538,15 +678,17 @@ def counts_of(**nonzero):
     return lambda ticks: {name: nonzero.get(name, 0) * ticks for name in COUNTED}
 
 
-def phase_softmax(dev, rng):
-    """Phase 5: K1b and K1c against the plain version at N = 10 000."""
+def phase_softmax(dev, rng, par=MAIN_PAR, phase="phase 5"):
+    """Phase 5 (13 for the other parametrizations): K1b and K1c against the plain
+    version at N = 10 000."""
     import torch
     from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
     from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
 
     errs = {}
     for method in ("mppi", "cem_mppi"):
-        cfg = softmax_cfg(method)
+        label = f"{phase} {method}" + (f" {par}" if par != MAIN_PAR else "")
+        cfg = softmax_cfg(method, par)
         plan = sk.make_rs_plan(cfg, N_MAIN, dev)
         knobs = sm.make_knobs(cfg)
         tick = example_tick(cfg, plan)
@@ -564,45 +706,46 @@ def phase_softmax(dev, rng):
 
         res = run(tick, noise_in=noise)
         torch.cuda.synchronize()
-        e = check_softmax(plan, knobs, tick, inc, noise, *res, f"phase 5 {method}")
+        e = check_softmax(plan, knobs, tick, inc, noise, *res, label)
         nan_tick = tick._replace(state12=np.full(12, np.nan, np.float32))
         res_nan = run(nan_tick, noise_in=noise)
         torch.cuda.synchronize()
-        check_softmax(plan, knobs, nan_tick, inc, noise, *res_nan, f"phase 5 {method} ties")
+        check_softmax(plan, knobs, nan_tick, inc, noise, *res_nan, f"{label} ties")
         if not bool((res_nan[0] == 1.0e6).all()):
-            raise AssertionError(f"phase 5 {method}: a NaN state left unsaturated costs")
+            raise AssertionError(f"{label}: a NaN state left unsaturated costs")
         if knobs.cem and res_nan[3].tolist() != list(range(knobs.n_elite)):
-            raise AssertionError(f"phase 5 {method}: tied elites {res_nan[3].tolist()}")
+            raise AssertionError(f"{label}: tied elites {res_nan[3].tolist()}")
         dump = torch.empty(P, N_MAIN, device=dev)
         res_px = run(tick, seed=1234, noise_out=dump)
         res_px2 = run(tick, seed=1234)
         torch.cuda.synchronize()
         for a, b in zip(res_px, res_px2):
             if a is not None and not torch.equal(a, b):
-                raise AssertionError(f"phase 5 {method}: a rerun gave other bits")
+                raise AssertionError(f"{label}: a rerun gave other bits")
         if not bool((dump[:, 0] == 0).all()):
-            raise AssertionError(f"phase 5 {method}: column 0 (the incumbent) is not zero")
+            raise AssertionError(f"{label}: column 0 (the incumbent) is not zero")
         std = (dump[:, 1:].double().std(dim=1) / (sigma.double() if knobs.cem
                                                   else knobs.sigma_mppi))
         if not bool(((std - 1.0).abs() < 6.0 / np.sqrt(2.0 * N_MAIN)).all()):  # 6 sd
-            raise AssertionError(f"phase 5 {method}: Philox noise std / sigma {std}")
-        e_px = check_softmax(plan, knobs, tick, inc, dump, *res_px, f"phase 5 {method} philox")
+            raise AssertionError(f"{label}: Philox noise std / sigma {std}")
+        e_px = check_softmax(plan, knobs, tick, inc, dump, *res_px, f"{label} philox")
         errs[method] = e
-        log(f"phase 5 {method} (N={N_MAIN}): ok; injected noise {e}; Philox noise {e_px}; "
+        log(f"{label} (N={N_MAIN}, P={P}): ok; injected noise {e}; Philox noise {e_px}; "
             f"NaN state: all costs 1e6, elites "
             f"{res_nan[3].tolist() if knobs.cem else 'n/a'}")
     return errs
 
 
-def phase_chain(dev, rng):
-    """Phase 6: K1d, three chained iterations of each method."""
+def phase_chain(dev, rng, par=MAIN_PAR, phase="phase 6"):
+    """Phase 6 (13 for the other parametrizations): K1d, three chained iterations
+    of each method."""
     import torch
     from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
     from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
 
     worst = 0.0
     for method in ("random_sampling", "mppi", "cem_mppi"):
-        cfg = softmax_cfg(method)
+        cfg = softmax_cfg(method, par)
         plan = sk.make_rs_plan(cfg, N_MAIN, dev)
         knobs = sm.make_knobs(cfg)
         tick = example_tick(cfg, plan)
@@ -611,9 +754,10 @@ def phase_chain(dev, rng):
         sig = torch.full((P,), cfg.mpc.sampling.sigma_cem_mppi, device=dev)
         res = sm.sampling_chain(plan, knobs, tick, inc, sig, 77, 40, 3)
         errs = []
+        head = f"{phase} {method}" + (f" {par}" if par != MAIN_PAR else "")
         for i, r in enumerate(res):
             dump = torch.empty(P, N_MAIN, device=dev)
-            label = f"phase 6 {method} iteration {i}"
+            label = f"{head} iteration {i}"
             if method == "random_sampling":
                 one = sk.sampling_rs(plan, tick, inc, 77, 40 + i, noise_out=dump) + (sig, None)
             else:
@@ -630,7 +774,7 @@ def phase_chain(dev, rng):
             errs.append(e)
             worst = max(worst, e["cost"])
             inc, sig = r.out[sk.OUT_WINNER:], r.sigma
-        log(f"phase 6 {method} x 3: ok; per iteration {errs}")
+        log(f"{head} x 3: ok; per iteration {errs}")
     return worst
 
 
@@ -677,19 +821,20 @@ def cem_loop(cfg, label, want_counts, jax_walk=None):
     return counts, stats
 
 
-def phase_softmax_times(dev, rng):
-    """Phase 9: times of K1b, K1c and K1d and their plain versions."""
+def phase_softmax_times(dev, rng, par=MAIN_PAR, phase="phase 9"):
+    """Phase 9 (15 for the other parametrizations): times of K1b, K1c and K1d and
+    their plain versions, and the update pass's blocks an SM."""
     import torch
     from quadruped_pympc_tamols_torch.controllers.sampling import SamplingMPC
     from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
     from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
 
-    lib = sm.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     out = {}
     for method in ("mppi", "cem_mppi"):
-        cfg = softmax_cfg(method)
+        cfg = softmax_cfg(method, par)
         plan = sk.make_rs_plan(cfg, N_MAIN, dev)
+        lib = sm.load_library(plan.horizon, plan.params_per_leg)
         knobs = sm.make_knobs(cfg)
         tick = example_tick(cfg, plan)
         P = plan.num_parameters
@@ -733,15 +878,17 @@ def phase_softmax_times(dev, rng):
             "chain_passes": pass_profile(chained, 3, True),
             "chain_plain_ms": time_cuda(lambda: plain(3), runs=PLAIN_RUNS // 3),
             "bound": softmax_bound_ms(plan, knobs), "chain_bound": softmax_bound_ms(plan, knobs, 3),
-            "tick_ms": solve_tick_ms(SamplingMPC(cfg, device="cuda"), tick)}
-        log(f"phase 9 {method}: one iteration {out[method]['ms']:.4f} ms (median of "
-            f"{TIMED_RUNS}; memset + 2 launches), plain {out[method]['plain_ms']:.4f} ms, "
-            f"bound {out[method]['bound'][0]:.5f} ms ({out[method]['bound'][1]}); 3 chained "
-            f"through sampling_chain {out[method]['chain_ms']:.4f} ms, through the C entry with "
-            f"prebuilt argument blocks {out[method]['chain_prebuilt_ms']:.4f} ms, plain "
-            f"{out[method]['chain_plain_ms']:.4f} ms, "
-            f"bound {out[method]['chain_bound'][0]:.5f} ms; solve tick (3 iterations) with "
-            f"host glue {out[method]['tick_ms']:.4f} ms (median of 200)")
+            "tick_ms": solve_tick_ms(SamplingMPC(cfg, device="cuda"), tick),
+            "blocks_per_sm": sm.update_blocks_per_sm(plan, knobs)}
+        r = out[method]
+        log(f"{phase} {method} {par} (P={P}): update pass {r['blocks_per_sm']} blocks an SM "
+            f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor); one iteration {r['ms']:.4f} ms "
+            f"(median of {TIMED_RUNS}; memset + 2 launches), plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]}); 3 chained through sampling_chain "
+            f"{r['chain_ms']:.4f} ms, through the C entry with prebuilt argument blocks "
+            f"{r['chain_prebuilt_ms']:.4f} ms, plain {r['chain_plain_ms']:.4f} ms, bound "
+            f"{r['chain_bound'][0]:.5f} ms; solve tick (3 iterations) with host glue "
+            f"{r['tick_ms']:.4f} ms (median of 200)")
     return out
 
 
@@ -792,8 +939,9 @@ def check_groups(gplan, knobs, tick, groups, inc, noise, res, label) -> dict:
     return errs
 
 
-def phase_groups(dev, rng):
-    """Phase 10: K1e against its plain version at N = 10 000, K = 3."""
+def phase_groups(dev, rng, par=MAIN_PAR, phase="phase 10"):
+    """Phase 10 (13 for the other parametrizations): K1e against its plain version
+    at N = 10 000, K = 3."""
     import torch
     from quadruped_pympc_tamols_torch.controllers.sampling import (GaitAdaptiveSamplingMPC,
                                                                    group_operators, host_best_freq)
@@ -804,8 +952,8 @@ def phase_groups(dev, rng):
     errs = {}
     ones = np.ones(4, np.float32)
     for method in ("random_sampling", "mppi", "cem_mppi"):
-        label = f"phase 10 {method}"
-        cfg = gait_cfg(method, **{"mpc.step_freq_available": GAIT_FREQS})
+        label = f"{phase} {method}" + (f" {par}" if par != MAIN_PAR else "")
+        cfg = gait_cfg(method, par, **{"mpc.step_freq_available": GAIT_FREQS})
         gplan = sg.make_group_plan(cfg, N_MAIN, dev)
         knobs = sm.make_knobs(cfg)
         P, n, Ng = gplan.base.num_parameters, gplan.num_used, gplan.group_size
@@ -889,8 +1037,9 @@ def phase_groups(dev, rng):
     return errs
 
 
-def phase_group_times(dev, rng):
-    """Phase 12: times of K1e per method, its plain version and its bound."""
+def phase_group_times(dev, rng, par=MAIN_PAR, phase="phase 12"):
+    """Phase 12 (15 for the other parametrizations): times of K1e per method, its
+    plain version and its bound."""
     import dataclasses
 
     import torch
@@ -900,12 +1049,12 @@ def phase_group_times(dev, rng):
     from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
     from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
 
-    lib = sg.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     out = {}
     for method in ("random_sampling", "mppi", "cem_mppi"):
-        cfg = gait_cfg(method)
+        cfg = gait_cfg(method, par)
         gplan = sg.make_group_plan(cfg, N_MAIN, dev)
+        lib = sg.load_library(gplan.base.horizon, gplan.base.params_per_leg)
         knobs = sm.make_knobs(cfg)
         tick = example_tick(cfg, gplan.base)
         groups = group_operators(cfg, GAIT_PHASE,
@@ -948,15 +1097,140 @@ def phase_group_times(dev, rng):
             "wrapper_ms": time_cuda(lambda: sg.sampling_groups(gplan, knobs, tick, groups, inc,
                                                                sig, 5, 0)),
             "plain_ms": time_cuda(plain, runs=PLAIN_RUNS),
-            "bound": group_bound_ms(gplan, knobs),
+            "bound": group_bound_ms(gplan, knobs, groups),
             "tick_ms": solve_tick_ms(GaitAdaptiveSamplingMPC(cfg, device="cuda"), tick)}
         r = out[method]
-        log(f"phase 12 {method}: K1e {r['ms']:.4f} ms (median of {TIMED_RUNS}, C entry with "
+        log(f"{phase} {method} {par}: K1e {r['ms']:.4f} ms (median of {TIMED_RUNS}, C entry with "
             f"prebuilt arguments), through its wrapper {r['wrapper_ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms ({r['bound'][1]}); "
             f"gait-adaptive solve tick with host glue {r['tick_ms']:.4f} ms (median of 200), "
             f"of which the host's group_operators {r['operators_us']:.1f} us (median of 200)")
     return out
+
+
+def phase_rs(dev, rng, par=MAIN_PAR, phase=None):
+    """Phases 1-2 (13 for the other parametrizations): K1a against its plain version
+    on injected noise at N = 10 000, then its Philox noise: band statistics, the
+    incumbent column, determinism, and the plain version reproducing the kernel's
+    costs on the dumped noise. Returns the injected noise's error figures."""
+    import torch
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+
+    one, two = ("phase 1", "phase 2") if phase is None else (f"{phase} K1a {par}",) * 2
+    cfg = main_cfg(par)
+    plan = sk.make_rs_plan(cfg, N_MAIN, dev)
+    tick = example_tick(cfg, plan)
+    P = plan.num_parameters
+    inc = torch.as_tensor(rng.standard_normal(P).astype(np.float32) * 2.0, device=dev)
+    noise = torch.as_tensor(numpy_noise(plan, rng), device=dev)
+    costs_k, out_k = sk.sampling_rs(plan, tick, inc, 0, 0, noise_in=noise)
+    torch.cuda.synchronize()
+    errs, _ = check_against_plain(plan, tick, inc, noise, costs_k, out_k, one)
+    log(f"{one} (N={N_MAIN}, H={plan.horizon}, P={P}): ok; max abs err {errs}")
+
+    inc = torch.as_tensor(rng.standard_normal(P).astype(np.float32), device=dev)
+    dump = torch.empty(P, N_MAIN, device=dev)
+    dump2 = torch.empty_like(dump)
+    costs_k, out_k = sk.sampling_rs(plan, tick, inc, 1234, 7, noise_out=dump)
+    costs_2, out_2 = sk.sampling_rs(plan, tick, inc, 1234, 7, noise_out=dump2)
+    torch.cuda.synchronize()
+    if not (torch.equal(dump, dump2) and torch.equal(costs_k, costs_2)
+            and torch.equal(out_k, out_2)):
+        raise AssertionError(f"{two}: the same (seed, offset) gave other bits")
+    sk.sampling_rs(plan, tick, inc, 1234, 8, noise_out=dump2)
+    torch.cuda.synchronize()
+    if torch.equal(dump, dump2):
+        raise AssertionError(f"{two}: a new offset gave the same noise")
+    if not bool((dump[:, 0] == 0).all()):
+        raise AssertionError(f"{two}: column 0 (the incumbent) is not exactly zero")
+    s1, s2, s3 = plan.sigma_random
+    b1, b2 = sk.band_edges(N_MAIN)
+    stats = {}
+    for name, lo, hi, sigma in (("gauss1", 1, b1, s1), ("gauss2", b1, b2, s2),
+                                ("uniform", b2, N_MAIN, s3 / np.sqrt(3.0))):
+        band = dump[:, lo:hi].double()
+        mean, std = float(band.mean()), float(band.std())
+        stats[name] = (mean, std)
+        if abs(mean) > 0.01 * sigma or abs(std / sigma - 1.0) > 0.02:
+            raise AssertionError(f"{two}: band {name} mean {mean} std {std}, want 0, {sigma}")
+    u = dump[:, b2:]
+    if float(u.min()) < -s3 or float(u.max()) > s3:
+        raise AssertionError(f"{two}: uniform band leaves +-{s3}")
+    errs2, _ = check_against_plain(plan, tick, inc, dump, costs_k, out_k, f"{two} philox")
+    log(f"{two} philox: ok; bit-equal on a rerun; band (mean, std) {stats}; plain on dumped "
+        f"noise max abs err {errs2}")
+    return errs
+
+
+def rs_times(dev, rng, par=MAIN_PAR, phase="phase 4"):
+    """Phase 4 (15 for the other parametrizations): K1a through its C entry with the
+    argument block built once, so the events see the memset and the two launches,
+    not Python's packing; its passes, its plain version and its bound."""
+    import torch
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+
+    cfg = main_cfg(par)
+    plan = sk.make_rs_plan(cfg, N_MAIN, dev)
+    tick = example_tick(cfg, plan)
+    P = plan.num_parameters
+    noise = torch.as_tensor(numpy_noise(plan, rng), device=dev)
+    inc = torch.as_tensor(rng.standard_normal(P).astype(np.float32), device=dev)
+    lib = sk.load_library(plan.horizon, plan.params_per_leg)
+    args = sk.kernel_args(plan, tick, 5, 0)
+    costs_t = torch.empty(N_MAIN, device=dev)
+    out_t = torch.empty(sk.OUT_WINNER + P, device=dev)
+    argmin_t = torch.empty(1, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        rc = lib.rs_launch(sk.ctypes.byref(args), plan.params_per_leg, plan.W_blocks.data_ptr(),
+                           inc.data_ptr(), None, None, costs_t.data_ptr(), argmin_t.data_ptr(),
+                           out_t.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"rs_launch returned {rc}")
+
+    r = {"ms": time_cuda(launch), "passes": pass_profile(launch, 1, False),
+         "plain_ms": time_cuda(lambda: plain_on_device(plan, tick, inc, noise), runs=50),
+         "bound": k1a_bound_ms(plan)}
+    log(f"{phase} K1a {par} (P={P}): {r['ms']:.4f} ms (median of {TIMED_RUNS}, two launches + "
+        f"memset), plain version {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
+        f"({r['bound'][1]})")
+    return r
+
+
+def tick_loop(mpc, tick, label, want_counts, n=TICK_LOOP):
+    """n solve ticks of a controller on the flagship inputs, through compute_control
+    and the read of its host summary, with the launch counts zeroed just before and
+    read just after; raises unless they are ``want_counts(n)``, every summary is
+    finite and, for CEM-MPPI, every sigma stays inside [cem_sigma_min,
+    cem_sigma_max]. Returns the counts."""
+    import torch
+    from quadruped_pympc_tamols_torch.controllers.sampling import (GaitAdaptiveSamplingMPC,
+                                                                   host_summary)
+    sp = mpc.cfg.mpc.sampling
+    st, ref = tick_dicts(tick)
+    ones = np.ones(4, np.float32)
+    gait = (GAIT_PHASE, 1.4, 1) if isinstance(mpc, GaitAdaptiveSamplingMPC) else ()
+    summaries, sigmas = [], []
+    reset_counts()
+    for _ in range(n):
+        out = mpc.compute_control(st, ref, tick.contact_seq, ones, ones, *gait)
+        grfs, state, cost = host_summary(out)
+        summaries.append(np.concatenate([grfs.ravel(), state, [cost]]))
+        sigmas.append(out.sigma)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != want_counts(n):
+        raise AssertionError(f"{label}: launches {counts} for {n} ticks, want {want_counts(n)}")
+    if not np.isfinite(np.stack(summaries)).all():
+        raise AssertionError(f"{label}: a non-finite summary")
+    sig = torch.stack(sigmas)
+    if sp.method == "cem_mppi" and not bool(((sig >= sp.cem_sigma_min)
+                                             & (sig <= sp.cem_sigma_max)).all()):
+        raise AssertionError(f"{label}: sigma left [{sp.cem_sigma_min}, {sp.cem_sigma_max}]")
+    log(f"{label}: ok; {n} ticks on the flagship inputs with finite summaries (last best cost "
+        f"{summaries[-1][-1]:.4f}); launches {counts}")
+    return counts
 
 
 def main() -> int:
@@ -991,119 +1265,60 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = build.build_all()
-    sk.load_library()
-    sm.load_library()
-    sg.load_library()
-    log(f"build: {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.1f} s "
-        f"(one nvcc per source, started together)")
-    for lib_path in libs.values():
+    for H, P_leg in build.INSTANTIATIONS:
+        sk.load_library(H, P_leg)
+        sm.load_library(H, P_leg)
+        sg.load_library(H, P_leg)
+    log(f"build: {len(libs)} libraries ({len(build.SOURCES)} sources x (H, P_leg) in "
+        f"{list(build.INSTANTIATIONS)}) in {time.perf_counter() - t0:.1f} s (one nvcc per "
+        f"source and pair, started together)")
+    for (name, H, P_leg), lib_path in libs.items():
         for line in lib_path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"  ptxas: {line.strip()}")
+                log(f"  ptxas {name} H={H} P_leg={P_leg}: {line.strip()}")
 
-    # -- phase 1: kernel against its plain version, same noise ------------------------
+    # -- phases 1-2: K1a against its plain version, same noise; Philox noise ------------
     rng = np.random.default_rng(0)
     cfg = main_cfg()
     plan = sk.make_rs_plan(cfg, N_MAIN, dev)
     tick = example_tick(cfg, plan)
-    P = plan.num_parameters
-    inc = torch.as_tensor(rng.standard_normal(P).astype(np.float32) * 2.0, device=dev)
-    noise = torch.as_tensor(numpy_noise(plan, rng), device=dev)
-    costs_k, out_k = sk.sampling_rs(plan, tick, inc, 0, 0, noise_in=noise)
-    torch.cuda.synchronize()
-    errs_main, _ = check_against_plain(plan, tick, inc, noise, costs_k, out_k, "phase 1")
-    log(f"phase 1 (N={N_MAIN}, H={plan.horizon}, P={P}): ok; max abs err {errs_main}")
-
-    # -- phase 2: Philox noise --------------------------------------------------------
-    inc = torch.as_tensor(rng.standard_normal(P).astype(np.float32), device=dev)
-    dump = torch.empty(P, N_MAIN, device=dev)
-    dump2 = torch.empty_like(dump)
-    costs_k, out_k = sk.sampling_rs(plan, tick, inc, 1234, 7, noise_out=dump)
-    sk.sampling_rs(plan, tick, inc, 1234, 7, noise_out=dump2)
-    torch.cuda.synchronize()
-    if not torch.equal(dump, dump2):
-        raise AssertionError("phase 2: the same (seed, offset) gave different noise")
-    sk.sampling_rs(plan, tick, inc, 1234, 8, noise_out=dump2)
-    torch.cuda.synchronize()
-    if torch.equal(dump, dump2):
-        raise AssertionError("phase 2: a new offset gave the same noise")
-    if not bool((dump[:, 0] == 0).all()):
-        raise AssertionError("phase 2: column 0 (the incumbent) is not exactly zero")
-    s1, s2, s3 = plan.sigma_random
-    b1, b2 = sk.band_edges(N_MAIN)
-    stats = {}
-    for name, lo, hi, sigma in (("gauss1", 1, b1, s1), ("gauss2", b1, b2, s2),
-                                ("uniform", b2, N_MAIN, s3 / np.sqrt(3.0))):
-        band = dump[:, lo:hi].double()
-        mean, std = float(band.mean()), float(band.std())
-        stats[name] = (mean, std)
-        if abs(mean) > 0.01 * sigma or abs(std / sigma - 1.0) > 0.02:
-            raise AssertionError(f"phase 2: band {name} mean {mean} std {std}, want 0, {sigma}")
-    u = dump[:, b2:]
-    if float(u.min()) < -s3 or float(u.max()) > s3:
-        raise AssertionError(f"phase 2: uniform band leaves +-{s3}")
-    errs2, _ = check_against_plain(plan, tick, inc, dump, costs_k, out_k, "philox")
-    log(f"phase 2: ok; band (mean, std) {stats}; plain on dumped noise max abs err {errs2}")
+    errs_rs = {MAIN_PAR: phase_rs(dev, rng)}
 
     # -- phase 3: the first slice's path ----------------------------------------------
     counts_rs, wall, _ = walk(cfg, "phase 3", counts_of(K1a=1))
+    log(f"phase 3: JAX package on the CPU (distance, min z, max |roll|,|pitch|): "
+        f"{JAX_CPU_WALKS['random_sampling x 1']}")
 
     # -- phase 4: times of K1a --------------------------------------------------------
-    noise = torch.as_tensor(numpy_noise(plan, rng), device=dev)
-    inc = torch.as_tensor(rng.standard_normal(P).astype(np.float32), device=dev)
-    # The kernel is timed through its C entry with the argument block built once,
-    # so the events see the memset and the two launches, not Python's packing.
-    lib = sk.load_library()
-    args = sk.kernel_args(plan, tick, 5, 0)
-    costs_t = torch.empty(N_MAIN, device=dev)
-    out_t = torch.empty(sk.OUT_WINNER + P, device=dev)
-    argmin_t = torch.empty(1, dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def launch():
-        rc = lib.rs_launch(sk.ctypes.byref(args), plan.params_per_leg, plan.W_blocks.data_ptr(),
-                           inc.data_ptr(), None, None, costs_t.data_ptr(), argmin_t.data_ptr(),
-                           out_t.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"rs_launch returned {rc}")
-
-    kernel_ms = time_cuda(launch)
-    passes = {"K1a": pass_profile(launch, 1, False)}
-    plain_ms = time_cuda(lambda: plain_on_device(plan, tick, inc, noise), runs=50)
+    t_rs = {MAIN_PAR: rs_times(dev, rng)}
     mpc = SamplingMPC(cfg, device="cuda")
     tick_med = solve_tick_ms(mpc, tick)
-    k1a_bound, k1a_by = k1a_bound_ms(plan)
     log(f"phase 4: profile of 50 solve ticks: {profile_ticks(mpc, tick)}")
-    log(f"phase 4: K1a {kernel_ms:.4f} ms (median of {TIMED_RUNS}, two launches + memset), "
-        f"plain version {plain_ms:.4f} ms, bound {k1a_bound:.5f} ms ({k1a_by}); solve tick "
-        f"with host glue {tick_med:.4f} ms (median of 200); harness {wall / WALK_S:.3f} s "
-        f"wall per simulated s")
+    log(f"phase 4: solve tick with host glue {tick_med:.4f} ms (median of 200); harness "
+        f"{wall / WALK_S:.3f} s wall per simulated s")
 
     # -- phases 5-6: K1b, K1c and K1d against their plain version ---------------------
-    errs_sm = phase_softmax(dev, rng)
-    chain_err = phase_chain(dev, rng)
+    errs_sm = {MAIN_PAR: phase_softmax(dev, rng)}
+    chain_err = {MAIN_PAR: phase_chain(dev, rng)}
 
     # -- phase 7: this slice's path, MPPI x 3 -----------------------------------------
     mcfg = softmax_cfg("mppi")
     counts_mppi, wall_mppi, _ = walk(mcfg, "phase 7", counts_of(K1b=3))
-    prof = profile_ticks(SamplingMPC(mcfg, device="cuda"), tick)
+    log(f"phase 7: JAX package on the CPU: {JAX_CPU_WALKS['mppi x 3']}")
+    # One device-to-host copy a tick, and each pass once an iteration.
+    prof = profile_ticks(SamplingMPC(mcfg, device="cuda"), tick,
+                         expect={tag: 3 for tag in PASSES.values()}, d2h=1)
     log(f"phase 7: profile of 50 MPPI x 3 solve ticks: {prof}")
-    if prof.get("d2h_copies") != 50:
-        raise AssertionError(f"phase 7: {prof.get('d2h_copies')} device-to-host copies in 50 "
-                             "ticks, want one a tick")
-    for tag in PASSES.values():
-        once_an_iteration(f"phase 7 {tag}",
-                          sum(c for k, c in prof["launches"].items() if tag in k), 150)
 
     # -- phase 8: CEM-MPPI closed loop ------------------------------------------------
     counts_cem, _ = cem_loop(softmax_cfg("cem_mppi"), "phase 8", counts_of(K1c=3),
                              JAX_CPU_WALKS["cem_mppi x 3"])
 
     # -- phase 9: times of K1b, K1c, K1d ----------------------------------------------
-    t9 = phase_softmax_times(dev, rng)
+    t9 = {MAIN_PAR: phase_softmax_times(dev, rng)}
 
     # -- phase 10: K1e against its plain version ---------------------------------------
-    errs_g = phase_groups(dev, rng)
+    errs_g = {MAIN_PAR: phase_groups(dev, rng)}
 
     # -- phase 11: this slice's path, gait-adaptive sampling ---------------------------
     walks = {}
@@ -1111,75 +1326,119 @@ def main() -> int:
         walks[method] = walk(gait_cfg(method), f"phase 11 {method}", counts_of(**{key: 1}))
         log(f"phase 11 {method}: JAX package on the CPU (distance, min z, max |roll|,|pitch|): "
             f"{JAX_CPU_WALKS['gait ' + method]}")
-    counts_gcem, _ = cem_loop(gait_cfg("cem_mppi"), "phase 11 cem_mppi", counts_of(K1e_cem=1))
+    counts_gcem, _ = cem_loop(gait_cfg("cem_mppi"), "phase 11 cem_mppi", counts_of(K1e_cem=1),
+                              JAX_CPU_WALKS["gait cem_mppi"])
     prof = profile_ticks(GaitAdaptiveSamplingMPC(gait_cfg("random_sampling"), device="cuda"),
-                         tick)
+                         tick, d2h=1)
     log(f"phase 11: profile of 50 gait-adaptive solve ticks: {prof}")
-    if prof.get("d2h_copies") != 50:
-        raise AssertionError(f"phase 11: {prof.get('d2h_copies')} device-to-host copies in 50 "
-                             "ticks, want one a tick")
 
     # -- phase 12: times of K1e ---------------------------------------------------------
-    t12 = phase_group_times(dev, rng)
+    t12 = {MAIN_PAR: phase_group_times(dev, rng)}
 
-    def row(name, source, launches, err, ms, plain, bound, **extra):
-        return {"name": name, "route": "cuda",
-                "source": f"quadruped_pympc_tamols_torch/ops/csrc/{source}",
+    # Launches of each row on its path: (short name, parametrization) -> count.
+    launches = {("K1a", MAIN_PAR): counts_rs["K1a"], ("K1b", MAIN_PAR): counts_mppi["K1b"],
+                ("K1c", MAIN_PAR): counts_cem["K1c"], ("K1d", MAIN_PAR): counts_mppi["K1b"],
+                ("K1e-rs", MAIN_PAR): walks["random_sampling"][0]["K1e_rs"],
+                ("K1e-mppi", MAIN_PAR): walks["mppi"][0]["K1e_mppi"],
+                ("K1e-cem", MAIN_PAR): counts_gcem["K1e_cem"]}
+
+    # -- phase 13: the other parametrizations' kernels against their plain versions ----
+    for par in NEW_PARS:
+        errs_rs[par] = phase_rs(dev, rng, par, "phase 13")
+        errs_sm[par] = phase_softmax(dev, rng, par, "phase 13")
+        chain_err[par] = phase_chain(dev, rng, par, "phase 13")
+        errs_g[par] = phase_groups(dev, rng, par, "phase 13")
+
+    # -- phase 14: their paths ----------------------------------------------------------
+    # The walks whose JAX reference walks (random sampling x 1 with each, MPPI x 3
+    # with zero-order holds); every other method through its controller on the
+    # flagship inputs, TICK_LOOP ticks.
+    for par in NEW_PARS:
+        c, _, _ = walk(main_cfg(par), f"phase 14 random_sampling x 1 {par}", counts_of(K1a=1))
+        log(f"phase 14 random_sampling x 1 {par}: JAX package on the CPU: "
+            f"{JAX_CPU_WALKS['random_sampling x 1 ' + par]}")
+        launches[("K1a", par)] = c["K1a"]
+    c, _, _ = walk(softmax_cfg("mppi", "zero_order"), "phase 14 mppi x 3 zero_order",
+                   counts_of(K1b=3))
+    log(f"phase 14 mppi x 3 zero_order: JAX package on the CPU: "
+        f"{JAX_CPU_WALKS['mppi x 3 zero_order']}")
+    launches[("K1b", "zero_order")] = launches[("K1d", "zero_order")] = c["K1b"]
+    c = tick_loop(SamplingMPC(softmax_cfg("mppi", "linear_spline"), device="cuda"), tick,
+                  "phase 14 mppi x 3 linear_spline", counts_of(K1b=3))
+    launches[("K1b", "linear_spline")] = launches[("K1d", "linear_spline")] = c["K1b"]
+    for par in NEW_PARS:
+        c = tick_loop(SamplingMPC(softmax_cfg("cem_mppi", par), device="cuda"), tick,
+                      f"phase 14 cem_mppi x 3 {par}", counts_of(K1c=3))
+        launches[("K1c", par)] = c["K1c"]
+        for method, key in (("random_sampling", "K1e_rs"), ("mppi", "K1e_mppi"),
+                            ("cem_mppi", "K1e_cem")):
+            c = tick_loop(GaitAdaptiveSamplingMPC(gait_cfg(method, par), device="cuda"), tick,
+                          f"phase 14 gait {method} {par}", counts_of(**{key: 1}))
+            launches[("K1e-" + key[4:], par)] = c[key]
+
+    # -- phase 15: their times ----------------------------------------------------------
+    for par in NEW_PARS:
+        t_rs[par] = rs_times(dev, rng, par, "phase 15")
+        t9[par] = phase_softmax_times(dev, rng, par, "phase 15")
+        t12[par] = phase_group_times(dev, rng, par, "phase 15")
+
+    def row(name, source, short, par, err, ms, plain, bound, passes, **extra):
+        return {"name": f"{name} ({short}{PAR_SUFFIX[par]})", "route": "cuda",
+                "source": f"quadruped_pympc_tamols_torch/ops/csrc/{source}.cu",
                 "replaces": "quadruped_pympc_tamols_tpu/ops/rollout_pallas.py:818",
-                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None, **extra}
+                "launches": launches[(short, par)], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": None, "parametrization": par, **extra, "_passes": passes}
 
-    kernels = [
-        row("sampling_rs (K1a)", "sampling_rs.cu", counts_rs["K1a"], errs_main["cost"],
-            kernel_ms, plain_ms, (k1a_bound, k1a_by), grf_max_abs_err=errs_main["grf"],
-            state_max_abs_err=errs_main["state"],
-            solve_tick_ms=tick_med, harness_s_per_sim_s=wall / WALK_S),
-        row("softmax_iteration, mppi (K1b)", "sampling_softmax.cu", counts_mppi["K1b"],
-            errs_sm["mppi"]["cost"], t9["mppi"]["ms"], t9["mppi"]["plain_ms"],
-            t9["mppi"]["bound"], params_max_abs_err=errs_sm["mppi"]["params"]),
-        row("softmax_iteration, cem_mppi (K1c)", "sampling_softmax.cu", counts_cem["K1c"],
-            errs_sm["cem_mppi"]["cost"], t9["cem_mppi"]["ms"], t9["cem_mppi"]["plain_ms"],
-            t9["cem_mppi"]["bound"], params_max_abs_err=errs_sm["cem_mppi"]["params"],
-            sigma_max_abs_err=errs_sm["cem_mppi"]["sigma"],
-            solve_tick_ms=t9["cem_mppi"]["tick_ms"]),
+    kernels = []
+    for par in (MAIN_PAR, *NEW_PARS):
+        e, r = errs_rs[par], t_rs[par]
+        is_main = par == MAIN_PAR
+        kernels.append(row("sampling_rs", "sampling_rs", "K1a", par, e["cost"], r["ms"],
+                           r["plain_ms"], r["bound"], r["passes"], grf_max_abs_err=e["grf"],
+                           state_max_abs_err=e["state"],
+                           **({"solve_tick_ms": tick_med, "harness_s_per_sim_s": wall / WALK_S}
+                              if is_main else {})))
+        for method, short in (("mppi", "K1b"), ("cem_mppi", "K1c")):
+            e, r = errs_sm[par][method], t9[par][method]
+            extra = {"sigma_max_abs_err": e["sigma"]} if "sigma" in e else {}
+            kernels.append(row(f"softmax_iteration, {method}", "sampling_softmax", short, par,
+                               e["cost"], r["ms"], r["plain_ms"], r["bound"], r["passes"],
+                               params_max_abs_err=e["params"], solve_tick_ms=r["tick_ms"],
+                               update_blocks_per_sm=r["blocks_per_sm"], **extra))
         # K1d has no kernel of its own: its launches are the K1b launches that
-        # sampling_chain issued in the MPPI x 3 walk (3 a tick), counted by K1b's
+        # sampling_chain issued on the MPPI x 3 path (3 a tick), counted by K1b's
         # wrapper; its ms is sampling_chain's, wrapper included.
-        row("sampling_chain (K1d, MPPI x 3)", "sampling_softmax.cu", counts_mppi["K1b"],
-            chain_err, t9["mppi"]["chain_ms"], t9["mppi"]["chain_plain_ms"],
-            t9["mppi"]["chain_bound"], launches_are="K1b launches issued by sampling_chain",
-            ms_c_entry_prebuilt_args=t9["mppi"]["chain_prebuilt_ms"],
-            solve_tick_ms=t9["mppi"]["tick_ms"], harness_s_per_sim_s=wall_mppi / WALK_S),
-    ]
-    for method, short, launches in (
-            ("random_sampling", "rs", walks["random_sampling"][0]["K1e_rs"]),
-            ("mppi", "mppi", walks["mppi"][0]["K1e_mppi"]),
-            ("cem_mppi", "cem", counts_gcem["K1e_cem"])):
-        r, e = t12[method], errs_g[method]
-        extra = {f"{k}_max_abs_err": e[k] for k in ("grf", "state", "params", "sigma") if k in e}
-        if method in walks:
-            extra["harness_s_per_sim_s"] = walks[method][1] / WALK_S
-        kernels.append(row(f"sampling_groups, {method} (K1e-{short})", "sampling_groups.cu",
-                           launches, e["cost"], r["ms"], r["plain_ms"], r["bound"],
-                           ms_through_wrapper=r["wrapper_ms"], solve_tick_ms=r["tick_ms"],
-                           host_group_operators_us=r["operators_us"], **extra))
+        r = t9[par]["mppi"]
+        kernels.append(row("sampling_chain, MPPI x 3", "sampling_softmax", "K1d", par,
+                           chain_err[par], r["chain_ms"], r["chain_plain_ms"], r["chain_bound"],
+                           r["chain_passes"], launches_are="K1b launches issued by sampling_chain",
+                           ms_c_entry_prebuilt_args=r["chain_prebuilt_ms"],
+                           **({"harness_s_per_sim_s": wall_mppi / WALK_S} if is_main else {})))
+        for method, short in (("random_sampling", "K1e-rs"), ("mppi", "K1e-mppi"),
+                              ("cem_mppi", "K1e-cem")):
+            r, e = t12[par][method], errs_g[par][method]
+            extra = {f"{k}_max_abs_err": e[k] for k in ("grf", "state", "params", "sigma")
+                     if k in e}
+            if is_main and method in walks:
+                extra["harness_s_per_sim_s"] = walks[method][1] / WALK_S
+            kernels.append(row(f"sampling_groups, {method}", "sampling_groups", short, par,
+                               e["cost"], r["ms"], r["plain_ms"], r["bound"], r["passes"],
+                               ms_through_wrapper=r["wrapper_ms"], solve_tick_ms=r["tick_ms"],
+                               host_group_operators_us=r["operators_us"], **extra))
     # The rollout and update passes of each row: device time a launch (K1d: a
     # launch of its chain) and the ptxas report of the kernel in the row's library.
-    passes.update({"K1b": t9["mppi"]["passes"], "K1c": t9["cem_mppi"]["passes"],
-                   "K1d": t9["mppi"]["chain_passes"],
-                   "K1e-rs": t12["random_sampling"]["passes"], "K1e-mppi": t12["mppi"]["passes"],
-                   "K1e-cem": t12["cem_mppi"]["passes"]})
-    library = {"K1a": "sampling_rs", "K1b": "sampling_softmax", "K1c": "sampling_softmax",
-               "K1d": "sampling_softmax", "K1e-rs": "sampling_groups",
-               "K1e-mppi": "sampling_groups", "K1e-cem": "sampling_groups"}
-    for r, (short, found) in zip(kernels, passes.items()):
-        if f"({short}" not in r["name"]:
-            raise AssertionError(f"pass times out of order: {short} for {r['name']}")
-        for pass_name, (kname, us) in found.items():
-            ptx = ptxas_of(libs[library[short]].with_suffix(".log"), PASSES[pass_name])
+    for r in kernels:
+        p = sk.make_rs_plan(main_cfg(r["parametrization"]), 1, "cpu")
+        lib = libs[(r["source"].rsplit("/", 1)[1][:-3], p.horizon, p.params_per_leg)]
+        for pass_name, (kname, us) in r.pop("_passes").items():
+            ptx = ptxas_of(lib.with_suffix(".log"), PASSES[pass_name])
             r[f"{pass_name}_kernel_us"] = us
-            log(f"{pass_name} pass of {short}: {kname} {us:.2f} us a launch (torch.profiler, "
+            r[f"{pass_name}_ptxas"] = ptx
+            log(f"{pass_name} pass of {r['name']}: {kname} {us:.2f} us a launch (torch.profiler, "
                 f"mean of 50 calls); ptxas: {ptx}")
+        if not r["launches"] > 0:
+            raise AssertionError(f"{r['name']}: no launch on its path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -18,9 +18,10 @@ Where the iterations run:
   tick's inputs ride each launch as its by-value argument block and the outputs
   stay on the card; the host copies back one 25-float summary [best cost, GRFs
   (12), predicted state (12)] per tick (``SamplingMPC`` starts that copy,
-  ``host_summary`` reads it). The ZMP-band cost raises NotImplementedError, and
-  so do parametrizations other than cubic splines with 2 splines at horizon 12,
-  the only shape the kernels' sources instantiate.
+  ``host_summary`` reads it). The kernels are built for cubic splines, linear
+  splines (2 splines each) and zero-order holds at horizon 12
+  (``ops/build.py:INSTANTIATIONS``); another (horizon, parameters per leg) pair
+  raises NotImplementedError, and so does the ZMP-band cost.
 * CPU: the kernels' plain versions through the same wrappers, for all three
   methods and the ZMP-band cost.
 

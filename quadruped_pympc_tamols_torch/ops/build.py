@@ -1,10 +1,12 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
-Each source in ``csrc/`` is compiled for sm_90a into a shared library with a plain
-C interface, in its own nvcc process. The first use starts every missing build
-at once, so a first use waits for the slowest source, not for the sum. A
-library's file name carries a hash of its source, of the headers in ``csrc/``
-and of the flags, so an edit to any of them rebuilds it. The libraries and the
+Each source in ``csrc/`` is compiled for sm_90a into one shared library with a
+plain C interface for each (horizon, parameters per leg) pair of
+``INSTANTIATIONS``, passed as ``-DSAMPLING_H`` and ``-DSAMPLING_PL``, each in its
+own nvcc process. The first use starts every missing build at once, so a first
+use waits for the slowest build, not for the sum. A library's file name carries
+a hash of its source, of the headers in ``csrc/`` and of the flags (the pair
+included), so an edit to any of them rebuilds it. The libraries and the
 compiler's ``-Xptxas -v`` reports (``.log`` beside each) go to the git-ignored
 ``quadruped_pympc_tamols_torch/_build/``.
 """
@@ -21,7 +23,15 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("sampling_rs", "sampling_softmax", "sampling_groups")  # csrc/<name>.cu, one library each
+SOURCES = ("sampling_rs", "sampling_softmax", "sampling_groups")  # csrc/<name>.cu
+# The (horizon, parameters per leg) pairs every source is built for: at horizon 12
+# with 2 splines, cubic splines (the main path), linear splines and zero-order
+# holds (splines.num_params_per_leg). One line adds a pair.
+INSTANTIATIONS = (
+    (12, 24),  # cubic_spline
+    (12, 9),  # linear_spline
+    (12, 36),  # zero_order
+)
 
 _LIBS: dict = {}
 
@@ -35,45 +45,66 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
 
 
-def _library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` is, or will be, built."""
+def _flags(horizon: int, params_per_leg: int) -> tuple:
+    return NVCC_FLAGS + (f"-DSAMPLING_H={horizon}", f"-DSAMPLING_PL={params_per_leg}")
+
+
+def _library_path(name: str, horizon: int, params_per_leg: int) -> Path:
+    """Where the library of ``csrc/<name>.cu`` for the pair is, or will be, built."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    h.update(" ".join(_flags(horizon, params_per_leg)).encode())
+    return BUILD_DIR / f"lib{name}_h{horizon}_pl{params_per_leg}_{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> dict:
-    """Compile every source whose library is missing, all nvcc processes started
-    together, and return ``{name: library path}``. Raises if any build fails."""
-    paths = {name: _library_path(name) for name in SOURCES}
-    todo = [name for name, lib in paths.items() if not lib.exists()]
+    """Compile every (source, pair) whose library is missing, all nvcc processes
+    started together, and return ``{(name, horizon, params_per_leg): library
+    path}``. Raises if any build fails."""
+    paths = {(name, *shape): _library_path(name, *shape)
+             for name in SOURCES for shape in INSTANTIATIONS}
+    todo = [key for key, lib in paths.items() if not lib.exists()]
     if not todo:
         return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
-    for name in todo:
+    for key in todo:
+        name, shape = key[0], key[1:]
         # The child keeps its own descriptor of the log; ours closes at once.
-        with open(paths[name].with_suffix(".log"), "w") as log:
-            tmp = paths[name].with_suffix(f".so.tmp{os.getpid()}")
-            procs.append((name, tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        with open(paths[key].with_suffix(".log"), "w") as log:
+            tmp = paths[key].with_suffix(f".so.tmp{os.getpid()}")
+            procs.append((key, tmp, subprocess.Popen(
+                [nvcc, *_flags(*shape), "-o", str(tmp), str(CSRC / f"{name}.cu")],
                 stdout=log, stderr=subprocess.STDOUT)))
     failed = []
-    for name, tmp, proc in procs:
+    for key, tmp, proc in procs:
         if proc.wait() != 0:
-            failed.append(f"{name}.cu:\n{paths[name].with_suffix('.log').read_text()}")
+            failed.append(f"{key[0]}.cu at (H, P_leg) = {key[1:]}:\n"
+                          f"{paths[key].with_suffix('.log').read_text()}")
         else:
-            os.replace(tmp, paths[name])
+            os.replace(tmp, paths[key])
     if failed:
         raise RuntimeError("nvcc failed to build " + "\n".join(failed))
     return paths
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    if name not in _LIBS:
-        _LIBS[name] = ctypes.CDLL(str(build_all()[name]))
-    return _LIBS[name]
+def load(name: str, horizon: int, params_per_leg: int) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` for the pair, built first if
+    needed. Raises NotImplementedError for a pair not in ``INSTANTIATIONS``."""
+    check_instantiated(horizon, params_per_leg)
+    key = (name, horizon, params_per_leg)
+    if key not in _LIBS:
+        _LIBS[key] = ctypes.CDLL(str(build_all()[key]))
+    return _LIBS[key]
+
+
+def check_instantiated(horizon: int, params_per_leg: int) -> None:
+    """Raise NotImplementedError, naming the built pairs, for a pair not in
+    ``INSTANTIATIONS``."""
+    if (horizon, params_per_leg) not in INSTANTIATIONS:
+        raise NotImplementedError(
+            f"the CUDA sampling kernels are built for (horizon, parameters per leg) in "
+            f"{list(INSTANTIATIONS)}, not ({horizon}, {params_per_leg}); add the pair to "
+            "ops/build.py:INSTANTIATIONS to build it")

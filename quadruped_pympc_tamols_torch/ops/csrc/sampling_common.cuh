@@ -18,10 +18,22 @@
 // regenerates a sample's noise from its Philox counter gets the same bits as the
 // kernel that drew it. Build without --use_fast_math: the cost saturation depends
 // on isnan/isinf.
+//
+// Each library is built for one (horizon, parameters per leg) pair, given as
+// -DSAMPLING_H and -DSAMPLING_PL: ops/build.py's INSTANTIATIONS lists the pairs
+// and starts one nvcc per source and pair. A leg's PL parameters are drawn as
+// ceil(PL/4) Philox chunks of four (the last one cut short when PL % 4 != 0, as
+// for linear splines with 9), and its basis rows arrive padded to a stride of
+// padded_pl(PL) with zero weights; every other layout (the incumbent, sigma, the
+// (P, N) noise, the outputs) keeps P = 4 * PL.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#if !defined(SAMPLING_H) || !defined(SAMPLING_PL)
+#error "build with -DSAMPLING_H=<horizon> -DSAMPLING_PL=<parameters per leg> (see ops/build.py)"
+#endif
 
 #define RS_HMAX 16
 #define RS_BLOCK 64  // threads of the extraction kernel; samples a block of the update pass
@@ -32,6 +44,10 @@
 #define ROLLOUT_THREADS (ROLLOUT_LANES * ROLLOUT_SAMPLES)
 #define ROLLOUT_MIN_BLOCKS 8
 #define RS_OUT_WINNER 26  // out = [cost, grf(12), state(12), index, parameters(P)]
+
+// A leg's parameters rounded up to whole Philox chunks of four: the stride of the
+// staged basis rows and the values a lane draws.
+__host__ __device__ constexpr int padded_pl(int PL) { return (PL + 3) / 4 * 4; }
 
 struct RSModel {
   float mass, gravity;
@@ -119,12 +135,25 @@ __device__ __forceinline__ float4 load_noise4(const float* __restrict__ noise, i
                      noise[(size_t)(4 * k + 2) * N + i], noise[(size_t)(4 * k + 3) * N + i]);
 }
 
-__device__ __forceinline__ void store_noise4(float* __restrict__ noise, int N, int i, int k,
-                                             float4 z) {
-  noise[(size_t)(4 * k + 0) * N + i] = z.x;
-  noise[(size_t)(4 * k + 1) * N + i] = z.y;
-  noise[(size_t)(4 * k + 2) * N + i] = z.z;
-  noise[(size_t)(4 * k + 3) * N + i] = z.w;
+// Component c of v.
+__device__ __forceinline__ float comp(float4 v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// Parameters p..p+valid-1 of sample i in a (P, N) noise matrix (zeros after them).
+__device__ __forceinline__ float4 load_params4(const float* __restrict__ noise, int N, int i,
+                                               int p, int valid) {
+  float v[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) v[c] = c < valid ? noise[(size_t)(p + c) * N + i] : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store_params4(float* __restrict__ noise, int N, int i, int p,
+                                              int valid, float4 z) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (c < valid) noise[(size_t)(p + c) * N + i] = comp(z, c);
 }
 
 // One leg's forces under the force model from its three raw basis rows: the x
@@ -249,15 +278,17 @@ __device__ __forceinline__ void srb_step(float* s, const float* raw, const float
   srb_body<false>(s, f, dt, feet, m, 0);
 }
 
-// raw[r] = sum_j W_blk[row0 + r][j] * prm[leg(r) * PL + j] for the 12 rows of one step.
+// raw[r] = sum_j W_blk[row0 + r][j] * prm[leg(r) * PL + j] for the 12 rows of one
+// step; the rows have the padded stride.
 template <int PL>
 __device__ __forceinline__ void step_forces(const float* w_rows, const float* prm, float* raw) {
+  constexpr int PLP = padded_pl(PL);
 #pragma unroll
   for (int r = 0; r < 12; ++r) {
     const int leg = r / 3;
     float acc = 0.f;
 #pragma unroll
-    for (int j = 0; j < PL; ++j) acc = fmaf(w_rows[r * PL + j], prm[leg * PL + j], acc);
+    for (int j = 0; j < PL; ++j) acc = fmaf(w_rows[r * PLP + j], prm[leg * PL + j], acc);
     raw[r] = acc;
   }
 }
@@ -311,8 +342,9 @@ __device__ __forceinline__ void step0_extract(const RSArgs& a, const float* w_bl
 // One sample is one group of ROLLOUT_LANES = 4 lanes of a warp, one lane per leg.
 // The parameters are leg-major (prm[leg * PL + j]), and W is block-diagonal per
 // leg, so lane `leg` draws, holds and multiplies only its leg's PL parameters
-// (Philox chunks leg * PL/4 .. leg * PL/4 + PL/4 - 1, the same counters as one
-// thread per sample drew), and each step computes its leg's 3 raw force rows and
+// (Philox chunks leg * CH .. leg * CH + CH - 1 with CH = ceil(PL/4); when PL % 4
+// == 0 these are the counters one thread per sample drew for parameters
+// 4k..4k+3), and each step computes its leg's 3 raw force rows and
 // applies the force model to its leg. The four lanes then exchange their clamped
 // forces with __shfl_sync and run the body update of srb_body<true> on the same
 // twelve values, summing the legs in order 0..3, and share the step's
@@ -373,13 +405,14 @@ __device__ __forceinline__ void bulk_wait(unsigned long long* bar, unsigned pari
 }
 
 // One lane's share of a sample's H-step rollout cost, NaN/Inf -> 1e6: prm holds
-// this lane's leg's PL parameters, w_s the (H*12, PL) own-leg basis blocks, c_s
-// and sh_s the step-major (n*4 + leg) stance masks and per-leg shares. All four
-// lanes of the sample return the same cost.
+// this lane's leg's PL parameters, w_s the (H*12, padded_pl(PL)) own-leg basis
+// blocks, c_s and sh_s the step-major (n*4 + leg) stance masks and per-leg shares.
+// All four lanes of the sample return the same cost.
 template <int H, int PL>
 __device__ __forceinline__ float lane_rollout_cost(const RSArgs& a, const float* w_s,
                                                    const float* prm, const float* c_s,
                                                    const float* sh_s, int leg) {
+  constexpr int PLP = padded_pl(PL);
   const RSModel md = a.model;
   float st[12], ft[12], ref[12];
 #pragma unroll
@@ -391,22 +424,22 @@ __device__ __forceinline__ float lane_rollout_cost(const RSArgs& a, const float*
   float cost = 0.f;
 #pragma unroll 1  // see the note above: rolled, the body fits the instruction cache
   for (int n = 0; n < H; ++n) {
-    // This leg's rows n*12 + 3*leg + c, summed over j in order as step_forces
-    // does; they do not depend on the state, so they overlap the previous step's
-    // chain. The four legs' rows start 72 floats (8 banks) apart, so a warp's
-    // 16-byte reads touch four distinct bank quads and are otherwise broadcasts.
+    // This leg's rows n*12 + 3*leg + c, summed over j < PL in order as
+    // step_forces does (the padding's products are not formed); they do not depend
+    // on the state, so they overlap the previous step's chain. At PL = 24 the four
+    // legs' rows start 72 floats (8 banks) apart, so a warp's 16-byte reads touch
+    // four distinct bank quads and are otherwise broadcasts.
     float raw[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const float4* row = reinterpret_cast<const float4*>(&w_s[(n * 12 + 3 * leg + c) * PL]);
+      const float4* row = reinterpret_cast<const float4*>(&w_s[(n * 12 + 3 * leg + c) * PLP]);
       float acc = 0.f;
 #pragma unroll
-      for (int q = 0; q < PL / 4; ++q) {
+      for (int q = 0; q < PLP / 4; ++q) {
         const float4 w = row[q];
-        acc = fmaf(w.x, prm[4 * q + 0], acc);
-        acc = fmaf(w.y, prm[4 * q + 1], acc);
-        acc = fmaf(w.z, prm[4 * q + 2], acc);
-        acc = fmaf(w.w, prm[4 * q + 3], acc);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (4 * q + e < PL) acc = fmaf(comp(w, e), prm[4 * q + e], acc);
       }
       raw[c] = acc;
     }
@@ -432,11 +465,11 @@ __device__ __forceinline__ float lane_rollout_cost(const RSArgs& a, const float*
   return cost;
 }
 
-// The column source of K1a-K1c: one static basis (H*12, PL) for every sample and
-// the argument block's contact and share columns; no cost offset.
+// The column source of K1a-K1c: one static basis (H*12, padded_pl(PL)) for every
+// sample and the argument block's contact and share columns; no cost offset.
 template <int H, int PL>
 struct StaticSource {
-  const float* w_blk;  // 16-byte aligned
+  const float* w_blk;  // 16-byte aligned, zero-padded rows
   int group_size;      // N
   int num_groups;      // 1
 
@@ -447,16 +480,18 @@ struct StaticSource {
     }
   }
   __device__ void copy(float* w_s, float*, float*, unsigned long long* bar) const {
-    bulk_expect(bar, H * 12 * PL * 4);
-    bulk_load(w_s, w_blk, H * 12 * PL * 4, bar);
+    constexpr int bytes = H * 12 * padded_pl(PL) * 4;
+    bulk_expect(bar, bytes);
+    bulk_load(w_s, w_blk, bytes, bar);
   }
   __device__ float finish(float cost) const { return cost; }
 };
 
 // The rollout pass: grid (ceil(group_size / ROLLOUT_SAMPLES), num_groups), one
 // sample per ROLLOUT_LANES lanes. Sample j of group g is global sample
-// i = g * group_size + j. Noise(a, i, k) gives the noise of parameters
-// 4k..4k+3 of sample i (unless noise_in is given); Source gives the block's
+// i = g * group_size + j. Noise(a, i, k, p, valid) gives the noise of parameters
+// p..p+valid-1 of sample i from its Philox chunk k (unless noise_in is given;
+// the rest of the float4 is not used); Source gives the block's
 // basis, contact and share columns (bulk-copied or staged into shared memory) and
 // the cost's offset. Writes every cost and folds (cost bits << 32 | i) into one
 // 64-bit atomicMin. A sample past the group's end runs on the group's last
@@ -468,10 +503,11 @@ rollout_kernel(const RSArgs a, const Noise noise, const Source src,
                float* __restrict__ noise_out, float* __restrict__ costs,
                unsigned long long* __restrict__ argmin) {
   static_assert(ROLLOUT_LANES == 4, "one lane per leg");
-  static_assert(PL % 4 == 0 && (H * 12 * PL * 4) % 16 == 0 && (H * 4 * 4) % 16 == 0,
-                "bulk copies move multiples of 16 bytes; a leg owns whole Philox chunks");
-  constexpr int CH = PL / 4;  // Philox chunks of one leg
-  __shared__ __align__(16) float w_s[H * 12 * PL];
+  constexpr int PLP = padded_pl(PL);
+  constexpr int CH = PLP / 4;  // Philox chunks of one leg
+  static_assert((H * 12 * PLP * 4) % 16 == 0 && (H * 4 * 4) % 16 == 0,
+                "bulk copies move multiples of 16 bytes");
+  __shared__ __align__(16) float w_s[H * 12 * PLP];
   __shared__ __align__(16) float c_s[H * 4];
   __shared__ __align__(16) float sh_s[H * 4];
   __shared__ __align__(8) unsigned long long bar;
@@ -489,13 +525,15 @@ rollout_kernel(const RSArgs a, const Noise noise, const Source src,
   float prm[PL];
 #pragma unroll
   for (int q = 0; q < CH; ++q) {
-    const int k = leg * CH + q;
-    const float4 z = noise_in != nullptr ? load_noise4(noise_in, N, i, k) : noise(a, i, k);
-    if (noise_out != nullptr && live) store_noise4(noise_out, N, i, k, z);
-    prm[4 * q + 0] = __fadd_rn(__ldg(&incumbent[4 * k + 0]), z.x);
-    prm[4 * q + 1] = __fadd_rn(__ldg(&incumbent[4 * k + 1]), z.y);
-    prm[4 * q + 2] = __fadd_rn(__ldg(&incumbent[4 * k + 2]), z.z);
-    prm[4 * q + 3] = __fadd_rn(__ldg(&incumbent[4 * k + 3]), z.w);
+    const int k = leg * CH + q, p = leg * PL + 4 * q;  // Philox chunk, first parameter
+    constexpr int last = PL - 4 * (CH - 1);           // values of the leg's last chunk
+    const int valid = q < CH - 1 ? 4 : last;
+    const float4 z = noise_in != nullptr ? load_params4(noise_in, N, i, p, valid)
+                                         : noise(a, i, k, p, valid);
+    if (noise_out != nullptr && live) store_params4(noise_out, N, i, p, valid, z);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (4 * q + e < PL) prm[4 * q + e] = __fadd_rn(__ldg(&incumbent[p + e]), comp(z, e));
   }
   bulk_wait(&bar, 0);
 

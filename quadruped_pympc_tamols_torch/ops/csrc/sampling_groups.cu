@@ -30,9 +30,10 @@
 // with the same work per sample. Costs plus offsets are >= 0, so the keys still
 // order like (cost, index): the argmin and the elites take the lowest index on
 // ties. The groups' operators reach the card in one host-to-device copy per tick,
-// [blocks (K, H*12, PL) | contact (K, H, 4) | share (K, H, 4) | offsets (K)]: the
-// basis blocks (41 KB at K = 3) do not fit in the 4 KB of kernel parameters, and
-// building them here would repeat the spline formulas in device code.
+// [blocks (K, H*12, padded_pl(PL)) | contact (K, H, 4) | share (K, H, 4) | offsets
+// (K)]: the basis blocks (41 KB at K = 3 and PL = 24, 62 KB at PL = 36) do not fit
+// in the 4 KB of kernel parameters, and building them here would repeat the
+// spline formulas in device code.
 #include "sampling_rs.cuh"
 #include "sampling_softmax.cuh"
 
@@ -41,14 +42,15 @@
 struct GroupNoise {
   int random_sampling;
   ScaledNormals normals;
-  __device__ float4 operator()(const RSArgs& a, int i, int k) const {
-    return random_sampling ? RandomBands{}(a, i, k) : normals(a, i, k);
+  __device__ float4 operator()(const RSArgs& a, int i, int k, int p, int valid) const {
+    return random_sampling ? RandomBands{}(a, i, k, p, valid) : normals(a, i, k, p, valid);
   }
 };
 
 // K1e's column source: group blockIdx.y's basis blocks, contact and share columns
-// (bulk-copied) and cost offset, from the per-tick buffer [blocks (K, H*12, PL) |
-// contact (K, H, 4) | share (K, H, 4) | offsets (K)] (16-byte aligned).
+// (bulk-copied) and cost offset, from the per-tick buffer [blocks (K, H*12,
+// padded_pl(PL)), zero-padded | contact (K, H, 4) | share (K, H, 4) | offsets (K)]
+// (16-byte aligned).
 template <int H, int PL>
 struct GroupSource {
   const float* groups;
@@ -57,7 +59,7 @@ struct GroupSource {
 
   __device__ void stage(const RSArgs&, float*, float*) const {}
   __device__ void copy(float* w_s, float* c_s, float* sh_s, unsigned long long* bar) const {
-    constexpr int WG = H * 12 * PL;
+    constexpr int WG = H * 12 * padded_pl(PL);
     const size_t g = blockIdx.y, K = num_groups;
     const float* c_g = groups + K * WG + g * H * 4;
     bulk_expect(bar, (WG + 2 * H * 4) * 4);
@@ -66,7 +68,7 @@ struct GroupSource {
     bulk_load(sh_s, c_g + K * H * 4, H * 4 * 4, bar);
   }
   __device__ float finish(float cost) const {
-    constexpr int WG = H * 12 * PL;
+    constexpr int WG = H * 12 * padded_pl(PL);
     const size_t K = num_groups;
     return __fadd_rn(cost, __ldg(&groups[K * WG + 2 * K * H * 4 + blockIdx.y]));
   }
@@ -105,24 +107,33 @@ int sg_block(void) { return RS_BLOCK; }
 
 int sg_rollout_samples(void) { return ROLLOUT_SAMPLES; }
 
+int sg_horizon(void) { return SAMPLING_H; }
+
+int sg_params_per_leg(void) { return SAMPLING_PL; }
+
+// The stride of a basis row in the own-leg blocks the launch reads, which the
+// host pads to (sampling_kernel.pad_blocks).
+int sg_padded_params_per_leg(void) { return padded_pl(SAMPLING_PL); }
+
 const char* sg_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // One gait-adaptive iteration: method 0 random sampling, 1 MPPI, 2 CEM-MPPI
 // (kn->cem set for 2 only). a->num_samples is K * Ng, the samples evaluated, and
 // a->band1, a->band2 are N's band edges. groups: the per-group buffer described
-// above; w0_blk: the static basis's own-leg blocks, of which rows 0..11 are read.
+// above; w0_blk: the static basis's own-leg blocks (zero-padded rows), of which
+// rows 0..11 are read.
 // Scratch, and for MPPI and CEM the noise buffer, as sm_launch: argmin (2),
 // partials (B, P + 1) and, for CEM, block_keys (B, K), with
 // B = ceil(K * Ng / sg_block()). Returns 0, a CUDA error code, or -1 for a shape
-// or knob this build does not take, no noise buffer, or a buffer that is not
-// 16-byte aligned (the bulk copy's and cp.async's rule). Only the main path's shape is built: horizon
-// 12, 24 parameters per leg.
+// or knob this build does not take (a horizon or parameter count other than
+// SAMPLING_H, SAMPLING_PL), no noise buffer, or a buffer that is not 16-byte
+// aligned (the bulk copy's and cp.async's rule).
 int sg_launch(const RSArgs* a, const SMKnobs* kn, int method, int params_per_leg, int num_groups,
               int group_size, const float* groups, const float* w0_blk, const float* incumbent,
               const float* sigma_in, const float* noise_in, float* noise_out, float* costs,
               unsigned long long* argmin, float* partials, unsigned long long* block_keys,
               float* out, float* sigma_out, int* elites, void* stream) {
-  if (a->horizon != 12 || params_per_leg != 24) return -1;
+  if (a->horizon != SAMPLING_H || params_per_leg != SAMPLING_PL) return -1;
   if ((((uintptr_t)groups | (uintptr_t)w0_blk) & 15) != 0) return -1;
   if (method < 0 || method > 2 || (kn->cem != 0) != (method == 2)) return -1;
   if (num_groups < 1 || num_groups > 65535 || group_size < 1 ||
@@ -133,9 +144,10 @@ int sg_launch(const RSArgs* a, const SMKnobs* kn, int method, int params_per_leg
     return -1;
   if (method == 2 && (kn->n_elite < 2 || kn->n_elite > SM_KMAX || kn->n_elite > a->num_samples))
     return -1;
-  return sg_launch_t<12, 24>(a, kn, method, num_groups, group_size, groups, w0_blk, incumbent,
-                             sigma_in, noise_in, noise_out, costs, argmin, partials, block_keys,
-                             out, sigma_out, elites, (cudaStream_t)stream);
+  return sg_launch_t<SAMPLING_H, SAMPLING_PL>(a, kn, method, num_groups, group_size, groups,
+                                              w0_blk, incumbent, sigma_in, noise_in, noise_out,
+                                              costs, argmin, partials, block_keys, out, sigma_out,
+                                              elites, (cudaStream_t)stream);
 }
 
 }  // extern "C"

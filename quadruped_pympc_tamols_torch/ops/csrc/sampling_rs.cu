@@ -56,19 +56,27 @@ int rs_args_size(void) { return (int)sizeof(RSArgs); }
 
 int rs_rollout_samples(void) { return ROLLOUT_SAMPLES; }
 
+int rs_horizon(void) { return SAMPLING_H; }
+
+int rs_params_per_leg(void) { return SAMPLING_PL; }
+
+// The stride of a basis row in the own-leg blocks the launch reads, which the
+// host pads to (sampling_kernel.pad_blocks).
+int rs_padded_params_per_leg(void) { return padded_pl(SAMPLING_PL); }
+
 const char* rs_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// Returns 0, a CUDA error code, or -1 for a shape this build does not instantiate
-// or a basis that is not 16-byte aligned (the bulk copy's rule). Only the main
-// path's shape is built: horizon 12, cubic splines with 2 splines (24 parameters
-// per leg).
+// w_blk: the (H*12, padded_pl(PL)) own-leg basis blocks, zero-padded. Returns 0, a
+// CUDA error code, or -1 for a shape this build does not instantiate (a horizon or
+// parameter count other than SAMPLING_H, SAMPLING_PL) or a basis that is not
+// 16-byte aligned (the bulk copy's rule).
 int rs_launch(const RSArgs* a, int params_per_leg, const float* w_blk, const float* incumbent,
               const float* noise_in, float* noise_out, float* costs,
               unsigned long long* argmin, float* out, void* stream) {
-  if (a->horizon != 12 || params_per_leg != 24 || a->num_samples < 1) return -1;
+  if (a->horizon != SAMPLING_H || params_per_leg != SAMPLING_PL || a->num_samples < 1) return -1;
   if (((uintptr_t)w_blk & 15) != 0) return -1;
-  return rs_launch_t<12, 24>(a, w_blk, incumbent, noise_in, noise_out, costs, argmin, out,
-                             (cudaStream_t)stream);
+  return rs_launch_t<SAMPLING_H, SAMPLING_PL>(a, w_blk, incumbent, noise_in, noise_out, costs,
+                                              argmin, out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -22,9 +22,10 @@ __device__ __forceinline__ float4 rs_noise4(unsigned long long seed, unsigned lo
   return make_float4(__fmul_rn(z.x, s), __fmul_rn(z.y, s), __fmul_rn(z.z, s), __fmul_rn(z.w, s));
 }
 
-// K1a's noise for rollout_kernel.
+// K1a's noise for rollout_kernel: Philox chunk k of sample i (the bands do not
+// depend on the parameter).
 struct RandomBands {
-  __device__ float4 operator()(const RSArgs& a, int i, int k) const {
+  __device__ float4 operator()(const RSArgs& a, int i, int k, int, int) const {
     return rs_noise4(a.seed, a.offset, a.band1, a.band2, a.sigma1, a.sigma2, a.sigma3, i, k);
   }
 };
@@ -35,23 +36,27 @@ rs_extract_kernel(const RSArgs a, const float* __restrict__ w_blk,
                   const float* __restrict__ incumbent, const float* __restrict__ noise_in,
                   const unsigned long long* __restrict__ argmin, float* __restrict__ out) {
   constexpr int P = 4 * PL;
+  constexpr int CH = padded_pl(PL) / 4;  // Philox chunks of a leg, as rollout_kernel draws them
   __shared__ float prm_s[P];
   const unsigned long long key = *argmin;
   const int idx = (int)(key & 0xffffffffull);
   const int N = a.num_samples;
-  for (int k = threadIdx.x; k < P / 4; k += blockDim.x) {
+  for (int k = threadIdx.x; k < 4 * CH; k += blockDim.x) {
+    const int q = k % CH, p = (k / CH) * PL + 4 * q;  // chunk q of leg k / CH
+    const int valid = min(4, PL - 4 * q);
     float4 z;
     if (noise_in != nullptr) {
-      z = load_noise4(noise_in, N, idx, k);
+      z = load_params4(noise_in, N, idx, p, valid);
     } else {
       z = rs_noise4(a.seed, a.offset, a.band1, a.band2, a.sigma1, a.sigma2, a.sigma3, idx, k);
     }
-    const float v[4] = {z.x, z.y, z.z, z.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float p = __fadd_rn(incumbent[4 * k + j], v[j]);
-      prm_s[4 * k + j] = p;
-      out[RS_OUT_WINNER + 4 * k + j] = p;
+      if (j < valid) {
+        const float v = __fadd_rn(incumbent[p + j], comp(z, j));
+        prm_s[p + j] = v;
+        out[RS_OUT_WINNER + p + j] = v;
+      }
     }
   }
   __syncthreads();

@@ -72,6 +72,21 @@ int sm_rollout_samples(void) { return ROLLOUT_SAMPLES; }
 
 int sm_max_elite(void) { return SM_KMAX; }
 
+int sm_horizon(void) { return SAMPLING_H; }
+
+int sm_params_per_leg(void) { return SAMPLING_PL; }
+
+// The stride of a basis row in the own-leg blocks the launch reads, which the
+// host pads to (sampling_kernel.pad_blocks).
+int sm_padded_params_per_leg(void) { return padded_pl(SAMPLING_PL); }
+
+// Blocks of the update pass that one SM holds at once for an iteration of
+// num_samples samples (cem, n_elite as SMKnobs), from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; minus a CUDA error code.
+int sm_update_blocks_per_sm(int cem, int n_elite, int num_samples) {
+  return update_blocks_per_sm<SAMPLING_PL>(cem, n_elite, num_samples);
+}
+
 const char* sm_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // One MPPI (kn->cem == 0) or CEM-MPPI iteration. Scratch: argmin (2: the argmin key
@@ -80,23 +95,23 @@ const char* sm_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 // sigma_in, sigma_out and elites are read or written only for CEM. The update
 // pass reads the iteration's noise back: noise_in, or else noise_out, which the
 // rollout pass fills, so one of them must be given. Returns 0, a CUDA error code,
-// or -1 for a shape or knob this build does not take, no noise buffer, or a basis
-// or partials that are not 16-byte aligned. Only the main path's shape is built:
-// horizon 12, 24 parameters per leg.
+// or -1 for a shape or knob this build does not take (a horizon or parameter
+// count other than SAMPLING_H, SAMPLING_PL), no noise buffer, or a basis
+// (zero-padded rows, as rs_launch) or partials that are not 16-byte aligned.
 int sm_launch(const RSArgs* a, const SMKnobs* kn, int params_per_leg, const float* w_blk,
               const float* incumbent, const float* sigma_in, const float* noise_in,
               float* noise_out, float* costs, unsigned long long* argmin, float* partials,
               unsigned long long* block_keys, float* out, float* sigma_out, int* elites,
               void* stream) {
-  if (a->horizon != 12 || params_per_leg != 24 || a->num_samples < 1) return -1;
+  if (a->horizon != SAMPLING_H || params_per_leg != SAMPLING_PL || a->num_samples < 1) return -1;
   if (((uintptr_t)w_blk & 15) != 0) return -1;
   if (!(kn->temperature > 0.f)) return -1;
   if ((noise_in == nullptr && noise_out == nullptr) || ((uintptr_t)partials & 15) != 0) return -1;
   if (kn->cem && (kn->n_elite < 2 || kn->n_elite > SM_KMAX || kn->n_elite > a->num_samples))
     return -1;
-  return sm_launch_t<12, 24>(a, kn, w_blk, incumbent, sigma_in, noise_in, noise_out, costs,
-                             argmin, partials, block_keys, out, sigma_out, elites,
-                             (cudaStream_t)stream);
+  return sm_launch_t<SAMPLING_H, SAMPLING_PL>(a, kn, w_blk, incumbent, sigma_in, noise_in,
+                                              noise_out, costs, argmin, partials, block_keys,
+                                              out, sigma_out, elites, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -26,17 +26,17 @@ __device__ __forceinline__ float4 sm_noise4(unsigned long long seed, unsigned lo
                      __fmul_rn(z.w, s.w));
 }
 
-// K1b/K1c's noise for rollout_kernel: sigma (P,) for CEM, nullptr for MPPI's
-// sigma_mppi.
+// K1b/K1c's noise for rollout_kernel: Philox chunk k of sample i times the sigma
+// of parameters p..p+valid-1, sigma (P,) for CEM, nullptr for MPPI's sigma_mppi.
 struct ScaledNormals {
   const float* sigma;
   float sigma_mppi;
-  __device__ float4 operator()(const RSArgs& a, int i, int k) const {
-    const float4 s = sigma != nullptr ? make_float4(__ldg(&sigma[4 * k]), __ldg(&sigma[4 * k + 1]),
-                                                    __ldg(&sigma[4 * k + 2]),
-                                                    __ldg(&sigma[4 * k + 3]))
-                                      : make_float4(sigma_mppi, sigma_mppi, sigma_mppi, sigma_mppi);
-    return sm_noise4(a.seed, a.offset, i, k, s);
+  __device__ float4 operator()(const RSArgs& a, int i, int k, int p, int valid) const {
+    float s[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      s[c] = sigma == nullptr ? sigma_mppi : c < valid ? __ldg(&sigma[p + c]) : 0.f;
+    return sm_noise4(a.seed, a.offset, i, k, make_float4(s[0], s[1], s[2], s[3]));
   }
 };
 
@@ -70,8 +70,9 @@ static inline ScaledNormals scaled_normals(const SMKnobs& kn, const float* sigma
 //    another, so no grid barrier and no cooperative launch.
 // 3. The finish, in the last block, as two groups that run at once. Warps 0-3
 //    copy the (B, P + 1) partials into shared memory with cp.async (from L2, all
-//    in flight together), sum each column over the blocks in block order (one
-//    column a thread), write incumbent + S / Z, and warp 0 extracts the step-0
+//    in flight together), sum each column over the blocks in block order (columns
+//    t, t + 128, ... of thread t: two a thread at P = 144), write incumbent + S / Z,
+//    and warp 0 extracts the step-0
 //    GRFs and state on four lanes, one per leg (srb_body<true>, as the rollout
 //    pass). For CEM, warps 4-15 copy the B*K candidate keys into shared memory,
 //    find t0, the K-th lowest of the B lists' heads (each list is a block's K
@@ -85,7 +86,11 @@ static inline ScaledNormals scaled_normals(const SMKnobs& kn, const float* sigma
 // float atomics, so a rerun repeats them.
 
 #define SM_UPDATE_THREADS 512
-#define SM_UPDATE_MIN_BLOCKS 2  // 157 blocks at N = 10 000 resident at once on 132 SMs
+// 157 blocks at N = 10 000 resident at once on 132 SMs. At P = 144 a CEM block
+// takes ~104 KB of dynamic shared memory and two still fit in an SM's 228 KB;
+// sm_update_blocks_per_sm reports what the card grants. The last-block ticket has
+// no spin-wait, so one block an SM would be slower, not wrong.
+#define SM_UPDATE_MIN_BLOCKS 2
 #define SM_COL_THREADS 128      // warps 0-3: the partials' column sums and the extraction
 #define SM_CEM_THREADS (SM_UPDATE_THREADS - SM_COL_THREADS)  // warps 4-15: elites and refit
 #define SM_RANK_LANES (SM_UPDATE_THREADS / RS_BLOCK)  // threads ranking one key of a block
@@ -132,12 +137,13 @@ static inline int sm_update_smem(int P, int cem, int n_elite, int num_blocks) {
 }
 
 // Step-0 GRFs (12) and one-step state (12) under parameters prm and the basis's
-// first 12 rows w_rows (12, PL), written to out[1..24], by the four lanes of each
+// first 12 rows w_rows (12, padded_pl(PL)), written to out[1..24], by the four lanes of each
 // group of a full warp (lane % 4 = leg): step0_extract's arithmetic, with the body
 // update of the rollout pass.
 template <int PL>
 __device__ __forceinline__ void step0_extract_lanes(const RSArgs& a, const float* w_rows,
                                                     const float* prm, float* out) {
+  constexpr int PLP = padded_pl(PL);
   const int leg = threadIdx.x % ROLLOUT_LANES;
   const RSModel md = a.model;
   float raw[3];
@@ -146,7 +152,7 @@ __device__ __forceinline__ void step0_extract_lanes(const RSArgs& a, const float
     float acc = 0.f;
 #pragma unroll
     for (int j = 0; j < PL; ++j)
-      acc = fmaf(w_rows[(3 * leg + c) * PL + j], prm[leg * PL + j], acc);
+      acc = fmaf(w_rows[(3 * leg + c) * PLP + j], prm[leg * PL + j], acc);
     raw[c] = acc;
   }
   float fx, fy, fz, f[12], st[12], ft[12];
@@ -189,14 +195,18 @@ sm_update_kernel(const RSArgs a, const SMKnobs kn, const float* __restrict__ w_b
                  float* __restrict__ out, float* __restrict__ sigma_out,
                  int* __restrict__ elites) {
   constexpr int P = 4 * PL;
-  constexpr int CH = P / 4;
+  constexpr int CH = P / 4;  // chunks of four rows of the (P, N) noise
   constexpr int ROW = P + 1;
+  constexpr int COLS = (ROW + SM_COL_THREADS - 1) / SM_COL_THREADS;  // finish columns a thread
+  constexpr int PCOLS = (P + SM_COL_THREADS - 1) / SM_COL_THREADS;   // new parameters a thread
+  constexpr int PLP = padded_pl(PL);
   static_assert(RS_BLOCK % 32 == 0 && SM_RANK_LANES * RS_BLOCK == SM_UPDATE_THREADS &&
                     (SM_RANK_LANES & (SM_RANK_LANES - 1)) == 0,
                 "whole warps of samples; a power-of-two group of threads ranks each key");
-  static_assert(ROW <= SM_COL_THREADS && 3 * PL <= SM_COL_THREADS && P <= SM_CEM_THREADS &&
+  static_assert(ROW <= SM_UPDATE_THREADS && 3 * PLP <= SM_COL_THREADS && P <= SM_CEM_THREADS &&
                     SM_TILE_ROWS % 4 == 0,
-                "one column, basis chunk or parameter of the refit a thread; aligned tiles");
+                "one partial column, basis chunk or parameter of the refit a thread; aligned "
+                "tiles");
   extern __shared__ __align__(16) unsigned char arena[];
   __shared__ int nz_s[RS_BLOCK];
   __shared__ float nzw_s[RS_BLOCK];
@@ -204,7 +214,7 @@ sm_update_kernel(const RSArgs a, const SMKnobs kn, const float* __restrict__ w_b
   __shared__ int count_s[RS_BLOCK / 32];
   __shared__ float sum_s[ROW];
   __shared__ float prm_s[P];
-  __shared__ __align__(16) float w0_s[12 * PL];
+  __shared__ __align__(16) float w0_s[12 * PLP];
   __shared__ int elite_s[SM_KMAX];
   __shared__ unsigned long long t0_s;
   __shared__ int ncand_s;
@@ -212,7 +222,13 @@ sm_update_kernel(const RSArgs a, const SMKnobs kn, const float* __restrict__ w_b
   const int N = a.num_samples;
   const int B = gridDim.x;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const float inc_t = t < P ? __ldg(&incumbent[t]) : 0.f;
+  // The incumbent of the parameters this thread finishes, loaded off the finish's chain.
+  float inc_r[PCOLS];
+#pragma unroll
+  for (int u = 0; u < PCOLS; ++u) {
+    const int p = t + u * SM_COL_THREADS;
+    inc_r[u] = t < SM_COL_THREADS && p < P ? __ldg(&incumbent[p]) : 0.f;
+  }
 
   // 1. Weights and keys; the nonzero weights compacted in thread order.
   const unsigned long long best_key = *argmin;
@@ -297,29 +313,41 @@ sm_update_kernel(const RSArgs a, const SMKnobs kn, const float* __restrict__ w_b
   // parameters and the step-0 extraction.
   float* tile_s = reinterpret_cast<float*>(arena);
   if (t < SM_COL_THREADS) {
-    float s = 0.f;
+    float s[COLS];
+#pragma unroll
+    for (int u = 0; u < COLS; ++u) s[u] = 0.f;
     for (int b0 = 0; b0 < B; b0 += SM_TILE_ROWS) {
       const int rows = B - b0 < SM_TILE_ROWS ? B - b0 : SM_TILE_ROWS;
       const float* src = partials + (size_t)b0 * ROW;  // 16-byte aligned: b0 % 4 == 0
       const int n = rows * ROW;
       for (int q = t; q < n / 4; q += SM_COL_THREADS) cp_async16(&tile_s[4 * q], &src[4 * q]);
       for (int q = (n / 4) * 4 + t; q < n; q += SM_COL_THREADS) tile_s[q] = __ldcg(&src[q]);
-      if (b0 == 0 && t < 3 * PL)  // the step-0 basis rows (12, PL), 16-byte aligned
+      if (b0 == 0 && t < 3 * PLP)  // the step-0 basis rows (12, PLP), 16-byte aligned
         cp_async16(&w0_s[4 * t], &w_blk[4 * t]);
       cp_async_wait_all();
       group_sync<3, SM_COL_THREADS>();
-      if (t < ROW) {
+#pragma unroll
+      for (int u = 0; u < COLS; ++u) {
+        const int col = t + u * SM_COL_THREADS;
+        if (col < ROW) {
 #pragma unroll 8
-        for (int r = 0; r < rows; ++r) s = __fadd_rn(s, tile_s[r * ROW + t]);
+          for (int r = 0; r < rows; ++r) s[u] = __fadd_rn(s[u], tile_s[r * ROW + col]);
+        }
       }
       group_sync<3, SM_COL_THREADS>();
     }
-    if (t < ROW) sum_s[t] = s;
+#pragma unroll
+    for (int u = 0; u < COLS; ++u)
+      if (t + u * SM_COL_THREADS < ROW) sum_s[t + u * SM_COL_THREADS] = s[u];
     group_sync<3, SM_COL_THREADS>();
-    if (t < P) {
-      const float v = inc_t + sum_s[t] / sum_s[P];
-      prm_s[t] = v;
-      out[RS_OUT_WINNER + t] = v;
+#pragma unroll
+    for (int u = 0; u < PCOLS; ++u) {
+      const int p = t + u * SM_COL_THREADS;
+      if (p < P) {
+        const float v = inc_r[u] + sum_s[p] / sum_s[P];
+        prm_s[p] = v;
+        out[RS_OUT_WINNER + p] = v;
+      }
     }
     group_sync<3, SM_COL_THREADS>();
     if (warp == 0) {
@@ -423,6 +451,36 @@ sm_update_kernel(const RSArgs a, const SMKnobs kn, const float* __restrict__ w_b
   if (ct < K) elites[ct] = elite_s[ct];
 }
 
+// Above 48 KB dynamic shared memory needs an opt-in, given once for the most the
+// update pass can ask for (a full tile, then the CEM stage).
+template <int PL>
+static cudaError_t update_opt_in() {
+  static bool opted_in = false;
+  if (opted_in) return cudaSuccess;
+  const int most = sm_tile_bytes(4 * PL, SM_TILE_ROWS) + (SM_STAGE_KEYS + SM_KMAX * SM_KMAX) * 8;
+  cudaError_t err = cudaFuncSetAttribute(sm_update_kernel<PL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sm_update_kernel<PL>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  opted_in = err == cudaSuccess;
+  return err;
+}
+
+// Blocks of the update pass an SM holds at once for this launch's shared memory,
+// or minus a CUDA error code.
+template <int PL>
+static int update_blocks_per_sm(int cem, int n_elite, int num_samples) {
+  cudaError_t err = update_opt_in<PL>();
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, sm_update_kernel<PL>, SM_UPDATE_THREADS,
+        sm_update_smem(4 * PL, cem, n_elite, (num_samples + RS_BLOCK - 1) / RS_BLOCK));
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
 // The update pass's launch, for K1b/K1c and K1e. argmin points at two words, the
 // argmin key and the ticket, both reset by the iteration's memset; noise is the
 // (P, N) noise the rollout pass read or wrote.
@@ -432,20 +490,8 @@ static cudaError_t launch_update(const RSArgs& a, const SMKnobs& kn, const float
                                  unsigned long long* argmin, float* partials,
                                  unsigned long long* block_keys, float* out, float* sigma_out,
                                  int* elites, cudaStream_t stream) {
-  // Above 48 KB dynamic shared memory needs an opt-in, given once for the most
-  // this pass can ask for (a full tile, then the CEM stage).
-  static bool opted_in = false;
-  if (!opted_in) {
-    const int most = sm_tile_bytes(4 * PL, SM_TILE_ROWS) + (SM_STAGE_KEYS + SM_KMAX * SM_KMAX) * 8;
-    cudaError_t err = cudaFuncSetAttribute(sm_update_kernel<PL>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(sm_update_kernel<PL>,
-                                 cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return err;
-    opted_in = true;
-  }
+  cudaError_t err = update_opt_in<PL>();
+  if (err != cudaSuccess) return err;
   const int blocks = (a.num_samples + RS_BLOCK - 1) / RS_BLOCK;
   const int smem = sm_update_smem(4 * PL, kn.cem, kn.n_elite, blocks);
   sm_update_kernel<PL><<<blocks, SM_UPDATE_THREADS, smem, stream>>>(

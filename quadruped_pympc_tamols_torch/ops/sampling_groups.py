@@ -184,39 +184,45 @@ def _plain(plan: GroupPlan, knobs, tick, groups: GroupInputs, incumbent, sigma, 
 
 # -- the kernel ---------------------------------------------------------------------
 
-_LIB = None
+_LIBS: dict = {}
 _METHOD = {"random_sampling": 0, "mppi": 1, "cem_mppi": 2}
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the K1e library; raises on any failure."""
-    global _LIB
-    if _LIB is None:
-        lib = build.load("sampling_groups")
-        for name in ("sg_args_size", "sg_knobs_size", "sg_block", "sg_rollout_samples"):
-            getattr(lib, name).restype = ctypes.c_int
-            getattr(lib, name).argtypes = []
+def load_library(horizon: int, params_per_leg: int) -> ctypes.CDLL:
+    """Build (if needed) and load the K1e library of the (horizon, parameters per
+    leg) pair; raises on any failure, NotImplementedError for a pair that is not
+    built (``build.INSTANTIATIONS``)."""
+    key = (horizon, params_per_leg)
+    if key not in _LIBS:
+        lib = build.load("sampling_groups", horizon, params_per_leg)
+        rs.int_getters(lib, ("sg_args_size", "sg_knobs_size", "sg_block", "sg_rollout_samples",
+                             "sg_horizon", "sg_params_per_leg",
+                             "sg_padded_params_per_leg"))
         if (lib.sg_args_size() != ctypes.sizeof(rs.RSArgs)
                 or lib.sg_knobs_size() != ctypes.sizeof(sm.SMKnobs)
                 or lib.sg_block() != sm.BLOCK
-                or lib.sg_rollout_samples() != rs.ROLLOUT_SAMPLES):
-            raise RuntimeError("sampling_groups.cu and its ctypes mirror disagree")
+                or lib.sg_rollout_samples() != rs.ROLLOUT_SAMPLES
+                or (lib.sg_horizon(), lib.sg_params_per_leg()) != key
+                or lib.sg_padded_params_per_leg() != rs.padded_params_per_leg(params_per_leg)):
+            raise RuntimeError(f"sampling_groups.cu for {key} and its ctypes mirror disagree")
         lib.sg_error_string.restype = ctypes.c_char_p
         lib.sg_error_string.argtypes = [ctypes.c_int]
         lib.sg_launch.restype = ctypes.c_int
         lib.sg_launch.argtypes = ([ctypes.POINTER(rs.RSArgs), ctypes.POINTER(sm.SMKnobs)]
                                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 14)
-        _LIB = lib
-    return _LIB
+        _LIBS[key] = lib
+    return _LIBS[key]
 
 
 def pack_groups(groups: GroupInputs) -> np.ndarray:
-    """The kernel's per-tick group buffer: [basis blocks (K, H*12, P_leg) |
-    contact (K, H, 4) | share (K, H, 4) | offsets (K,)], step-major columns."""
+    """The kernel's per-tick group buffer: [basis blocks (K, H*12, P_leg rounded
+    up to 4), zero-padded as ``rs.pad_blocks`` | contact (K, H, 4) | share (K, H, 4)
+    | offsets (K,)], step-major columns."""
     K, _, H = groups.contact.shape
     share = np.broadcast_to(groups.share[:, :, None], (K, H, 4))
-    return np.concatenate([groups.blocks.ravel(), groups.contact.transpose(0, 2, 1).ravel(),
-                           share.ravel(), groups.offsets.ravel()]).astype(np.float32)
+    return np.concatenate([rs.pad_blocks(groups.blocks).ravel(),
+                           groups.contact.transpose(0, 2, 1).ravel(), share.ravel(),
+                           groups.offsets.ravel()]).astype(np.float32)
 
 
 def sampling_groups(plan: GroupPlan, knobs: sm.Knobs, tick: rs.TickInputs, groups: GroupInputs,
@@ -256,7 +262,8 @@ def sampling_groups(plan: GroupPlan, knobs: sm.Knobs, tick: rs.TickInputs, group
     buf = torch.from_numpy(pack_groups(groups)).pin_memory().to(dev, non_blocking=True)
     args = rs.kernel_args(plan.base, tick, seed, offset)
     args.num_samples = n  # the band edges stay N's
-    launch(load_library(), args, knobs, plan, ws, buf, incumbent, sigma, noise_in, noise_out)
+    launch(load_library(plan.base.horizon, plan.base.params_per_leg), args, knobs, plan, ws, buf,
+           incumbent, sigma, noise_in, noise_out)
     sampling_groups.launches[knobs.method] += 1
     return ws.costs, ws.out, ws.sigma if knobs.cem else sigma, ws.elites
 

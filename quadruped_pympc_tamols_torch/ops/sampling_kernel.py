@@ -22,7 +22,10 @@ function. There is no fallback from one to the other.
 
 The kernel is built with ``nvcc`` at first use from the source in this package
 into ``quadruped_pympc_tamols_torch/_build/`` and bound with ``ctypes``
-(``ops/build.py``).
+(``ops/build.py``), one library for each (horizon, parameters per leg) pair of
+``build.INSTANTIATIONS``: cubic splines, linear splines and zero-order holds at
+horizon 12. A leg's basis rows reach the kernel zero-padded to a multiple of
+four (``pad_blocks``); every other layout keeps P = 4 * P_leg.
 """
 from __future__ import annotations
 
@@ -40,8 +43,6 @@ from ..controllers.sampling.splines import make_step_major_basis, num_params_per
 from ..dynamics.srbd import SRBDParams, integrate_euler, make_params
 from . import build
 
-KERNEL_HORIZON = 12  # the horizon the CUDA source instantiates
-KERNEL_PARAMS_PER_LEG = 24  # cubic splines, 2 splines, at H = 12 (the main path)
 # Samples per block of the rollout pass, four lanes each (ROLLOUT_SAMPLES in
 # csrc/sampling_common.cuh; every library's getter is checked against it).
 ROLLOUT_SAMPLES = 16
@@ -83,7 +84,8 @@ class RSPlan:
     params_per_leg: int
     sigma_random: tuple
     W: torch.Tensor  # (H*12, 4*P_leg) dense basis on the solver's device
-    W_blocks: torch.Tensor  # (H*12, P_leg) each row's own-leg block (kernel input)
+    # (H*12, P_leg rounded up to 4) each row's own-leg block, zero-padded (kernel input)
+    W_blocks: torch.Tensor
     dts: np.ndarray  # (H,) float32
     q_diag: np.ndarray  # (12,) float32, >= 0
     srbd: SRBDParams  # on the solver's device
@@ -151,24 +153,38 @@ def make_rs_plan(cfg: Config, num_samples: int, device) -> RSPlan:
     return RSPlan(num_samples=N, horizon=H, params_per_leg=P_leg,
                   sigma_random=tuple(float(s) for s in sp.sigma_random),
                   W=torch.as_tensor(W, device=device),
-                  W_blocks=torch.as_tensor(np.ascontiguousarray(blocks), device=device),
+                  W_blocks=torch.as_tensor(pad_blocks(blocks), device=device),
                   dts=cfg.mpc.dts(), q_diag=q_diag,
                   srbd=make_params(cfg, device=device), fm=fm, zmp_weight=sp.zmp_weight,
                   zmp_margin=sp.zmp_margin, args_template=bytes(a))
 
 
+def padded_params_per_leg(P_leg: int) -> int:
+    """P_leg rounded up to a multiple of four: the stride of a basis row at which
+    the kernels stage the own-leg blocks (a leg draws ceil(P_leg/4) Philox chunks
+    of four). Each library reports its own (``*_padded_params_per_leg``, the
+    sources' ``padded_pl``) and ``load_library`` checks that the two agree."""
+    return -(-P_leg // 4) * 4
+
+
+def pad_blocks(blocks: np.ndarray) -> np.ndarray:
+    """Own-leg basis blocks (..., P_leg) with their last axis zero-padded to
+    ``padded_params_per_leg``; float32, contiguous."""
+    P_leg = blocks.shape[-1]
+    out = np.zeros(blocks.shape[:-1] + (padded_params_per_leg(P_leg),), np.float32)
+    out[..., :P_leg] = blocks
+    return out
+
+
 def check_kernel_shape(plan: RSPlan) -> None:
-    """Raise NotImplementedError for what the CUDA kernels (K1a-K1d) do not
-    compute: a shape their sources do not instantiate, or the ZMP-band cost."""
+    """Raise NotImplementedError for what the CUDA kernels (K1a-K1e) do not
+    compute: a (horizon, parameters per leg) pair their sources are not built for
+    (``build.INSTANTIATIONS``), or the ZMP-band cost."""
     if plan.zmp_weight > 0.0:
         raise NotImplementedError(
             "sampling.zmp_weight > 0: the CUDA sampling kernels have no ZMP-band cost yet "
             "(the plain path, device='cpu', has it)")
-    if plan.horizon != KERNEL_HORIZON or plan.params_per_leg != KERNEL_PARAMS_PER_LEG:
-        raise NotImplementedError(
-            f"the CUDA sampling kernels are built for horizon {KERNEL_HORIZON} with "
-            f"{KERNEL_PARAMS_PER_LEG} parameters per leg (cubic splines, 2 splines), not "
-            f"horizon {plan.horizon} with {plan.params_per_leg}")
+    build.check_instantiated(plan.horizon, plan.params_per_leg)
 
 
 # -- the plain version ------------------------------------------------------------
@@ -264,28 +280,40 @@ def _reference_from_tick(plan: RSPlan, tick: TickInputs, incumbent, noise):
 
 # -- the kernel ---------------------------------------------------------------------
 
-_LIB = None
+_LIBS: dict = {}
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; raises on any failure."""
-    global _LIB
-    if _LIB is None:
-        lib = build.load("sampling_rs")
-        lib.rs_args_size.restype = ctypes.c_int
-        lib.rs_args_size.argtypes = []
-        lib.rs_rollout_samples.restype = ctypes.c_int
-        lib.rs_rollout_samples.argtypes = []
+def int_getters(lib, names) -> None:
+    """Declare the library's getters ``names`` as C functions returning int."""
+    for name in names:
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = []
+
+
+def load_library(horizon: int, params_per_leg: int) -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library of the (horizon, parameters
+    per leg) pair; raises on any failure, NotImplementedError for a pair that is
+    not built (``build.INSTANTIATIONS``)."""
+    key = (horizon, params_per_leg)
+    if key not in _LIBS:
+        lib = build.load("sampling_rs", horizon, params_per_leg)
+        int_getters(lib, ("rs_args_size", "rs_rollout_samples", "rs_horizon",
+                          "rs_params_per_leg", "rs_padded_params_per_leg"))
         if lib.rs_args_size() != ctypes.sizeof(RSArgs):
             raise RuntimeError("RSArgs layout differs between sampling_rs.cu and ctypes")
         if lib.rs_rollout_samples() != ROLLOUT_SAMPLES:
             raise RuntimeError("sampling_rs.cu's rollout block differs from ROLLOUT_SAMPLES")
+        if (lib.rs_horizon(), lib.rs_params_per_leg()) != key:
+            raise RuntimeError(f"the sampling_rs library for {key} is built for "
+                               f"{(lib.rs_horizon(), lib.rs_params_per_leg())}")
+        if lib.rs_padded_params_per_leg() != padded_params_per_leg(params_per_leg):
+            raise RuntimeError("sampling_rs.cu's basis row stride differs from pad_blocks")
         lib.rs_error_string.restype = ctypes.c_char_p
         lib.rs_error_string.argtypes = [ctypes.c_int]
         lib.rs_launch.restype = ctypes.c_int
         lib.rs_launch.argtypes = [ctypes.POINTER(RSArgs), ctypes.c_int] + [ctypes.c_void_p] * 8
-        _LIB = lib
-    return _LIB
+        _LIBS[key] = lib
+    return _LIBS[key]
 
 
 def kernel_args(plan: RSPlan, tick: TickInputs, seed: int, offset: int) -> RSArgs:
@@ -334,7 +362,7 @@ def sampling_rs(plan: RSPlan, tick: TickInputs, incumbent: torch.Tensor, seed: i
     for name, x in (("noise_in", noise_in), ("noise_out", noise_out)):
         if x is not None:
             check_cuda(name, x, (P, N))
-    lib = load_library()
+    lib = load_library(plan.horizon, plan.params_per_leg)
     dev = incumbent.device
     costs = torch.empty(N, dtype=torch.float32, device=dev)
     out = torch.empty(OUT_WINNER + P, dtype=torch.float32, device=dev)

@@ -195,30 +195,45 @@ def _plain(plan, knobs, tick, incumbent, sigma, seed, offset, noise_in, noise_ou
 
 # -- the kernels ----------------------------------------------------------------------
 
-_LIB = None
+_LIBS: dict = {}
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the K1b/K1c library; raises on any failure."""
-    global _LIB
-    if _LIB is None:
-        lib = build.load("sampling_softmax")
-        for name in ("sm_args_size", "sm_knobs_size", "sm_block", "sm_rollout_samples",
-                     "sm_max_elite"):
-            getattr(lib, name).restype = ctypes.c_int
-            getattr(lib, name).argtypes = []
+def load_library(horizon: int, params_per_leg: int) -> ctypes.CDLL:
+    """Build (if needed) and load the K1b/K1c library of the (horizon, parameters
+    per leg) pair; raises on any failure, NotImplementedError for a pair that is
+    not built (``build.INSTANTIATIONS``)."""
+    key = (horizon, params_per_leg)
+    if key not in _LIBS:
+        lib = build.load("sampling_softmax", horizon, params_per_leg)
+        rs.int_getters(lib, ("sm_args_size", "sm_knobs_size", "sm_block", "sm_rollout_samples",
+                             "sm_max_elite", "sm_horizon", "sm_params_per_leg",
+                             "sm_padded_params_per_leg"))
         if (lib.sm_args_size() != ctypes.sizeof(rs.RSArgs)
                 or lib.sm_knobs_size() != ctypes.sizeof(SMKnobs)
                 or lib.sm_block() != BLOCK or lib.sm_rollout_samples() != rs.ROLLOUT_SAMPLES
-                or lib.sm_max_elite() != MAX_ELITE):
-            raise RuntimeError("sampling_softmax.cu and its ctypes mirror disagree")
+                or lib.sm_max_elite() != MAX_ELITE
+                or (lib.sm_horizon(), lib.sm_params_per_leg()) != key
+                or lib.sm_padded_params_per_leg() != rs.padded_params_per_leg(params_per_leg)):
+            raise RuntimeError(f"sampling_softmax.cu for {key} and its ctypes mirror disagree")
         lib.sm_error_string.restype = ctypes.c_char_p
         lib.sm_error_string.argtypes = [ctypes.c_int]
+        lib.sm_update_blocks_per_sm.restype = ctypes.c_int
+        lib.sm_update_blocks_per_sm.argtypes = [ctypes.c_int] * 3
         lib.sm_launch.restype = ctypes.c_int
         lib.sm_launch.argtypes = ([ctypes.POINTER(rs.RSArgs), ctypes.POINTER(SMKnobs),
                                    ctypes.c_int] + [ctypes.c_void_p] * 13)
-        _LIB = lib
-    return _LIB
+        _LIBS[key] = lib
+    return _LIBS[key]
+
+
+def update_blocks_per_sm(plan: rs.RSPlan, knobs: Knobs) -> int:
+    """Blocks of the update pass one SM of the card holds at once for ``plan``'s
+    iteration (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = load_library(plan.horizon, plan.params_per_leg)
+    n = lib.sm_update_blocks_per_sm(int(knobs.cem), knobs.n_elite, plan.num_samples)
+    if n < 0:
+        raise RuntimeError(f"sm_update_blocks_per_sm failed: {lib.sm_error_string(-n).decode()}")
+    return n
 
 
 class Workspace(NamedTuple):
@@ -319,7 +334,8 @@ def softmax_iteration(plan: rs.RSPlan, knobs: Knobs, tick: rs.TickInputs,
         if x is not None:
             rs.check_cuda(name, x, (P, N))
     ws = workspace(plan, knobs, incumbent.device)
-    launch(load_library(), rs.kernel_args(plan, tick, seed, offset), knobs.struct(), plan, ws,
+    launch(load_library(plan.horizon, plan.params_per_leg),
+           rs.kernel_args(plan, tick, seed, offset), knobs.struct(), plan, ws,
            incumbent, sigma, noise_in, noise_out)
     softmax_iteration.launches[knobs.method] += 1
     return ws.costs, ws.out, ws.sigma if knobs.cem else sigma, ws.elites

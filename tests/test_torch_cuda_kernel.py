@@ -239,24 +239,51 @@ def test_group_kernel_matches_plain_version(cuda_device, method):
 
 
 def test_cuda_solver_refuses_unported_paths(cuda_device):
-    from quadruped_pympc_tamols_torch.controllers.sampling import make_sampling_solver
+    """The solvers refuse only the ZMP-band cost and a (horizon, parameters per
+    leg) pair the sources are not built for; every method at 1 and 3 iterations,
+    and the gait-adaptive solver's three, build and solve on the kernels with each
+    parametrization."""
+    from quadruped_pympc_tamols_torch.controllers.sampling import (make_gait_adaptive_solver,
+                                                                   make_sampling_solver)
+    from quadruped_pympc_tamols_torch.controllers.sampling.sampling_mpc import SamplingState
     base = {"sim.visual_foothold_adaptation": "blind"}
-    for over in ({"mpc.sampling.zmp_weight": 500.0},
-                 {"mpc.sampling.parametrization": "linear_spline"},
-                 {"mpc.sampling.parametrization": "zero_order"}):
+    gait = {**base, "mpc.optimize_step_freq": True}
+    for over in ({"mpc.sampling.zmp_weight": 500.0}, {"mpc.horizon": 10},
+                 {"mpc.horizon": 10, "mpc.sampling.parametrization": "zero_order"}):
         with pytest.raises(NotImplementedError):
             make_sampling_solver(make_config("aliengo", **base, **over), 1000,
                                  device=cuda_device)
-    for method in ("mppi", "cem_mppi"):
-        for iterations in (1, 3):
-            over = {"mpc.sampling.method": method, "mpc.sampling.num_iterations": iterations}
-            make_sampling_solver(make_config("aliengo", **base, **over), 1000, device=cuda_device)
-    from quadruped_pympc_tamols_torch.controllers.sampling import make_gait_adaptive_solver
-    gait = {**base, "mpc.optimize_step_freq": True}
-    for over in ({"mpc.sampling.zmp_weight": 500.0},
-                 {"mpc.sampling.parametrization": "linear_spline"}, {"mpc.horizon": 10}):
         with pytest.raises(NotImplementedError):
             make_gait_adaptive_solver(make_config("aliengo", **gait, **over), 1000,
                                       device=cuda_device)
-    for method in ("random_sampling", "mppi", "cem_mppi"):
-        make_gait_adaptive_solver(make_config("aliengo", **gait), 1000, method, cuda_device)
+    tick = _tick(make_config("aliengo", **base))
+    ones = np.ones(4, np.float32)
+    for par in ("cubic_spline", "linear_spline", "zero_order"):
+        for method in ("random_sampling", "mppi", "cem_mppi"):
+            for iterations in (1, 3):
+                cfg = make_config("aliengo", **base, **{
+                    "mpc.sampling.parametrization": par, "mpc.sampling.method": method,
+                    "mpc.sampling.num_iterations": iterations})
+                solve, P = make_sampling_solver(cfg, 1000, device=cuda_device)
+                state = SamplingState(torch.zeros(P, device=cuda_device), 0, 0,
+                                      torch.full((P,), 2.0, device=cuda_device))
+                before = (sk.sampling_rs.launches, dict(sm.softmax_iteration.launches))
+                out, _ = solve(tick.state12, tick.feet, tick.ref12, tick.feet, tick.contact_seq,
+                               ones, ones, state)
+                after = (sk.sampling_rs.launches, sm.softmax_iteration.launches)
+                if method == "random_sampling":
+                    assert after[0] == before[0] + iterations
+                else:
+                    assert after[1][method] == before[1][method] + iterations
+                assert bool(torch.isfinite(out.summary).all())
+            gsolve, P = make_gait_adaptive_solver(
+                make_config("aliengo", **gait, **{"mpc.sampling.parametrization": par}), 1000,
+                method, cuda_device)
+            before = sg.sampling_groups.launches[method]
+            state = SamplingState(torch.zeros(P, device=cuda_device), 0, 0,
+                                  torch.full((P,), 2.0, device=cuda_device))
+            out, _ = gsolve(tick.state12, tick.feet, tick.ref12, tick.feet,
+                            np.array([0.3, 0.8, 0.8, 0.3], np.float32), 1.4, True,
+                            tick.contact_seq, ones, ones, state)
+            assert sg.sampling_groups.launches[method] == before + 1
+            assert bool(torch.isfinite(out.summary).all())

@@ -12,6 +12,9 @@ summed, in batches) against T = 1 (some weights underflow to 0), CEM with K = 2,
 10 and 32 (at 32 the B*K candidate keys outgrow the shared stage), ties at the 1e6
 saturation from a NaN state, K1e with groups of 33, a rerun on Philox noise, and
 launches that reuse one workspace (each iteration's memset resets the ticket).
+The temperatures, the elite counts, K1e and the rerun run with cubic splines
+(P = 96), linear splines (P = 36) and zero-order holds (P = 144, whose partial
+rows of 145 columns are summed two columns a thread in the finish).
 Tolerances as in chip_smoke.py: beta and the elite indices exactly, the new
 parameters and sigma' to atol 1e-5 (sums in another order than torch's), GRFs
 atol 1e-3 N, the state atol 1e-5 (NaN where the state is NaN)."""
@@ -30,6 +33,7 @@ from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
 pytestmark = pytest.mark.cuda
 
 BASE = {"sim.visual_foothold_adaptation": "blind"}
+PARS = ["cubic_spline", "linear_spline", "zero_order"]
 
 
 @pytest.fixture
@@ -84,8 +88,8 @@ def _check(plan, knobs, tick, inc, noise, res, dev):
     return ref
 
 
-def _iteration(cuda_device, num_samples, method, seed, **knob_over):
-    cfg = make_config("aliengo", **BASE)
+def _iteration(cuda_device, num_samples, method, seed, par="cubic_spline", **knob_over):
+    cfg = make_config("aliengo", **BASE, **{"mpc.sampling.parametrization": par})
     plan = sk.make_rs_plan(cfg, num_samples, cuda_device)
     knobs = dataclasses.replace(sm.make_knobs(cfg, method), **knob_over)
     tick = _tick(cfg)
@@ -102,10 +106,11 @@ def test_mppi_update_at_ragged_block_counts(cuda_device, num_samples):
 
 
 @pytest.mark.parametrize("temperature", [1e6, 1.0])
-def test_weights_all_nonzero_or_almost_all_zero(cuda_device, temperature):
+@pytest.mark.parametrize("par", PARS)
+def test_weights_all_nonzero_or_almost_all_zero(cuda_device, par, temperature):
     """At T = 1e6 every weight is nonzero, so every sample of every block is
     summed (two batches a block); at T = 1 some weights underflow to 0."""
-    plan, knobs, tick, inc, noise, res = _iteration(cuda_device, 10_000, "mppi", 3,
+    plan, knobs, tick, inc, noise, res = _iteration(cuda_device, 10_000, "mppi", 3, par,
                                                     temperature=temperature)
     ref = _check(plan, knobs, tick, inc, noise, res, cuda_device)
     nonzero = int((torch.exp(-(res[0] - ref.beta) / temperature) != 0).sum())
@@ -116,9 +121,10 @@ def test_weights_all_nonzero_or_almost_all_zero(cuda_device, temperature):
 
 
 @pytest.mark.parametrize("n_elite", [2, 10, 32])
-def test_cem_elites_and_refit(cuda_device, n_elite):
+@pytest.mark.parametrize("par", PARS)
+def test_cem_elites_and_refit(cuda_device, par, n_elite):
     plan, knobs, tick, inc, noise, res = _iteration(cuda_device, 10_000, "cem_mppi", n_elite,
-                                                    n_elite=n_elite)
+                                                    par, n_elite=n_elite)
     _check(plan, knobs, tick, inc, noise, res, cuda_device)
     assert res[3].shape == (n_elite,)
 
@@ -138,11 +144,13 @@ def test_cem_ties_at_the_saturation(cuda_device):
 
 
 @pytest.mark.parametrize("method", ["mppi", "cem_mppi"])
-def test_k1e_update_with_groups_off_the_block(cuda_device, method):
+@pytest.mark.parametrize("par", PARS)
+def test_k1e_update_with_groups_off_the_block(cuda_device, par, method):
     """Three groups of 33 samples (N = 100, sample 99 not evaluated): the update
     pass runs over 99 samples in two blocks, the second ragged."""
     from quadruped_pympc_tamols_torch.controllers.sampling import group_operators
-    cfg = make_config("aliengo", **BASE, **{"mpc.optimize_step_freq": True,
+    cfg = make_config("aliengo", **BASE, **{"mpc.sampling.parametrization": par,
+                                            "mpc.optimize_step_freq": True,
                                             "mpc.step_freq_available": (2.4, 1.3, 2.0)})
     plan = sg.make_group_plan(cfg, 100, cuda_device)
     assert (plan.group_size, plan.num_used) == (33, 99)
@@ -156,9 +164,10 @@ def test_k1e_update_with_groups_off_the_block(cuda_device, method):
     _check(plan.base, knobs, tick, inc, noise, res, cuda_device)
 
 
-def test_rerun_repeats_the_bits(cuda_device):
+@pytest.mark.parametrize("par", PARS)
+def test_rerun_repeats_the_bits(cuda_device, par):
     """Philox noise, no float atomics: the same inputs give the same bits."""
-    cfg = make_config("aliengo", **BASE)
+    cfg = make_config("aliengo", **BASE, **{"mpc.sampling.parametrization": par})
     plan = sk.make_rs_plan(cfg, 10_000, cuda_device)
     tick = _tick(cfg)
     inc, _, sigma = _inputs(plan.num_parameters, 1, 4, cuda_device)
@@ -179,7 +188,7 @@ def test_reused_workspace_gives_the_fresh_result(cuda_device):
     plan = sk.make_rs_plan(cfg, 10_000, cuda_device)
     tick = _tick(cfg)
     inc, _, sigma = _inputs(plan.num_parameters, 1, 6, cuda_device)
-    lib = sm.load_library()
+    lib = sm.load_library(plan.horizon, plan.params_per_leg)
     for method in ("mppi", "cem_mppi"):
         knobs = sm.make_knobs(cfg, method)
         kn = knobs.struct()

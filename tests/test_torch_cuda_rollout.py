@@ -11,7 +11,9 @@ a group's end run on a clamped index and must write nothing. Tolerances as in
 test_torch_cuda_kernel.py: costs rtol 1e-4 / atol 1e-2, GRFs atol 1e-3 N, the
 predicted state atol 1e-5 (FMA contraction and the order of the basis sums), the
 winner atol 1e-6, the MPPI step against the plain combine on the kernel's own
-costs to atol 1e-5 with beta exact."""
+costs to atol 1e-5 with beta exact. Every case runs with the main path's cubic
+splines (24 parameters per leg), linear splines (9, whose leg draws three Philox
+chunks and uses nine of their twelve values) and zero-order holds (36)."""
 import numpy as np
 import pytest
 import torch
@@ -26,6 +28,11 @@ pytestmark = pytest.mark.cuda
 
 RAGGED = [1, 2, 63, 65, 10_001]
 BASE = {"sim.visual_foothold_adaptation": "blind"}
+PARS = ["cubic_spline", "linear_spline", "zero_order"]
+
+
+def _cfg(par="cubic_spline", **over):
+    return make_config("aliengo", **BASE, **{"mpc.sampling.parametrization": par, **over})
 
 
 @pytest.fixture
@@ -65,8 +72,9 @@ def _plain_costs(plan, tick, inc, noise, dev):
 
 
 @pytest.mark.parametrize("num_samples", RAGGED)
-def test_k1a_ragged_matches_plain_version(cuda_device, num_samples):
-    cfg = make_config("aliengo", **BASE)
+@pytest.mark.parametrize("par", PARS)
+def test_k1a_ragged_matches_plain_version(cuda_device, par, num_samples):
+    cfg = _cfg(par)
     plan = sk.make_rs_plan(cfg, num_samples, cuda_device)
     tick = _tick(cfg)
     inc, noise = _inputs(plan.num_parameters, num_samples, num_samples, cuda_device)
@@ -86,8 +94,9 @@ def test_k1a_ragged_matches_plain_version(cuda_device, num_samples):
 
 
 @pytest.mark.parametrize("num_samples", RAGGED)
-def test_k1b_ragged_matches_plain_version(cuda_device, num_samples):
-    cfg = make_config("aliengo", **BASE)
+@pytest.mark.parametrize("par", PARS)
+def test_k1b_ragged_matches_plain_version(cuda_device, par, num_samples):
+    cfg = _cfg(par)
     plan = sk.make_rs_plan(cfg, num_samples, cuda_device)
     knobs = sm.make_knobs(cfg, "mppi")
     tick = _tick(cfg)
@@ -106,13 +115,14 @@ def test_k1b_ragged_matches_plain_version(cuda_device, num_samples):
 
 
 @pytest.mark.parametrize("method", ["random_sampling", "mppi", "cem_mppi"])
-def test_k1e_group_size_off_the_block(cuda_device, method):
+@pytest.mark.parametrize("par", PARS)
+def test_k1e_group_size_off_the_block(cuda_device, par, method):
     """Three groups of 33 samples (N = 100, sample 99 not evaluated). 33 is no
     multiple of the block's 16 samples, so each group's last block holds one live
     sample and 15 that run on a clamped index and must write nothing."""
     from quadruped_pympc_tamols_torch.controllers.sampling import group_operators
-    cfg = make_config("aliengo", **BASE, **{"mpc.optimize_step_freq": True,
-                                            "mpc.step_freq_available": (2.4, 1.3, 2.0)})
+    cfg = _cfg(par, **{"mpc.optimize_step_freq": True,
+                       "mpc.step_freq_available": (2.4, 1.3, 2.0)})
     plan = sg.make_group_plan(cfg, 100, cuda_device)
     assert (plan.group_size, plan.num_used) == (33, 99)
     assert plan.group_size % sk.ROLLOUT_SAMPLES != 0
@@ -147,12 +157,15 @@ def test_k1e_group_size_off_the_block(cuda_device, method):
         assert el.tolist() == comb.elites.tolist()
 
 
-def test_philox_and_injected_noise_give_the_same_bits(cuda_device):
+@pytest.mark.parametrize("par", PARS)
+def test_philox_and_injected_noise_give_the_same_bits(cuda_device, par):
     """Each kernel's Philox noise, dumped through noise_out and fed back as
     noise_in, gives bit-equal costs and the same argmin: the four lanes of a
-    sample draw its noise with the counters one thread per sample used."""
+    sample draw its noise with the counters one thread per sample used. A rerun
+    repeats every output's bits (at 9 parameters per leg a lane stores and reads
+    back only its nine values of three Philox chunks)."""
     from quadruped_pympc_tamols_torch.controllers.sampling import group_operators
-    cfg = make_config("aliengo", **BASE)
+    cfg = _cfg(par)
     N = 1001
     plan = sk.make_rs_plan(cfg, N, cuda_device)
     tick = _tick(cfg)
@@ -165,13 +178,19 @@ def test_philox_and_injected_noise_give_the_same_bits(cuda_device):
     c2, o2 = sk.sampling_rs(plan, tick, inc, 9, 4, noise_in=dump)
     torch.cuda.synchronize()
     assert torch.equal(c1, c2) and torch.equal(o1, o2)
+    c3, o3 = sk.sampling_rs(plan, tick, inc, 9, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(c1, c3) and torch.equal(o1, o3)
     for method in ("mppi", "cem_mppi"):
         knobs = sm.make_knobs(cfg, method)
         r1 = sm.softmax_iteration(plan, knobs, tick, inc, sigma, 9, 4, noise_out=dump)
         r2 = sm.softmax_iteration(plan, knobs, tick, inc, sigma, 9, 4, noise_in=dump)
         torch.cuda.synchronize()
         assert torch.equal(r1[0], r2[0]) and int(r1[1][25]) == int(r2[1][25])
-    gcfg = make_config("aliengo", **BASE, **{"mpc.optimize_step_freq": True})
+        r3 = sm.softmax_iteration(plan, knobs, tick, inc, sigma, 9, 4)
+        torch.cuda.synchronize()
+        assert all(a is None or torch.equal(a, b) for a, b in zip(r1, r3))
+    gcfg = _cfg(par, **{"mpc.optimize_step_freq": True})
     gplan = sg.make_group_plan(gcfg, N, cuda_device)
     groups = group_operators(gcfg, np.array([0.3, 0.8, 0.8, 0.3], np.float32),
                              np.asarray(gcfg.mpc.step_freq_available, np.float32))
@@ -182,3 +201,6 @@ def test_philox_and_injected_noise_give_the_same_bits(cuda_device):
         r2 = sg.sampling_groups(gplan, knobs, tick, groups, inc, sigma, 9, 4, noise_in=gdump)
         torch.cuda.synchronize()
         assert torch.equal(r1[0], r2[0]) and int(r1[1][25]) == int(r2[1][25])
+        r3 = sg.sampling_groups(gplan, knobs, tick, groups, inc, sigma, 9, 4)
+        torch.cuda.synchronize()
+        assert all(a is None or torch.equal(a, b) for a, b in zip(r1, r3))

@@ -151,35 +151,49 @@ def test_wb_interface_references_match_jax():
     np.testing.assert_array_equal(twb.current_contact, jwb.current_contact)
 
 
-WALKED = ((("mppi", 1), ("mppi", 3), ("random_sampling", 3), ("cem_mppi", 1), ("cem_mppi", 3)),
-          (("random_sampling", 1), ("mppi", 1)))
+# (method, iterations, parametrization) of every walk the port runs on the card,
+# without and with mpc.optimize_step_freq.
+WALKED = ((("random_sampling", 1, "cubic_spline"), ("mppi", 1, "cubic_spline"),
+           ("mppi", 3, "cubic_spline"), ("random_sampling", 3, "cubic_spline"),
+           ("cem_mppi", 1, "cubic_spline"), ("cem_mppi", 3, "cubic_spline"),
+           ("random_sampling", 1, "linear_spline"), ("random_sampling", 1, "zero_order"),
+           ("mppi", 3, "zero_order")),
+          (("random_sampling", 1, "cubic_spline"), ("mppi", 1, "cubic_spline"),
+           ("cem_mppi", 1, "cubic_spline")))
 
 
-def reference_walks(num_samples=10_000, duration=3.0, vel=(0.3, 0.0, 0.0), gait_adaptive=False):
+def reference_walks(num_samples=10_000, duration=3.0, vel=(0.3, 0.0, 0.0), gait_adaptive=False,
+                    walks=None):
     """The JAX package's SRB harness walking the README quickstart for the
-    sampling methods and iteration counts of the port's slices, or with
-    ``mpc.optimize_step_freq`` for the gait-adaptive slice: (method, iterations,
-    distance (m), min z (m), max |roll|,|pitch| (rad), step frequency at the end)."""
+    sampling methods, iteration counts and parametrizations of the port's slices
+    (``walks``, by default all of ``WALKED``), or with ``mpc.optimize_step_freq``
+    for the gait-adaptive slice: (method, iterations, parametrization, distance
+    (m), min z (m), max |roll|,|pitch| (rad), step frequency at the end)."""
     rows = []
-    for method, iterations in WALKED[gait_adaptive]:
+    for method, iterations, parametrization in walks or WALKED[gait_adaptive]:
         cfg = jax_make_config("aliengo", mpc_type="sampling", **{
             **BLIND, "mpc.sampling.num_samples": num_samples, "mpc.sampling.method": method,
-            "mpc.sampling.num_iterations": iterations, "mpc.optimize_step_freq": gait_adaptive})
+            "mpc.sampling.num_iterations": iterations,
+            "mpc.sampling.parametrization": parametrization,
+            "mpc.optimize_step_freq": gait_adaptive})
         h = JaxHarness(cfg, seed=0)
         hist = h.run(duration, np.asarray(vel))
-        rows.append((method, iterations, hist[-1, 0] - hist[0, 0], hist[:, 2].min(),
-                     np.abs(hist[:, 6:8]).max(), h.wb.pgg.step_freq))
+        rows.append((method, iterations, parametrization, hist[-1, 0] - hist[0, 0],
+                     hist[:, 2].min(), np.abs(hist[:, 6:8]).max(), h.wb.pgg.step_freq))
     return rows
 
 
 if __name__ == "__main__":
-    # python tests/test_torch_harness.py [gait]: the JAX reference's walks on the
-    # CPU, on the platform the tests use (tests/conftest.py), for PERF.md; with
-    # "gait", the gait-adaptive walks (mpc.optimize_step_freq).
+    # python tests/test_torch_harness.py [gait] [row ...]: the JAX reference's
+    # walks on the CPU, on the platform the tests use (tests/conftest.py), for
+    # PERF.md; with "gait", the gait-adaptive walks (mpc.optimize_step_freq); with
+    # row numbers, only those rows of WALKED.
     import sys
 
     import conftest  # noqa: F401
 
-    for row in reference_walks(gait_adaptive=sys.argv[1:] == ["gait"]):
-        print("method %s, iterations %d: walked %.4f m, min z %.4f m, max |roll|,|pitch| "
+    gait = sys.argv[1:2] == ["gait"]
+    picked = [WALKED[gait][int(a)] for a in sys.argv[1 + gait:]]
+    for row in reference_walks(gait_adaptive=gait, walks=picked):
+        print("method %s, iterations %d, %s: walked %.4f m, min z %.4f m, max |roll|,|pitch| "
               "%.4f rad, step frequency %.4f Hz" % row, flush=True)

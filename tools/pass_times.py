@@ -55,6 +55,15 @@ def profile(fn) -> dict:
     return out
 
 
+def load(module, plan):
+    """The tree's library for ``plan``: one per (horizon, parameters per leg) pair,
+    or, in a tree from before the pairs, its one library."""
+    import inspect
+    if inspect.signature(module.load_library).parameters:
+        return module.load_library(plan.horizon, plan.params_per_leg)
+    return module.load_library()
+
+
 def event_ms(fn) -> float:
     import torch
     pairs = []
@@ -125,7 +134,7 @@ def run_tree(tree: str) -> None:
     stream = torch.cuda.current_stream(dev).cuda_stream
     card = torch.cuda.get_device_name(0)
 
-    lib = sm.load_library()
+    lib = load(sm, plan)
     args = sk.kernel_args(plan, tick, 5, 0)
     for row, method in (("K1b", "mppi"), ("K1c", "cem_mppi")):
         knobs = sm.make_knobs(cfg, method)
@@ -143,7 +152,7 @@ def run_tree(tree: str) -> None:
     groups = group_operators(gcfg, np.array([0.3, 0.8, 0.8, 0.3], np.float32),
                              np.asarray(gcfg.mpc.step_freq_available, np.float32))
     buf = torch.as_tensor(sg.pack_groups(groups), device=dev)
-    glib = sg.load_library()
+    glib = load(sg, gplan.base)
     gargs = sk.kernel_args(gplan.base, tick, 5, 0)
     gargs.num_samples = gplan.num_used
     for row, method in (("K1e-mppi", "mppi"), ("K1e-cem", "cem_mppi")):
@@ -156,7 +165,9 @@ def run_tree(tree: str) -> None:
         print(json.dumps({"tree": tree, "row": row, "card": card, "kernels": profile(one),
                           "event_ms": event_ms(one), **weights(ws.costs, knobs)}), flush=True)
     from quadruped_pympc_tamols_torch.ops import build
-    log = build.build_all()["sampling_softmax"].with_suffix(".log")
+    libs = build.build_all()
+    log = libs.get(("sampling_softmax", H, plan.params_per_leg), libs.get("sampling_softmax"))
+    log = log.with_suffix(".log")
     print(json.dumps({"tree": tree, "ptxas": ptxas(log)}), flush=True)
 
 

@@ -111,11 +111,12 @@ def time_copy(root: str, counts: list) -> dict:
 
     if not build.__file__.startswith(root):
         raise RuntimeError(f"imported {build.__file__}, not the copy at {root}")
-    libs = build.build_all()
-    lib = sk.load_library()
+    cfg = cs.main_cfg()
+    shape = (cfg.mpc.horizon, sk.make_rs_plan(cfg, 1, "cpu").params_per_leg)
+    lib_path = build.build_all()[("sampling_rs", *shape)]
+    lib = sk.load_library(*shape)
     dev = torch.device("cuda:0")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    cfg = cs.main_cfg()
     res = {"rollout_us": {}}
     for n in counts:
         plan = sk.make_rs_plan(cfg, n, dev)
@@ -141,8 +142,8 @@ def time_copy(root: str, counts: list) -> dict:
         res["rollout_us"][n] = cs.pass_profile(launch, 1, False)["rollout"][1]
         if n == 10_000:
             res["costs_sha256"] = hashlib.sha256(costs.cpu().numpy().tobytes()).hexdigest()[:16]
-    res["ptxas"] = cs.ptxas_of(libs["sampling_rs"].with_suffix(".log"), "rollout_kernel")
-    res["sass_instructions"] = sass_instructions(libs["sampling_rs"])
+    res["ptxas"] = cs.ptxas_of(lib_path.with_suffix(".log"), "rollout_kernel")
+    res["sass_instructions"] = sass_instructions(lib_path)
     return res
 
 
