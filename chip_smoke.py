@@ -14,9 +14,10 @@ device or without the package beside it.
 Output: the card's name and power limit, one line per phase, for each row the
 rollout pass's device time and its kernel's registers, shared memory and spills
 (from the build's ``-Xptxas -v`` log), the same for the update pass of the MPPI
-and CEM rows (K1b-K1d, K1e-mppi, K1e-cem), a ``{"kernels": ...}`` line (rows of
-the main path's cubic splines, then ``-lin`` and ``-zo`` rows), and as the last
-line ``{"ok": true, "device": {...}}``.
+and CEM rows (K1b, K1c, K1e-mppi, K1e-cem), the extraction kernel of the random
+sampling rows (K1a, K1e-rs) and the chain kernel of the K1d rows, a
+``{"kernels": ...}`` line (rows of the main path's cubic splines, then ``-lin`` and
+``-zo`` rows), and as the last line ``{"ok": true, "device": {...}}``.
 
 Phases (each raises on failure; every path is driven with all launch counts set
 to 0 just before it and read just after):
@@ -29,26 +30,33 @@ to 0 just before it and read just after):
      [0.3, 0, 0]) at N = 10 000 (random sampling, one iteration) must walk,
      with K1a launched once per MPC tick.
   4. Times of K1a: the kernel and its plain version (CUDA events, median of 100
-     launches), the per-tick solve with its host glue, the harness's rate, and a
-     profile of 50 solve ticks (device time per recorded launch).
+     launches), the device time of its rollout and extraction kernels, the
+     per-tick solve with its host glue, the harness's rate, and a profile of 50
+     solve ticks (device time per recorded launch).
   5. K1b (MPPI) and K1c (CEM-MPPI) at N = 10 000: costs against the plain
      version on the same injected noise; the optimizer step against the plain
      combine on the kernel's own costs (beta exactly, parameters and sigma' to
      1e-5, elite indices exactly); a NaN state, where every cost ties at 1e6;
      Philox noise, dumped and checked the same way, bit-identical on a rerun.
-  6. K1d: three chained iterations of each method; iteration i repeats bit for
-     bit as one iteration from iteration i - 1's device outputs, and passes the
-     phase-5 checks on its dumped noise.
-  7. This slice's path: the same walk with MPPI and 3 chained iterations a tick
-     (three K1b launches chained by K1d) must walk; the profiler over 50 solve ticks
-     must see exactly one device-to-host copy a tick, and the rollout and update
-     kernels once an iteration each (a K1b iteration is a memset and two launches).
-  8. A CEM-MPPI closed loop (3 iterations a tick) for 3 s: finite GRFs and a
-     sigma inside [cem_sigma_min, cem_sigma_max] on every tick. The JAX
+  6. K1d, the chain kernel: three chained iterations of each method in one
+     launch; iteration i repeats bit for bit as one K1a/K1b/K1c iteration from
+     iteration i - 1's device outputs, and passes the phase-5 checks on its dumped
+     noise; the chain kernel's machine code reads nothing through the read-only
+     (non-coherent) path but sincosf's constant table.
+  7. The MPPI x 3 walk (one K1d launch a tick, no K1b) must walk; the profiler
+     over 50 solve ticks must see exactly one device-to-host copy a tick, the
+     chain kernel once a tick and no memset; then MPPI x 1 (one K1b launch a
+     tick) runs TICK_LOOP ticks through its controller on the flagship inputs.
+  8. A CEM-MPPI closed loop (3 iterations a tick, one K1d launch) for 3 s: finite
+     GRFs and a sigma inside [cem_sigma_min, cem_sigma_max] on every tick. The JAX
      reference falls in this configuration too, so the walk is not asserted.
-  9. Times of K1b, K1c and K1d (MPPI x 3 as one solve, through its wrapper
-     sampling_chain), their plain versions and bounds, and the solve tick with its
-     host glue for MPPI x 3 and CEM x 3.
+     Then CEM-MPPI x 1 (one K1c launch a tick) for TICK_LOOP ticks, held so.
+  9. Times of K1b and K1c, and of K1d (MPPI x 3, CEM x 3 and random sampling x 3
+     as one solve) through its wrapper sampling_chain, through its C entry with
+     prebuilt arguments and on the card, beside the successive single launches
+     that chained them before (through the wrapper and prebuilt); their plain
+     versions and bounds, the chain kernel's blocks an SM, and the solve tick with
+     its host glue for MPPI x 3 and CEM x 3.
  10. K1e (gait-adaptive groups, K = 3) for each method at N = 10 000, 9999 samples
      evaluated: against the plain version on injected numpy noise and on its
      dumped Philox noise (band edges of N over 9999 samples), bit-identical on a
@@ -59,18 +67,20 @@ to 0 just before it and read just after):
      for random sampling and MPPI must walk with K1e launched once a tick and K1a-K1c
      never; a CEM-MPPI gait-adaptive closed loop keeps finite GRFs and its sigma in
      range; the profiler over 50 solve ticks must see one device-to-host copy a tick.
- 12. Times of K1e per method, its plain version and bound, and the gait-adaptive
-     solve tick with its host glue.
+ 12. Times of K1e per method (and the device time of each of its kernels), its
+     plain version and bound, and the gait-adaptive solve tick with its host glue.
  13. For linear splines (P = 36) and zero-order holds (P = 144): phases 1-2, 5-6
      and 10, each kernel against its plain version on injected noise and on its
      Philox noise, bit-equal on a rerun, and MPPI x 3 chained.
  14. Their paths, each with the launch counts zeroed before and read after: the
      walks whose JAX reference walks (random sampling x 1 with either, 300 K1a
-     launches; MPPI x 3 with zero-order holds, 900 K1b launches) must walk; MPPI x 3
-     with linear splines, CEM-MPPI x 3 and the gait-adaptive solver's three
-     methods with either run TICK_LOOP ticks through their controller on the
-     flagship inputs, held per solve (finite summaries, CEM's sigma in range).
- 15. Their times, as phases 4, 9 and 12, and the update pass's blocks an SM.
+     launches; MPPI x 3 with zero-order holds, 300 K1d launches) must walk; MPPI x 3
+     with linear splines, CEM-MPPI x 3 (K1d), MPPI x 1 and CEM-MPPI x 1 (K1b, K1c)
+     and the gait-adaptive solver's three methods with either run TICK_LOOP ticks
+     through their controller on the flagship inputs, held per solve (finite
+     summaries, CEM's sigma in range).
+ 15. Their times, as phases 4, 9 and 12, and the update pass's and the chain
+     kernel's blocks an SM.
 """
 from __future__ import annotations
 
@@ -139,8 +149,9 @@ def main_cfg(par=MAIN_PAR, **over):
                           "mpc.sampling.parametrization": par, **over})
 
 
-def softmax_cfg(method, par=MAIN_PAR):
-    return main_cfg(par, **{"mpc.sampling.method": method, "mpc.sampling.num_iterations": 3})
+def softmax_cfg(method, par=MAIN_PAR, iterations=3):
+    return main_cfg(par, **{"mpc.sampling.method": method,
+                            "mpc.sampling.num_iterations": iterations})
 
 
 def gait_cfg(method, par=MAIN_PAR, **over):
@@ -403,7 +414,7 @@ def host_d2h_copies(call, n) -> int:
     return Count.copies
 
 
-def profile_ticks(mpc, tick, n=50, expect=None, d2h=None) -> dict:
+def profile_ticks(mpc, tick, n=50, expect=None, d2h=None, absent=()) -> dict:
     """Device time per launch of each kernel (its device time over the launches
     the profiler recorded, as ``pass_profile`` takes it), the recorded launches,
     the device's busy share and the device-to-host copies over n solve ticks,
@@ -414,7 +425,8 @@ def profile_ticks(mpc, tick, n=50, expect=None, d2h=None) -> dict:
     of them (see ``once_an_iteration``), and a short window is profiled again
     (PROFILE_WINDOWS). ``d2h``, where given, is the device-to-host copies a tick:
     n more ticks must issue exactly that many through torch (``host_d2h_copies``),
-    and the profiler must record no more of them ("DtoH") than that. Nothing is
+    and the profiler must record no more of them ("DtoH") than that. No device row
+    may hold a substring of ``absent`` (a lost record never adds one). Nothing is
     caught: a failed tick or a profiler that cannot start fails the run."""
     import torch
 
@@ -445,6 +457,9 @@ def profile_ticks(mpc, tick, n=50, expect=None, d2h=None) -> dict:
         # children's device time, and runtime-API rows (cuda*) carry none of their own.
         kernels = {k: v for k, v in per.items()
                    if not k.startswith("aten::") and not k.startswith("cuda")}
+        found = sorted(k for k in kernels if any(tag in k for tag in absent))
+        if found:
+            raise AssertionError(f"{n} ticks recorded {found}, which they must not launch")
         short = {}
         for tag, per_tick in (expect or {}).items():
             count, want = sum(v[0] for k, v in kernels.items() if tag in k), per_tick * n
@@ -469,7 +484,13 @@ def profile_ticks(mpc, tick, n=50, expect=None, d2h=None) -> dict:
             "launches": {k: v[0] for k, v in sorted(kernels.items())}}
 
 
-PASSES = {"rollout": "rollout_kernel", "update": "sm_update_kernel"}
+# The kernels of the rows, by pass: the profiler's row names hold these, and so
+# do the names of their entry functions in the ptxas log (the chain kernel's
+# MPPI/CEM instantiation, <..., false>, is mangled with "Lb0E"; random sampling's
+# with "Lb1E").
+PASSES = {"rollout": "rollout_kernel", "update": "sm_update_kernel",
+          "extract": "rs_extract_kernel", "chain": "chain_kernel"}
+PTXAS_ENTRY = {**{k: (v,) for k, v in PASSES.items()}, "chain": ("chain_kernel", "Lb0E")}
 
 
 def once_an_iteration(tag, count, iterations):
@@ -482,13 +503,13 @@ def once_an_iteration(tag, count, iterations):
                              "want one an iteration")
 
 
-def pass_profile(fn, iterations, update, n=50) -> dict:
-    """{"rollout": (kernel name, mean device us a launch)} over n calls of fn (fn
-    is warm, ``iterations`` iterations a call), and "update" likewise where
-    ``update``, from torch.profiler. A window in which a pass recorded half of
+def pass_profile(fn, iterations, passes, n=50) -> dict:
+    """{pass: (kernel name, mean device us a launch)} for each of ``passes`` (keys
+    of PASSES) over n calls of fn (fn is warm, ``iterations`` launches of each
+    pass a call), from torch.profiler. A window in which a pass recorded half of
     its launches or fewer, or none, is profiled again (PROFILE_WINDOWS). Raises if
-    a kernel ran more than once an iteration, or if no window recorded more than
-    half of each pass's launches (see ``once_an_iteration``)."""
+    a kernel ran more than ``iterations`` times a call, or if no window recorded
+    more than half of each pass's launches (see ``once_an_iteration``)."""
     import torch
 
     def calls():
@@ -496,7 +517,7 @@ def pass_profile(fn, iterations, update, n=50) -> dict:
             fn()
         torch.cuda.synchronize()
 
-    want = {k: v for k, v in PASSES.items() if k == "rollout" or update}
+    want = {k: PASSES[k] for k in passes}
     for window in range(PROFILE_WINDOWS):
         prof, _ = profile_window(calls)
         found, counts = {}, {}
@@ -524,14 +545,15 @@ def pass_profile(fn, iterations, update, n=50) -> dict:
     return found
 
 
-def ptxas_of(log_path, kernel) -> dict:
-    """Registers, shared memory, stack and spills of ``kernel``, from the
-    library's ``-Xptxas -v`` log."""
+def ptxas_of(log_path, *parts) -> dict:
+    """Registers, shared memory, stack and spills of the kernel whose entry
+    function's name holds every one of ``parts``, from the library's ``-Xptxas -v``
+    log."""
     import re
     entry, found = False, {}
     for line in log_path.read_text().splitlines():
         if "Compiling entry function" in line:
-            entry = kernel in line
+            entry = all(part in line for part in parts)
         elif entry and "spill" in line:
             stack, stores, loads = map(int, re.findall(r"(\d+) bytes", line))
             found.update(stack_bytes=stack, spill_store_bytes=stores, spill_load_bytes=loads)
@@ -540,8 +562,50 @@ def ptxas_of(log_path, kernel) -> dict:
             m = re.search(r"(\d+) bytes smem", line)
             found["smem_bytes"] = int(m.group(1)) if m else 0
     if "registers" not in found:
-        raise AssertionError(f"no {kernel} in {log_path.name}")
+        raise AssertionError(f"no {parts} in {log_path.name}")
     return found
+
+
+def constant_loads(lib_path, kernel) -> list:
+    """The loads through the read-only, non-coherent path (LDG...CONSTANT) in the
+    machine code of the functions whose names hold ``kernel`` (cuobjdump), but for
+    reads of the library's own constant tables, whose address is an offset from a
+    base in constant bank 4 (sincosf's argument-reduction table): their lines."""
+    import os
+    import re
+    from quadruped_pympc_tamols_torch.ops import build
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    insn = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?PT?\d*\s+)?([A-Z0-9_.]+)\s+([^;]*);")
+    functions, bad, code = 0, [], None
+
+    def writer(before, reg):  # the last instruction before this one that writes reg
+        for op, args in reversed(before):
+            if args.split(",")[0].strip() == reg:
+                return op, args
+        return None, ""
+
+    for line in sass.splitlines() + ["Function : (end)"]:
+        if "Function :" in line:
+            code = [] if kernel in line else None
+            functions += code is not None
+            continue
+        m = insn.search(line)
+        if code is None or not m:
+            continue
+        op, args = m.groups()
+        if op.startswith("LDG") and "CONSTANT" in op:
+            addr = re.search(r"\[(R\d+)(?:\.64)?[^\]]*\]\s*$", args.strip())
+            _, sum_args = writer(code, addr.group(1)) if addr else (None, "")
+            base = re.search(r"\b(UR\d+)\b", sum_args)
+            _, base_args = writer(code, base.group(1)) if base else (None, "")
+            if "c[0x4]" not in base_args:
+                bad.append(line.strip())
+        code.append((op, args))
+    if functions == 0:
+        raise AssertionError(f"no {kernel} in the machine code of {lib_path.name}")
+    return bad
 
 
 def iteration_flops(plan, nnz) -> int:
@@ -565,13 +629,13 @@ def bound_ms(flops, nbytes) -> tuple:
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
-def k1a_bound_ms(plan) -> tuple:
-    """Least time of one K1a solve on an H100: (ms, "bytes" or "operations").
-    Bytes: the leg blocks of W and the incumbent read once, N costs and the packed
-    output written once."""
+def k1a_bound_ms(plan, iterations=1) -> tuple:
+    """Least time of ``iterations`` K1a solves on an H100: (ms, "bytes" or
+    "operations"). Bytes: the leg blocks of W and the incumbent read once, N costs
+    and the packed output written once, per iteration."""
     H, P_leg, P, N = plan.horizon, plan.params_per_leg, plan.num_parameters, plan.num_samples
-    return bound_ms(N * iteration_flops(plan, basis_nnz(plan.W_blocks)),
-                    4 * (H * 12 * P_leg + P + N + 26 + P))  # out: [cost, 12, 12, index, P]
+    return bound_ms(iterations * N * iteration_flops(plan, basis_nnz(plan.W_blocks)),
+                    iterations * 4 * (H * 12 * P_leg + P + N + 26 + P))  # out: [cost, 12, 12, index, P]
 
 
 def softmax_bound_ms(plan, knobs, iterations=1) -> tuple:
@@ -610,24 +674,28 @@ def group_bound_ms(gplan, knobs, groups) -> tuple:
 
 
 # Launch counts by kernel: K1a counts in sampling_rs.launches, K1b and K1c in
-# softmax_iteration.launches["mppi"] and ["cem_mppi"], K1e in
-# sampling_groups.launches[method]. K1d (chaining) launches no kernel of its own:
-# its launches are the K1a/K1b/K1c launches it issues.
-COUNTED = ("K1a", "K1b", "K1c", "K1e_rs", "K1e_mppi", "K1e_cem")
+# softmax_iteration.launches["mppi"] and ["cem_mppi"], K1d (the chain kernel, one
+# launch a chained solve) in sampling_chain.launches[method], K1e in
+# sampling_groups.launches[method].
+COUNTED = ("K1a", "K1b", "K1c", "K1d_rs", "K1d_mppi", "K1d_cem", "K1e_rs", "K1e_mppi",
+           "K1e_cem")
 
 
 def reset_counts():
     from quadruped_pympc_tamols_torch import ops
     ops.sampling_rs.launches = 0
     ops.softmax_iteration.launches.update(mppi=0, cem_mppi=0)
+    ops.sampling_chain.launches.update(random_sampling=0, mppi=0, cem_mppi=0)
     ops.sampling_groups.sampling_groups.launches.update(random_sampling=0, mppi=0, cem_mppi=0)
 
 
 def read_counts() -> dict:
     from quadruped_pympc_tamols_torch import ops
     sm = ops.softmax_iteration.launches
+    ch = ops.sampling_chain.launches
     sg = ops.sampling_groups.sampling_groups.launches
     return {"K1a": ops.sampling_rs.launches, "K1b": sm["mppi"], "K1c": sm["cem_mppi"],
+            "K1d_rs": ch["random_sampling"], "K1d_mppi": ch["mppi"], "K1d_cem": ch["cem_mppi"],
             "K1e_rs": sg["random_sampling"], "K1e_mppi": sg["mppi"], "K1e_cem": sg["cem_mppi"]}
 
 
@@ -738,11 +806,21 @@ def phase_softmax(dev, rng, par=MAIN_PAR, phase="phase 5"):
 
 def phase_chain(dev, rng, par=MAIN_PAR, phase="phase 6"):
     """Phase 6 (13 for the other parametrizations): K1d, three chained iterations
-    of each method."""
+    of each method in one launch of the chain kernel, against single iterations;
+    and the chain kernel's machine code."""
     import torch
+    from quadruped_pympc_tamols_torch.ops import build
     from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
     from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
 
+    p = sk.make_rs_plan(main_cfg(par), 1, "cpu")
+    lib = build.build_all()[("sampling_chain", p.horizon, p.params_per_leg)]
+    nc = constant_loads(lib, PASSES["chain"])
+    if nc:
+        raise AssertionError(f"{phase} {par}: the chain kernel reads through the read-only path "
+                             f"(what it writes itself must be read from L2): {nc}")
+    log(f"{phase} {par}: the chain kernel's SASS (cuobjdump) holds no LDG.CONSTANT load but "
+        "for sincosf's reduction table")
     worst = 0.0
     for method in ("random_sampling", "mppi", "cem_mppi"):
         cfg = softmax_cfg(method, par)
@@ -752,9 +830,15 @@ def phase_chain(dev, rng, par=MAIN_PAR, phase="phase 6"):
         P = plan.num_parameters
         inc = torch.as_tensor(rng.standard_normal(P).astype(np.float32), device=dev)
         sig = torch.full((P,), cfg.mpc.sampling.sigma_cem_mppi, device=dev)
-        res = sm.sampling_chain(plan, knobs, tick, inc, sig, 77, 40, 3)
-        errs = []
         head = f"{phase} {method}" + (f" {par}" if par != MAIN_PAR else "")
+        reset_counts()
+        res = sm.sampling_chain(plan, knobs, tick, inc, sig, 77, 40, 3)
+        counts = read_counts()
+        want = counts_of(**{"K1d_" + {"random_sampling": "rs", "mppi": "mppi",
+                                      "cem_mppi": "cem"}[method]: 1})(1)
+        if counts != want:
+            raise AssertionError(f"{head}: launches {counts}, want {want}")
+        errs = []
         for i, r in enumerate(res):
             dump = torch.empty(P, N_MAIN, device=dev)
             label = f"{head} iteration {i}"
@@ -774,7 +858,7 @@ def phase_chain(dev, rng, par=MAIN_PAR, phase="phase 6"):
             errs.append(e)
             worst = max(worst, e["cost"])
             inc, sig = r.out[sk.OUT_WINNER:], r.sigma
-        log(f"{head} x 3: ok; per iteration {errs}")
+        log(f"{head} x 3: ok, one launch, bit-equal to single iterations; per iteration {errs}")
     return worst
 
 
@@ -822,36 +906,75 @@ def cem_loop(cfg, label, want_counts, jax_walk=None):
 
 
 def phase_softmax_times(dev, rng, par=MAIN_PAR, phase="phase 9"):
-    """Phase 9 (15 for the other parametrizations): times of K1b, K1c and K1d and
-    their plain versions, and the update pass's blocks an SM."""
+    """Phase 9 (15 for the other parametrizations): times of K1b and K1c and their
+    plain versions, and of K1d for each method: the chain kernel through its
+    wrapper, through its C entry with prebuilt arguments and on the card, beside
+    the successive single launches that chained before; the blocks an SM of the
+    update pass and of the chain kernel."""
     import torch
     from quadruped_pympc_tamols_torch.controllers.sampling import SamplingMPC
     from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
     from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
 
     stream = torch.cuda.current_stream(dev).cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
-    for method in ("mppi", "cem_mppi"):
+    for method in ("mppi", "cem_mppi", "random_sampling"):
         cfg = softmax_cfg(method, par)
         plan = sk.make_rs_plan(cfg, N_MAIN, dev)
-        lib = sm.load_library(plan.horizon, plan.params_per_leg)
         knobs = sm.make_knobs(cfg)
         tick = example_tick(cfg, plan)
         P = plan.num_parameters
         inc = torch.as_tensor(rng.standard_normal(P).astype(np.float32), device=dev)
         sig = torch.full((P,), cfg.mpc.sampling.sigma_cem_mppi, device=dev)
         kn = knobs.struct()
-        # One iteration through the C entry with the argument blocks built once, so
-        # the events see the memset and launches, not Python's packing. K1d is
-        # timed through its wrapper, sampling_chain, as the solver calls it, and
-        # also (chain_prebuilt_ms) as three C-entry launches with prebuilt blocks.
+        # Through the C entries with the argument blocks built once, so the events
+        # see the launches (and memsets), not Python's packing: one iteration, the
+        # chain kernel (chain_prebuilt), and the three single iterations that
+        # chained before it (successive_prebuilt); K1d also through its wrapper,
+        # sampling_chain, as the solver calls it, and the single iterations through
+        # theirs (successive: what sampling_chain did before the chain kernel).
         args = [sk.kernel_args(plan, tick, 5, i) for i in range(3)]
         ws = [sm.workspace(plan, knobs, dev) for _ in range(3)]
+        clib = sm.load_chain_library(plan.horizon, plan.params_per_leg)
+        cws = sm.workspace(plan, knobs, dev, 3)
+
+        def chain_prebuilt():
+            sm.chain_launch(clib, args[0], kn, method, plan, 3, cws, inc, sig, stream=stream)
+
+        def successive():
+            x, s = inc, sig
+            for i in range(3):
+                if method == "random_sampling":
+                    _, o = sk.sampling_rs(plan, tick, x, 5, i)
+                else:
+                    _, o, s, _ = sm.softmax_iteration(plan, knobs, tick, x, s, 5, i)
+                x = o[sk.OUT_WINNER:]
+
+        r = out[method] = {
+            "chain_ms": time_cuda(lambda: sm.sampling_chain(plan, knobs, tick, inc, sig, 5, 0, 3)),
+            "chain_prebuilt_ms": time_cuda(chain_prebuilt),
+            "chain_passes": pass_profile(chain_prebuilt, 1, ("chain",)),
+            "successive_ms": time_cuda(successive),
+            "chain_blocks_per_sm": sm.chain_blocks_per_sm(plan, knobs),
+            "chain_bound": (k1a_bound_ms(plan, 3) if method == "random_sampling"
+                            else softmax_bound_ms(plan, knobs, 3))}
+        chain_line = (
+            f"K1d {method} x 3 through sampling_chain {r['chain_ms']:.4f} ms, through its C "
+            f"entry with prebuilt arguments {r['chain_prebuilt_ms']:.4f} ms, chain kernel "
+            f"{r['chain_passes']['chain'][1]:.2f} us on the card (torch.profiler), "
+            f"{r['chain_blocks_per_sm']} blocks an SM x {sms} SMs; the successive single "
+            f"launches through their wrappers {r['successive_ms']:.4f} ms")
+        if method == "random_sampling":
+            log(f"{phase} {par} (P={P}): {chain_line}; bound {r['chain_bound'][0]:.5f} ms "
+                f"({r['chain_bound'][1]})")
+            continue
+        lib = sm.load_library(plan.horizon, plan.params_per_leg)
 
         def one():
             sm.launch(lib, args[0], kn, plan, ws[0], inc, sig, stream=stream)
 
-        def chained():
+        def successive_prebuilt():
             x, s = inc, sig
             for i in range(3):
                 sm.launch(lib, args[i], kn, plan, ws[i], x, s, stream=stream)
@@ -866,29 +989,27 @@ def phase_softmax_times(dev, rng, par=MAIN_PAR, phase="phase 9"):
                 z = torch.randn(P, N_MAIN, device=dev, generator=gen)
                 noise = z * (s[:, None] if knobs.cem else knobs.sigma_mppi)
                 noise[:, 0] = 0.0
-                r = sm.softmax_iteration_reference(noise, x, plan.W, *t, plan.dts, plan.q_diag,
-                                                   plan.srbd, plan.fm, knobs)
-                x, s = r.new_params, r.sigma if knobs.cem else s
+                res = sm.softmax_iteration_reference(noise, x, plan.W, *t, plan.dts, plan.q_diag,
+                                                     plan.srbd, plan.fm, knobs)
+                x, s = res.new_params, res.sigma if knobs.cem else s
 
-        out[method] = {
-            "ms": time_cuda(one), "passes": pass_profile(one, 1, True),
+        r.update({
+            "ms": time_cuda(one), "passes": pass_profile(one, 1, ("rollout", "update")),
             "plain_ms": time_cuda(plain, runs=PLAIN_RUNS),
-            "chain_ms": time_cuda(lambda: sm.sampling_chain(plan, knobs, tick, inc, sig, 5, 0, 3)),
-            "chain_prebuilt_ms": time_cuda(chained),
-            "chain_passes": pass_profile(chained, 3, True),
+            "successive_prebuilt_ms": time_cuda(successive_prebuilt),
             "chain_plain_ms": time_cuda(lambda: plain(3), runs=PLAIN_RUNS // 3),
-            "bound": softmax_bound_ms(plan, knobs), "chain_bound": softmax_bound_ms(plan, knobs, 3),
+            "bound": softmax_bound_ms(plan, knobs),
             "tick_ms": solve_tick_ms(SamplingMPC(cfg, device="cuda"), tick),
-            "blocks_per_sm": sm.update_blocks_per_sm(plan, knobs)}
-        r = out[method]
+            "tick1_ms": solve_tick_ms(SamplingMPC(softmax_cfg(method, par, iterations=1),
+                                                  device="cuda"), tick),
+            "blocks_per_sm": sm.update_blocks_per_sm(plan, knobs)})
         log(f"{phase} {method} {par} (P={P}): update pass {r['blocks_per_sm']} blocks an SM "
             f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor); one iteration {r['ms']:.4f} ms "
             f"(median of {TIMED_RUNS}; memset + 2 launches), plain {r['plain_ms']:.4f} ms, "
-            f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]}); 3 chained through sampling_chain "
-            f"{r['chain_ms']:.4f} ms, through the C entry with prebuilt argument blocks "
-            f"{r['chain_prebuilt_ms']:.4f} ms, plain {r['chain_plain_ms']:.4f} ms, bound "
-            f"{r['chain_bound'][0]:.5f} ms; solve tick (3 iterations) with host glue "
-            f"{r['tick_ms']:.4f} ms (median of 200)")
+            f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]}); {chain_line}, prebuilt "
+            f"{r['successive_prebuilt_ms']:.4f} ms; plain x 3 {r['chain_plain_ms']:.4f} ms, "
+            f"bound {r['chain_bound'][0]:.5f} ms; solve tick with host glue (median of 200) "
+            f"{r['tick_ms']:.4f} ms at 3 iterations, {r['tick1_ms']:.4f} ms at 1")
     return out
 
 
@@ -1093,7 +1214,8 @@ def phase_group_times(dev, rng, par=MAIN_PAR, phase="phase 12"):
         out[method] = {
             "operators_us": statistics.median(host_us),
             "ms": time_cuda(launch),
-            "passes": pass_profile(launch, 1, method != "random_sampling"),
+            "passes": pass_profile(launch, 1, ("rollout", "update" if method != "random_sampling"
+                                               else "extract")),
             "wrapper_ms": time_cuda(lambda: sg.sampling_groups(gplan, knobs, tick, groups, inc,
                                                                sig, 5, 0)),
             "plain_ms": time_cuda(plain, runs=PLAIN_RUNS),
@@ -1189,11 +1311,12 @@ def rs_times(dev, rng, par=MAIN_PAR, phase="phase 4"):
         if rc != 0:
             raise RuntimeError(f"rs_launch returned {rc}")
 
-    r = {"ms": time_cuda(launch), "passes": pass_profile(launch, 1, False),
+    r = {"ms": time_cuda(launch), "passes": pass_profile(launch, 1, ("rollout", "extract")),
          "plain_ms": time_cuda(lambda: plain_on_device(plan, tick, inc, noise), runs=50),
          "bound": k1a_bound_ms(plan)}
     log(f"{phase} K1a {par} (P={P}): {r['ms']:.4f} ms (median of {TIMED_RUNS}, two launches + "
-        f"memset), plain version {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
+        f"memset), rs_extract_kernel {r['passes']['extract'][1]:.2f} us on the card "
+        f"(torch.profiler), plain version {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
         f"({r['bound'][1]})")
     return r
 
@@ -1268,6 +1391,7 @@ def main() -> int:
     for H, P_leg in build.INSTANTIATIONS:
         sk.load_library(H, P_leg)
         sm.load_library(H, P_leg)
+        sm.load_chain_library(H, P_leg)
         sg.load_library(H, P_leg)
     log(f"build: {len(libs)} libraries ({len(build.SOURCES)} sources x (H, P_leg) in "
         f"{list(build.INSTANTIATIONS)}) in {time.perf_counter() - t0:.1f} s (one nvcc per "
@@ -1301,20 +1425,25 @@ def main() -> int:
     errs_sm = {MAIN_PAR: phase_softmax(dev, rng)}
     chain_err = {MAIN_PAR: phase_chain(dev, rng)}
 
-    # -- phase 7: this slice's path, MPPI x 3 -----------------------------------------
+    # -- phase 7: MPPI x 3 on the chain kernel, MPPI x 1 on K1b -------------------------
     mcfg = softmax_cfg("mppi")
-    counts_mppi, wall_mppi, _ = walk(mcfg, "phase 7", counts_of(K1b=3))
+    counts_mppi, wall_mppi, _ = walk(mcfg, "phase 7", counts_of(K1d_mppi=1))
     log(f"phase 7: JAX package on the CPU: {JAX_CPU_WALKS['mppi x 3']}")
-    # One device-to-host copy a tick, and each pass once an iteration.
-    prof = profile_ticks(SamplingMPC(mcfg, device="cuda"), tick,
-                         expect={tag: 3 for tag in PASSES.values()}, d2h=1)
+    # One device-to-host copy and one chain kernel a tick; no memset, and no
+    # launch of the single iterations' kernels.
+    prof = profile_ticks(SamplingMPC(mcfg, device="cuda"), tick, expect={PASSES["chain"]: 1},
+                         d2h=1, absent=("Memset", PASSES["rollout"], PASSES["update"]))
     log(f"phase 7: profile of 50 MPPI x 3 solve ticks: {prof}")
+    counts_k1b = tick_loop(SamplingMPC(softmax_cfg("mppi", iterations=1), device="cuda"), tick,
+                           "phase 7 mppi x 1", counts_of(K1b=1))
 
-    # -- phase 8: CEM-MPPI closed loop ------------------------------------------------
-    counts_cem, _ = cem_loop(softmax_cfg("cem_mppi"), "phase 8", counts_of(K1c=3),
+    # -- phase 8: CEM-MPPI closed loop; CEM-MPPI x 1 on K1c ----------------------------
+    counts_cem, _ = cem_loop(softmax_cfg("cem_mppi"), "phase 8", counts_of(K1d_cem=1),
                              JAX_CPU_WALKS["cem_mppi x 3"])
+    counts_k1c = tick_loop(SamplingMPC(softmax_cfg("cem_mppi", iterations=1), device="cuda"),
+                           tick, "phase 8 cem_mppi x 1", counts_of(K1c=1))
 
-    # -- phase 9: times of K1b, K1c, K1d ----------------------------------------------
+    # -- phase 9: times of K1b, K1c, K1d ------------------------------------------------
     t9 = {MAIN_PAR: phase_softmax_times(dev, rng)}
 
     # -- phase 10: K1e against its plain version ---------------------------------------
@@ -1336,8 +1465,9 @@ def main() -> int:
     t12 = {MAIN_PAR: phase_group_times(dev, rng)}
 
     # Launches of each row on its path: (short name, parametrization) -> count.
-    launches = {("K1a", MAIN_PAR): counts_rs["K1a"], ("K1b", MAIN_PAR): counts_mppi["K1b"],
-                ("K1c", MAIN_PAR): counts_cem["K1c"], ("K1d", MAIN_PAR): counts_mppi["K1b"],
+    launches = {("K1a", MAIN_PAR): counts_rs["K1a"], ("K1b", MAIN_PAR): counts_k1b["K1b"],
+                ("K1c", MAIN_PAR): counts_k1c["K1c"], ("K1d", MAIN_PAR): counts_mppi["K1d_mppi"],
+                ("K1d_cem", MAIN_PAR): counts_cem["K1d_cem"],
                 ("K1e-rs", MAIN_PAR): walks["random_sampling"][0]["K1e_rs"],
                 ("K1e-mppi", MAIN_PAR): walks["mppi"][0]["K1e_mppi"],
                 ("K1e-cem", MAIN_PAR): counts_gcem["K1e_cem"]}
@@ -1359,17 +1489,21 @@ def main() -> int:
             f"{JAX_CPU_WALKS['random_sampling x 1 ' + par]}")
         launches[("K1a", par)] = c["K1a"]
     c, _, _ = walk(softmax_cfg("mppi", "zero_order"), "phase 14 mppi x 3 zero_order",
-                   counts_of(K1b=3))
+                   counts_of(K1d_mppi=1))
     log(f"phase 14 mppi x 3 zero_order: JAX package on the CPU: "
         f"{JAX_CPU_WALKS['mppi x 3 zero_order']}")
-    launches[("K1b", "zero_order")] = launches[("K1d", "zero_order")] = c["K1b"]
+    launches[("K1d", "zero_order")] = c["K1d_mppi"]
     c = tick_loop(SamplingMPC(softmax_cfg("mppi", "linear_spline"), device="cuda"), tick,
-                  "phase 14 mppi x 3 linear_spline", counts_of(K1b=3))
-    launches[("K1b", "linear_spline")] = launches[("K1d", "linear_spline")] = c["K1b"]
+                  "phase 14 mppi x 3 linear_spline", counts_of(K1d_mppi=1))
+    launches[("K1d", "linear_spline")] = c["K1d_mppi"]
     for par in NEW_PARS:
         c = tick_loop(SamplingMPC(softmax_cfg("cem_mppi", par), device="cuda"), tick,
-                      f"phase 14 cem_mppi x 3 {par}", counts_of(K1c=3))
-        launches[("K1c", par)] = c["K1c"]
+                      f"phase 14 cem_mppi x 3 {par}", counts_of(K1d_cem=1))
+        launches[("K1d_cem", par)] = c["K1d_cem"]
+        for method, short in (("mppi", "K1b"), ("cem_mppi", "K1c")):
+            c = tick_loop(SamplingMPC(softmax_cfg(method, par, iterations=1), device="cuda"),
+                          tick, f"phase 14 {method} x 1 {par}", counts_of(**{short: 1}))
+            launches[(short, par)] = c[short]
         for method, key in (("random_sampling", "K1e_rs"), ("mppi", "K1e_mppi"),
                             ("cem_mppi", "K1e_cem")):
             c = tick_loop(GaitAdaptiveSamplingMPC(gait_cfg(method, par), device="cuda"), tick,
@@ -1404,16 +1538,34 @@ def main() -> int:
             extra = {"sigma_max_abs_err": e["sigma"]} if "sigma" in e else {}
             kernels.append(row(f"softmax_iteration, {method}", "sampling_softmax", short, par,
                                e["cost"], r["ms"], r["plain_ms"], r["bound"], r["passes"],
-                               params_max_abs_err=e["params"], solve_tick_ms=r["tick_ms"],
+                               params_max_abs_err=e["params"], solve_tick_ms=r["tick1_ms"],
                                update_blocks_per_sm=r["blocks_per_sm"], **extra))
-        # K1d has no kernel of its own: its launches are the K1b launches that
-        # sampling_chain issued on the MPPI x 3 path (3 a tick), counted by K1b's
-        # wrapper; its ms is sampling_chain's, wrapper included.
-        r = t9[par]["mppi"]
-        kernels.append(row("sampling_chain, MPPI x 3", "sampling_softmax", "K1d", par,
+        # K1d, the chain kernel: its launches on the MPPI x 3 path (one a tick); its
+        # ms is sampling_chain's, wrapper included; beside it the successive single
+        # iterations that chained before it, and the CEM x 3 and random sampling x 3
+        # chains.
+        r, rc, rr = t9[par]["mppi"], t9[par]["cem_mppi"], t9[par]["random_sampling"]
+        kernels.append(row("sampling_chain, MPPI x 3", "sampling_chain", "K1d", par,
                            chain_err[par], r["chain_ms"], r["chain_plain_ms"], r["chain_bound"],
-                           r["chain_passes"], launches_are="K1b launches issued by sampling_chain",
-                           ms_c_entry_prebuilt_args=r["chain_prebuilt_ms"],
+                           r["chain_passes"], ms_c_entry_prebuilt_args=r["chain_prebuilt_ms"],
+                           successive_single_launches_ms=r["successive_ms"],
+                           successive_single_launches_prebuilt_ms=r["successive_prebuilt_ms"],
+                           chain_blocks_per_sm=r["chain_blocks_per_sm"],
+                           solve_tick_ms=r["tick_ms"],
+                           cem_x3={"launches": launches[("K1d_cem", par)], "ms": rc["chain_ms"],
+                                   "ms_c_entry_prebuilt_args": rc["chain_prebuilt_ms"],
+                                   "chain_kernel_us": rc["chain_passes"]["chain"][1],
+                                   "successive_single_launches_ms": rc["successive_ms"],
+                                   "solve_tick_ms": rc["tick_ms"],
+                                   "chain_blocks_per_sm": rc["chain_blocks_per_sm"],
+                                   "bound_ms": rc["chain_bound"][0]},
+                           random_sampling_x3={
+                               "ms": rr["chain_ms"], "ms_c_entry_prebuilt_args":
+                               rr["chain_prebuilt_ms"],
+                               "chain_kernel_us": rr["chain_passes"]["chain"][1],
+                               "successive_single_launches_ms": rr["successive_ms"],
+                               "chain_blocks_per_sm": rr["chain_blocks_per_sm"],
+                               "bound_ms": rr["chain_bound"][0]},
                            **({"harness_s_per_sim_s": wall_mppi / WALK_S} if is_main else {})))
         for method, short in (("random_sampling", "K1e-rs"), ("mppi", "K1e-mppi"),
                               ("cem_mppi", "K1e-cem")):
@@ -1426,13 +1578,13 @@ def main() -> int:
                                e["cost"], r["ms"], r["plain_ms"], r["bound"], r["passes"],
                                ms_through_wrapper=r["wrapper_ms"], solve_tick_ms=r["tick_ms"],
                                host_group_operators_us=r["operators_us"], **extra))
-    # The rollout and update passes of each row: device time a launch (K1d: a
-    # launch of its chain) and the ptxas report of the kernel in the row's library.
+    # The kernels of each row: device time a launch and the ptxas report of the
+    # kernel in the row's library (K1d: the chain kernel's MPPI/CEM instantiation).
     for r in kernels:
         p = sk.make_rs_plan(main_cfg(r["parametrization"]), 1, "cpu")
         lib = libs[(r["source"].rsplit("/", 1)[1][:-3], p.horizon, p.params_per_leg)]
         for pass_name, (kname, us) in r.pop("_passes").items():
-            ptx = ptxas_of(lib.with_suffix(".log"), PASSES[pass_name])
+            ptx = ptxas_of(lib.with_suffix(".log"), *PTXAS_ENTRY[pass_name])
             r[f"{pass_name}_kernel_us"] = us
             r[f"{pass_name}_ptxas"] = ptx
             log(f"{pass_name} pass of {r['name']}: {kname} {us:.2f} us a launch (torch.profiler, "

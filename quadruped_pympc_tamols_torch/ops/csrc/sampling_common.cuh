@@ -1,8 +1,9 @@
 // Device code shared by the sampling-MPC kernels (sampling_rs.cu, K1a;
-// sampling_softmax.cu, K1b-K1d; sampling_groups.cu, K1e): the per-tick argument
-// block, Philox4x32-10 and Box-Muller, the NaN-propagating clamps, the force
-// model and the SRB Euler step, the argmin fold, the step-0 extraction, and the
-// one rollout pass that all of them launch (rollout_kernel, at the end).
+// sampling_softmax.cu, K1b-K1c; sampling_groups.cu, K1e; sampling_chain.cu, K1d):
+// the per-tick argument block, Philox4x32-10 and Box-Muller, the NaN-propagating
+// clamps, the force model and the SRB Euler step, the argmin fold, the four-lane
+// step-0 extraction, and the one rollout pass that all of them run
+// (rollout_kernel, at the end; the chain kernel runs its parts in its own loop).
 //
 // What bounds the rollout pass on an H100: neither bytes (~0.05-0.2 MB a solve)
 // nor FP32 throughput (~0.13 GFLOP a solve, ~2 us at peak) but latency. One
@@ -129,10 +130,33 @@ __device__ __forceinline__ float4 normals4(uint4 x) {
   return make_float4(z01.x, z01.y, z23.x, z23.y);
 }
 
+// How a kernel reads an input. ReadOnly: through the read-only (non-coherent)
+// path, for what the launch never writes. L2: from L2 (ld.global.cg), for what an
+// earlier phase of the same launch wrote (the chain kernel, sampling_chain.cu: the
+// costs, the noise, the argmin key), which the read-only path and L1 may hold
+// stale. Shared: a plain read of a copy in shared memory (the chain kernel stages
+// each iteration's incumbent and CEM sigma there: read from L2 by every lane,
+// those few lines made each rollout phase ~10 us slower, tools/chain_phases.py).
+enum class Read { ReadOnly, L2, Shared };
+
+template <Read R, class T>
+__device__ __forceinline__ T load_in(const T* p) {
+  if constexpr (R == Read::ReadOnly) {
+    return __ldg(p);
+  } else if constexpr (R == Read::L2) {
+    return __ldcg(p);
+  } else {
+    return *p;
+  }
+}
+
 // Parameters 4k..4k+3 of sample i in a (P, N) noise matrix.
+template <Read R = Read::ReadOnly>
 __device__ __forceinline__ float4 load_noise4(const float* __restrict__ noise, int N, int i, int k) {
-  return make_float4(noise[(size_t)(4 * k + 0) * N + i], noise[(size_t)(4 * k + 1) * N + i],
-                     noise[(size_t)(4 * k + 2) * N + i], noise[(size_t)(4 * k + 3) * N + i]);
+  return make_float4(load_in<R>(&noise[(size_t)(4 * k + 0) * N + i]),
+                     load_in<R>(&noise[(size_t)(4 * k + 1) * N + i]),
+                     load_in<R>(&noise[(size_t)(4 * k + 2) * N + i]),
+                     load_in<R>(&noise[(size_t)(4 * k + 3) * N + i]));
 }
 
 // Component c of v.
@@ -266,33 +290,6 @@ __device__ __forceinline__ void srb_body(float* s, const float* f, float dt, con
   s[11] = wz + wdz * dt;
 }
 
-// One Euler step of the SRB model under the force model, all four legs in one
-// thread. s (12) is updated in place and f (12) receives the clamped forces.
-__device__ __forceinline__ void srb_step(float* s, const float* raw, const float* c,
-                                         const float* sh, float dt, const float* feet,
-                                         const RSModel& m, float* f) {
-#pragma unroll
-  for (int leg = 0; leg < 4; ++leg)
-    leg_forces(raw[leg * 3 + 0], raw[leg * 3 + 1], raw[leg * 3 + 2], c[leg], sh[leg], m,
-               f[leg * 3 + 0], f[leg * 3 + 1], f[leg * 3 + 2]);
-  srb_body<false>(s, f, dt, feet, m, 0);
-}
-
-// raw[r] = sum_j W_blk[row0 + r][j] * prm[leg(r) * PL + j] for the 12 rows of one
-// step; the rows have the padded stride.
-template <int PL>
-__device__ __forceinline__ void step_forces(const float* w_rows, const float* prm, float* raw) {
-  constexpr int PLP = padded_pl(PL);
-#pragma unroll
-  for (int r = 0; r < 12; ++r) {
-    const int leg = r / 3;
-    float acc = 0.f;
-#pragma unroll
-    for (int j = 0; j < PL; ++j) acc = fmaf(w_rows[r * PLP + j], prm[leg * PL + j], acc);
-    raw[r] = acc;
-  }
-}
-
 // The (cost bits << 32 | index) key. Costs are >= 0 (sums of non-negative
 // squares or the 1e6 saturation), so keys order like (cost, index): the lowest
 // cost first and, among equal costs, the lowest index (jnp.argmin and
@@ -311,29 +308,49 @@ __device__ __forceinline__ void fold_argmin(unsigned long long key, unsigned lon
   if ((threadIdx.x & 31) == 0 && key != ~0ull) atomicMin(argmin, key);
 }
 
-// Step-0 GRFs (12) and the one-step Euler state (12) under parameters prm,
-// written to out[1..24]. One thread.
+// Step-0 GRFs (12) and one-step state (12) under parameters prm and the basis's
+// first 12 rows w_rows (12, padded_pl(PL)), written to out[1..24], by the four
+// lanes of each group of a full warp (lane % 4 = leg): the plain version's
+// arithmetic (forces row by row in parameter order, legs summed 0..3), with the
+// body update of the rollout pass.
 template <int PL>
-__device__ __forceinline__ void step0_extract(const RSArgs& a, const float* w_blk,
-                                              const float* prm, float* out) {
+__device__ __forceinline__ void step0_extract_lanes(const RSArgs& a, const float* w_rows,
+                                                    const float* prm, float* out) {
+  constexpr int PLP = padded_pl(PL);
+  const int leg = threadIdx.x % ROLLOUT_LANES;
   const RSModel md = a.model;
-  float st[12], ft[12], raw[12], f[12], c[4], sh[4];
+  float raw[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < PL; ++j)
+      acc = fmaf(w_rows[(3 * leg + c) * PLP + j], prm[leg * PL + j], acc);
+    raw[c] = acc;
+  }
+  float fx, fy, fz, f[12], st[12], ft[12];
+  leg_forces(raw[0], raw[1], raw[2], a.contact[leg], a.share[leg], md, fx, fy, fz);
+#pragma unroll
+  for (int q = 0; q < ROLLOUT_LANES; ++q) {
+    f[q * 3 + 0] = from_lane(fx, q);
+    f[q * 3 + 1] = from_lane(fy, q);
+    f[q * 3 + 2] = from_lane(fz, q);
+  }
 #pragma unroll
   for (int j = 0; j < 12; ++j) {
     st[j] = a.state[j];
     ft[j] = a.feet[j];
   }
-#pragma unroll
-  for (int leg = 0; leg < 4; ++leg) {
-    c[leg] = a.contact[leg];
-    sh[leg] = a.share[leg];
+  srb_body<true>(st, f, a.dts[0], ft, md, leg);
+  // Constant indices only, so that f and st stay in registers.
+  if (threadIdx.x < ROLLOUT_LANES) {
+    out[1 + 3 * leg + 0] = fx;
+    out[1 + 3 * leg + 1] = fy;
+    out[1 + 3 * leg + 2] = fz;
   }
-  step_forces<PL>(w_blk, prm, raw);
-  srb_step(st, raw, c, sh, a.dts[0], ft, md, f);
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int j = 0; j < 12; ++j) {
-    out[1 + j] = f[j];
-    out[13 + j] = st[j];
+    for (int j = 0; j < 12; ++j) out[13 + j] = st[j];
   }
 }
 
@@ -362,6 +379,17 @@ __device__ __forceinline__ void step0_extract(const RSArgs& a, const float* w_bl
 // Shared-memory address of a generic pointer into shared memory.
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// A 16-byte asynchronous copy from global (through L2 only, .cg) into shared
+// memory, and the wait for every such copy of this thread.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
 }
 
 // An mbarrier that completes when one arrival and the announced bytes have landed.
@@ -487,15 +515,41 @@ struct StaticSource {
   __device__ float finish(float cost) const { return cost; }
 };
 
+// This lane's PL parameters of sample i (its leg `leg`), prm[j] = incumbent[leg * PL
+// + j] + noise: Noise(a, offset, i, k, p, valid) gives the noise of parameters
+// p..p+valid-1 of sample i from its Philox chunk k at the offset (unless noise_in
+// is given; the rest of the float4 is not used), written to noise_out for a live
+// sample. R: how the incumbent is read.
+template <int PL, Read R, class Noise>
+__device__ __forceinline__ void draw_params(const RSArgs& a, const Noise& noise,
+                                            unsigned long long offset, const float* incumbent,
+                                            const float* noise_in, float* noise_out, int i,
+                                            bool live, int leg, float* prm) {
+  constexpr int CH = padded_pl(PL) / 4;  // Philox chunks of one leg
+  const int N = a.num_samples;
+#pragma unroll
+  for (int q = 0; q < CH; ++q) {
+    const int k = leg * CH + q, p = leg * PL + 4 * q;  // Philox chunk, first parameter
+    constexpr int last = PL - 4 * (CH - 1);           // values of the leg's last chunk
+    const int valid = q < CH - 1 ? 4 : last;
+    const float4 z = noise_in != nullptr ? load_params4(noise_in, N, i, p, valid)
+                                         : noise(a, offset, i, k, p, valid);
+    if (noise_out != nullptr && live) store_params4(noise_out, N, i, p, valid, z);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (4 * q + e < PL)
+        prm[4 * q + e] = __fadd_rn(load_in<R>(&incumbent[p + e]), comp(z, e));
+  }
+}
+
 // The rollout pass: grid (ceil(group_size / ROLLOUT_SAMPLES), num_groups), one
 // sample per ROLLOUT_LANES lanes. Sample j of group g is global sample
-// i = g * group_size + j. Noise(a, i, k, p, valid) gives the noise of parameters
-// p..p+valid-1 of sample i from its Philox chunk k (unless noise_in is given;
-// the rest of the float4 is not used); Source gives the block's
-// basis, contact and share columns (bulk-copied or staged into shared memory) and
-// the cost's offset. Writes every cost and folds (cost bits << 32 | i) into one
-// 64-bit atomicMin. A sample past the group's end runs on the group's last
-// sample, so that every lane reaches the exchanges, and writes nothing.
+// i = g * group_size + j, its parameters drawn by draw_params at a.offset; Source
+// gives the block's basis, contact and share columns (bulk-copied or staged into
+// shared memory) and the cost's offset. Writes every cost and folds (cost bits
+// << 32 | i) into one 64-bit atomicMin. A sample past the group's end runs on the
+// group's last sample, so that every lane reaches the exchanges, and writes
+// nothing.
 template <int H, int PL, class Noise, class Source>
 __global__ void __launch_bounds__(ROLLOUT_THREADS, ROLLOUT_MIN_BLOCKS)
 rollout_kernel(const RSArgs a, const Noise noise, const Source src,
@@ -504,7 +558,6 @@ rollout_kernel(const RSArgs a, const Noise noise, const Source src,
                unsigned long long* __restrict__ argmin) {
   static_assert(ROLLOUT_LANES == 4, "one lane per leg");
   constexpr int PLP = padded_pl(PL);
-  constexpr int CH = PLP / 4;  // Philox chunks of one leg
   static_assert((H * 12 * PLP * 4) % 16 == 0 && (H * 4 * 4) % 16 == 0,
                 "bulk copies move multiples of 16 bytes");
   __shared__ __align__(16) float w_s[H * 12 * PLP];
@@ -517,24 +570,13 @@ rollout_kernel(const RSArgs a, const Noise noise, const Source src,
   if (threadIdx.x == 0) src.copy(w_s, c_s, sh_s, &bar);
 
   // The noise and the parameters overlap the copy: they do not read it.
-  const int N = a.num_samples;
   const int leg = threadIdx.x % ROLLOUT_LANES;
   const int j = blockIdx.x * ROLLOUT_SAMPLES + threadIdx.x / ROLLOUT_LANES;
   const bool live = j < src.group_size;
   const int i = blockIdx.y * src.group_size + (live ? j : src.group_size - 1);
   float prm[PL];
-#pragma unroll
-  for (int q = 0; q < CH; ++q) {
-    const int k = leg * CH + q, p = leg * PL + 4 * q;  // Philox chunk, first parameter
-    constexpr int last = PL - 4 * (CH - 1);           // values of the leg's last chunk
-    const int valid = q < CH - 1 ? 4 : last;
-    const float4 z = noise_in != nullptr ? load_params4(noise_in, N, i, p, valid)
-                                         : noise(a, i, k, p, valid);
-    if (noise_out != nullptr && live) store_params4(noise_out, N, i, p, valid, z);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (4 * q + e < PL) prm[4 * q + e] = __fadd_rn(__ldg(&incumbent[p + e]), comp(z, e));
-  }
+  draw_params<PL, Read::ReadOnly>(a, noise, a.offset, incumbent, noise_in, noise_out, i, live, leg,
+                                  prm);
   bulk_wait(&bar, 0);
 
   const float cost = src.finish(lane_rollout_cost<H, PL>(a, w_s, prm, c_s, sh_s, leg));

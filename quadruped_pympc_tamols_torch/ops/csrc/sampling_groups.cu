@@ -41,9 +41,11 @@
 // the method says (uniform over the grid).
 struct GroupNoise {
   int random_sampling;
-  ScaledNormals normals;
-  __device__ float4 operator()(const RSArgs& a, int i, int k, int p, int valid) const {
-    return random_sampling ? RandomBands{}(a, i, k, p, valid) : normals(a, i, k, p, valid);
+  ScaledNormals<> normals;
+  __device__ float4 operator()(const RSArgs& a, unsigned long long offset, int i, int k, int p,
+                               int valid) const {
+    return random_sampling ? RandomBands{}(a, offset, i, k, p, valid)
+                           : normals(a, offset, i, k, p, valid);
   }
 };
 

@@ -14,8 +14,9 @@
 //                      (cost bits << 32 | sample index).
 //   rs_extract_kernel  one small block: reads the argmin, regenerates the winner's
 //                      parameters from Philox (the noise matrix is never stored),
-//                      and writes [best cost, step-0 GRFs (12), one-step state (12),
-//                      index, winner parameters (P)].
+//                      extracts its step-0 GRFs and one-step state on four lanes,
+//                      one per leg, and writes [best cost, step-0 GRFs (12),
+//                      one-step state (12), index, winner parameters (P)].
 //
 // What bounds it: latency, not bytes or FP32 throughput. W is block-diagonal per
 // leg, so per sample the basis product needs H*12 x P_leg FMAs (144 x 24 at the

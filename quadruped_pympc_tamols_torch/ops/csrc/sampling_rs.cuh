@@ -1,5 +1,5 @@
 // K1a's random-sampling noise and winner extraction, shared by sampling_rs.cu
-// (K1a) and sampling_groups.cu (K1e).
+// (K1a), sampling_groups.cu (K1e) and sampling_chain.cu (K1d).
 #pragma once
 
 #include "sampling_common.cuh"
@@ -22,25 +22,36 @@ __device__ __forceinline__ float4 rs_noise4(unsigned long long seed, unsigned lo
   return make_float4(__fmul_rn(z.x, s), __fmul_rn(z.y, s), __fmul_rn(z.z, s), __fmul_rn(z.w, s));
 }
 
-// K1a's noise for rollout_kernel: Philox chunk k of sample i (the bands do not
-// depend on the parameter).
+// K1a's noise for rollout_kernel: Philox chunk k of sample i at the offset (the
+// bands do not depend on the parameter).
 struct RandomBands {
-  __device__ float4 operator()(const RSArgs& a, int i, int k, int, int) const {
-    return rs_noise4(a.seed, a.offset, a.band1, a.band2, a.sigma1, a.sigma2, a.sigma3, i, k);
+  __device__ float4 operator()(const RSArgs& a, unsigned long long offset, int i, int k, int,
+                               int) const {
+    return rs_noise4(a.seed, offset, a.band1, a.band2, a.sigma1, a.sigma2, a.sigma3, i, k);
   }
 };
 
-template <int H, int PL>
-__global__ void __launch_bounds__(RS_BLOCK)
-rs_extract_kernel(const RSArgs a, const float* __restrict__ w_blk,
-                  const float* __restrict__ incumbent, const float* __restrict__ noise_in,
-                  const unsigned long long* __restrict__ argmin, float* __restrict__ out) {
+// The winner's extraction, by one block (warp 0 extracts): reads the argmin key,
+// regenerates the winner's parameters from Philox at the offset (or reads them
+// from noise_in), and writes out = [best cost, step-0 GRFs (12), one-step state
+// (12), index, winner parameters (P)]. The winner's parameters and the basis's
+// first 12 rows (16-byte aligned, padded rows) are staged in shared memory, and
+// the GRFs and state come from step0_extract_lanes, one lane per leg, as the
+// update pass extracts them: the same arithmetic as one thread, so the same bits.
+// R: how the incumbent is read.
+template <int PL, Read R>
+__device__ __forceinline__ void rs_extract(const RSArgs& a, unsigned long long offset,
+                                           const float* w_blk, const float* incumbent,
+                                           const float* noise_in, unsigned long long key,
+                                           float* out) {
   constexpr int P = 4 * PL;
-  constexpr int CH = padded_pl(PL) / 4;  // Philox chunks of a leg, as rollout_kernel draws them
+  constexpr int PLP = padded_pl(PL);
+  constexpr int CH = PLP / 4;  // Philox chunks of a leg, as rollout_kernel draws them
   __shared__ float prm_s[P];
-  const unsigned long long key = *argmin;
+  __shared__ __align__(16) float w0_s[12 * PLP];
   const int idx = (int)(key & 0xffffffffull);
   const int N = a.num_samples;
+  for (int q = threadIdx.x; q < 3 * PLP; q += blockDim.x) cp_async16(&w0_s[4 * q], &w_blk[4 * q]);
   for (int k = threadIdx.x; k < 4 * CH; k += blockDim.x) {
     const int q = k % CH, p = (k / CH) * PL + 4 * q;  // chunk q of leg k / CH
     const int valid = min(4, PL - 4 * q);
@@ -48,21 +59,32 @@ rs_extract_kernel(const RSArgs a, const float* __restrict__ w_blk,
     if (noise_in != nullptr) {
       z = load_params4(noise_in, N, idx, p, valid);
     } else {
-      z = rs_noise4(a.seed, a.offset, a.band1, a.band2, a.sigma1, a.sigma2, a.sigma3, idx, k);
+      z = rs_noise4(a.seed, offset, a.band1, a.band2, a.sigma1, a.sigma2, a.sigma3, idx, k);
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       if (j < valid) {
-        const float v = __fadd_rn(incumbent[p + j], comp(z, j));
+        const float v = __fadd_rn(load_in<R>(&incumbent[p + j]), comp(z, j));
         prm_s[p + j] = v;
         out[RS_OUT_WINNER + p + j] = v;
       }
     }
   }
+  cp_async_wait_all();
   __syncthreads();
-  if (threadIdx.x == 0) {
-    step0_extract<PL>(a, w_blk, prm_s, out);
-    out[0] = __uint_as_float((unsigned int)(key >> 32));
-    out[25] = (float)idx;
+  if (threadIdx.x < 32) {
+    step0_extract_lanes<PL>(a, w0_s, prm_s, out);
+    if (threadIdx.x == 0) {
+      out[0] = __uint_as_float((unsigned int)(key >> 32));
+      out[25] = (float)idx;
+    }
   }
+}
+
+template <int H, int PL>
+__global__ void __launch_bounds__(RS_BLOCK)
+rs_extract_kernel(const RSArgs a, const float* __restrict__ w_blk,
+                  const float* __restrict__ incumbent, const float* __restrict__ noise_in,
+                  const unsigned long long* __restrict__ argmin, float* __restrict__ out) {
+  rs_extract<PL, Read::ReadOnly>(a, a.offset, w_blk, incumbent, noise_in, *argmin, out);
 }

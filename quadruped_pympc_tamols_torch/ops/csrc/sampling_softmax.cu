@@ -8,10 +8,9 @@
 // (controllers/sampling/sampling_mpc.py:166-176): new parameters = incumbent +
 // sum_i w_i noise_i / sum_i w_i with w_i = exp(-(c_i - beta)/T) and beta the lowest
 // cost; CEM refits sigma from the K lowest-cost samples' noise (ddof 1, + 1e-8,
-// sqrt, clipped). Chained iterations (K1d) are successive launches of this
-// function on one stream: each reads the previous one's parameters and sigma from
-// device memory. One iteration is a memset (the argmin key and the update pass's
-// ticket) and two launches:
+// sqrt, clipped). Chained iterations (K1d) run in one launch of the chain kernel
+// (sampling_chain.cu), which runs these passes' device code. One iteration here is
+// a memset (the argmin key and the update pass's ticket) and two launches:
 //
 //   rollout_kernel     the shared rollout pass of sampling_common.cuh, four lanes
 //                      per sample (one per leg): Philox4x32-10 normals times sigma

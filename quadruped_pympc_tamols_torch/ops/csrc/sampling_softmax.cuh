@@ -1,5 +1,6 @@
 // K1b/K1c's knobs, noise and optimizer step (the update pass, sm_update_kernel),
-// shared by sampling_softmax.cu (K1b-K1d) and sampling_groups.cu (K1e).
+// shared by sampling_softmax.cu (K1b, K1c), sampling_groups.cu (K1e) and
+// sampling_chain.cu (K1d), which runs the pass's tiles and finish in its own loop.
 #pragma once
 
 #include "sampling_common.cuh"
@@ -26,22 +27,25 @@ __device__ __forceinline__ float4 sm_noise4(unsigned long long seed, unsigned lo
                      __fmul_rn(z.w, s.w));
 }
 
-// K1b/K1c's noise for rollout_kernel: Philox chunk k of sample i times the sigma
-// of parameters p..p+valid-1, sigma (P,) for CEM, nullptr for MPPI's sigma_mppi.
+// K1b/K1c's noise for rollout_kernel: Philox chunk k of sample i at the offset
+// times the sigma of parameters p..p+valid-1, sigma (P,) for CEM, nullptr for
+// MPPI's sigma_mppi. R: how sigma is read.
+template <Read R = Read::ReadOnly>
 struct ScaledNormals {
   const float* sigma;
   float sigma_mppi;
-  __device__ float4 operator()(const RSArgs& a, int i, int k, int p, int valid) const {
+  __device__ float4 operator()(const RSArgs& a, unsigned long long offset, int i, int k, int p,
+                               int valid) const {
     float s[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c)
-      s[c] = sigma == nullptr ? sigma_mppi : c < valid ? __ldg(&sigma[p + c]) : 0.f;
-    return sm_noise4(a.seed, a.offset, i, k, make_float4(s[0], s[1], s[2], s[3]));
+      s[c] = sigma == nullptr ? sigma_mppi : c < valid ? load_in<R>(&sigma[p + c]) : 0.f;
+    return sm_noise4(a.seed, offset, i, k, make_float4(s[0], s[1], s[2], s[3]));
   }
 };
 
-static inline ScaledNormals scaled_normals(const SMKnobs& kn, const float* sigma_in) {
-  return ScaledNormals{kn.cem ? sigma_in : nullptr, kn.sigma_mppi};
+static inline ScaledNormals<> scaled_normals(const SMKnobs& kn, const float* sigma_in) {
+  return ScaledNormals<>{kn.cem ? sigma_in : nullptr, kn.sigma_mppi};
 }
 
 // -- the update pass (K1b, K1c, K1e-mppi, K1e-cem) ------------------------------------
@@ -72,10 +76,9 @@ static inline ScaledNormals scaled_normals(const SMKnobs& kn, const float* sigma
 //    copy the (B, P + 1) partials into shared memory with cp.async (from L2, all
 //    in flight together), sum each column over the blocks in block order (columns
 //    t, t + 128, ... of thread t: two a thread at P = 144), write incumbent + S / Z,
-//    and warp 0 extracts the step-0
-//    GRFs and state on four lanes, one per leg (srb_body<true>, as the rollout
-//    pass). For CEM, warps 4-15 copy the B*K candidate keys into shared memory,
-//    find t0, the K-th lowest of the B lists' heads (each list is a block's K
+//    and warp 0 extracts the step-0 GRFs and state on four lanes, one per leg
+//    (step0_extract_lanes, with the rollout pass's srb_body<true>). For CEM,
+//    warps 4-15 copy the B*K candidate keys into shared memory, find t0, the K-th lowest of the B lists' heads (each list is a block's K
 //    lowest keys in rank order), gather the keys at or below it (at most K*K;
 //    they hold every elite) and rank them: the K lowest are the elites, in order,
 //    after three barriers and no round per elite. Then the group loads the K
@@ -97,15 +100,6 @@ static inline ScaledNormals scaled_normals(const SMKnobs& kn, const float* sigma
 #define SM_BATCH 32          // nonzero-weight samples whose noise a round loads
 #define SM_TILE_ROWS 160     // partial rows copied into shared memory at once (a multiple of 4)
 #define SM_STAGE_KEYS 4096   // CEM candidate keys staged in shared memory (the rest read from L2)
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
-}
 
 // Named barrier ID of the THREADS threads that reach it.
 template <int ID, int THREADS>
@@ -136,108 +130,53 @@ static inline int sm_update_smem(int P, int cem, int n_elite, int num_blocks) {
   return batch > finish ? batch : finish;
 }
 
-// Step-0 GRFs (12) and one-step state (12) under parameters prm and the basis's
-// first 12 rows w_rows (12, padded_pl(PL)), written to out[1..24], by the four lanes of each
-// group of a full warp (lane % 4 = leg): step0_extract's arithmetic, with the body
-// update of the rollout pass.
-template <int PL>
-__device__ __forceinline__ void step0_extract_lanes(const RSArgs& a, const float* w_rows,
-                                                    const float* prm, float* out) {
-  constexpr int PLP = padded_pl(PL);
-  const int leg = threadIdx.x % ROLLOUT_LANES;
-  const RSModel md = a.model;
-  float raw[3];
+// The incumbent of the new parameters that thread t < SM_COL_THREADS finishes
+// (t, t + 128, ...), loaded off the finish's chain.
+template <int PL, Read R>
+__device__ __forceinline__ void finish_incumbent(const float* incumbent, float* inc_r) {
+  constexpr int P = 4 * PL;
+  const int t = threadIdx.x;
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    float acc = 0.f;
-#pragma unroll
-    for (int j = 0; j < PL; ++j)
-      acc = fmaf(w_rows[(3 * leg + c) * PLP + j], prm[leg * PL + j], acc);
-    raw[c] = acc;
-  }
-  float fx, fy, fz, f[12], st[12], ft[12];
-  leg_forces(raw[0], raw[1], raw[2], a.contact[leg], a.share[leg], md, fx, fy, fz);
-#pragma unroll
-  for (int q = 0; q < ROLLOUT_LANES; ++q) {
-    f[q * 3 + 0] = from_lane(fx, q);
-    f[q * 3 + 1] = from_lane(fy, q);
-    f[q * 3 + 2] = from_lane(fz, q);
-  }
-#pragma unroll
-  for (int j = 0; j < 12; ++j) {
-    st[j] = a.state[j];
-    ft[j] = a.feet[j];
-  }
-  srb_body<true>(st, f, a.dts[0], ft, md, leg);
-  // Constant indices only, so that f and st stay in registers.
-  if (threadIdx.x < ROLLOUT_LANES) {
-    out[1 + 3 * leg + 0] = fx;
-    out[1 + 3 * leg + 1] = fy;
-    out[1 + 3 * leg + 2] = fz;
-  }
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int j = 0; j < 12; ++j) out[13 + j] = st[j];
+  for (int u = 0; u < (P + SM_COL_THREADS - 1) / SM_COL_THREADS; ++u) {
+    const int p = t + u * SM_COL_THREADS;
+    inc_r[u] = t < SM_COL_THREADS && p < P ? load_in<R>(&incumbent[p]) : 0.f;
   }
 }
 
-// noise: the (P, N) noise of the iteration. partials (B, P + 1), 16-byte aligned,
-// and block_keys (B, K) are written and read in this launch, so they are neither
-// const nor __restrict__ (no read-only cache path), and the last block reads them
-// from L2 (cp.async.cg, __ldcg). ticket: the iteration's second scratch word, set
-// to all ones by its memset.
-template <int PL>
-__global__ void __launch_bounds__(SM_UPDATE_THREADS, SM_UPDATE_MIN_BLOCKS)
-sm_update_kernel(const RSArgs a, const SMKnobs kn, const float* __restrict__ w_blk,
-                 const float* __restrict__ incumbent, const float* __restrict__ noise,
-                 const float* __restrict__ costs, const unsigned long long* __restrict__ argmin,
-                 unsigned long long* ticket, float* partials, unsigned long long* block_keys,
-                 float* __restrict__ out, float* __restrict__ sigma_out,
-                 int* __restrict__ elites) {
+// Part 1 of the update pass for tile b, samples [b * RS_BLOCK, (b + 1) * RS_BLOCK),
+// by the block's SM_UPDATE_THREADS threads: partial row b of (w * noise, w) and,
+// for CEM, row b of the block keys. noise: the (P, N) noise of the iteration;
+// beta the lowest cost. partials (B, P + 1), 16-byte aligned, and block_keys
+// (B, K) are written here and read by the finish in the same launch, so they
+// are neither const nor __restrict__ (no read-only cache path), and the finish
+// reads them from L2 (cp.async.cg, __ldcg). R: how the costs and the noise are
+// read.
+template <int PL, Read R>
+__device__ __forceinline__ void update_tile(const RSArgs& a, const SMKnobs& kn,
+                                            const float* noise, const float* costs, float beta,
+                                            int b, float* partials,
+                                            unsigned long long* block_keys,
+                                            unsigned char* arena) {
   constexpr int P = 4 * PL;
   constexpr int CH = P / 4;  // chunks of four rows of the (P, N) noise
   constexpr int ROW = P + 1;
-  constexpr int COLS = (ROW + SM_COL_THREADS - 1) / SM_COL_THREADS;  // finish columns a thread
-  constexpr int PCOLS = (P + SM_COL_THREADS - 1) / SM_COL_THREADS;   // new parameters a thread
-  constexpr int PLP = padded_pl(PL);
   static_assert(RS_BLOCK % 32 == 0 && SM_RANK_LANES * RS_BLOCK == SM_UPDATE_THREADS &&
                     (SM_RANK_LANES & (SM_RANK_LANES - 1)) == 0,
                 "whole warps of samples; a power-of-two group of threads ranks each key");
-  static_assert(ROW <= SM_UPDATE_THREADS && 3 * PLP <= SM_COL_THREADS && P <= SM_CEM_THREADS &&
-                    SM_TILE_ROWS % 4 == 0,
-                "one partial column, basis chunk or parameter of the refit a thread; aligned "
-                "tiles");
-  extern __shared__ __align__(16) unsigned char arena[];
+  static_assert(ROW <= SM_UPDATE_THREADS, "one partial column a thread");
   __shared__ int nz_s[RS_BLOCK];
   __shared__ float nzw_s[RS_BLOCK];
   __shared__ unsigned long long key_s[RS_BLOCK];
   __shared__ int count_s[RS_BLOCK / 32];
-  __shared__ float sum_s[ROW];
-  __shared__ float prm_s[P];
-  __shared__ __align__(16) float w0_s[12 * PLP];
-  __shared__ int elite_s[SM_KMAX];
-  __shared__ unsigned long long t0_s;
-  __shared__ int ncand_s;
-  __shared__ int last_s;
   const int N = a.num_samples;
-  const int B = gridDim.x;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  // The incumbent of the parameters this thread finishes, loaded off the finish's chain.
-  float inc_r[PCOLS];
-#pragma unroll
-  for (int u = 0; u < PCOLS; ++u) {
-    const int p = t + u * SM_COL_THREADS;
-    inc_r[u] = t < SM_COL_THREADS && p < P ? __ldg(&incumbent[p]) : 0.f;
-  }
 
   // 1. Weights and keys; the nonzero weights compacted in thread order.
-  const unsigned long long best_key = *argmin;
-  const float beta = __uint_as_float((unsigned int)(best_key >> 32));
-  const int i0 = blockIdx.x * RS_BLOCK;
+  const int i0 = b * RS_BLOCK;
   float w = 0.f;
   unsigned long long key = ~0ull;
   if (t < RS_BLOCK && i0 + t < N) {
-    const float c = costs[i0 + t];
+    const float c = load_in<R>(&costs[i0 + t]);
     w = expf(-(c - beta) / kn.temperature);
     key = cost_key(c, i0 + t);
   }
@@ -267,7 +206,7 @@ sm_update_kernel(const RSArgs a, const SMKnobs kn, const float* __restrict__ w_b
     for (int j = t; j < nb * CH; j += SM_UPDATE_THREADS) {
       const int r = j % nb, k = j / nb;
       const float wr = nzw_s[base + r];
-      const float4 z = load_noise4(noise, N, i0 + nz_s[base + r], k);
+      const float4 z = load_noise4<R>(noise, N, i0 + nz_s[base + r], k);
       float* row = &buf_s[r * ROW + 4 * k];
       row[0] = __fmul_rn(wr, z.x);
       row[1] = __fmul_rn(wr, z.y);
@@ -282,7 +221,7 @@ sm_update_kernel(const RSArgs a, const SMKnobs kn, const float* __restrict__ w_b
     }
     __syncthreads();
   }
-  if (t < ROW) partials[(size_t)blockIdx.x * ROW + t] = acc;
+  if (t < ROW) partials[(size_t)b * ROW + t] = acc;
   if (kn.cem) {
     // Rank of each key in the block, SM_RANK_LANES threads a key; equal keys (only
     // the ~0ull of missing samples) rank by thread. The K lowest land in rank order.
@@ -298,19 +237,53 @@ sm_update_kernel(const RSArgs a, const SMKnobs kn, const float* __restrict__ w_b
 #pragma unroll
     for (int off = 1; off < SM_RANK_LANES; off <<= 1)
       rank += __shfl_xor_sync(0xffffffffu, rank, off);
-    if (part == 0 && rank < kn.n_elite) block_keys[(size_t)blockIdx.x * kn.n_elite + rank] = kk;
+    if (part == 0 && rank < kn.n_elite) block_keys[(size_t)b * kn.n_elite + rank] = kk;
   }
+}
 
-  // 2. The ticket: the last block to arrive finishes.
+// Part 2, the ticket: each tile fences its writes and takes a 64-bit atomic ticket
+// that starts at all ones; the tile whose atomicAdd returns tiles - 2 (unsigned)
+// arrives last, and its block finishes. No block waits for another.
+__device__ __forceinline__ bool last_ticket(unsigned long long* ticket, int tiles) {
+  __shared__ int last_s;
   __threadfence();
   __syncthreads();
-  if (t == 0) last_s = atomicAdd(ticket, 1ull) == (unsigned long long)(long long)(B - 2);
+  if (threadIdx.x == 0)
+    last_s = atomicAdd(ticket, 1ull) == (unsigned long long)(long long)(tiles - 2);
   __syncthreads();
-  if (!last_s) return;
-  __threadfence();
+  return last_s;
+}
 
-  // 3. The finish. Warps 0-3: the column sums over blocks in block order, the new
-  // parameters and the step-0 extraction.
+// Part 3, the finish, in the block whose tile took the last ticket, after a fence:
+// warps 0-3 sum the B partial rows' columns in block order, write out's new
+// parameters (inc_r + S / Z, inc_r from finish_incumbent) and, on warp 0, the
+// step-0 extraction, beta and its index from best_key; for CEM, warps 4-15 select
+// the elites from the B*K block keys and refit sigma. R: how the noise is read.
+template <int PL, Read R>
+__device__ __forceinline__ void update_finish(const RSArgs& a, const SMKnobs& kn,
+                                              const float* w_blk, const float* inc_r,
+                                              const float* noise, unsigned long long best_key,
+                                              int B, float* partials,
+                                              unsigned long long* block_keys, float* out,
+                                              float* sigma_out, int* elites,
+                                              unsigned char* arena) {
+  constexpr int P = 4 * PL;
+  constexpr int CH = P / 4;
+  constexpr int ROW = P + 1;
+  constexpr int COLS = (ROW + SM_COL_THREADS - 1) / SM_COL_THREADS;  // finish columns a thread
+  constexpr int PCOLS = (P + SM_COL_THREADS - 1) / SM_COL_THREADS;   // new parameters a thread
+  constexpr int PLP = padded_pl(PL);
+  static_assert(3 * PLP <= SM_COL_THREADS && P <= SM_CEM_THREADS && SM_TILE_ROWS % 4 == 0,
+                "one basis chunk or parameter of the refit a thread; aligned tiles");
+  __shared__ float sum_s[ROW];
+  __shared__ float prm_s[P];
+  __shared__ __align__(16) float w0_s[12 * PLP];
+  __shared__ int elite_s[SM_KMAX];
+  __shared__ unsigned long long t0_s;
+  __shared__ int ncand_s;
+  const int N = a.num_samples;
+  const int t = threadIdx.x, warp = t >> 5;
+  const float beta = __uint_as_float((unsigned int)(best_key >> 32));
   float* tile_s = reinterpret_cast<float*>(arena);
   if (t < SM_COL_THREADS) {
     float s[COLS];
@@ -425,7 +398,7 @@ sm_update_kernel(const RSArgs a, const SMKnobs kn, const float* __restrict__ w_b
   float* x_s = reinterpret_cast<float*>(stage_s);  // (K, P)
   for (int j = ct; j < K * CH; j += SM_CEM_THREADS) {
     const int e = j % K, k = j / K;
-    const float4 z = load_noise4(noise, N, elite_s[e], k);
+    const float4 z = load_noise4<R>(noise, N, elite_s[e], k);
     float* xe = &x_s[e * P + 4 * k];
     xe[0] = z.x;
     xe[1] = z.y;
@@ -449,6 +422,30 @@ sm_update_kernel(const RSArgs a, const SMKnobs kn, const float* __restrict__ w_b
     sigma_out[p] = clip_nan(sqrtf(var), kn.sigma_min, kn.sigma_max);
   }
   if (ct < K) elites[ct] = elite_s[ct];
+}
+
+// The update pass as one launch (K1b, K1c, K1e-mppi, K1e-cem): block b runs tile
+// b; argmin: the iteration's argmin key; ticket: its second scratch word, set to
+// all ones by the iteration's memset.
+template <int PL>
+__global__ void __launch_bounds__(SM_UPDATE_THREADS, SM_UPDATE_MIN_BLOCKS)
+sm_update_kernel(const RSArgs a, const SMKnobs kn, const float* __restrict__ w_blk,
+                 const float* __restrict__ incumbent, const float* __restrict__ noise,
+                 const float* __restrict__ costs, const unsigned long long* __restrict__ argmin,
+                 unsigned long long* ticket, float* partials, unsigned long long* block_keys,
+                 float* __restrict__ out, float* __restrict__ sigma_out,
+                 int* __restrict__ elites) {
+  extern __shared__ __align__(16) unsigned char arena[];
+  float inc_r[(4 * PL + SM_COL_THREADS - 1) / SM_COL_THREADS];
+  finish_incumbent<PL, Read::ReadOnly>(incumbent, inc_r);
+  const unsigned long long best_key = *argmin;
+  update_tile<PL, Read::ReadOnly>(a, kn, noise, costs,
+                                  __uint_as_float((unsigned int)(best_key >> 32)), blockIdx.x,
+                                  partials, block_keys, arena);
+  if (!last_ticket(ticket, gridDim.x)) return;
+  __threadfence();
+  update_finish<PL, Read::ReadOnly>(a, kn, w_blk, inc_r, noise, best_key, gridDim.x, partials,
+                                    block_keys, out, sigma_out, elites, arena);
 }
 
 // Above 48 KB dynamic shared memory needs an opt-in, given once for the most the

@@ -1,10 +1,10 @@
 """MPPI, CEM-MPPI and chained iterations: CUDA kernels K1b, K1c and K1d, their
 plain version and wrappers.
 
-The kernels (``csrc/sampling_softmax.cu``) replace the mppi and cem_mppi variants
-of the Pallas TPU kernel ``quadruped_pympc_tamols_tpu/ops/rollout_pallas.py:
-make_pallas_iteration(...).kernel``, in the XLA solver's forms (JAX
-``controllers/sampling/sampling_mpc.py:166-176``): the new parameters are
+The kernels K1b and K1c (``csrc/sampling_softmax.cu``) replace the mppi and
+cem_mppi variants of the Pallas TPU kernel ``quadruped_pympc_tamols_tpu/ops/
+rollout_pallas.py:make_pallas_iteration(...).kernel``, in the XLA solver's forms
+(JAX ``controllers/sampling/sampling_mpc.py:166-176``): the new parameters are
 ``incumbent + noise @ w`` with softmax weights ``w = exp(-(c - beta)/T)``
 normalized, ``beta`` the lowest cost; CEM-MPPI draws its noise with a
 per-parameter sigma and refits it from the ``cem_elite`` lowest-cost samples'
@@ -17,16 +17,21 @@ order, so a run repeats its bits. The step-0 GRFs and one-step state come from
 the new parameters (the mean), not from a sample. See the source for the design.
 
 K1d, chained iterations (``num_chained > 1`` in the Pallas kernel), is
-``sampling_chain``: iteration i + 1 reads iteration i's parameters, and its sigma
-for CEM, from device memory, with the Philox offset one higher. The host neither
-copies nor waits between iterations; they are successive K1a, K1b or K1c launches
-on one stream, so K1d has no kernel and no launch count of its own.
+``sampling_chain``: iteration i + 1 samples around iteration i's parameters, and
+its sigma for CEM, with the Philox offset one higher. On the card, with more than
+one iteration, every iteration of the three methods runs in one cooperative,
+persistent launch (``csrc/sampling_chain.cu``: the rollout pass and the update
+pass, or K1a's extraction, between grid barriers), with the bits of successive
+K1a/K1b/K1c launches; each chained solve adds one to
+``sampling_chain.launches[knobs.method]`` and nothing to the single iterations'
+counts. One iteration stays a K1a/K1b/K1c launch.
 
 The wrapper ``softmax_iteration`` runs K1b or K1c as ``knobs.method`` says and
 counts each launch in ``softmax_iteration.launches[knobs.method]``. On CUDA
-tensors it launches the kernel or raises; on CPU tensors it runs the plain
-version (``softmax_iteration_reference``), with noise from
-``cpu_generator(seed, offset)``. There is no fallback from one to the other.
+tensors the wrappers launch their kernel or raise; on CPU tensors they run the
+plain version (``softmax_iteration_reference``, and for K1d the same loop over the
+plain single iterations), with noise from ``cpu_generator(seed, offset)``. There
+is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from . import sampling_kernel as rs
 
 BLOCK = 64  # samples per block of the update pass (RS_BLOCK): sizes the partials and keys
 MAX_ELITE = 32  # SM_KMAX
+METHODS = ("random_sampling", "mppi", "cem_mppi")  # the chain kernel's method codes 0, 1, 2
 
 
 class SMKnobs(ctypes.Structure):
@@ -77,7 +83,7 @@ class Knobs:
 def make_knobs(cfg: Config, method: str | None = None) -> Knobs:
     sp = cfg.mpc.sampling
     method = method or sp.method
-    if method not in ("random_sampling", "mppi", "cem_mppi"):
+    if method not in METHODS:
         raise ValueError(f"unknown sampling method {method!r}")
     return Knobs(method, float(sp.mppi_temperature), float(sp.sigma_mppi), int(sp.cem_elite),
                  float(sp.cem_sigma_min), float(sp.cem_sigma_max))
@@ -237,14 +243,16 @@ def update_blocks_per_sm(plan: rs.RSPlan, knobs: Knobs) -> int:
 
 
 class Workspace(NamedTuple):
-    """One iteration's outputs and scratch on the card."""
+    """One iteration's outputs and scratch on the card (the chain kernel's: each
+    output with a leading axis of its iterations)."""
 
     costs: torch.Tensor  # (N,)
     out: torch.Tensor  # (26 + P,) [beta, grf(12), state(12), index, new params(P)]
     sigma: torch.Tensor | None  # (P,) CEM refit
     elites: torch.Tensor | None  # (K,) int32 CEM elite indices
     # int64: [argmin, ticket | block keys (B*K, CEM; an even count) | partials
-    # (B*(P+1) f32)]; the iteration's memset resets the first two words.
+    # (B*(P+1) f32)]; the iteration's memset resets the first two words (the chain
+    # kernel sets them itself).
     scratch: torch.Tensor
     # (P, N): the noise the rollout pass writes and the update pass reads back when
     # the caller passes neither noise_in nor noise_out (MPPI and CEM).
@@ -259,16 +267,19 @@ def _key_words(num_samples: int, knobs) -> int:
     return n + n % 2
 
 
-def workspace(plan: rs.RSPlan, knobs: Knobs, device) -> Workspace:
+def workspace(plan: rs.RSPlan, knobs: Knobs, device, iterations: int | None = None) -> Workspace:
+    """The workspace of one iteration or, with ``iterations``, of a chain launch."""
     P, N = plan.num_parameters, plan.num_samples
     B = -(-N // BLOCK)
+    lead = () if iterations is None else (iterations,)
     scratch = torch.empty(2 + _key_words(N, knobs) + -(-B * (P + 1) // 2), dtype=torch.int64,
                           device=device)
     cem, softmax = knobs.cem, knobs.method != "random_sampling"
-    return Workspace(torch.empty(N, dtype=torch.float32, device=device),
-                     torch.empty(rs.OUT_WINNER + P, dtype=torch.float32, device=device),
-                     torch.empty(P, dtype=torch.float32, device=device) if cem else None,
-                     torch.empty(knobs.n_elite, dtype=torch.int32, device=device) if cem else None,
+    return Workspace(torch.empty(lead + (N,), dtype=torch.float32, device=device),
+                     torch.empty(lead + (rs.OUT_WINNER + P,), dtype=torch.float32, device=device),
+                     torch.empty(lead + (P,), dtype=torch.float32, device=device) if cem else None,
+                     torch.empty(lead + (knobs.n_elite,), dtype=torch.int32, device=device)
+                     if cem else None,
                      scratch,
                      torch.empty(P, N, dtype=torch.float32, device=device) if softmax else None)
 
@@ -348,13 +359,96 @@ class IterationResult(NamedTuple):
     elites: torch.Tensor | None  # (K,) CEM elite indices, else None
 
 
+_CHAIN_LIBS: dict = {}
+
+
+def load_chain_library(horizon: int, params_per_leg: int) -> ctypes.CDLL:
+    """Build (if needed) and load the K1d library (``csrc/sampling_chain.cu``) of the
+    (horizon, parameters per leg) pair; raises as ``load_library``."""
+    key = (horizon, params_per_leg)
+    if key not in _CHAIN_LIBS:
+        lib = build.load("sampling_chain", horizon, params_per_leg)
+        rs.int_getters(lib, ("chain_args_size", "chain_knobs_size", "chain_block",
+                             "chain_horizon", "chain_params_per_leg",
+                             "chain_padded_params_per_leg"))
+        if (lib.chain_args_size() != ctypes.sizeof(rs.RSArgs)
+                or lib.chain_knobs_size() != ctypes.sizeof(SMKnobs)
+                or lib.chain_block() != BLOCK
+                or (lib.chain_horizon(), lib.chain_params_per_leg()) != key
+                or lib.chain_padded_params_per_leg() != rs.padded_params_per_leg(params_per_leg)):
+            raise RuntimeError(f"sampling_chain.cu for {key} and its ctypes mirror disagree")
+        lib.chain_error_string.restype = ctypes.c_char_p
+        lib.chain_error_string.argtypes = [ctypes.c_int]
+        lib.chain_blocks_per_sm.restype = ctypes.c_int
+        lib.chain_blocks_per_sm.argtypes = [ctypes.c_int] * 4
+        lib.chain_launch.restype = ctypes.c_int
+        lib.chain_launch.argtypes = ([ctypes.POINTER(rs.RSArgs), ctypes.POINTER(SMKnobs)]
+                                     + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 12)
+        _CHAIN_LIBS[key] = lib
+    return _CHAIN_LIBS[key]
+
+
+def chain_blocks_per_sm(plan: rs.RSPlan, knobs: Knobs) -> int:
+    """Blocks of the chain kernel one SM of the card holds at once for ``plan``'s
+    chain (cudaOccupancyMaxActiveBlocksPerMultiprocessor); its grid is this times
+    the SMs."""
+    lib = load_chain_library(plan.horizon, plan.params_per_leg)
+    n = lib.chain_blocks_per_sm(METHODS.index(knobs.method), int(knobs.cem), knobs.n_elite,
+                                plan.num_samples)
+    if n < 0:
+        raise RuntimeError(f"chain_blocks_per_sm failed: {lib.chain_error_string(-n).decode()}")
+    return n
+
+
+def chain_launch(lib, args: rs.RSArgs, kn: SMKnobs, method: str, plan: rs.RSPlan,
+                 iterations: int, ws: Workspace, incumbent, sigma, max_blocks: int = 0,
+                 stream=None) -> None:
+    """``iterations`` chained iterations in one launch of the chain kernel through its
+    C entry, into ``ws`` (``workspace(..., iterations)``); raises on a refused
+    launch, a cooperative launch refused included. ``max_blocks`` > 0 runs on that
+    many blocks instead of the co-resident grid (the bits do not change);
+    ``stream`` is the CUDA stream handle (the current stream if None)."""
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    argmin, keys, partials = scratch_pointers(ws, plan.num_samples, kn)
+    if stream is None:
+        stream = torch.cuda.current_stream(incumbent.device).cuda_stream
+    rc = lib.chain_launch(ctypes.byref(args), ctypes.byref(kn), METHODS.index(method),
+                          plan.params_per_leg, iterations, max_blocks, plan.W_blocks.data_ptr(),
+                          incumbent.data_ptr(), ptr(sigma) if kn.cem else None, ptr(ws.noise),
+                          ws.costs.data_ptr(), argmin, partials, keys, ws.out.data_ptr(),
+                          ptr(ws.sigma), ptr(ws.elites), stream)
+    if rc != 0:
+        msg = ("unsupported shape, knob or alignment" if rc < 0
+               else lib.chain_error_string(rc).decode())
+        raise RuntimeError(f"sampling_chain launch failed ({rc}): {msg}")
+
+
 def sampling_chain(plan: rs.RSPlan, knobs: Knobs, tick: rs.TickInputs, incumbent: torch.Tensor,
                    sigma: torch.Tensor, seed: int, offset: int, iterations: int) -> list:
-    """``iterations`` chained iterations of ``knobs.method`` (K1d on CUDA when
-    iterations > 1): iteration i samples around iteration i - 1's result (the
-    winner, or the softmax mean and, for CEM, its refit sigma) with Philox offset
-    ``offset + i``, all on the incumbent's device. Returns one
-    ``IterationResult`` per iteration."""
+    """``iterations`` chained iterations of ``knobs.method``: iteration i samples
+    around iteration i - 1's result (the winner, or the softmax mean and, for CEM,
+    its refit sigma) with Philox offset ``offset + i``, all on the incumbent's
+    device. Returns one ``IterationResult`` per iteration.
+
+    On CUDA with ``iterations > 1`` this is kernel K1d, one launch of the chain
+    kernel (counted in ``sampling_chain.launches[knobs.method]``) or an error; one
+    iteration is one K1a/K1b/K1c launch, and on the CPU every iteration runs the
+    plain version."""
+    if incumbent.device.type == "cuda" and iterations > 1:
+        P = plan.num_parameters
+        check_kernel_knobs(plan, knobs)
+        rs.check_cuda("incumbent", incumbent, (P,))
+        if knobs.cem:
+            rs.check_cuda("sigma", sigma, (P,))
+        ws = workspace(plan, knobs, incumbent.device, iterations)
+        chain_launch(load_chain_library(plan.horizon, plan.params_per_leg),
+                     rs.kernel_args(plan, tick, seed, offset), knobs.struct(), knobs.method, plan,
+                     iterations, ws, incumbent, sigma)
+        sampling_chain.launches[knobs.method] += 1
+        return [IterationResult(ws.costs[i], ws.out[i], ws.sigma[i] if knobs.cem else sigma,
+                                ws.elites[i] if knobs.cem else None) for i in range(iterations)]
     results = []
     for it in range(iterations):
         if knobs.method == "random_sampling":
@@ -369,3 +463,4 @@ def sampling_chain(plan: rs.RSPlan, knobs: Knobs, tick: rs.TickInputs, incumbent
 
 
 softmax_iteration.launches = {"mppi": 0, "cem_mppi": 0}
+sampling_chain.launches = dict.fromkeys(METHODS, 0)

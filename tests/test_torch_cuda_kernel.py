@@ -1,5 +1,6 @@
-"""Kernels K1a (ops/csrc/sampling_rs.cu), K1b, K1c and K1d (ops/csrc/sampling_softmax.cu)
-and K1e (ops/csrc/sampling_groups.cu) against their plain torch versions on the card.
+"""Kernels K1a (ops/csrc/sampling_rs.cu), K1b and K1c (ops/csrc/sampling_softmax.cu), K1d
+(ops/csrc/sampling_chain.cu) and K1e (ops/csrc/sampling_groups.cu) against their plain
+torch versions on the card.
 
 Runs only where CUDA is present (it skips elsewhere): on the H100, run
 ``python -m pytest tests/test_torch_cuda_kernel.py -m cuda``. Tolerances as in
@@ -128,9 +129,11 @@ def test_softmax_kernel_matches_plain_version(cuda_device, method, num_samples):
 
 @pytest.mark.parametrize("num_samples", [10_000, 1000, 97])
 def test_chained_kernels_match_single_iterations(cuda_device, num_samples):
-    """K1d: three chained iterations of each method with Philox noise. Iteration i
-    repeats bit for bit as one iteration from iteration i - 1's device outputs at
-    offset + i, and its dumped noise passes the plain checks."""
+    """K1d: three chained iterations of each method with Philox noise, one launch
+    of the chain kernel (counted in sampling_chain.launches, not in the single
+    iterations' counts). Iteration i repeats bit for bit as one iteration from
+    iteration i - 1's device outputs at offset + i, and its dumped noise passes the
+    plain checks."""
     cfg = make_config("aliengo", **{"sim.visual_foothold_adaptation": "blind"})
     plan = sk.make_rs_plan(cfg, num_samples, cuda_device)
     tick = _tick(cfg)
@@ -140,13 +143,12 @@ def test_chained_kernels_match_single_iterations(cuda_device, num_samples):
     sig0 = torch.full((P,), 3.0, device=cuda_device)
     for method in ("random_sampling", "mppi", "cem_mppi"):
         knobs = sm.make_knobs(cfg, method)
-        want = [sk.sampling_rs.launches, dict(sm.softmax_iteration.launches)]
-        if method == "random_sampling":
-            want[0] += 3
-        else:
-            want[1][method] += 3
+        want = [sk.sampling_rs.launches, dict(sm.softmax_iteration.launches),
+                dict(sm.sampling_chain.launches)]
+        want[2][method] += 1
         res = sm.sampling_chain(plan, knobs, tick, inc0, sig0, 11, 5, 3)
-        assert [sk.sampling_rs.launches, sm.softmax_iteration.launches] == want
+        assert [sk.sampling_rs.launches, sm.softmax_iteration.launches,
+                sm.sampling_chain.launches] == want
         assert len(res) == 3
         inc, sig = inc0, sig0
         for i, r in enumerate(res):
@@ -240,9 +242,9 @@ def test_group_kernel_matches_plain_version(cuda_device, method):
 
 def test_cuda_solver_refuses_unported_paths(cuda_device):
     """The solvers refuse only the ZMP-band cost and a (horizon, parameters per
-    leg) pair the sources are not built for; every method at 1 and 3 iterations,
-    and the gait-adaptive solver's three, build and solve on the kernels with each
-    parametrization."""
+    leg) pair the sources are not built for; every method at 1 and 3 iterations
+    (K1a/K1b/K1c once, or the chain kernel K1d once), and the gait-adaptive
+    solver's three, build and solve on the kernels with each parametrization."""
     from quadruped_pympc_tamols_torch.controllers.sampling import (make_gait_adaptive_solver,
                                                                    make_sampling_solver)
     from quadruped_pympc_tamols_torch.controllers.sampling.sampling_mpc import SamplingState
@@ -267,14 +269,18 @@ def test_cuda_solver_refuses_unported_paths(cuda_device):
                 solve, P = make_sampling_solver(cfg, 1000, device=cuda_device)
                 state = SamplingState(torch.zeros(P, device=cuda_device), 0, 0,
                                       torch.full((P,), 2.0, device=cuda_device))
-                before = (sk.sampling_rs.launches, dict(sm.softmax_iteration.launches))
+                counts = (lambda: (sk.sampling_rs.launches, dict(sm.softmax_iteration.launches),
+                                   dict(sm.sampling_chain.launches)))
+                want = counts()
+                if iterations > 1:  # K1d: one launch of the chain kernel
+                    want[2][method] += 1
+                elif method == "random_sampling":
+                    want = (want[0] + 1,) + want[1:]
+                else:
+                    want[1][method] += 1
                 out, _ = solve(tick.state12, tick.feet, tick.ref12, tick.feet, tick.contact_seq,
                                ones, ones, state)
-                after = (sk.sampling_rs.launches, sm.softmax_iteration.launches)
-                if method == "random_sampling":
-                    assert after[0] == before[0] + iterations
-                else:
-                    assert after[1][method] == before[1][method] + iterations
+                assert counts() == want
                 assert bool(torch.isfinite(out.summary).all())
             gsolve, P = make_gait_adaptive_solver(
                 make_config("aliengo", **gait, **{"mpc.sampling.parametrization": par}), 1000,

@@ -93,6 +93,44 @@ def test_k1a_ragged_matches_plain_version(cuda_device, par, num_samples):
     torch.testing.assert_close(out[13:25], state, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("par", PARS)
+def test_four_lane_extraction_matches_plain_version(cuda_device, par):
+    """K1a's and K1e-rs's winner extraction (``rs_extract``: the winner's
+    parameters regenerated from Philox, step 0 on four lanes, one per leg) against
+    the plain step-0 extraction of the winner, on the dumped noise at N = 10 000,
+    and on a NaN state, where every cost ties at 1e6, the winner is sample 0 and
+    the predicted state is NaN in both."""
+    from quadruped_pympc_tamols_torch.controllers.sampling import group_operators
+    N = 10_000
+    cfg = _cfg(par, **{"mpc.optimize_step_freq": True})
+    plan = sk.make_rs_plan(cfg, N, cuda_device)
+    gplan = sg.make_group_plan(cfg, N, cuda_device)
+    knobs = sm.make_knobs(cfg, "random_sampling")
+    groups = group_operators(cfg, np.array([0.3, 0.8, 0.8, 0.3], np.float32),
+                             np.asarray(cfg.mpc.step_freq_available, np.float32))
+    P = plan.num_parameters
+    inc, _ = _inputs(P, 1, 8, cuda_device)
+    for tick in (_tick(cfg), _tick(cfg)._replace(state12=np.full(12, np.nan, np.float32))):
+        t = sk.tick_tensors(tick, cuda_device)
+        dump = torch.empty(P, N, device=cuda_device)
+        gdump = torch.empty(P, gplan.num_used, device=cuda_device)
+        outs = [(sk.sampling_rs(plan, tick, inc, 4, 1, noise_out=dump), dump),
+                (sg.sampling_groups(gplan, knobs, tick, groups, inc, None, 4, 1,
+                                    noise_out=gdump)[:2], gdump)]
+        torch.cuda.synchronize()
+        for (costs, out), noise in outs:
+            k = int(out[25])
+            assert k == int(torch.argmin(costs)) and float(out[0]) == float(costs[k])
+            winner = inc + noise[:, k]
+            assert torch.equal(out[sk.OUT_WINNER:], winner)
+            grfs, state = sk.step0_reference(winner, plan.W, t[0], t[1], t[3], t[4], plan.dts,
+                                             plan.srbd, plan.fm)
+            torch.testing.assert_close(out[1:13], grfs.reshape(12), rtol=0, atol=1e-3)
+            torch.testing.assert_close(out[13:25], state, rtol=0, atol=1e-5, equal_nan=True)
+            if np.isnan(tick.state12).all():
+                assert k == 0 and bool(torch.isnan(out[13:25]).all())
+
+
 @pytest.mark.parametrize("num_samples", RAGGED)
 @pytest.mark.parametrize("par", PARS)
 def test_k1b_ragged_matches_plain_version(cuda_device, par, num_samples):

@@ -1,5 +1,6 @@
 """The plain version of kernels K1b, K1c and K1d (``ops/sampling_softmax.py``) on the
-CPU against the JAX package, on injected noise.
+CPU against the JAX package, on injected noise, and the chained solver of each
+method against the Pallas solver at zero noise.
 
 The JAX side is ``controllers/sampling/rollout.py:rollout_costs_soa`` plus the XLA
 solver's optimizer step (JAX ``controllers/sampling/sampling_mpc.py:166-176``:
@@ -224,10 +225,12 @@ def test_chain_repeats_single_iterations(method):
     tick = sk.TickInputs(state12, feet, ref12, seq, share[:, None].expand(12, 4).numpy())
     inc = torch.from_numpy(_inputs(tc, method, 6)[0])
     sigma = torch.full((plan.num_parameters,), 2.0)
-    before = (sk.sampling_rs.launches, dict(sm.softmax_iteration.launches))
+    counts = (lambda: (sk.sampling_rs.launches, dict(sm.softmax_iteration.launches),
+                       dict(sm.sampling_chain.launches)))
+    before = counts()
     res = sm.sampling_chain(plan, knobs, tick, inc, sigma, 8, 2, 3)
     assert len(res) == 3
-    assert (sk.sampling_rs.launches, sm.softmax_iteration.launches) == before
+    assert counts() == before
     for i, r in enumerate(res):
         if method == "random_sampling":
             one = sk.sampling_rs(plan, tick, inc, 8, 2 + i) + (sigma, None)
@@ -239,12 +242,17 @@ def test_chain_repeats_single_iterations(method):
     assert not torch.equal(res[0].out, res[2].out)
 
 
-def test_mppi_chain_matches_pallas_at_zero_noise():
-    """MPPI x 3 against the Pallas solver in interpret mode at zero noise, at
-    horizon 2 and one 128-sample tile (test_torch_sampling.py's interpret-mode
-    size): every candidate is the incumbent, so each iteration's mean keeps it."""
-    over = {"mpc.horizon": 2, "mpc.sampling.method": "mppi", "mpc.sampling.num_iterations": 3,
-            "mpc.sampling.sigma_mppi": 0.0}
+def _chain_against_pallas(method, **over):
+    """``method`` x 3 through the port's CPU solver against the Pallas solver in
+    interpret mode at zero noise, at horizon 2 and one 128-sample tile
+    (test_torch_sampling.py's interpret-mode size): every candidate is the
+    incumbent, so each iteration keeps it. Tolerances: GRFs and the predicted state
+    1e-5 (test_torch_sampling.py's), the best cost rtol 1e-4; the parameters atol
+    1e-5, since the Pallas solver averages the 128 equal parameter vectors (S / Z,
+    or its tied winners) where the port adds the zero-noise step to the incumbent:
+    rounding, not 0."""
+    over = {"mpc.horizon": 2, "mpc.sampling.method": method, "mpc.sampling.num_iterations": 3,
+            **over}
     jc, tc = _cfgs(**over)
     pallas, P = make_pallas_sampling_solver(jc, num_samples=128, interpret=True, tile=128)
     state12, feet, ref12, seq = _scene(H=2)
@@ -261,8 +269,23 @@ def test_mppi_chain_matches_pallas_at_zero_noise():
     np.testing.assert_allclose(tout.predicted_state.numpy(), np.asarray(jout.predicted_state),
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(float(tout.best_cost), float(jout.best_cost), rtol=1e-4)
-    # The Pallas solver takes the mean of the 128 equal parameter vectors (S / Z),
-    # the port adds the zero-noise mean to the incumbent: rounding, not 0.
     np.testing.assert_allclose(tout.best_parameters.numpy(), np.asarray(jout.best_parameters),
                                atol=1e-5)
+    np.testing.assert_array_equal(tout.sigma.numpy(), np.asarray(jout.sigma))
     assert tnew.offset == 3
+
+
+def test_mppi_chain_matches_pallas_at_zero_noise():
+    """MPPI x 3 against the Pallas solver at zero noise (``_chain_against_pallas``)."""
+    _chain_against_pallas("mppi", **{"mpc.sampling.sigma_mppi": 0.0})
+
+
+@pytest.mark.parametrize("method, over", [
+    ("random_sampling", {"mpc.sampling.sigma_random": (0.0, 0.0, 0.0)}),
+    # The refit sigma sqrt(0 + 1e-8) clipped to [0, 0]: the noise stays zero.
+    ("cem_mppi", {"mpc.sampling.cem_sigma_min": 0.0, "mpc.sampling.cem_sigma_max": 0.0})])
+def test_chain_matches_pallas_at_zero_noise(method, over):
+    """Random sampling x 3 and CEM-MPPI x 3 against the Pallas solver at zero noise
+    (``_chain_against_pallas``); for CEM the sigma passed from iteration to
+    iteration, 0 in both."""
+    _chain_against_pallas(method, **over)

@@ -7,7 +7,9 @@ For each TREE (the root of a checkout of this repository), in a process of its
 own, imports that tree's ``quadruped_pympc_tamols_torch``, runs kernels K1a, K1b,
 K1c and K1e (each method) once at N = 10 000 on the card, on numpy noise from a
 seed and on Philox noise, and keeps every output; K1b and K1c also at temperature
-1e6 (every weight nonzero) and on a NaN state (every cost tied at 1e6). Then
+1e6 (every weight nonzero) and on a NaN state (every cost tied at 1e6); and, for
+each parametrization, K1a and K1e's random sampling on Philox noise and three
+chained iterations of each method through ``sampling_chain`` (K1d). Then
 prints, for each output, whether the two trees' bits are equal, and where they
 are not, how many elements differ and the largest absolute difference. Exits 1
 if any output differs.
@@ -89,6 +91,30 @@ def run_tree(path: str) -> None:
             knobs = sm.make_knobs(gcfg, method)
             keep(f"K1e {method} {label}",
                  sg.sampling_groups(gplan, knobs, tick, groups, inc, sigma, 3, 1, **kw))
+    for par in ("cubic_spline", "linear_spline", "zero_order"):
+        over = {**base, "mpc.sampling.parametrization": par}
+        pcfg = make_config("aliengo", mpc_type="sampling", **over)
+        pplan = sk.make_rs_plan(pcfg, N, dev)
+        prng = np.random.default_rng(1)
+        pinc = torch.as_tensor(prng.standard_normal(pplan.num_parameters).astype(np.float32),
+                               device=dev)
+        psigma = torch.as_tensor(prng.uniform(0.3, 4.0, pplan.num_parameters).astype(np.float32),
+                                 device=dev)
+        keep(f"K1a {par} philox", sk.sampling_rs(pplan, tick, pinc, 3, 1))
+        for method in ("random_sampling", "mppi", "cem_mppi"):
+            knobs = sm.make_knobs(pcfg, method)
+            keep(f"K1d {method} x 3 {par}",
+                 [x for r in sm.sampling_chain(pplan, knobs, tick, pinc, psigma, 3, 1, 3)
+                  for x in r])
+        pgcfg = make_config("aliengo", mpc_type="sampling",
+                            **{**over, "mpc.optimize_step_freq": True,
+                               "mpc.step_freq_available": (2.4, 1.3, 2.0)})
+        pgplan = sg.make_group_plan(pgcfg, N, dev)
+        pgroups = group_operators(pgcfg, np.array([0.3, 0.8, 0.8, 0.3], np.float32),
+                                  np.asarray(pgcfg.mpc.step_freq_available, np.float32))
+        keep(f"K1e random_sampling {par} philox",
+             sg.sampling_groups(pgplan, sm.make_knobs(pgcfg, "random_sampling"), tick, pgroups,
+                                pinc, psigma, 3, 1))
     torch.cuda.synchronize()
     np.savez(sys.argv[3], **res)
 

@@ -37,10 +37,11 @@ HEADER = os.path.join(PACKAGE, "ops", "csrc", "sampling_softmax.cuh")
 
 VARIANTS = {
     "as-is": [],
-    "regenerate": [("const float4 z = load_noise4(noise, N, i0 + nz_s[base + r], k);",
+    "regenerate": [("const float4 z = load_noise4<R>(noise, N, i0 + nz_s[base + r], k);",
                     "const float4 z = sm_noise4(a.seed, a.offset, i0 + nz_s[base + r], k, "
                     "make_float4(kn.sigma_mppi, kn.sigma_mppi, kn.sigma_mppi, kn.sigma_mppi));")],
-    "no-finish": [("  if (!last_s) return;\n", "  return;\n")],
+    "no-finish": [("  if (!last_ticket(ticket, gridDim.x)) return;\n",
+                   "  last_ticket(ticket, gridDim.x);\n  return;\n")],
     "batch-16": [("#define SM_BATCH 32 ", "#define SM_BATCH 16 ")],
     "batch-64": [("#define SM_BATCH 32 ", "#define SM_BATCH 64 ")],
     "tile-64": [("#define SM_TILE_ROWS 160 ", "#define SM_TILE_ROWS 64 ")],
