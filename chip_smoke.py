@@ -7,17 +7,19 @@ Builds the port's kernels from the sources in the checkout (one nvcc per source
 and (horizon, parameters per leg) pair, all started together), holds each against
 its plain torch version at the main path's shapes, drives the slices' paths (the
 sampling MPC walking the SRB harness, README quickstart) through the kernels, and
-times them; then the same for the linear-spline and zero-order parametrizations.
-It imports neither JAX nor the JAX package. It exits non-zero without a CUDA
-device or without the package beside it.
+times them; then the same for the linear-spline and zero-order parametrizations;
+then the TAMOLS foothold planner, card against CPU, and the default configuration
+walking over sensed terrain with it. It imports neither JAX nor the JAX package.
+It exits non-zero without a CUDA device or without the package beside it.
 
 Output: the card's name and power limit, one line per phase, for each row the
 rollout pass's device time and its kernel's registers, shared memory and spills
 (from the build's ``-Xptxas -v`` log), the same for the update pass of the MPPI
 and CEM rows (K1b, K1c, K1e-mppi, K1e-cem), the extraction kernel of the random
-sampling rows (K1a, K1e-rs) and the chain kernel of the K1d rows, a
-``{"kernels": ...}`` line (rows of the main path's cubic splines, then ``-lin`` and
-``-zo`` rows), and as the last line ``{"ok": true, "device": {...}}``.
+sampling rows (K1a, K1e-rs) and the chain kernel of the K1d rows, a "tamols:"
+line with phases 16-17's numbers as JSON, a ``{"kernels": ...}`` line (rows of
+the main path's cubic splines, then ``-lin`` and ``-zo`` rows), and as the last
+line ``{"ok": true, "device": {...}}``.
 
 Phases (each raises on failure; every path is driven with all launch counts set
 to 0 just before it and read just after):
@@ -81,6 +83,22 @@ to 0 just before it and read just after):
      summaries, CEM's sigma in range).
  15. Their times, as phases 4, 9 and 12, and the update pass's and the chain
      kernel's blocks an SM.
+ 16. The TAMOLS foothold scorer (torch ops, no kernel of its own), "tamols" and
+     "height", on the card against the same scorer on the CPU: the three terrains
+     of tests/test_tamols.py at the default 13 x 7 grid, each with its nominal
+     input and 16 seeded random seed/hip sets; the same feasibility and chosen cell
+     (another cell only where the CPU's two best costs tie within 1e-5, printed),
+     footholds within 1e-5 m, finite costs within a relative 1e-5. Then its host ms
+     per apex call with its one copy back, its launches and device time per call
+     (torch.profiler) and one device-to-host copy a call.
+ 17. The default configuration's path ("tamols", random sampling x 1, cubic
+     splines, N = 10 000, H = 12, on K1a): 3 s at 0.3 m/s on flat ground and onto a
+     5 cm step up at x > 0.6 m, and "height" on the step, sensing as the JAX
+     package's MuJoCo loop does and snapping touchdowns to the terrain. Each must
+     walk, trigger the adaptation at least 6 times and launch K1a once an MPC tick
+     (300); printed beside the JAX package's walk: the triggers, the scorer's ms
+     per apex call and launches per call, the median solve tick on apex ticks and
+     on the others, and the harness's rate.
 """
 from __future__ import annotations
 
@@ -345,7 +363,11 @@ def tick_call(mpc, tick):
 
 def solve_tick_ms(mpc, tick, n=200) -> float:
     """Median host milliseconds of one compute_control plus its summary read."""
-    call = tick_call(mpc, tick)
+    return median_host_ms(tick_call(mpc, tick), n)
+
+
+def median_host_ms(call, n) -> float:
+    """Median host milliseconds of ``call`` over n calls after 10 warm-up calls."""
     ms = []
     for i in range(n + 10):
         t0 = time.perf_counter()
@@ -718,6 +740,20 @@ def walk(cfg, label, want_counts):
     wall = time.perf_counter() - t0
     counts = read_counts()
     ticks = int(round(WALK_S / cfg.sim.dt)) // h._mpc_every
+    dist, min_z, tilt, _ = walk_band(label, cfg, hist)
+    check_counts(label, counts, want_counts, ticks)
+    log(f"{label}: ok; walked {dist:.4f} m in {WALK_S} s, min z {min_z:.4f}, "
+        f"max |roll|,|pitch| {tilt:.4f}; launches {counts} for "
+        f"{ticks} ticks; wall {wall:.3f} s ({wall / WALK_S:.3f} s per simulated s); host "
+        f"time by layer {({k: round(v, 4) for k, v in layer_s.items()})} s, rest "
+        f"{wall - sum(layer_s.values()):.4f} s (swing feet, loop)")
+    return counts, wall, (dist, min_z, tilt)
+
+
+def walk_band(label, cfg, hist) -> tuple:
+    """Raise unless the history stays in the band of
+    tests/test_closed_loop_walking.py:18-29; returns (distance, min z, max
+    |roll|,|pitch|, mean z of the second half - ref_z)."""
     z = hist[:, 2]
     dist = hist[-1, 0] - hist[0, 0]
     if not np.all(np.isfinite(hist)):
@@ -727,17 +763,16 @@ def walk(cfg, label, want_counts):
                              f"{np.abs(hist[:, 6:8]).max()})")
     if not dist > 0.5 * WALK_VEL[0] * WALK_S:
         raise AssertionError(f"{label}: walked {dist} m of {WALK_VEL[0] * WALK_S}")
-    if not abs(np.mean(z[len(z) // 2:]) - cfg.sim.ref_z) < 0.08:
+    dz = np.mean(z[len(z) // 2:]) - cfg.sim.ref_z
+    if not abs(dz) < 0.08:
         raise AssertionError(f"{label}: mean height off the reference")
+    return float(dist), float(z.min()), float(np.abs(hist[:, 6:8]).max()), float(dz)
+
+
+def check_counts(label, counts, want_counts, ticks):
     if counts != want_counts(ticks) or ticks == 0:
         raise AssertionError(f"{label}: launches {counts} for {ticks} MPC ticks, want "
                              f"{want_counts(ticks)}")
-    log(f"{label}: ok; walked {dist:.4f} m in {WALK_S} s, min z {z.min():.4f}, "
-        f"max |roll|,|pitch| {np.abs(hist[:, 6:8]).max():.4f}; launches {counts} for "
-        f"{ticks} ticks; wall {wall:.3f} s ({wall / WALK_S:.3f} s per simulated s); host "
-        f"time by layer {({k: round(v, 4) for k, v in layer_s.items()})} s, rest "
-        f"{wall - sum(layer_s.values()):.4f} s (swing feet, loop)")
-    return counts, wall, (dist, float(z.min()), float(np.abs(hist[:, 6:8]).max()))
 
 
 def counts_of(**nonzero):
@@ -1356,6 +1391,301 @@ def tick_loop(mpc, tick, label, want_counts, n=TICK_LOOP):
     return counts
 
 
+# -- phases 16-17: the TAMOLS foothold planner (no kernel of its own) -------------------
+# Terrains for torch tensors, and for the numpy floats of the harness's touchdowns:
+# the three of tests/test_tamols.py for the scorer, flat ground and a 5 cm step up
+# at x > 0.6 m for the walks.
+def flat(x, y):
+    return 0.0 * x
+
+
+def step_edge(x, y):
+    return (x > 0.3) * 0.10
+
+
+def stones(x, y):
+    import torch
+    cx, cy = torch.round(x / 0.4) * 0.4, torch.round(y / 0.4) * 0.4
+    return torch.where((x - cx) ** 2 + (y - cy) ** 2 <= 0.09**2, 0.0, -0.30)
+
+
+def step_up(x, y):
+    return (x > 0.6) * 0.05
+
+
+SCORER_TERRAINS = {"flat": flat, "step_edge": step_edge, "stones": stones}
+SCORER_RANDOM_SETS = 16
+# The scorer on the card against the CPU: footholds and boxes (m), best costs
+# relative with a floor for the roughness of an exactly flat patch (rounding noise
+# of the 9 x 9 projector product, ~1e-17).
+SCORER_POS_ATOL, SCORER_COST_RTOL, SCORER_COST_ATOL = 1e-5, 1e-5, 1e-9
+# (strategy, terrain) of the walks, and the JAX package's SRB harness walking each
+# on the CPU with the same sensing, 3 s at 0.3 m/s, N = 10 000: apex triggers,
+# distance (m), min z (m), max |roll|,|pitch| (rad), mean z of the second half -
+# ref_z (m); `python tests/test_torch_tamols.py`.
+TAMOLS_WALKS = {("tamols", "flat"): flat, ("tamols", "step"): step_up,
+                ("height", "step"): step_up}
+JAX_CPU_TAMOLS_WALKS = {("tamols", "flat"): (8, 0.8897, 0.3135, 0.1246, -0.0220),
+                        ("tamols", "step"): (8, 0.8610, 0.3123, 0.1192, -0.0150),
+                        ("height", "step"): (8, 0.8601, 0.3386, 0.0770, 0.0195)}
+MIN_TRIGGERS = 6
+NOMINAL_FEET = np.array([[0.25, 0.15, 0.0], [0.25, -0.15, 0.0], [-0.25, 0.15, 0.0],
+                         [-0.25, -0.15, 0.0]])
+
+
+def tamols_cfg(strategy):
+    """The default configuration (random sampling x 1, cubic splines, N = 10 000,
+    H = 12) with the given foothold strategy; "tamols" is the default."""
+    from quadruped_pympc_tamols_torch import make_config
+    return make_config("aliengo", mpc_type="sampling",
+                       **{"sim.visual_foothold_adaptation": strategy})
+
+
+def scorer_inputs(cfg, terrain, rng, k):
+    """Input set k of the scorer on a terrain, on the CPU: 0 the nominal stance of
+    tests/test_tamols.py, then seeded random seeds, hips, base state, contacts,
+    feet, anchors and swing times. Returns (heightmaps, args)."""
+    from quadruped_pympc_tamols_torch.planner import heightmap_from_fn
+    tp = cfg.tamols
+    seeds, t_remain = NOMINAL_FEET.copy(), np.full(4, 1e3)
+    hips, feet = seeds + np.array([0.0, 0.0, cfg.robot.hip_height]), seeds.copy()
+    base_pos, base_vel, contact = np.array([0.0, 0.0, 0.35]), np.array([0.2, 0.0, 0.0]), np.zeros(4)
+    if k > 0:
+        seeds = seeds + rng.normal(0.0, [0.06, 0.04, 0.01], (4, 3))
+        hips = seeds + np.array([0.0, 0.0, 0.35]) + rng.normal(0.0, 0.03, (4, 3))
+        feet = seeds - np.array([0.1, 0.0, 0.0]) + rng.normal(0.0, 0.04, (4, 3))
+        base_pos = base_pos + rng.normal(0.0, 0.03, 3)
+        base_vel = rng.normal([0.3, 0.0, 0.0], 0.2, 3)
+        contact = rng.integers(0, 2, 4).astype(np.float64)
+        t_remain = rng.uniform(0.02, 0.3, 4)
+    anchor = feet + rng.normal(0.0, 0.02, (4, 3))
+    hms = heightmap_from_fn(terrain, seeds[:, :2], np.zeros(4), tp.heightmap_resolution,
+                            tp.heightmap_rows, tp.heightmap_cols, device="cpu")
+    return hms, (seeds, hips, base_pos, base_vel, contact, feet, anchor, t_remain)
+
+
+def hms_to(hms, dev):
+    import dataclasses
+    return type(hms)(*(getattr(hms, f.name).to(dev) for f in dataclasses.fields(hms)))
+
+
+def phase_scorer(dev, rng) -> dict:
+    """Phase 16: the TAMOLS scorer ("tamols" and "height") on the card against the
+    same scorer on the CPU, on the terrains of tests/test_tamols.py at the default
+    13 x 7 grid, each with its nominal input and SCORER_RANDOM_SETS random ones:
+    the same feasibility, the same chosen cell (a different one only where the
+    CPU's two best costs lie within SCORER_COST_RTOL, printed), footholds and boxes
+    to SCORER_POS_ATOL, finite best costs to SCORER_COST_RTOL. Then per apex call on
+    the card: host ms of TamolsPlanner.compute_adaptation with its one copy back
+    (median of 100), the CPU's, the kernel launches and device time (torch.profiler)
+    and the copies."""
+    import torch
+    from quadruped_pympc_tamols_torch.planner import TamolsPlanner, make_tamols_scorer
+
+    out = {}
+    for strategy in ("tamols", "height"):
+        cfg = tamols_cfg(strategy)
+        on_cpu = make_tamols_scorer(cfg, strategy, "cpu")
+        on_card = make_tamols_scorer(cfg, strategy, dev)
+        pos_err = cost_err = cell_err = 0.0
+        allowed, legs, fallbacks = [], 0, 0
+        for name, terrain in SCORER_TERRAINS.items():
+            for k in range(1 + SCORER_RANDOM_SETS):
+                hms, args = scorer_inputs(cfg, terrain, rng, k)
+                want = on_cpu(hms, *args)
+                got = [x.cpu() for x in on_card(hms_to(hms, dev), *args)]
+                label = f"phase 16 {strategy} {name} set {k}"
+                if not torch.equal(got[4], want.feasible):
+                    raise AssertionError(f"{label}: feasible {got[4]} on the card, "
+                                         f"{want.feasible} on the CPU")
+                same = torch.ones(4, dtype=torch.bool)
+                if strategy == "tamols":
+                    cell_k, cell_c = got[5].argmin(1), want.cell_costs.argmin(1)
+                    same = cell_k == cell_c
+                    for leg in torch.nonzero(~same).flatten().tolist():
+                        two = torch.sort(want.cell_costs[leg]).values[:2]
+                        if not (two[1] - two[0]) <= SCORER_COST_RTOL * two[0].abs():
+                            raise AssertionError(f"{label} leg {leg}: cell {cell_k[leg]} on "
+                                                 f"the card, {cell_c[leg]} on the CPU")
+                        allowed.append((label, leg, two.tolist()))
+                        log(f"{label} leg {leg}: cell {int(cell_k[leg])} on the card, "
+                            f"{int(cell_c[leg])} on the CPU, whose two best costs "
+                            f"{two.tolist()} lie within {SCORER_COST_RTOL}")
+                    finite = (want.cell_costs < 1e10) & (got[5] < 1e10)
+                    if finite.any():
+                        cell_err = max(cell_err, float(((got[5] - want.cell_costs).abs()
+                                                        / want.cell_costs.abs().clamp(min=1e-30)
+                                                        )[finite].max()))
+                for i, field in ((0, "footholds"), (1, "constraints_lo"),
+                                 (2, "constraints_hi")):
+                    d = (got[i] - getattr(want, field)).abs()[same]
+                    err = float(d.max()) if d.numel() else 0.0
+                    if not err <= SCORER_POS_ATOL:
+                        raise AssertionError(f"{label}: {field} differ by {err} m")
+                    pos_err = max(pos_err, err)
+                fin = want.feasible & same
+                gap = (got[3] - want.best_cost).abs()[fin]
+                if not bool((gap <= SCORER_COST_ATOL + SCORER_COST_RTOL
+                             * want.best_cost.abs()[fin]).all()):
+                    raise AssertionError(f"{label}: best costs {got[3]} on the card, "
+                                         f"{want.best_cost} on the CPU")
+                if fin.any():
+                    cost_err = max(cost_err, float((gap / want.best_cost.abs()[fin]
+                                                    .clamp(min=1e-30)).max()))
+                if not bool(torch.isfinite(got[0]).all()):
+                    raise AssertionError(f"{label}: non-finite footholds")
+                legs += 4
+                fallbacks += int((~want.feasible).sum())
+        # Per apex call: the planner on the nominal step-edge input, as the walks call it.
+        hms, args = scorer_inputs(cfg, step_edge, rng, 0)
+        hms_card = hms_to(hms, dev)
+        timing = {}
+        for where, planner, h in (("card", TamolsPlanner(cfg, device=dev), hms_card),
+                                  ("cpu", TamolsPlanner(cfg, device="cpu"), hms)):
+            def call(planner=planner, h=h):
+                planner.compute_adaptation(h, *args[:6], own_anchor=args[6], t_remain=args[7])
+            timing[where] = (median_host_ms(call, 100), call)
+        card_call = timing["card"][1]
+        copies = host_d2h_copies(card_call, 20)
+        if copies != 20:
+            raise AssertionError(f"phase 16 {strategy}: 20 apex calls issued {copies} "
+                                 "device-to-host copies, want one a call")
+        prof = scorer_profile(card_call)
+        out[strategy] = {"ms": timing["card"][0], "cpu_ms": timing["cpu"][0], **prof,
+                         "pos_max_abs_err": pos_err, "best_cost_max_rel_err": cost_err,
+                         "cell_cost_max_rel_err": cell_err, "allowed_cells": len(allowed)}
+        log(f"phase 16 {strategy}: ok; {legs} legs ({fallbacks} fall back) on "
+            f"{len(SCORER_TERRAINS)} terrains x {1 + SCORER_RANDOM_SETS} inputs agree with "
+            f"the CPU: footholds and boxes to {pos_err:.3g} m, best costs to {cost_err:.3g} "
+            f"relative, every finite cell cost to {cell_err:.3g}; {len(allowed)} legs took "
+            f"another of two cells tied within {SCORER_COST_RTOL}")
+        log(f"phase 16 {strategy}: per apex call on the card {timing['card'][0]:.4f} ms host "
+            f"clock with its one copy back (median of 100; CPU {timing['cpu'][0]:.4f} ms); "
+            f"profile {prof}")
+    return out
+
+
+def scorer_profile(call, n=20) -> dict:
+    """Kernel launches, copies and device time per call of ``call`` (n calls a
+    window) from torch.profiler. A window is complete where its device kernel
+    records equal its host records of launch calls (cudaLaunchKernel,
+    cuLaunchKernel and their variants) and divide by n; a lost record breaks
+    either, so an incomplete window is profiled again (PROFILE_WINDOWS), and if
+    none is complete the fullest is reported with ``complete`` false."""
+    import torch
+
+    def calls():
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+
+    best = None
+    for window in range(PROFILE_WINDOWS):
+        prof, wall_s = profile_window(calls)
+        api = kernels = copies = 0
+        busy_us = 0.0
+        for e in prof.key_averages():
+            dev_us = getattr(e, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "cuda_time_total", 0.0)
+            if "LaunchKernel" in e.key:
+                api += e.count
+            elif dev_us > 0 and not e.key.startswith(("aten::", "cuda", "ProfilerStep")):
+                busy_us += dev_us
+                if "Memcpy" in e.key:
+                    copies += e.count
+                elif "Memset" not in e.key:
+                    kernels += e.count
+        complete = api == kernels and kernels > 0 and kernels % n == 0
+        r = {"launches_per_call": kernels / n, "launch_api_calls_per_call": api / n,
+             "copies_per_call": copies / n, "device_us_per_call": busy_us / n,
+             "window_ms_per_call": wall_s * 1e3 / n, "complete": complete}
+        if best is None or kernels > best["launches_per_call"] * n:
+            best = r
+        if complete:
+            return r
+        log(f"  profiler window {window + 1}: {kernels} kernel records, {api} launches in "
+            f"{n} calls; profiling again")
+    return best
+
+
+def tamols_walk(strategy, terrain, fn, launches_per_call) -> dict:
+    """Phase 17: the default configuration walking the SRB harness on the card for
+    WALK_S at WALK_VEL over ``fn``, sensing as the JAX package's MuJoCo loop does
+    (while the planner waits for its apex, one grid per leg around the last
+    reference footholds at the base yaw, from tamols.heightmap_*), touchdowns
+    snapped to the terrain; the launch counts zeroed just before and read just
+    after. Raises unless it walks the band with K1a once an MPC tick and at least
+    MIN_TRIGGERS apex calls."""
+    import torch
+    from quadruped_pympc_tamols_torch.planner import heightmap_from_fn
+    from quadruped_pympc_tamols_torch.sim import SRBClosedLoopHarness
+
+    label = f"phase 17 {strategy} {terrain}"
+    cfg = tamols_cfg(strategy)
+    tp = cfg.tamols
+    h = SRBClosedLoopHarness(cfg, seed=0, terrain_fn=fn, device="cuda")
+    # Host seconds of each layer in the current step (0: not called in it).
+    rec = {"plan": 0.0, "solve": 0.0, "apex": 0.0}
+    time_layer(h.wb, "update_state_and_reference", rec, "plan")
+    time_layer(h.ctrl, "compute_control", rec, "solve")
+    time_layer(h.wb.vfa, "compute_adaptation", rec, "apex")
+    n = int(round(WALK_S / cfg.sim.dt))
+    hist, steps, sense_s = np.zeros((n, 12)), [], 0.0
+    reset_counts()
+    t_start = time.perf_counter()
+    for i in range(n):
+        rec.update(plan=0.0, solve=0.0, apex=0.0)
+        hms = None
+        if not h.wb.vfa.initialized:
+            t0 = time.perf_counter()
+            ref = np.asarray(h.wb.frg.last_reference_footholds.data)
+            hms = heightmap_from_fn(fn, ref[:, :2], np.full(4, h.x[8]), tp.heightmap_resolution,
+                                    tp.heightmap_rows, tp.heightmap_cols, device="cuda")
+            sense_s += time.perf_counter() - t0
+        hist[i] = h.step(WALK_VEL, heightmaps=hms)
+        steps.append({k: v * 1e3 for k, v in rec.items()})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    counts = read_counts()
+    ticks = n // h._mpc_every
+    dist, min_z, tilt, dz = walk_band(label, cfg, hist)
+    check_counts(label, counts, counts_of(K1a=1), ticks)
+    apex = [s["apex"] for s in steps if s["apex"] > 0.0]
+    if len(apex) < MIN_TRIGGERS:
+        raise AssertionError(f"{label}: the adaptation triggered {len(apex)} times, want at "
+                             f"least {MIN_TRIGGERS}")
+    # Control periods of one MPC tick (mpc_every steps, the first solving): the
+    # planners' and the solve's host ms, on periods with an apex call and without.
+    periods = [steps[p:p + h._mpc_every] for p in range(0, n, h._mpc_every)]
+    per = {True: ([], []), False: ([], [])}
+    for period in periods:
+        is_apex = any(s["apex"] > 0.0 for s in period)
+        per[is_apex][0].append(period[0]["solve"])
+        per[is_apex][1].append(sum(s["plan"] for s in period) + period[0]["solve"])
+    med = statistics.median
+    r = {"walked_m": dist, "min_z_m": min_z, "max_tilt_rad": tilt, "mean_z_minus_ref_m": dz,
+         "triggers": len(apex), "scorer_ms_per_apex_call": statistics.median(apex),
+         "scorer_ms_per_apex_call_max": max(apex), "scorer_launches_per_call": launches_per_call,
+         "solve_tick_ms_apex": med(per[True][0]), "solve_tick_ms_other": med(per[False][0]),
+         "control_period_ms_apex": med(per[True][1]),
+         "control_period_ms_other": med(per[False][1]), "apex_periods": len(per[True][0]),
+         "harness_s_per_sim_s": wall / WALK_S, "sensing_s": sense_s, "launches": counts}
+    log(f"{label}: ok; walked {dist:.4f} m, min z {min_z:.4f} m, max |roll|,|pitch| "
+        f"{tilt:.4f} rad, mean z of the second half - ref_z {dz:+.4f} m; JAX package on the "
+        f"CPU (triggers, walked, min z, max tilt, mean z - ref_z): "
+        f"{JAX_CPU_TAMOLS_WALKS.get((strategy, terrain), 'not measured')}")
+    log(f"{label}: {len(apex)} apex calls, the scorer {r['scorer_ms_per_apex_call']:.4f} ms "
+        f"host clock a call with its one copy (median; max {max(apex):.4f}), "
+        f"{launches_per_call} launches a call (phase 16); solve tick (median) "
+        f"{r['solve_tick_ms_apex']:.4f} ms on the {len(per[True][0])} apex ticks, "
+        f"{r['solve_tick_ms_other']:.4f} ms on the others; planners + solve a 10 ms tick "
+        f"{r['control_period_ms_apex']:.4f} / {r['control_period_ms_other']:.4f} ms; "
+        f"sensing {sense_s:.3f} s; launches {counts} for {ticks} ticks; harness "
+        f"{wall / WALK_S:.3f} s wall per simulated s")
+    return r
+
+
 def main() -> int:
     try:
         import torch
@@ -1516,6 +1846,13 @@ def main() -> int:
         t9[par] = phase_softmax_times(dev, rng, par, "phase 15")
         t12[par] = phase_group_times(dev, rng, par, "phase 15")
 
+    # -- phase 16: the TAMOLS scorer on the card against the CPU; its cost a call ------
+    scorer = phase_scorer(dev, rng)
+
+    # -- phase 17: the default configuration's walks with TAMOLS / "height" ------------
+    tamols_walks = {f"{st} {ter}": tamols_walk(st, ter, fn, scorer[st]["launches_per_call"])
+                    for (st, ter), fn in TAMOLS_WALKS.items()}
+
     def row(name, source, short, par, err, ms, plain, bound, passes, **extra):
         return {"name": f"{name} ({short}{PAR_SUFFIX[par]})", "route": "cuda",
                 "source": f"quadruped_pympc_tamols_torch/ops/csrc/{source}.cu",
@@ -1531,7 +1868,9 @@ def main() -> int:
         kernels.append(row("sampling_rs", "sampling_rs", "K1a", par, e["cost"], r["ms"],
                            r["plain_ms"], r["bound"], r["passes"], grf_max_abs_err=e["grf"],
                            state_max_abs_err=e["state"],
-                           **({"solve_tick_ms": tick_med, "harness_s_per_sim_s": wall / WALK_S}
+                           **({"solve_tick_ms": tick_med, "harness_s_per_sim_s": wall / WALK_S,
+                               "launches_tamols_walks": {k: w["launches"]["K1a"]
+                                                         for k, w in tamols_walks.items()}}
                               if is_main else {})))
         for method, short in (("mppi", "K1b"), ("cem_mppi", "K1c")):
             e, r = errs_sm[par][method], t9[par][method]
@@ -1591,6 +1930,7 @@ def main() -> int:
                 f"mean of 50 calls); ptxas: {ptx}")
         if not r["launches"] > 0:
             raise AssertionError(f"{r['name']}: no launch on its path")
+    log(f"tamols: {json.dumps({'scorer': scorer, 'walks': tamols_walks})}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

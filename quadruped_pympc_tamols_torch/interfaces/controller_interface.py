@@ -5,7 +5,9 @@ Counterpart of ``quadruped_pympc_tamols_tpu/interfaces/controller_interface.py``
 from the config, reads its one host summary per tick, masks the returned GRFs by
 the current contact (:225-230) and undoes the float32 recentering. The sampling family is ported,
 with the gait-adaptive sampler (``mpc.optimize_step_freq``); the gradient family
-raises NotImplementedError until its slice.
+raises NotImplementedError until its slice. The sampling family tracks the
+reference footholds and ignores the TAMOLS boxes (``ref_foot_constraints``), as
+the JAX interface does.
 """
 from __future__ import annotations
 

@@ -8,6 +8,8 @@ package, a saved run) is a configuration and the sampling controller's state.
   validated ``Config``.
 * ``sampling_state_from_numpy`` wraps an incumbent and a CEM sigma as the port's
   ``SamplingState`` on a device.
+* ``heightmaps_from_numpy`` takes the leaves of a heightmap (a JAX
+  ``GridHeightMap``'s, as numpy) and returns the port's ``GridHeightMap``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from .config import (Config, CostWeights, GaitParams, GaitType, GradientParams, MPCParams,
                      RobotParams, SamplingParams, SimParams, TamolsParams, validate_config)
 from .controllers.sampling.sampling_mpc import SamplingState
+from .planner.heightmap import GridHeightMap
 from .utils.device import resolve_device
 
 
@@ -72,3 +75,15 @@ def sampling_state_from_numpy(best_parameters, sigma, seed: int, offset: int = 0
 
     return SamplingState(best_parameters=t(best_parameters), seed=int(seed),
                          offset=int(offset), sigma=t(sigma))
+
+
+def heightmaps_from_numpy(center, yaw, resolution, heights, device="cuda") -> GridHeightMap:
+    """A GridHeightMap on ``device`` from its leaves: center (..., 2), yaw (...,),
+    resolution and heights (..., R, C), all as float32."""
+    dev = resolve_device(device)
+
+    def t(x):
+        return torch.from_numpy(np.array(x, np.float32)).to(dev)
+
+    return GridHeightMap(center=t(center), yaw=t(yaw), resolution=t(resolution),
+                         heights=t(heights))

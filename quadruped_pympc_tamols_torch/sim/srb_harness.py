@@ -8,8 +8,10 @@ runs through the real planner and controller stack (``WBInterface`` gait,
 foothold and terrain pipeline + ``SRBDControllerInterface``), so a test can
 assert that the robot walks.
 
-Only the MPC solve runs on ``device``; the per-tick planner, swing and plant
-layers stay on the host.
+The MPC solve and the TAMOLS foothold planner ("height" / "tamols", once per
+swing apex) run on ``device``; the per-tick planner, swing and plant layers stay
+on the host. Like the JAX harness it senses nothing itself: a caller hands
+``step`` the heightmaps, and ``terrain_fn`` snaps touchdowns to the terrain.
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ class SRBClosedLoopHarness:
         self.x = np.zeros(12)
         self.x[2] = cfg.sim.ref_z
         self.feet = self.default_feet.copy()
-        self.wb = WBInterface(cfg, Legs(self.feet.copy()))
+        self.wb = WBInterface(cfg, Legs(self.feet.copy()), device=self.device)
         self.ctrl = SRBDControllerInterface(cfg, seed=seed, device=self.device)
         self.grfs = Legs.zeros((3,))
         self.footholds = Legs(self.feet.copy())
