@@ -9,7 +9,8 @@ its plain torch version at the main path's shapes, drives the slices' paths (the
 sampling MPC walking the SRB harness, README quickstart) through the kernels, and
 times them; then the same for the linear-spline and zero-order parametrizations;
 then the TAMOLS foothold planner, card against CPU, and the default configuration
-walking over sensed terrain with it. It imports neither JAX nor the JAX package.
+walking over sensed terrain with it; then the torque path and the wrapper on a
+recorded MuJoCo loop. It imports neither JAX nor the JAX package.
 It exits non-zero without a CUDA device or without the package beside it.
 
 Output: the card's name and power limit, one line per phase, for each row the
@@ -17,7 +18,8 @@ rollout pass's device time and its kernel's registers, shared memory and spills
 (from the build's ``-Xptxas -v`` log), the same for the update pass of the MPPI
 and CEM rows (K1b, K1c, K1e-mppi, K1e-cem), the extraction kernel of the random
 sampling rows (K1a, K1e-rs) and the chain kernel of the K1d rows, a "tamols:"
-line with phases 16-17's numbers as JSON, a ``{"kernels": ...}`` line (rows of
+line with phases 16-17's numbers as JSON, a "torque:" line with phase 18's, a
+``{"kernels": ...}`` line (rows of
 the main path's cubic splines, then ``-lin`` and ``-zo`` rows), and as the last
 line ``{"ok": true, "device": {...}}``.
 
@@ -99,6 +101,20 @@ to 0 just before it and read just after):
      (300); printed beside the JAX package's walk: the triggers, the scorer's ms
      per apex call and launches per call, the median solve tick on apex ticks and
      on the others, and the harness's rate.
+ 18. The torque path and the facade (``QuadrupedPyMPCWrapper``), host numpy around
+     the card's solve, on the JAX package's recorded MuJoCo loop
+     (tests/fixtures/torch_mujoco_trace.npz: 1 s of the README's full-physics
+     example, "height", N = 10 000; MuJoCo itself is not on the card's machine):
+     (a) WBInterface with its planner on the card, fed the recorded GRFs and
+     footholds, gives the JAX package's tau, des_q and des_qd to 1e-6 on all 500
+     steps; (b) the recorded observations through
+     QuadrupedPyMPCWrapper(..., device="cuda").compute_actions with the card's own
+     solve: finite torques, stance tau = -J^T f minus the passive forces to 1e-9,
+     swing-leg GRFs exactly zero on MPC ticks, the inertia callable never
+     evaluated, K1a launched once an MPC tick (100), one device-to-host copy a
+     tick that solves (one more on a tick with an apex call) and no operation
+     on the card on any other tick; then the host clock of compute_actions
+     (median, p99) on MPC ticks and on the others, and its split by layer.
 """
 from __future__ import annotations
 
@@ -1685,6 +1701,166 @@ def tamols_walk(strategy, terrain, fn, launches_per_call) -> dict:
         f"{wall / WALK_S:.3f} s wall per simulated s")
     return r
 
+# -- phase 18: the torque path and the wrapper on a recorded MuJoCo loop ----------------
+TRACE_ATOL = 1e-6  # tau (N m), des_q (rad), des_qd (rad/s) against the JAX package
+STANCE_ATOL = 1e-9  # stance tau against -J^T f - qfrc_passive, both float64 on the host
+TIMED_REPLAYS = 3  # timed passes over the trace (the first warms the planner up)
+
+
+def phase_torque_trace() -> dict:
+    """Phase 18 (a): WBInterface (planner on the card) on the recorded loop with
+    the recorded GRFs and footholds; the largest error of each output."""
+    from quadruped_pympc_tamols_torch.interfaces import WBInterface
+    from quadruped_pympc_tamols_torch.interop import config_from_dict
+    from quadruped_pympc_tamols_torch.sim.trace import ControlTrace
+    from quadruped_pympc_tamols_torch.utils.legs import Legs
+
+    trace = ControlTrace()
+    a = trace.arrays
+    wb = WBInterface(config_from_dict(trace.config), Legs(a["feet_pos"][0].copy()),
+                     device="cuda")
+    worst = {"tau": 0.0, "des_q": 0.0, "des_qd": 0.0}
+    for i in range(trace.steps):
+        wb.update_state_and_reference(**trace.update_args(i, device="cuda"))
+        out = wb.compute_stance_and_swing_torque(**trace.torque_args(i))
+        for name, x in zip(worst, out):
+            worst[name] = max(worst[name], float(np.abs(x.data - a[name][i]).max()))
+    if not max(worst.values()) <= TRACE_ATOL:
+        raise AssertionError(f"phase 18 (a): torque path off the JAX package: {worst}")
+    log(f"phase 18 (a): ok; {trace.steps} recorded steps through WBInterface (planner on "
+        f"the card), largest error against the JAX package {worst}")
+    return worst
+
+
+def card_ops_counter():
+    """A TorchDispatchMode counting, per step, the ops that read or write a CUDA
+    tensor and the device-to-host copies among them (as host_d2h_copies)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Count(TorchDispatchMode):
+        ops = copies = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+            outs = tree_leaves(out)
+            if any(t.is_cuda for t in ins) or any(
+                    isinstance(t, torch.Tensor) and t.is_cuda for t in outs):
+                Count.ops += 1
+            if any(t.is_cuda for t in ins) and any(
+                    isinstance(t, (bool, int, float)) or isinstance(t, torch.Tensor)
+                    and t.device.type == "cpu" for t in outs):
+                Count.copies += 1
+            return out
+
+    return Count
+
+
+def _never():
+    raise AssertionError("the sampling path evaluated the inertia callable")
+
+
+def wrapper_replay(trace, counted: bool) -> dict:
+    """Phase 18 (b): one pass of the recorded observations through
+    QuadrupedPyMPCWrapper(..., device="cuda").compute_actions, the launch counts
+    zeroed just before and read just after. ``counted``: check every step (see
+    phase 18) under card_ops_counter; otherwise time each call and each layer."""
+    import torch
+    from quadruped_pympc_tamols_torch.interfaces import QuadrupedPyMPCWrapper
+    from quadruped_pympc_tamols_torch.interop import config_from_dict
+    from quadruped_pympc_tamols_torch.utils.legs import Legs
+
+    cfg = config_from_dict(trace.config)
+    w = QuadrupedPyMPCWrapper(cfg, Legs(trace.arrays["feet_pos"][0].copy()), seed=0,
+                              device="cuda")
+    wb = w.wb_interface
+    layer = {"planners": 0.0, "apex": 0.0, "solve": 0.0, "torque path": 0.0}
+    time_layer(wb, "update_state_and_reference", layer, "planners")
+    time_layer(wb.vfa, "compute_adaptation", layer, "apex")
+    time_layer(w.srbd_controller_interface, "compute_control", layer, "solve")
+    time_layer(wb, "compute_stance_and_swing_torque", layer, "torque path")
+    inputs = [trace.inputs(i) for i in range(trace.steps)]  # heightmaps on the host
+    Count = card_ops_counter()
+    mpc_ms, other_ms, per_layer = [], [], {k: [] for k in layer}
+    apex_steps = copies = 0
+    reset_counts()
+    for i, kw in enumerate(inputs):
+        layer.update({k: 0.0 for k in layer})
+        Count.ops = Count.copies = 0
+        t0 = time.perf_counter()
+        if counted:
+            with Count():
+                tau = w.compute_actions(**kw, inertia=_never)
+        else:
+            tau = w.compute_actions(**kw, inertia=_never)
+        ms = (time.perf_counter() - t0) * 1e3
+        mpc = i % w._mpc_every == 0
+        apex = layer["apex"] > 0.0
+        apex_steps += apex
+        (mpc_ms if mpc else other_ms).append(ms)
+        for k, v in layer.items():
+            per_layer[k].append(v * 1e3)
+        if not counted:
+            continue
+        tau = np.asarray(tau.data)
+        label = f"phase 18 (b) step {i}"
+        if not np.all(np.isfinite(tau)):
+            raise AssertionError(f"{label}: torques not finite")
+        stance = wb.current_contact == 1
+        f = np.asarray(w.nmpc_GRFs.data)
+        want = -np.einsum("lji,lj->li", kw["feet_jac"].data, f) - kw["legs_qfrc_passive"].data
+        if not np.all(np.abs(tau[stance] - want[stance]) <= STANCE_ATOL):
+            raise AssertionError(f"{label}: stance torque is not -J^T f - qfrc_passive")
+        if mpc and np.any(f[~stance] != 0.0):
+            raise AssertionError(f"{label}: swing-leg GRFs {f[~stance]}")
+        if Count.copies != int(mpc) + int(apex):
+            raise AssertionError(f"{label}: {Count.copies} device-to-host copies, want "
+                                 f"{int(mpc) + int(apex)} (MPC tick {mpc}, apex call {apex})")
+        if not (mpc or apex) and Count.ops:
+            raise AssertionError(f"{label}: {Count.ops} operations on the card between solves")
+        copies += Count.copies
+    torch.cuda.synchronize()
+    counts = read_counts()
+    ticks = trace.steps // w._mpc_every
+    check_counts("phase 18 (b)", counts, counts_of(K1a=1), ticks)
+    med = statistics.median
+
+    def p99(xs):
+        return float(np.percentile(xs, 99))
+
+    return {"launches": counts, "mpc_ticks": ticks, "apex_steps": apex_steps,
+            "d2h_copies": copies, "compute_actions_ms_mpc_median": med(mpc_ms),
+            "compute_actions_ms_mpc_p99": p99(mpc_ms),
+            "compute_actions_ms_other_median": med(other_ms),
+            "compute_actions_ms_other_p99": p99(other_ms),
+            "layer_ms_median": {k: med(v) for k, v in per_layer.items()},
+            "layer_ms_mean": {k: float(np.mean(v)) for k, v in per_layer.items()}}
+
+
+def phase_wrapper(trace_worst) -> dict:
+    """Phase 18 (b): the counted replay, then TIMED_REPLAYS timed ones (the last
+    is reported)."""
+    from quadruped_pympc_tamols_torch.sim.trace import ControlTrace
+
+    trace = ControlTrace()
+    r = wrapper_replay(trace, counted=True)
+    log(f"phase 18 (b): ok; {trace.steps} recorded steps through QuadrupedPyMPCWrapper on "
+        f"the card: launches {r['launches']} for {r['mpc_ticks']} MPC ticks, "
+        f"{r['d2h_copies']} device-to-host copies ({r['apex_steps']} apex calls), none and "
+        f"no operation on the card on the other ticks; stance tau = -J^T f - qfrc_passive "
+        f"to {STANCE_ATOL}, swing GRFs zero, inertia never evaluated")
+    for _ in range(TIMED_REPLAYS):
+        timed = wrapper_replay(trace, counted=False)
+    log(f"phase 18 (b): compute_actions host clock (pass {TIMED_REPLAYS} of "
+        f"{TIMED_REPLAYS}): MPC ticks median {timed['compute_actions_ms_mpc_median']:.4f} ms, "
+        f"p99 {timed['compute_actions_ms_mpc_p99']:.4f} ms; other ticks median "
+        f"{timed['compute_actions_ms_other_median']:.4f} ms, p99 "
+        f"{timed['compute_actions_ms_other_p99']:.4f} ms; per step by layer (mean ms) "
+        f"{({k: round(v, 4) for k, v in timed['layer_ms_mean'].items()})}")
+    return {"trace_max_abs_err": trace_worst, "counted": r, "timed": timed}
+
 
 def main() -> int:
     try:
@@ -1853,6 +2029,9 @@ def main() -> int:
     tamols_walks = {f"{st} {ter}": tamols_walk(st, ter, fn, scorer[st]["launches_per_call"])
                     for (st, ter), fn in TAMOLS_WALKS.items()}
 
+    # -- phase 18: the torque path and the wrapper on the recorded MuJoCo loop --------
+    torque = phase_wrapper(phase_torque_trace())
+
     def row(name, source, short, par, err, ms, plain, bound, passes, **extra):
         return {"name": f"{name} ({short}{PAR_SUFFIX[par]})", "route": "cuda",
                 "source": f"quadruped_pympc_tamols_torch/ops/csrc/{source}.cu",
@@ -1870,7 +2049,8 @@ def main() -> int:
                            state_max_abs_err=e["state"],
                            **({"solve_tick_ms": tick_med, "harness_s_per_sim_s": wall / WALK_S,
                                "launches_tamols_walks": {k: w["launches"]["K1a"]
-                                                         for k, w in tamols_walks.items()}}
+                                                         for k, w in tamols_walks.items()},
+                               "launches_wrapper_replay": torque["counted"]["launches"]["K1a"]}
                               if is_main else {})))
         for method, short in (("mppi", "K1b"), ("cem_mppi", "K1c")):
             e, r = errs_sm[par][method], t9[par][method]
@@ -1931,6 +2111,7 @@ def main() -> int:
         if not r["launches"] > 0:
             raise AssertionError(f"{r['name']}: no launch on its path")
     log(f"tamols: {json.dumps({'scorer': scorer, 'walks': tamols_walks})}")
+    log(f"torque: {json.dumps(torque)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,13 @@
 """PyTorch/CUDA port of the quadruped MPC framework.
 
-A second package beside ``quadruped_pympc_tamols_tpu`` (the JAX reference). This
-slice runs the main path: the sampling MPC (random sampling over thousands of
-single-rigid-body rollouts, solved on an NVIDIA Hopper card by the hand-written
-kernel in ``ops/csrc/sampling_rs.cu``), the whole-body planners around it, and
-the SRB closed-loop harness. Entry points take ``device=`` and default to
-``"cuda"``; ``device="cpu"`` runs the plain torch versions.
+A second package beside ``quadruped_pympc_tamols_tpu`` (the JAX reference). It
+runs the sampling MPC (thousands of single-rigid-body rollouts solved on an
+NVIDIA Hopper card by the hand-written kernels in ``ops/csrc/``), the
+whole-body planners and torque path around it behind
+``interfaces.QuadrupedPyMPCWrapper``, the SRB closed-loop harness and the MuJoCo
+simulation (``sim.run_simulation``, MuJoCo imported lazily). Entry points take
+``device=`` and default to ``"cuda"``; ``device="cpu"`` runs the plain torch
+versions.
 """
 from .config import (
     GAITS,

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils.float32 import F32, fmaf, powf
+
 # Binomial coefficients of the degree-6 Bernstein basis.
 _C6 = np.array([1.0, 6.0, 15.0, 20.0, 15.0, 6.0, 1.0], dtype=np.float32)
 
@@ -100,6 +102,78 @@ def explicit_swing_refs(swing_time, swing_period, step_height, lift_off, touch_d
             np.where(f, au, ad) / (half * half)[..., None])
 
 
+def _powi(x, n):
+    """x ** n for a float32 scalar and integer exponents (7,), as XLA's code
+    evaluates a constant power: 1, x, x * x, else libm's powf."""
+    n = np.asarray(n, F32)
+    return np.where(n == 0, F32(1.0), np.where(n == 1, x, np.where(n == 2, x * x, powf(x, n))))
+
+
+def bezier_swing_refs_f32(swing_time, swing_period, step_height, lift_off, touch_down,
+                          liftoff_boost=0.0, v0=None):
+    """One leg's degree-6 Bezier (pos, vel, acc), each (3,) float32, with the bits
+    of the JAX package's jitted float32 ``bezier_swing_refs`` on the CPU, which
+    its per-leg path (the non-analytic IK) evaluates: the same curve as
+    ``bezier_swing_refs`` in XLA's order, with its powers (``_powi``), its contracted
+    multiply-adds, its folded constants (1/6, 1/3, 1/20 and 6/20 as products) and
+    each basis sum as a chain of fused multiply-adds. ``v0`` starts the curve at
+    that velocity (mask 1)."""
+    f = F32
+    t, per, sh, boost = f(swing_time), f(swing_period), f(step_height), f(liftoff_boost)
+    lo, td = np.asarray(lift_off, f).reshape(3), np.asarray(touch_down, f).reshape(3)
+    k = np.arange(7, dtype=f)
+    s = np.clip(t / per, f(0.0), f(1.0))
+    u = f(1.0) - s
+    si, ti = _powi(s, k), _powi(u, 6 - k)
+    si_m1 = np.where(k > 0, _powi(s, np.maximum(k - 1, 0)), f(0.0))
+    ti_m1 = np.where(k < 6, _powi(u, np.maximum(5 - k, 0)), f(0.0))
+    si_m2 = np.where(k > 1, _powi(s, np.maximum(k - 2, 0)), f(0.0))
+    ti_m2 = np.where(k < 5, _powi(u, np.maximum(4 - k, 0)), f(0.0))
+    b = (si * _C6) * ti
+    db = fmaf(k * si_m1, ti, -(((6 - k) * si) * ti_m1)) * _C6
+    d2b = fmaf(((6 - k) * (5 - k)) * si, ti_m2,
+               fmaf((k * (k - 1)) * si_m2, ti, -(((2 * k * (6 - k)) * si_m1) * ti_m1))) * _C6
+    e = ((boost * sh) * f(3.0)) * np.array([0.0, 0.0, 1.0], f)
+    if v0 is not None:  # mask 1: e = 1 * v0 T + 0 * e
+        e = fmaf(f(1.0), np.asarray(v0, f).reshape(3) * per, f(0.0) * e)
+    z_mid = max(lo[2], td[2]) + sh
+    p3_z = fmaf(fmaf(-td[2], f(22.0), fmaf(z_mid, f(64.0), -(lo[2] * f(22.0)))), f(0.05),
+                -(e[2] * f(0.3)))
+    p3 = np.array([(lo[0] + td[0]) * f(0.5), (lo[1] + td[1]) * f(0.5), p3_z], f)
+    cp = np.stack([lo, fmaf(e, f(1.0 / 6.0), lo), fmaf(f(1.0 / 3.0), e, lo), p3, td, td, td])
+
+    def basis_sum(w):
+        acc = np.zeros(3, f)
+        for i in range(7):
+            acc = fmaf(w[i], cp[i], acc)
+        return acc
+
+    return basis_sum(b), basis_sum(db) / per, basis_sum(d2b) / (per * per)
+
+
+def explicit_swing_refs_f32(swing_time, swing_period, step_height, lift_off, touch_down):
+    """One leg's two chained cubic Beziers, each (3,) float32, with the bits of the
+    JAX package's jitted float32 ``explicit_swing_refs`` on the CPU."""
+    f = F32
+    t, per, sh = f(swing_time), f(swing_period), f(step_height)
+    lo, td = np.asarray(lift_off, f).reshape(3), np.asarray(touch_down, f).reshape(3)
+    half = per * f(0.5)
+    apex = np.array([(lo[0] + td[0]) * f(0.5), (lo[1] + td[1]) * f(0.5),
+                     max(lo[2], td[2]) + sh], f)
+    tc = np.clip(t, f(0.0), per)
+    first = tc < half
+    t1 = np.clip(tc / half, f(0.0), f(1.0))
+    t2 = np.clip((tc - half) / half, f(0.0), f(1.0))
+
+    def cubic(a, b, tt):
+        d = b - a
+        return (fmaf(d, (tt * tt) * (f(3.0) - f(2.0) * tt), a),
+                d * ((f(6.0) * tt) * (f(1.0) - tt)), d * fmaf(f(-12.0), tt, f(6.0)))
+
+    p, v, a = cubic(lo, apex, t1) if first else cubic(apex, td, t2)
+    return p, v / half, a / (half * half)
+
+
 def swing_refs_np(generator, swing_time, swing_period, step_height, lift_off, touch_down,
                   liftoff_boost: float = 0.0, v0=None, v0_mask=None):
     """All-leg swing references for the whole-body layer: args (4,) / (4, 3),
@@ -169,9 +243,10 @@ class SwingTrajectoryController:
 
     def compute_trajectory_references(self, swing_time, lift_off, touch_down, hitmoment=-1.0,
                                       hitpoint=None, hit_step_height=None, hit_velocity=None):
-        """One leg's desired (pos, vel, acc). With an early-stance hitpoint the curve
-        restarts from it with a raised apex and the remaining time (reference
-        scipy_swing_trajectory_generator.py:25-47)."""
+        """One leg's desired (pos, vel, acc), float32 as in the JAX package (its
+        jitted float32 curves, ``bezier_swing_refs_f32``). With an early-stance
+        hitpoint the curve restarts from it with a raised apex and the remaining
+        time (reference scipy_swing_trajectory_generator.py:25-47)."""
         lift_off = np.asarray(lift_off, np.float64).reshape(3)
         touch_down = np.asarray(touch_down, np.float64).reshape(3)
         step_height, period, t, v0 = self.step_height, self.swing_period, swing_time, None
@@ -183,9 +258,9 @@ class SwingTrajectoryController:
             t = swing_time - hitmoment
             v0 = hit_velocity
         if self.generator == "explicit":
-            return explicit_swing_refs(t, period, step_height, lift_off, touch_down)
-        return bezier_swing_refs(t, period, step_height, lift_off, touch_down,
-                                 self.liftoff_boost, v0, None if v0 is None else 1.0)
+            return explicit_swing_refs_f32(t, period, step_height, lift_off, touch_down)
+        return bezier_swing_refs_f32(t, period, step_height, lift_off, touch_down,
+                                     self.liftoff_boost, v0)
 
     def compute_swing_control_cartesian_space(self, leg_id, q_dot, J, J_dot, lift_off,
                                               touch_down, foot_pos, foot_vel, h, mass_matrix,

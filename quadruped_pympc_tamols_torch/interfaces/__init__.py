@@ -1,4 +1,6 @@
 from .wb_interface import WBInterface
 from .controller_interface import SRBDControllerInterface, recenter_state_and_reference
+from .wrapper import ALL_OBSERVABLES, QuadrupedPyMPCWrapper
 
-__all__ = ["WBInterface", "SRBDControllerInterface", "recenter_state_and_reference"]
+__all__ = ["WBInterface", "SRBDControllerInterface", "recenter_state_and_reference",
+           "QuadrupedPyMPCWrapper", "ALL_OBSERVABLES"]

@@ -44,12 +44,17 @@ class SRBDControllerInterface:
         if self.type != "sampling":
             raise NotImplementedError(
                 f"mpc.type={self.type!r}: the gradient family is not ported yet (ROADMAP "
-                "queue 1 item 13)")
+                "queue 1 item 4)")
         if cfg.mpc.optimize_step_freq:
             self.controller = GaitAdaptiveSamplingMPC(cfg, seed=seed, device=device)
         else:
             self.controller = SamplingMPC(cfg, seed=seed, device=device)
         self._inflight = None
+        # Only the gradient family's nominal RTI solver consumes runtime inertia
+        # (JAX package :203-206); callers use this to skip computing the
+        # composite tensor, a loop over every MuJoCo body. No sampling
+        # controller does, and ``compute_control`` never evaluates ``inertia``.
+        self.consumes_inertia = False
 
     def compute_control(self, state_current: dict, ref_state: dict, contact_sequence,
                         inertia=None, mass=None, external_wrenches=None,
@@ -90,6 +95,12 @@ class SRBDControllerInterface:
         predicted = np.asarray(predicted, np.float64).copy()
         predicted[:3] = predicted[:3] + shift
         return Legs(grfs), Legs(footholds), self.best_sample_freq, predicted
+
+    def compute_rti(self):
+        """RTI preparation phase for the next tick (JAX package :275-279): a
+        no-op on the sampling family, whose warm-start shift runs after the solve."""
+        if hasattr(self.controller, "compute_rti_prepare"):
+            self.controller.compute_rti_prepare()
 
     def reset(self):
         self.controller.reset()

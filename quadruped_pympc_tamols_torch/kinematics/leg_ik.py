@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..config import RobotParams
+from ..utils.float32 import F32, atan2f, cosf, fmaf, sinf
 from ..utils.frames import euler_xyz_to_rot_np
 
 # Abduction offset side signs (FL, FR, RL, RR): left +, right -.
@@ -65,6 +66,32 @@ class LegKinematics:
         q3 = -np.arccos(np.clip(cos_knee, -1.0, 1.0))  # knee bends backward
         q2 = np.arctan2(-x, E) + np.arctan2(l4 * np.sin(-q3), l3 + l4 * np.cos(-q3))
         return np.clip(np.stack([q1, q2, q3], axis=-1), self.q_lo, self.q_hi)
+
+    def ik_all_f32(self, p_legs):
+        """(4, 3) hip-frame targets -> (4, 3) float32 joints with the bits of the
+        JAX package's jitted float32 ``ik_all`` on the CPU: the same formula as
+        ``ik`` in XLA's evaluation order, with libm's float32 functions, its
+        contracted multiply-adds, its folded constants and the divisor's
+        reciprocal (``utils/float32.py``). It seeds the crouch pose and the
+        numeric IK, whose later ticks depend on these bits."""
+        p = np.asarray(p_legs, F32)
+        d = F32(self.d_abd) * SIDE_SIGN
+        x, y, z = p[:, 0], p[:, 1], p[:, 2]
+        l3, l4 = self.l3, self.l4
+        one = F32(1.0)
+        # XLA's code contracts y*y + z*z - d*d one way where q1 reads it and
+        # another where q2 and the knee read it.
+        E_q1 = np.sqrt(np.maximum(fmaf(-d, d, fmaf(z, z, y * y)), F32(1e-9)))
+        q1 = atan2f(z, y) + atan2f(E_q1, d)
+        q1 = atan2f(sinf(q1), cosf(q1))
+        E2 = np.maximum(fmaf(-d, d, fmaf(y, y, z * z)), F32(1e-9))
+        r2 = np.clip(fmaf(x, x, E2), F32((l3 - l4) ** 2 + 1e-9), F32((l3 + l4) ** 2 - 1e-9))
+        cos_knee = np.clip((r2 + -(F32(l3 * l3) + F32(l4 * l4))) * (one / F32(2 * l3 * l4)),
+                           -one, one)
+        knee = atan2f(np.sqrt((one - cos_knee) * (one + cos_knee)), cos_knee)  # acos
+        q2 = atan2f(-x, np.sqrt(E2)) + atan2f(sinf(knee) * F32(l4),
+                                             fmaf(cosf(knee), F32(l4), F32(l3)))
+        return np.clip(np.stack([q1, q2, -knee], axis=-1), self.q_lo, self.q_hi)
 
     def jacobian(self, q, side_sign):
         """(..., 3) joints -> (..., 3, 3) hip-frame foot Jacobian d p / d q."""

@@ -336,7 +336,12 @@ class TamolsPlanner:
     def compute_adaptation(self, hms, seeds, hips, base_pos, base_vel, current_contact, feet,
                            own_anchor=None, t_remain=None) -> TamolsResult:
         """Score, then copy footholds, boxes, costs and flags to the host at once;
-        returns the result as host numpy arrays."""
+        returns the result as host numpy arrays. Grids sensed on the host move to
+        the planner's device here, so a loop that senses every tick while the
+        planner waits touches the card only at the apex."""
+        if hms.heights.device != self.device:
+            hms = GridHeightMap(*(getattr(hms, f).to(self.device)
+                                  for f in ("center", "yaw", "resolution", "heights")))
         anchor = feet if own_anchor is None else own_anchor
         res = self.adapt_fn(hms, seeds, hips, base_pos, base_vel, current_contact, feet,
                             anchor, t_remain)

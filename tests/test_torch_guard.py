@@ -27,9 +27,15 @@ def _port_modules():
     return mods
 
 
+# The torque path, the facade and the MuJoCo tier, with their helpers.
+TORQUE_AND_MUJOCO = ("interfaces.wrapper", "kinematics.ik_solvers", "sim.mjcf", "sim.mujoco_env",
+                     "sim.simulation", "sim.trace", "observability.logger", "utils.float32")
+
+
 def test_port_imports_no_jax():
     mods = _port_modules()
     assert len(mods) > 20
+    assert {f"{PKG}.{m}" for m in TORQUE_AND_MUJOCO} <= set(mods)
     # Only modules the imports load count: the interpreter's startup may load others.
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -71,6 +77,27 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             entry(cfg)
         assert entry(cfg, device="cpu") is not None
+    from quadruped_pympc_tamols_torch.interfaces import QuadrupedPyMPCWrapper
+    from quadruped_pympc_tamols_torch.utils.legs import Legs
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        QuadrupedPyMPCWrapper(cfg, Legs.zeros((3,)))
+    assert QuadrupedPyMPCWrapper(cfg, Legs.zeros((3,)), device="cpu") is not None
+
+
+def test_importing_the_port_needs_no_mujoco():
+    """The MuJoCo tier loads lazily: the package, its sim package and the wrapper
+    import without loading mujoco."""
+    code = textwrap.dedent(f"""
+        import sys
+        import {PKG}, {PKG}.sim, {PKG}.interfaces, {PKG}.sim.trace
+        from {PKG}.interfaces import QuadrupedPyMPCWrapper
+        sys.exit(1 if "mujoco" in sys.modules else 0)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_chip_smoke_refuses_without_cuda(capsys):

@@ -106,7 +106,7 @@ def test_pipelined_interface_returns_previous_tick():
 
 
 def test_unported_options_raise():
-    for over in ({"sim.ik_solver": "numeric"}, {"mpc.type": "nominal"}):
+    for over in ({"sim.ik_solver": "qp"}, {"mpc.type": "nominal"}):
         cfg = make_config("aliengo", **{**BLIND, "mpc.sampling.num_samples": 32, **over})
         with pytest.raises(NotImplementedError):
             SRBClosedLoopHarness(cfg, device="cpu")
