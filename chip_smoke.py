@@ -10,7 +10,9 @@ sampling MPC walking the SRB harness, README quickstart) through the kernels, an
 times them; then the same for the linear-spline and zero-order parametrizations;
 then the TAMOLS foothold planner, card against CPU, and the default configuration
 walking over sensed terrain with it; then the torque path and the wrapper on a
-recorded MuJoCo loop. It imports neither JAX nor the JAX package.
+recorded MuJoCo loop; then the gradient family's nominal RTI-SQP (CUDA graphs of
+torch ops): its solve against the CPU and float64, its QP ladder, its walks and
+the wrapper with it. It imports neither JAX nor the JAX package.
 It exits non-zero without a CUDA device or without the package beside it.
 
 Output: the card's name and power limit, one line per phase, for each row the
@@ -19,7 +21,7 @@ rollout pass's device time and its kernel's registers, shared memory and spills
 and CEM rows (K1b, K1c, K1e-mppi, K1e-cem), the extraction kernel of the random
 sampling rows (K1a, K1e-rs) and the chain kernel of the K1d rows, a "tamols:"
 line with phases 16-17's numbers as JSON, a "torque:" line with phase 18's, a
-``{"kernels": ...}`` line (rows of
+"gradient:" line with phases 19-21's, a ``{"kernels": ...}`` line (rows of
 the main path's cubic splines, then ``-lin`` and ``-zo`` rows), and as the last
 line ``{"ok": true, "device": {...}}``.
 
@@ -115,9 +117,40 @@ to 0 just before it and read just after):
      tick that solves (one more on a tick with an apex call) and no operation
      on the card on any other tick; then the host clock of compute_actions
      (median, p99) on MPC ticks and on the others, and its split by layer.
+ 19. The gradient family's nominal solve (make_config("aliengo",
+     mpc_type="nominal"): H = 12, 144 variables, 288 rows, Mehrotra, "balance"),
+     torch ops replayed from one captured CUDA graph a phase, no kernel of its
+     own: (a) the five golden scenarios' QPs assembled on the card and on the CPU,
+     each solve's first-stage GRFs against the float64 reference of the same QP
+     (the card's gap at most max(2 x the CPU port's at the card's budget, 0.01 N),
+     and the card within 0.01 N of the CPU port at that budget); (b) the graph
+     replay bit-equal to the eager function on the card and to a rerun,
+     feedback(prepare(x0), x0) bit-equal to solve(x0), a NaN state taking the
+     fallback; (c) the host clock (median of 200, each with its one copy) of the
+     solve tick from the graph and eagerly, the feedback-phase tick and the
+     K = 3 batched solve (its costs against the CPU's at the card's budget);
+     (d) device time and kernels a tick (torch.profiler) and exactly one copy a
+     tick (host count; the profiler records no more than one a tick); (e) torch.linalg.cholesky_ex, torch.cholesky_solve and two
+     torch.linalg.solve_triangular calls on the 144 x 144 Newton matrix.
+ 20. The QP ladder on the card: 20 real ticks of the SRB harness (nominal,
+     blind, 0.3 m/s), first-stage GRF gap to float64 under 0.6 N and 2.5e-3 of
+     the weight at the card's budget (tests/test_f64_ladder.py:42-56), and the
+     gaps at LADDER_BUDGETS.
+ 21. Nominal walks on the card beside the JAX package's CPU rows: blind, use_RTI
+     (the split: one solve, then a preparation and a feedback each tick, the
+     preparation dispatched after each solve as the wrapper does) and the
+     default configuration (TAMOLS) onto the 5 cm step, each in the band with
+     every solve a graph replay and no sampling kernel; mpc.optimize_step_freq
+     through SRBDBatchedControllerInterface.optimize_gait in the harness, one
+     batched replay a touch-down window, the frequencies beside the CPU's; the
+     recorded MuJoCo loop through QuadrupedPyMPCWrapper with the nominal MPC:
+     finite torques, one copy an MPC tick and one an apex call, nothing on the
+     card otherwise, and the host clock of compute_actions. Their numbers are
+     the "gradient:" JSON line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -399,17 +432,24 @@ def median_host_ms(call, n) -> float:
 # work, with PROFILE_PAD_S of idle time before and after the work inside it
 # (``profile_window``; tools/profiler_windows.py counts the losses with and
 # without the pads), and a window that still recorded fewer than a check needs,
-# or nothing, is profiled again, up to PROFILE_WINDOWS windows in all; a lost
-# record never adds one, so a count above what the check allows fails at once.
+# or nothing, is profiled again, up to PROFILE_WINDOWS windows in all. The
+# active step also receives, now and then, the last device records of the
+# warm-up step (a window of 20 nominal ticks held 21 copies and ~760 kernels
+# more than 20 ticks launch; such a copy starts 50.0-51.0 ms before the
+# profiled call, a pad earlier, tools/profiler_records.py): ``window_rows``
+# keeps only the records of the profiled call, so a lost record never adds one
+# and a count above what the check allows fails at once.
 PROFILE_WINDOWS = 5
 PROFILE_PAD_S = 0.05
+PROFILED_CALL = "chip_smoke profiled call"
 
 
 def profile_window(run):
     """torch.profiler over one call of ``run`` (which ends in a synchronize), after
     a warm-up step of the same call, with PROFILE_PAD_S idle before and after it;
-    returns (the profiler, wall seconds of the profiled call)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+    returns (the profiler, wall seconds of the profiled call). The call is the
+    range PROFILED_CALL of the trace."""
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
@@ -417,11 +457,41 @@ def profile_window(run):
         prof.step()
         time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
-        run()
+        with record_function(PROFILED_CALL):
+            run()
         wall = time.perf_counter() - t0
         time.sleep(PROFILE_PAD_S)
         prof.step()
     return prof, wall
+
+
+def window_rows(prof):
+    """(device, host, outside) of a ``profile_window``: device maps a record's
+    name (a kernel, Memcpy or Memset) to (records, device us) over the device
+    records of the profiled call; host maps a host row's name (operators, runtime
+    calls) to its records; outside counts the device records left out. A device
+    record belongs to the call if it starts within half a pad (PROFILE_PAD_S / 2)
+    of the call's host range: the warm-up step's records, which the active step
+    receives now and then, start a whole pad or more before it, and the call's
+    own device records have started up to ~6 ms past the end of its host range
+    (once up to ~40 ms on both sides: records left out then count as lost)."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    span = next(e.time_range for e in events if e.name == PROFILED_CALL)
+    margin_us = PROFILE_PAD_S / 2 * 1e6
+    device, host, outside = {}, {}, 0
+    for e in events:
+        if e.name == PROFILED_CALL or e.name.startswith("ProfilerStep"):
+            continue
+        if e.device_type == DeviceType.CPU:
+            host[e.name] = host.get(e.name, 0) + 1
+        elif span.start - margin_us <= e.time_range.start <= span.end + margin_us:
+            n, us = device.get(e.name, (0, 0.0))
+            device[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        else:
+            outside += 1
+    return device, host, outside
 
 
 def host_d2h_copies(call, n) -> int:
@@ -452,11 +522,12 @@ def host_d2h_copies(call, n) -> int:
     return Count.copies
 
 
-def profile_ticks(mpc, tick, n=50, expect=None, d2h=None, absent=()) -> dict:
+def profile_ticks(mpc, tick, n=50, expect=None, d2h=None, absent=(), call=None) -> dict:
     """Device time per launch of each kernel (its device time over the launches
     the profiler recorded, as ``pass_profile`` takes it), the recorded launches,
     the device's busy share and the device-to-host copies over n solve ticks,
-    from torch.profiler; "not measured" where the profiler sees no device time.
+    from the torch.profiler records inside the ticks (``window_rows``); "not
+    measured" where the profiler sees no device time.
     A count short of the ticks' launches means lost records: the busy share
     counts only what was recorded. ``expect`` maps a substring of device rows'
     names to launches a tick: the rows' recorded launches must lie in (half, all]
@@ -465,10 +536,11 @@ def profile_ticks(mpc, tick, n=50, expect=None, d2h=None, absent=()) -> dict:
     n more ticks must issue exactly that many through torch (``host_d2h_copies``),
     and the profiler must record no more of them ("DtoH") than that. No device row
     may hold a substring of ``absent`` (a lost record never adds one). Nothing is
-    caught: a failed tick or a profiler that cannot start fails the run."""
+    caught: a failed tick or a profiler that cannot start fails the run. ``call``
+    replaces the sampling tick on the flagship inputs."""
     import torch
 
-    call = tick_call(mpc, tick)
+    call = call or tick_call(mpc, tick)
     if d2h is not None:
         copies = host_d2h_copies(call, n)
         if copies != d2h * n:
@@ -484,17 +556,7 @@ def profile_ticks(mpc, tick, n=50, expect=None, d2h=None, absent=()) -> dict:
     for window in range(PROFILE_WINDOWS):
         prof, wall_s = profile_window(ticks)
         wall_us = wall_s * 1e6
-        per = {}
-        for e in prof.key_averages():
-            dev_us = getattr(e, "device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(e, "cuda_time_total", 0.0)
-            if dev_us > 0 and e.key and not e.key.startswith("ProfilerStep"):
-                per[e.key] = (e.count, dev_us)
-        # Keep the device rows (kernels, Memcpy, Memset): aten:: rows repeat their
-        # children's device time, and runtime-API rows (cuda*) carry none of their own.
-        kernels = {k: v for k, v in per.items()
-                   if not k.startswith("aten::") and not k.startswith("cuda")}
+        kernels, _, outside = window_rows(prof)
         found = sorted(k for k in kernels if any(tag in k for tag in absent))
         if found:
             raise AssertionError(f"{n} ticks recorded {found}, which they must not launch")
@@ -518,6 +580,7 @@ def profile_ticks(mpc, tick, n=50, expect=None, d2h=None, absent=()) -> dict:
             "device_busy_share_recorded": busy_us / wall_us,
             "d2h_copies": sum(v[0] for k, v in kernels.items() if "DtoH" in k),
             "host_d2h_copies": None if d2h is None else d2h * n,
+            "device_records_outside_the_window": outside,
             "device_us_per_launch": {k: v[1] / v[0] for k, v in sorted(kernels.items())},
             "launches": {k: v[0] for k, v in sorted(kernels.items())}}
 
@@ -559,16 +622,13 @@ def pass_profile(fn, iterations, passes, n=50) -> dict:
     for window in range(PROFILE_WINDOWS):
         prof, _ = profile_window(calls)
         found, counts = {}, {}
-        for e in prof.key_averages():
-            dev_us = getattr(e, "device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(e, "cuda_time_total", 0.0)
+        for key, (count, dev_us) in window_rows(prof)[0].items():
             for short, tag in want.items():
-                if tag in e.key and dev_us > 0:
-                    if e.count > n * iterations:
-                        once_an_iteration(tag, e.count, n * iterations)
-                    found[short] = (e.key.split("(")[0], dev_us / e.count)
-                    counts[tag] = e.count
+                if tag in key:
+                    if count > n * iterations:
+                        once_an_iteration(tag, count, n * iterations)
+                    found[short] = (key.split("(")[0], dev_us / count)
+                    counts[tag] = count
         if found.keys() == want.keys() and all(c > n * iterations / 2 for c in counts.values()):
             break
         if window == PROFILE_WINDOWS - 1:
@@ -1598,20 +1658,16 @@ def scorer_profile(call, n=20) -> dict:
     best = None
     for window in range(PROFILE_WINDOWS):
         prof, wall_s = profile_window(calls)
-        api = kernels = copies = 0
+        device, host, _ = window_rows(prof)
+        api = sum(count for key, count in host.items() if "LaunchKernel" in key)
+        kernels = copies = 0
         busy_us = 0.0
-        for e in prof.key_averages():
-            dev_us = getattr(e, "device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(e, "cuda_time_total", 0.0)
-            if "LaunchKernel" in e.key:
-                api += e.count
-            elif dev_us > 0 and not e.key.startswith(("aten::", "cuda", "ProfilerStep")):
-                busy_us += dev_us
-                if "Memcpy" in e.key:
-                    copies += e.count
-                elif "Memset" not in e.key:
-                    kernels += e.count
+        for key, (count, dev_us) in device.items():
+            busy_us += dev_us
+            if "Memcpy" in key:
+                copies += count
+            elif "Memset" not in key:
+                kernels += count
         complete = api == kernels and kernels > 0 and kernels % n == 0
         r = {"launches_per_call": kernels / n, "launch_api_calls_per_call": api / n,
              "copies_per_call": copies / n, "device_us_per_call": busy_us / n,
@@ -1862,6 +1918,430 @@ def phase_wrapper(trace_worst) -> dict:
     return {"trace_max_abs_err": trace_worst, "counted": r, "timed": timed}
 
 
+# -- phases 19-21: the gradient family's nominal RTI-SQP on the card -------------------
+GRAD_F64_FLOOR = 0.01  # N: the floor of the first-stage GRF bound against float64
+GRAD_TIMED = 200  # host-clock ticks behind each median
+LADDER_MAX_N, LADDER_REL = 0.6, 2.5e-3  # tests/test_f64_ladder.py:42-56
+LADDER_BUDGETS = (8, 10, 12, 14)  # Mehrotra iterations the ladder reports beside the card's
+# Steps of the harness with mpc.optimize_step_freq (phase 21): its touch-down
+# windows open at steps 202, 380 and 559 (none in the first 30 MPC ticks).
+GAIT_STEPS = 600
+# The JAX package's nominal walks on the CPU (3 s at 0.3 m/s): walked m, min z m,
+# max |roll|,|pitch| rad, apex calls, mean z of the second half - ref_z m;
+# `python tests/test_torch_gradient.py`.
+JAX_CPU_GRADIENT_WALKS = {"blind": (0.8928, 0.3484, 0.0077, 0, -0.0010),
+                          "rti": (0.9082, 0.3500, 0.0120, 0, 0.0033),
+                          "tamols_step": (0.9142, 0.3480, 0.0812, 8, 0.0084)}
+
+
+def grad_cfg(**over):
+    from quadruped_pympc_tamols_torch import make_config
+    return make_config("aliengo", mpc_type="nominal", **over)
+
+
+def eager(mpc):
+    """``mpc`` with every phase run eagerly on its device (the graphs' plain version)."""
+    for name in ("_solve_dev", "_prepare_dev", "_feedback_dev"):
+        setattr(mpc, name, getattr(mpc, name).fn)
+    return mpc
+
+
+def grad_inputs(mpc, name):
+    """(x0, feet_traj, seq, Xref, Uref) of a golden scenario's first tick."""
+    from quadruped_pympc_tamols_torch.utils.verification import golden_nominal_scenarios
+    state, ref, seq = golden_nominal_scenarios(mpc.cfg)[name]
+    seq = np.asarray(seq, np.float32)
+    x0, feet = mpc._build_inputs(state, ref, seq)
+    Xref, Uref = mpc._build_refs(state, ref, seq)
+    return x0, feet, seq, Xref, Uref
+
+
+def at_card_budget(make):
+    """``make()`` with the CPU's QP iteration budget set to the card's, so that a CPU
+    controller is compared with the card's on the same iterations."""
+    from quadruped_pympc_tamols_torch.controllers.gradient import sqp
+    budget = sqp.qp_solver_for
+    sqp.qp_solver_for = lambda gp, device="cuda": budget(gp, "cuda")
+    try:
+        return make()
+    finally:
+        sqp.qp_solver_for = budget
+
+
+def same_bits(a, b) -> bool:
+    return all(np.array_equal(x, y, equal_nan=True) for x, y in zip(a, b))
+
+
+def golden_gaps(cfg) -> dict:
+    """Phase 19 (a): each golden scenario's QP assembled on the card and on the CPU,
+    solved at each device's budget (and the CPU at the card's), each against the
+    float64 solution of the same QP; first-stage GRF gaps in N."""
+    import torch
+    from quadruped_pympc_tamols_torch.controllers.gradient import GradientMPC, make_rti_solver_split
+    from quadruped_pympc_tamols_torch.controllers.gradient.sqp import qp_solver_for
+    from quadruped_pympc_tamols_torch.utils.verification import (golden_nominal_scenarios,
+                                                                 pdip_solve_np_f64)
+    host = GradientMPC(cfg, device="cpu")
+    out = {}
+    card_iters = qp_solver_for(cfg.mpc.gradient, "cuda")[1]
+    for device in ("cuda", "cpu"):
+        *_, assemble = make_rti_solver_split(cfg, return_assembler=True, device=device)
+        fn, iters = qp_solver_for(cfg.mpc.gradient, device)
+        for name in golden_nominal_scenarios(cfg):
+            ins = grad_inputs(host, name)
+            q = assemble(*(torch.as_tensor(a, device=device)[None] for a in (*ins, ins[4])))
+            z64 = pdip_solve_np_f64(*(a[0].cpu().numpy() for a in q))[0][:12]
+            for label, it in ((device, iters), (f"{device}@{card_iters}", card_iters)):
+                z = fn(*q, iters=it).z[0, :12].cpu().numpy()
+                out.setdefault(name, {})[label] = z
+            out[name][f"f64 {device}"] = z64
+    gaps = {}
+    for name, z in out.items():
+        g = {"card_gap_N": float(np.abs(z["cuda"] - z["f64 cuda"]).max()),
+             "cpu_gap_N": float(np.abs(z["cpu"] - z["f64 cpu"]).max()),
+             "cpu_gap_at_card_budget_N": float(np.abs(z[f"cpu@{card_iters}"]
+                                                      - z["f64 cpu"]).max()),
+             "card_minus_cpu_same_budget_N": float(np.abs(z["cuda"] - z[f"cpu@{card_iters}"])
+                                                   .max())}
+        g["bound_N"] = max(2 * g["cpu_gap_at_card_budget_N"], GRAD_F64_FLOOR)
+        if not g["card_gap_N"] <= g["bound_N"]:
+            raise AssertionError(f"phase 19 {name}: card {g['card_gap_N']} N off float64, "
+                                 f"bound {g['bound_N']}")
+        if not g["card_minus_cpu_same_budget_N"] <= GRAD_F64_FLOOR:
+            raise AssertionError(f"phase 19 {name}: card {g['card_minus_cpu_same_budget_N']} N "
+                                 f"off the CPU port at the same budget")
+        gaps[name] = g
+    return gaps
+
+
+def grad_tick(mpc, name, **kw):
+    """One controller tick on a golden scenario: compute_control, its one copy."""
+    from quadruped_pympc_tamols_torch.utils.verification import golden_nominal_scenarios
+    state, ref, seq = golden_nominal_scenarios(mpc.cfg)[name]
+    return lambda: mpc.compute_control(state, ref, seq, **kw)
+
+
+def phase_gradient_solve() -> dict:
+    """Phase 19: the nominal solve on the card (see the module docstring)."""
+    import torch
+    from quadruped_pympc_tamols_torch.controllers.gradient import BatchedGradientMPC, GradientMPC
+    from quadruped_pympc_tamols_torch.gait.periodic import contact_sequence, make_timer_dts
+    from quadruped_pympc_tamols_torch.utils.verification import golden_nominal_scenarios
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("phase 19: TF32 is on for float32 matmuls")
+    cfg = grad_cfg()
+    r = {"golden": golden_gaps(cfg)}
+    log(f"phase 19 (a): golden QPs, first-stage GRF gaps to float64 (card at its budget, CPU "
+        f"at 14 and at the card's): {json.dumps(r['golden'])}")
+    graphed, plain = GradientMPC(cfg, device="cuda"), eager(GradientMPC(cfg, device="cuda"))
+    for name in golden_nominal_scenarios(cfg):
+        ins = grad_inputs(graphed, name)
+        a = graphed.solve(*ins, ins[4])
+        if not (same_bits(a, plain.solve(*ins, ins[4])) and same_bits(a, graphed.solve(*ins,
+                                                                                      ins[4]))):
+            raise AssertionError(f"phase 19 {name}: graph replay, eager run and rerun differ")
+        split = graphed.feedback(graphed.prepare(*ins, ins[4]), *ins)
+        if not same_bits(a, split):
+            raise AssertionError(f"phase 19 {name}: feedback(prepare(x0), x0) != solve(x0)")
+    state, ref, seq = golden_nominal_scenarios(cfg)["trot_nominal"]
+    mpc = GradientMPC(cfg, device="cuda")
+    g0 = mpc.compute_control(state, ref, seq)[0]
+    bad = dict(state, position=np.array([np.nan, 0.0, 0.32]))
+    grfs, _, _, status, _ = mpc.compute_control(bad, ref, seq)
+    if status != 1 or not np.array_equal(grfs, g0):
+        raise AssertionError("phase 19: a NaN state did not take the fallback")
+    log("phase 19 (b): ok; graph replay bit-equal to the eager function on the card and to a "
+        "rerun, feedback(prepare(x0), x0) == solve(x0) bit for bit, a NaN state takes the "
+        "fallback (status 1, the previous GRFs)")
+
+    # Host-clock ticks, each with its one copy.
+    t = {"solve_tick_graph_ms": median_host_ms(grad_tick(mpc, "trot_nominal"), GRAD_TIMED),
+         "solve_tick_eager_ms": median_host_ms(grad_tick(eager(GradientMPC(cfg)),
+                                                         "trot_nominal"), GRAD_TIMED)}
+    rti = GradientMPC(grad_cfg(**{"mpc.gradient.use_RTI": True}), device="cuda")
+    tick = grad_tick(rti, "trot_nominal")
+    tick()
+    fb = []
+    for i in range(GRAD_TIMED + 10):
+        rti.compute_rti_prepare()
+        torch.cuda.synchronize()  # the plant step the preparation overlaps
+        t0 = time.perf_counter()
+        tick()
+        if i >= 10:
+            fb.append((time.perf_counter() - t0) * 1e3)
+    t["feedback_tick_ms"] = statistics.median(fb)
+    if rti._feedback_dev.replays != GRAD_TIMED + 10:
+        raise AssertionError("phase 19: the RTI ticks did not run the feedback phase")
+    gcfg = grad_cfg(**{"mpc.optimize_step_freq": True})
+    freqs = np.asarray(gcfg.mpc.step_freq_available, np.float32)
+    seqs = contact_sequence(np.tile(np.float32([0.1, 0.6, 0.6, 0.1]), (len(freqs), 1)), freqs,
+                            gcfg.gait_params.duty_factor, make_timer_dts(gcfg.mpc))
+    batched = BatchedGradientMPC(gcfg, device="cuda")
+    t["batched_k3_ms"] = median_host_ms(lambda: batched.optimize_gait(state, ref, seqs),
+                                        GRAD_TIMED)
+    cpu_costs, cpu_best = at_card_budget(lambda: BatchedGradientMPC(gcfg, device="cpu")) \
+        .optimize_gait(state, ref, seqs)
+    costs, best = batched.optimize_gait(state, ref, seqs)
+    if best != cpu_best or not np.allclose(costs, cpu_costs, rtol=1e-3):
+        raise AssertionError(f"phase 19: batched costs {costs} / {cpu_costs}")
+    r["times"] = t
+    log(f"phase 19 (c): host clock, median of {GRAD_TIMED}: {json.dumps(t)}; K = 3 costs "
+        f"{costs.tolist()} (CPU at the card's budget {cpu_costs.tolist()}), best {best} Hz on "
+        f"both")
+
+    # Device time and launches a tick (torch.profiler), one copy a tick (host count).
+    Count = card_ops_counter()
+    with Count():
+        grad_tick(eager(GradientMPC(cfg)), "trot_nominal")()
+    r["eager_ops_per_tick"] = Count.ops
+    # One copy a tick: counted on the host, and no more than one recorded a tick.
+    for name, call, n in (("graph", grad_tick(mpc, "trot_nominal"), 20),
+                          ("eager", grad_tick(eager(GradientMPC(cfg)), "trot_nominal"), 5)):
+        r[f"profile_{name}"] = profile_ticks(None, None, n=n, d2h=1, call=call)
+    for key in ("profile_graph", "profile_eager"):
+        p = r[key]
+        if "launches" in p:
+            # A graph's device-to-device copies may be recorded as a kernel,
+            # "memcpy32_post" (49 a tick): copies, not kernels.
+            p["kernels_per_tick"] = sum(v for k, v in p["launches"].items()
+                                        if "memcpy" not in k.lower()
+                                        and "memset" not in k.lower()) / p["ticks"]
+            p["device_us_per_tick"] = sum(p["device_us_per_launch"][k] * v
+                                          for k, v in p["launches"].items()) / p["ticks"]
+            p.pop("device_us_per_launch")
+            p.pop("launches")
+    log(f"phase 19 (d): {r['eager_ops_per_tick']} torch operations on the card in one eager "
+        f"tick; graph ticks {json.dumps(r['profile_graph'])}; eager ticks "
+        f"{json.dumps(r['profile_eager'])}")
+
+    # The library's own factorization and solve on a 144 x 144 Newton matrix of a real tick.
+    from quadruped_pympc_tamols_torch.controllers.gradient import make_rti_solver_split
+    *_, assemble = make_rti_solver_split(cfg, return_assembler=True, device="cuda")
+    ins = grad_inputs(mpc, "trot_nominal")
+    Hm, g, C, d = assemble(*(torch.as_tensor(a, device="cuda")[None] for a in (*ins, ins[4])))
+    K = Hm + C.transpose(-1, -2) @ C
+    L, _ = torch.linalg.cholesky_ex(K)
+    b = g[..., None]
+    r["cholesky_ex_ms"] = time_cuda(lambda: torch.linalg.cholesky_ex(K))
+    r["cholesky_solve_ms"] = time_cuda(lambda: torch.cholesky_solve(b, L))
+    r["two_solve_triangular_ms"] = time_cuda(lambda: torch.linalg.solve_triangular(
+        L.transpose(-1, -2), torch.linalg.solve_triangular(L, b, upper=False), upper=True))
+    log(f"phase 19 (e): torch.linalg.cholesky_ex {r['cholesky_ex_ms']:.4f} ms, "
+        f"torch.cholesky_solve {r['cholesky_solve_ms']:.4f} ms, two "
+        f"torch.linalg.solve_triangular {r['two_solve_triangular_ms']:.4f} ms a call on the "
+        f"144 x 144 Newton matrix (CUDA events, median of {TIMED_RUNS})")
+    return r
+
+
+def phase_gradient_ladder() -> dict:
+    """Phase 20: 20 real ticks of the port's SRB harness on the card (nominal blind,
+    0.3 m/s), each tick's QP against float64 at the card's budget (held to the
+    JAX test's bound) and at LADDER_BUDGETS."""
+    from quadruped_pympc_tamols_torch.utils.verification import (capture_tick_qps,
+                                                                 qp_ladder_report)
+    cfg = grad_cfg(**{"sim.visual_foothold_adaptation": "blind"})
+    ticks = capture_tick_qps(cfg, n_ticks=20, device="cuda")
+    r = qp_ladder_report(cfg, ticks=ticks, device="cuda")
+    r["budgets"] = {it: qp_ladder_report(cfg, ticks=ticks, device="cuda", iters=it)
+                    for it in LADDER_BUDGETS}
+    if not (r["n_ticks"] == 20 and r["f64_mu_max"] < 1e-10
+            and r["qp_gap_vs_f64_max_N"] < LADDER_MAX_N and r["qp_gap_vs_f64_rel"] < LADDER_REL):
+        raise AssertionError(f"phase 20: ladder {r}")
+    log(f"phase 20: ok; 20 real ticks at {r['qp_iters']} iterations: first-stage GRF gap to "
+        f"float64 max {r['qp_gap_vs_f64_max_N']:.4f} N, mean {r['qp_gap_vs_f64_mean_N']:.4f} "
+        f"N, {r['qp_gap_vs_f64_rel']:.2e} of the weight (bound {LADDER_MAX_N} N, "
+        f"{LADDER_REL}); by budget (max N): "
+        f"{({k: round(v['qp_gap_vs_f64_max_N'], 4) for k, v in r['budgets'].items()})}")
+    return r
+
+
+def gradient_walk(label, cfg, terrain=None) -> dict:
+    """Phase 21: the SRB harness on the card for WALK_S at WALK_VEL (sensing as
+    phase 17 over ``terrain``); raises unless it walks the band with no sampling
+    kernel launched and every solve a graph replay."""
+    import torch
+    from quadruped_pympc_tamols_torch.planner import heightmap_from_fn
+    from quadruped_pympc_tamols_torch.sim import SRBClosedLoopHarness
+
+    h = SRBClosedLoopHarness(cfg, seed=0, terrain_fn=terrain, device="cuda")
+    mpc = h.ctrl.controller
+    if cfg.mpc.gradient.use_RTI:
+        # The RTI split as the wrapper runs it: the preparation dispatched after
+        # each solve (the harness, like the JAX one, only solves).
+        solve = h.ctrl.compute_control
+
+        def compute_control(*a, **kw):
+            out = solve(*a, **kw)
+            h.ctrl.compute_rti()
+            return out
+        h.ctrl.compute_control = compute_control
+    calls = [0]
+    if h.wb.vfa is not None:
+        fn = h.wb.vfa.compute_adaptation
+
+        def counted(*a, **kw):
+            calls[0] += 1
+            return fn(*a, **kw)
+        h.wb.vfa.compute_adaptation = counted
+    tp, n = cfg.tamols, int(round(WALK_S / cfg.sim.dt))
+    hist = np.zeros((n, 12))
+    reset_counts()
+    t0 = time.perf_counter()
+    for i in range(n):
+        hms = None
+        if terrain is not None and not h.wb.vfa.initialized:
+            ref = np.asarray(h.wb.frg.last_reference_footholds.data)
+            hms = heightmap_from_fn(terrain, ref[:, :2], np.full(4, h.x[8]),
+                                    tp.heightmap_resolution, tp.heightmap_rows,
+                                    tp.heightmap_cols, device="cuda")
+        hist[i] = h.step(WALK_VEL, heightmaps=hms)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ticks = n // h._mpc_every
+    dist, min_z, tilt, dz = walk_band(label, cfg, hist)
+    check_counts(label, read_counts(), counts_of(), ticks)
+    replays = {k: getattr(mpc, f"_{k}_dev").replays for k in ("solve", "prepare", "feedback")}
+    rti = cfg.mpc.gradient.use_RTI
+    want = {"solve": 1, "prepare": ticks, "feedback": ticks - 1} if rti else \
+        {"solve": ticks, "prepare": 0, "feedback": 0}
+    if replays != want:
+        raise AssertionError(f"{label}: graph replays {replays}, want {want}")
+    r = {"walked_m": dist, "min_z_m": min_z, "max_tilt_rad": tilt, "mean_z_minus_ref_m": dz,
+         "apex_calls": calls[0], "graph_replays": replays, "ticks": ticks,
+         "harness_s_per_sim_s": wall / WALK_S}
+    log(f"{label}: ok; walked {dist:.4f} m, min z {min_z:.4f} m, max |roll|,|pitch| "
+        f"{tilt:.4f} rad, mean z - ref_z {dz:+.4f} m, {calls[0]} apex calls; graph replays "
+        f"{replays} for {ticks} ticks, no sampling kernel; harness {wall / WALK_S:.3f} s wall "
+        f"per simulated s; JAX package on the CPU: "
+        f"{JAX_CPU_GRADIENT_WALKS[label.rsplit(' ', 1)[1]]}")
+    return r
+
+
+def gait_search(device) -> dict:
+    """Phase 21: the SRB harness with mpc.optimize_step_freq and the nominal MPC on
+    ``device`` (at the card's QP budget) for GAIT_STEPS; at each touch-down window
+    (optimize_swing) one SRBDBatchedControllerInterface.optimize_gait over the K
+    candidates, whose frequency the harness hands to the gait. Returns the (step, Hz) chosen and, on
+    the card, the batched graph's replays."""
+    from quadruped_pympc_tamols_torch.interfaces.controller_interface import (
+        SRBDBatchedControllerInterface)
+    from quadruped_pympc_tamols_torch.sim import SRBClosedLoopHarness
+
+    cfg = grad_cfg(**{"sim.visual_foothold_adaptation": "blind", "mpc.optimize_step_freq": True})
+    h, batched = at_card_budget(lambda: (SRBClosedLoopHarness(cfg, seed=0, device=device),
+                                         SRBDBatchedControllerInterface(cfg, device=device)))
+    update, chosen = h.wb.update_state_and_reference, []
+
+    def searched(*a, **kw):
+        out = update(*a, **kw)
+        if out[4]:
+            best = batched.optimize_gait(out[0], out[1], h.wb.pgg.phase_signal,
+                                         h.wb.pgg.duty_factor)
+            h.ctrl.best_sample_freq = h.best_freq = best
+            chosen.append((h._step, float(best)))
+        return out
+
+    h.wb.update_state_and_reference = searched
+    for _ in range(GAIT_STEPS):
+        h.step(WALK_VEL)
+    return {"chosen": chosen, "batched_replays": batched.controller.inner._solve_dev.replays,
+            "final_step_freq": float(h.wb.pgg.step_freq)}
+
+
+def nominal_replay(cfg, counted=False) -> dict:
+    """The recorded MuJoCo observations through QuadrupedPyMPCWrapper with the
+    nominal MPC on the card: finite torques, the host clock of each step, and
+    (``counted``) one copy an MPC tick and one an apex call, nothing on the card on
+    any other step."""
+    import torch
+    from quadruped_pympc_tamols_torch.interfaces import QuadrupedPyMPCWrapper
+    from quadruped_pympc_tamols_torch.sim.trace import ControlTrace
+    from quadruped_pympc_tamols_torch.utils.legs import Legs
+
+    trace = ControlTrace()
+    w = QuadrupedPyMPCWrapper(cfg, Legs(trace.arrays["feet_pos"][0].copy()), device="cuda")
+    mpc_ms, other_ms, copies, apex = [], [], 0, [0]
+    Count = card_ops_counter()
+    wb = w.wb_interface
+    fn = wb.vfa.compute_adaptation
+
+    def counted_apex(*a, **kw):
+        apex[0] += 1
+        return fn(*a, **kw)
+
+    wb.vfa.compute_adaptation = counted_apex
+    inputs = [trace.inputs(i, device="cuda") for i in range(trace.steps)]
+    for i, kw in enumerate(inputs):
+        mpc = i % w._mpc_every == 0
+        apex_before = apex[0]
+        Count.ops = Count.copies = 0
+        t0 = time.perf_counter()
+        if counted:
+            with Count():
+                tau = w.compute_actions(**kw)
+        else:
+            tau = w.compute_actions(**kw)
+        (mpc_ms if mpc else other_ms).append((time.perf_counter() - t0) * 1e3)
+        if not np.all(np.isfinite(tau.data)):
+            raise AssertionError(f"phase 21 wrapper step {i}: torques not finite")
+        want = int(mpc) + apex[0] - apex_before
+        if counted and (Count.copies != want or (want == 0 and Count.ops)):
+            raise AssertionError(f"phase 21 wrapper step {i}: {Count.copies} copies and "
+                                 f"{Count.ops} card operations, want {want} copies")
+        copies += Count.copies
+    torch.cuda.synchronize()
+    replays = w.srbd_controller_interface.controller._solve_dev.replays
+    if replays != trace.steps // w._mpc_every:
+        raise AssertionError(f"phase 21 wrapper: {replays} graph replays")
+    med = statistics.median
+
+    def p99(xs):
+        return float(np.percentile(xs, 99))
+
+    return {"steps": trace.steps, "solve_replays": replays, "d2h_copies": copies,
+            "apex_calls": apex[0],
+            "compute_actions_ms_mpc_median": med(mpc_ms),
+            "compute_actions_ms_mpc_p99": p99(mpc_ms),
+            "compute_actions_ms_other_median": med(other_ms),
+            "compute_actions_ms_other_p99": p99(other_ms)}
+
+
+def phase_gradient_walks() -> dict:
+    """Phase 21: the walks, the batched gait interface and the wrapper."""
+    from quadruped_pympc_tamols_torch.interop import config_from_dict
+    from quadruped_pympc_tamols_torch.sim.trace import ControlTrace
+
+    blind = {"sim.visual_foothold_adaptation": "blind"}
+    r = {"walks": {
+        "blind": gradient_walk("phase 21 blind", grad_cfg(**blind)),
+        "rti": gradient_walk("phase 21 rti", grad_cfg(**blind, **{"mpc.gradient.use_RTI": True})),
+        "tamols_step": gradient_walk("phase 21 tamols_step", grad_cfg(), step_up)}}
+    card, cpu = gait_search("cuda"), gait_search("cpu")
+    if not card["chosen"] or card["batched_replays"] != len(card["chosen"]) \
+            or [c[0] for c in card["chosen"]] != [c[0] for c in cpu["chosen"]]:
+        raise AssertionError(f"phase 21 gait: searches {card} / {cpu}")
+    r["gait"] = {"card": card, "cpu": cpu, "same_frequencies": card["chosen"] == cpu["chosen"]}
+    log(f"phase 21 gait: ok; {GAIT_STEPS} steps with mpc.optimize_step_freq: one batched K = 3 "
+        f"graph replay in each of {len(card['chosen'])} touch-down windows; (step, Hz) on the "
+        f"card {card['chosen']}, on the CPU {cpu['chosen']}")
+    recorded = config_from_dict(ControlTrace().config)
+    ncfg = dataclasses.replace(recorded, mpc=dataclasses.replace(recorded.mpc, type="nominal"))
+    counted = nominal_replay(ncfg, counted=True)
+    timed = nominal_replay(ncfg)
+    r["wrapper"] = {**timed, "d2h_copies": counted["d2h_copies"],
+                    "apex_calls": counted["apex_calls"]}
+    log(f"phase 21 wrapper: ok; {timed['steps']} recorded steps through QuadrupedPyMPCWrapper "
+        f"with the nominal MPC on the card: finite torques, {timed['solve_replays']} graph "
+        f"replays, {counted['d2h_copies']} device-to-host copies ({counted['apex_calls']} apex "
+        f"calls), nothing on the card on the other steps; compute_actions MPC ticks median "
+        f"{timed['compute_actions_ms_mpc_median']:.4f} ms, p99 "
+        f"{timed['compute_actions_ms_mpc_p99']:.4f}; other ticks median "
+        f"{timed['compute_actions_ms_other_median']:.4f} ms, p99 "
+        f"{timed['compute_actions_ms_other_p99']:.4f}")
+    return r
+
+
 def main() -> int:
     try:
         import torch
@@ -2032,6 +2512,10 @@ def main() -> int:
     # -- phase 18: the torque path and the wrapper on the recorded MuJoCo loop --------
     torque = phase_wrapper(phase_torque_trace())
 
+    # -- phases 19-21: the gradient family's nominal RTI-SQP ----------------------------
+    gradient = {"solve": phase_gradient_solve(), "ladder": phase_gradient_ladder(),
+                **phase_gradient_walks()}
+
     def row(name, source, short, par, err, ms, plain, bound, passes, **extra):
         return {"name": f"{name} ({short}{PAR_SUFFIX[par]})", "route": "cuda",
                 "source": f"quadruped_pympc_tamols_torch/ops/csrc/{source}.cu",
@@ -2112,6 +2596,7 @@ def main() -> int:
             raise AssertionError(f"{r['name']}: no launch on its path")
     log(f"tamols: {json.dumps({'scorer': scorer, 'walks': tamols_walks})}")
     log(f"torque: {json.dumps(torque)}")
+    log(f"gradient: {json.dumps(gradient)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 A second package beside ``quadruped_pympc_tamols_tpu`` (the JAX reference). It
 runs the sampling MPC (thousands of single-rigid-body rollouts solved on an
-NVIDIA Hopper card by the hand-written kernels in ``ops/csrc/``), the
-whole-body planners and torque path around it behind
+NVIDIA Hopper card by the hand-written kernels in ``ops/csrc/``), the gradient
+family's nominal RTI-SQP (``controllers/gradient/``, torch ops replayed from
+CUDA graphs), the whole-body planners and torque path around them behind
 ``interfaces.QuadrupedPyMPCWrapper``, the SRB closed-loop harness and the MuJoCo
 simulation (``sim.run_simulation``, MuJoCo imported lazily). Entry points take
 ``device=`` and default to ``"cuda"``; ``device="cpu"`` runs the plain torch

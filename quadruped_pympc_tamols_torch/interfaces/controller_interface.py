@@ -2,21 +2,30 @@
 
 Counterpart of ``quadruped_pympc_tamols_tpu/interfaces/controller_interface.py``
 (reference interfaces/srbd_controller_interface.py:27-245): builds the controller
-from the config, reads its one host summary per tick, masks the returned GRFs by
-the current contact (:225-230) and undoes the float32 recentering. The sampling family is ported,
-with the gait-adaptive sampler (``mpc.optimize_step_freq``); the gradient family
-raises NotImplementedError until its slice. The sampling family tracks the
-reference footholds and ignores the TAMOLS boxes (``ref_foot_constraints``), as
-the JAX interface does.
+from the config, reads its one host result per tick, masks the returned GRFs by
+the current contact (:225-230) and undoes the float32 recentering. Ported: the
+sampling family with the gait-adaptive sampler (``mpc.optimize_step_freq``), and
+the gradient family's nominal RTI-SQP (``mpc.type="nominal"``) with its RTI split
+and, in ``SRBDBatchedControllerInterface``, its batched gait-frequency search.
+The gradient variants (the stability, ZMP and foothold-optimization knobs of
+"nominal", and the types "input_rates", "lyapunov", "collaborative",
+"kinodynamic") raise NotImplementedError until the next slice. Both families
+track the reference footholds and ignore the TAMOLS boxes
+(``ref_foot_constraints``), as the JAX interface does.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..config import Config
+from ..controllers.gradient.sqp import BatchedGradientMPC, GradientMPC
 from ..controllers.sampling.gait_adaptive import GaitAdaptiveSamplingMPC, host_best_freq
 from ..controllers.sampling.sampling_mpc import SamplingMPC, host_summary
+from ..gait.periodic import contact_sequence, make_timer_dts
 from ..utils.legs import Legs
+
+_NEXT_SLICE = "the gradient variants (controllers/gradient/variants.py) are the next slice " \
+              "of the port (ROADMAP queue 1 item 3)"
 
 
 def recenter_state_and_reference(state_current: dict, ref_state: dict):
@@ -41,20 +50,28 @@ class SRBDControllerInterface:
         self.cfg = cfg
         self.type = cfg.mpc.type
         self.best_sample_freq = cfg.gait_params.step_freq
-        if self.type != "sampling":
-            raise NotImplementedError(
-                f"mpc.type={self.type!r}: the gradient family is not ported yet (ROADMAP "
-                "queue 1 item 4)")
-        if cfg.mpc.optimize_step_freq:
-            self.controller = GaitAdaptiveSamplingMPC(cfg, seed=seed, device=device)
+        gp = cfg.mpc.gradient
+        if self.type == "sampling":
+            if cfg.mpc.optimize_step_freq:
+                self.controller = GaitAdaptiveSamplingMPC(cfg, seed=seed, device=device)
+            else:
+                self.controller = SamplingMPC(cfg, seed=seed, device=device)
+        elif self.type == "nominal":
+            if gp.use_static_stability or gp.use_zmp_stability or gp.use_foothold_optimization:
+                raise NotImplementedError(
+                    "mpc.gradient.use_static_stability / use_zmp_stability / "
+                    f"use_foothold_optimization: {_NEXT_SLICE}")
+            self.controller = GradientMPC(cfg, device=device)
+        elif self.type in ("input_rates", "lyapunov", "collaborative", "kinodynamic"):
+            raise NotImplementedError(f"mpc.type={self.type!r}: {_NEXT_SLICE}")
         else:
-            self.controller = SamplingMPC(cfg, seed=seed, device=device)
+            raise ValueError(f"unsupported mpc type {self.type!r}")
         self._inflight = None
-        # Only the gradient family's nominal RTI solver consumes runtime inertia
-        # (JAX package :203-206); callers use this to skip computing the
-        # composite tensor, a loop over every MuJoCo body. No sampling
-        # controller does, and ``compute_control`` never evaluates ``inertia``.
-        self.consumes_inertia = False
+        # Only the nominal RTI solver consumes runtime inertia (JAX package
+        # :63-66); callers use this to skip computing the composite tensor, a loop
+        # over every MuJoCo body, and ``compute_control`` evaluates a callable
+        # ``inertia`` only for it.
+        self.consumes_inertia = isinstance(self.controller, GradientMPC)
 
     def compute_control(self, state_current: dict, ref_state: dict, contact_sequence,
                         inertia=None, mass=None, external_wrenches=None,
@@ -66,7 +83,30 @@ class SRBDControllerInterface:
                          else contact_sequence[:, 0], np.float32)
         prev = np.asarray(previous_contact if previous_contact is not None else cur, np.float32)
         state_current, ref_state, shift = recenter_state_and_reference(state_current, ref_state)
+        if self.type == "sampling":
+            grfs, footholds, predicted = self._sampling_control(
+                state_current, ref_state, contact_sequence, cur, prev, phase_signal,
+                optimize_swing)
+        else:
+            # Runtime inertia reaches the solver only where it is consumed; a
+            # callable is evaluated only then (JAX package :111-125).
+            extra = {}
+            if inertia is not None and self.consumes_inertia:
+                extra = dict(inertia=inertia() if callable(inertia) else inertia, mass=mass)
+            grfs, footholds, predicted, _, _ = self.controller.compute_control(
+                state_current, ref_state, contact_sequence,
+                external_wrenches=external_wrenches, **extra)
 
+        # Mask by current contact (reference srbd_controller_interface.py:225-230).
+        grfs = grfs * cur[:, None]
+        footholds = np.asarray(footholds, np.float64) + shift
+        predicted = np.asarray(predicted, np.float64).copy()
+        predicted[:3] = predicted[:3] + shift
+        return Legs(grfs), Legs(footholds), self.best_sample_freq, predicted
+
+    def _sampling_control(self, state_current, ref_state, contact_sequence, cur, prev,
+                          phase_signal, optimize_swing):
+        """The sampling family's tick: (GRFs, footholds, predicted state), host numpy."""
         if self.cfg.mpc.optimize_step_freq:
             out = self.controller.compute_control(
                 state_current, ref_state, contact_sequence, cur, prev,
@@ -88,17 +128,13 @@ class SRBDControllerInterface:
             self.best_sample_freq = host_best_freq(out)
         footholds = np.stack([np.asarray(ref_state[f"ref_foot_{leg}"]).reshape(3)
                               for leg in ("FL", "FR", "RL", "RR")])
-
-        # Mask by current contact (reference srbd_controller_interface.py:225-230).
-        grfs = grfs * cur[:, None]
-        footholds = np.asarray(footholds, np.float64) + shift
-        predicted = np.asarray(predicted, np.float64).copy()
-        predicted[:3] = predicted[:3] + shift
-        return Legs(grfs), Legs(footholds), self.best_sample_freq, predicted
+        return grfs, footholds, predicted
 
     def compute_rti(self):
-        """RTI preparation phase for the next tick (JAX package :275-279): a
-        no-op on the sampling family, whose warm-start shift runs after the solve."""
+        """RTI preparation phase for the next tick (JAX package :135-139): the
+        nominal solver dispatches its preparation without waiting (with
+        ``mpc.gradient.use_RTI``); a no-op on the sampling family, whose warm-start
+        shift runs after the solve."""
         if hasattr(self.controller, "compute_rti_prepare"):
             self.controller.compute_rti_prepare()
 
@@ -106,3 +142,26 @@ class SRBDControllerInterface:
         self.controller.reset()
         self.best_sample_freq = self.cfg.gait_params.step_freq
         self._inflight = None
+
+
+class SRBDBatchedControllerInterface:
+    """Batched gait-frequency optimization of the gradient family (counterpart of
+    the JAX package's, reference interfaces/srbd_batched_controller_interface.py:
+    32-80): one batched solve over the candidate frequencies."""
+
+    def __init__(self, cfg: Config, device="cuda"):
+        self.cfg = cfg
+        self.controller = BatchedGradientMPC(cfg, device=device)
+
+    def optimize_gait(self, state_current: dict, ref_state: dict, pgg_phase_signal,
+                      pgg_duty_factor):
+        """Builds one contact sequence per candidate step frequency from the current
+        gait phase (reference :64-76) and returns the best frequency."""
+        # The same float32 recentering as the main solve; only a frequency comes back.
+        state_current, ref_state, _ = recenter_state_and_reference(state_current, ref_state)
+        t_off = make_timer_dts(self.cfg.mpc)
+        freqs = np.asarray(self.cfg.mpc.step_freq_available, np.float32)
+        phase = np.tile(np.asarray(pgg_phase_signal, np.float32), (len(freqs), 1))
+        seqs = contact_sequence(phase, freqs, pgg_duty_factor, t_off)
+        _, best = self.controller.optimize_gait(state_current, ref_state, seqs)
+        return best

@@ -2,11 +2,14 @@
 
 Counterpart of ``quadruped_pympc_tamols_tpu/interfaces/wrapper.py`` (reference
 QuadrupedPyMPC_Wrapper, quadruped_pympc/quadruped_pympc_wrapper.py:18-258): owns
-the controller interface and the whole-body interface; ``compute_actions`` runs
-the planners, the MPC solve at the MPC rate (on ``device``: one kernel launch
-and one device-to-host copy a solve on the card) and the host torque path, and
-collects named observables (:205-243). The ticks between solves touch the card
-only when the TAMOLS planner runs at a swing apex.
+the controller interface, the gradient family's batched gait optimizer and the
+whole-body interface; ``compute_actions`` runs the planners, the MPC solve at the
+MPC rate (on ``device``: for the sampling family one kernel launch, for the
+nominal gradient MPC one CUDA-graph replay, and one device-to-host copy a solve
+on the card) and the host torque path, and collects named observables
+(:205-243). The ticks between solves touch the card only when the TAMOLS
+planner runs at a swing apex, or the nominal solver's RTI preparation
+(``mpc.gradient.use_RTI``) runs after a solve.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import numpy as np
 from ..config import Config
 from ..utils.device import resolve_device
 from ..utils.legs import Legs
-from .controller_interface import SRBDControllerInterface
+from .controller_interface import SRBDBatchedControllerInterface, SRBDControllerInterface
 from .wb_interface import WBInterface
 
 ALL_OBSERVABLES = (
@@ -30,13 +33,16 @@ class QuadrupedPyMPCWrapper:
                  quadrupedpympc_observables_names=ALL_OBSERVABLES, seed: int = 42,
                  device="cuda"):
         """``device`` runs the MPC solve and the TAMOLS planner; ``"cpu"`` runs
-        their plain torch versions. The gradient family (and with it the batched
-        gait optimizer of ``mpc.optimize_step_freq`` for ``mpc.type !=
-        "sampling"``) is not ported: the controller interface raises for it."""
+        their plain torch versions. With ``mpc.optimize_step_freq`` and the gradient
+        family, the batched gait optimizer picks the step frequency at each
+        touch-down window (JAX package :30-33, :77-83)."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.srbd_controller_interface = SRBDControllerInterface(cfg, seed=seed,
                                                                  device=self.device)
+        self.srbd_batched_controller_interface = (
+            SRBDBatchedControllerInterface(cfg, device=self.device)
+            if (cfg.mpc.optimize_step_freq and cfg.mpc.type != "sampling") else None)
         self.wb_interface = WBInterface(cfg, initial_feet_pos, device=self.device)
 
         self.observables_names = quadrupedpympc_observables_names
@@ -61,8 +67,8 @@ class QuadrupedPyMPCWrapper:
         contact_points=None, inertia=None,
     ) -> Legs:
         """One control tick; returns joint torques (Legs of (3,)). ``inertia`` (a
-        callable or an array) reaches only a controller that consumes it; no
-        sampling controller does."""
+        callable or an array) reaches only a controller that consumes it: the
+        nominal gradient MPC, not the sampling family."""
         (state_current, ref_state, contact_sequence, step_height, optimize_swing) = \
             self.wb_interface.update_state_and_reference(
                 com_pos, base_pos, base_lin_vel, base_ori_euler_xyz, base_ang_vel,
@@ -78,9 +84,15 @@ class QuadrupedPyMPCWrapper:
                 previous_contact=self.wb_interface.previous_contact,
                 phase_signal=self.wb_interface.pgg.phase_signal,
                 optimize_swing=optimize_swing)
-            # RTI preparation for the next tick (reference
-            # quadruped_pympc_wrapper.py:153-156); a no-op on the sampling family.
+            # RTI preparation for the next tick, dispatched without waiting so it
+            # overlaps the plant step (reference quadruped_pympc_wrapper.py:153-156);
+            # a no-op on the sampling family.
             self.srbd_controller_interface.compute_rti()
+
+            if self.srbd_batched_controller_interface is not None and optimize_swing:
+                self.best_sample_freq = self.srbd_batched_controller_interface.optimize_gait(
+                    state_current, ref_state, self.wb_interface.pgg.phase_signal,
+                    self.wb_interface.pgg.duty_factor)
         self._step_counter += 1
 
         tau, des_q, des_qd = self.wb_interface.compute_stance_and_swing_torque(

@@ -1,13 +1,16 @@
 """Carry configuration and controller state into the port.
 
 The system has no weights: what crosses from another implementation (the JAX
-package, a saved run) is a configuration and the sampling controller's state.
+package, a saved run) is a configuration and a controller's state.
 
 * ``config_from_dict`` takes ``dataclasses.asdict`` of a configuration, with enums
   by name or value and lists in place of tuples allowed, and returns the port's
   validated ``Config``.
 * ``sampling_state_from_numpy`` wraps an incumbent and a CEM sigma as the port's
   ``SamplingState`` on a device.
+* ``set_gradient_state`` gives a ``GradientMPC`` the nominal gradient MPC's
+  state (warm start, previous GRFs, integral), so that two implementations start a
+  tick from the same state.
 * ``heightmaps_from_numpy`` takes the leaves of a heightmap (a JAX
   ``GridHeightMap``'s, as numpy) and returns the port's ``GridHeightMap``.
 """
@@ -87,3 +90,14 @@ def heightmaps_from_numpy(center, yaw, resolution, heights, device="cuda") -> Gr
 
     return GridHeightMap(center=t(center), yaw=t(yaw), resolution=t(resolution),
                          heights=t(heights))
+
+
+def set_gradient_state(mpc, U_warm, previous_grfs, integral):
+    """Give a ``GradientMPC`` the state another one carries across ticks: the
+    warm start U_warm (H, 12), previous_grfs (4, 3) and the integral (6,), copied
+    as numpy arrays (the integral keeps its dtype: the JAX package's turns
+    float64 once it is committed)."""
+    mpc.U_warm = np.array(U_warm, np.float32).reshape(mpc.dims.horizon, 12)
+    mpc.previous_grfs = np.array(previous_grfs, np.float32).reshape(4, 3)
+    mpc.integral = np.array(integral).reshape(6)
+    return mpc

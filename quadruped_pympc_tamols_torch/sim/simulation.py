@@ -22,7 +22,7 @@ from ..utils.legs import Legs
 from .mujoco_env import QuadrupedEnv
 
 # Where the JAX package's video recorder and live viewer wait to be ported.
-VIDEO_ITEM = "sim/video.py (ROADMAP queue 1 item 3, MuJoCo tier)"
+VIDEO_ITEM = "sim/video.py (ROADMAP queue 1 item 4, MuJoCo tier)"
 
 
 @dataclasses.dataclass

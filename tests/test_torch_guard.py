@@ -30,12 +30,15 @@ def _port_modules():
 # The torque path, the facade and the MuJoCo tier, with their helpers.
 TORQUE_AND_MUJOCO = ("interfaces.wrapper", "kinematics.ik_solvers", "sim.mjcf", "sim.mujoco_env",
                      "sim.simulation", "sim.trace", "observability.logger", "utils.float32")
+# The gradient family's nominal RTI-SQP, its CUDA-graph runner and its float64 ladder.
+GRADIENT = ("controllers.gradient", "controllers.gradient.ocp", "controllers.gradient.qp",
+            "controllers.gradient.sqp", "utils.graphs", "utils.verification")
 
 
 def test_port_imports_no_jax():
     mods = _port_modules()
     assert len(mods) > 20
-    assert {f"{PKG}.{m}" for m in TORQUE_AND_MUJOCO} <= set(mods)
+    assert {f"{PKG}.{m}" for m in TORQUE_AND_MUJOCO + GRADIENT} <= set(mods)
     # Only modules the imports load count: the interpreter's startup may load others.
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -79,6 +82,29 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         assert entry(cfg, device="cpu") is not None
     from quadruped_pympc_tamols_torch.interfaces import QuadrupedPyMPCWrapper
     from quadruped_pympc_tamols_torch.utils.legs import Legs
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        QuadrupedPyMPCWrapper(cfg, Legs.zeros((3,)))
+    assert QuadrupedPyMPCWrapper(cfg, Legs.zeros((3,)), device="cpu") is not None
+
+
+def test_gradient_entry_points_need_cuda_unless_cpu_is_asked():
+    """The nominal gradient MPC, the controller interface and the wrapper built
+    for it, and the batched gait interface refuse to run on the CPU unless asked."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from quadruped_pympc_tamols_torch.controllers.gradient import BatchedGradientMPC, GradientMPC
+    from quadruped_pympc_tamols_torch.interfaces import QuadrupedPyMPCWrapper
+    from quadruped_pympc_tamols_torch.interfaces.controller_interface import (
+        SRBDBatchedControllerInterface, SRBDControllerInterface)
+    from quadruped_pympc_tamols_torch.utils.legs import Legs
+
+    cfg = make_config("aliengo", mpc_type="nominal",
+                      **{"sim.visual_foothold_adaptation": "blind"})
+    for entry in (GradientMPC, BatchedGradientMPC, SRBDControllerInterface,
+                  SRBDBatchedControllerInterface):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry(cfg)
+        assert entry(cfg, device="cpu") is not None
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         QuadrupedPyMPCWrapper(cfg, Legs.zeros((3,)))
     assert QuadrupedPyMPCWrapper(cfg, Legs.zeros((3,)), device="cpu") is not None

@@ -106,7 +106,8 @@ def test_pipelined_interface_returns_previous_tick():
 
 
 def test_unported_options_raise():
-    for over in ({"sim.ik_solver": "qp"}, {"mpc.type": "nominal"}):
+    """The gradient family's variants and its DDP solver are the next slice."""
+    for over in ({"mpc.type": "lyapunov"}, {"mpc.type": "nominal", "mpc.gradient.use_DDP": True}):
         cfg = make_config("aliengo", **{**BLIND, "mpc.sampling.num_samples": 32, **over})
         with pytest.raises(NotImplementedError):
             SRBClosedLoopHarness(cfg, device="cpu")

@@ -21,7 +21,7 @@ from quadruped_pympc_tamols_tpu.utils.legs import Legs as JaxLegs
 from quadruped_pympc_tamols_torch import make_config, replace_config
 from quadruped_pympc_tamols_torch.interfaces import WBInterface
 from quadruped_pympc_tamols_torch.interop import config_from_dict, sampling_state_from_numpy
-from quadruped_pympc_tamols_torch.kinematics import QPIK, LegKinematics
+from quadruped_pympc_tamols_torch.kinematics import LegKinematics
 from quadruped_pympc_tamols_torch.observability import EpisodeLogger
 from quadruped_pympc_tamols_torch.sim.trace import ControlTrace
 from quadruped_pympc_tamols_torch.utils.frames import euler_xyz_to_rot_np
@@ -292,22 +292,26 @@ def test_wrapper_closed_loop_matches_jax(tmp_path, monkeypatch):
 
 
 def test_unported_pieces_raise():
-    """QPIK waits for the gradient family's QP solver, video and the live viewer
-    for sim/video.py; the wrapper, run_simulation and the heightmaps refuse a
+    """The gradient variants (mpc.type "lyapunov") and the DDP solver
+    (mpc.gradient.use_DDP) wait for the next slice, video and the live viewer for
+    sim/video.py; the wrapper, run_simulation and the heightmaps refuse a
     missing card instead of using the CPU."""
+    from quadruped_pympc_tamols_torch.interfaces import QuadrupedPyMPCWrapper
+
     cfg = make_config("aliengo", mpc_type="sampling",
                       **{"sim.visual_foothold_adaptation": "blind",
                          "mpc.sampling.num_samples": 32})
-    with pytest.raises(NotImplementedError, match="item 4"):
-        QPIK(cfg.robot)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        WBInterface(replace_config(cfg, **{"sim.ik_solver": "qp"}), Legs.zeros((3,)),
-                    device="cpu")
+    with pytest.raises(NotImplementedError, match="item 3"):
+        QuadrupedPyMPCWrapper(replace_config(cfg, **{"mpc.type": "lyapunov"}), Legs.zeros((3,)),
+                              device="cpu")
+    with pytest.raises(NotImplementedError, match="item 3"):
+        QuadrupedPyMPCWrapper(replace_config(cfg, **{"mpc.type": "nominal",
+                                                     "mpc.gradient.use_DDP": True}),
+                              Legs.zeros((3,)), device="cpu")
     for kw in ({"video_path": "x.mp4"}, {"render": True}):
         with pytest.raises(NotImplementedError, match="sim/video.py"):
             simulation.run_simulation(cfg, episode_duration_s=0.01, device="cpu", **kw)
     if not torch.cuda.is_available():
-        from quadruped_pympc_tamols_torch.interfaces import QuadrupedPyMPCWrapper
         env = QuadrupedEnv(cfg)
         for call in (lambda: QuadrupedPyMPCWrapper(cfg, env.feet_pos()),
                      lambda: simulation.run_simulation(cfg, episode_duration_s=0.01),
