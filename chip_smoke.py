@@ -12,7 +12,9 @@ then the TAMOLS foothold planner, card against CPU, and the default configuratio
 walking over sensed terrain with it; then the torque path and the wrapper on a
 recorded MuJoCo loop; then the gradient family's nominal RTI-SQP (CUDA graphs of
 torch ops): its solve against the CPU and float64, its QP ladder, its walks and
-the wrapper with it. It imports neither JAX nor the JAX package.
+the wrapper with it; then the gradient variants and the DDP solver, each solve
+one CUDA graph: against the CPU and float64, their ticks, their walks and the
+kinodynamic wrapper. It imports neither JAX nor the JAX package.
 It exits non-zero without a CUDA device or without the package beside it.
 
 Output: the card's name and power limit, one line per phase, for each row the
@@ -21,7 +23,8 @@ rollout pass's device time and its kernel's registers, shared memory and spills
 and CEM rows (K1b, K1c, K1e-mppi, K1e-cem), the extraction kernel of the random
 sampling rows (K1a, K1e-rs) and the chain kernel of the K1d rows, a "tamols:"
 line with phases 16-17's numbers as JSON, a "torque:" line with phase 18's, a
-"gradient:" line with phases 19-21's, a ``{"kernels": ...}`` line (rows of
+"gradient:" line with phases 19-21's, a "variants:" line with phases 22-24's, a
+``{"kernels": ...}`` line (rows of
 the main path's cubic splines, then ``-lin`` and ``-zo`` rows), and as the last
 line ``{"ok": true, "device": {...}}``.
 
@@ -147,6 +150,36 @@ to 0 just before it and read just after):
      finite torques, one copy an MPC tick and one an apex call, nothing on the
      card otherwise, and the host clock of compute_actions. Their numbers are
      the "gradient:" JSON line.
+ 22. The gradient variant core (torch ops, one captured CUDA graph a solve, no
+     kernel of its own), for each row of VARIANT_ROWS (the walk table's but
+     ddp, plus the foothold boxes and the crawl's ZMP rows) on the golden trot
+     tick (a crawl's: the three-stance one): (a) the QP assembled on the card
+     against the CPU port from the same inputs, 1e-4 of the largest entry;
+     (b) on the card's QP and VARIANT_ENSEMBLE seeded perturbations of its
+     Hessian, the first-stage force inputs (GRFs; input_rates' GRF rates) of
+     the card's solve and of the CPU port's at the card's budget against the
+     float64 solution of the same (soft-augmented) QP: on the tick's QP the
+     card's gap at most max(2 x the CPU's, 0.01), on the perturbed copies the
+     spread of both, reported; (c) the graph replay bit-equal to the
+     eager function on the card and to a rerun, and a NaN state taking the
+     fallback; (d) the host clock of the solve tick (median of 200, each with
+     its one copy), and kernels and device us a tick with exactly one copy a
+     tick (torch.profiler, host count). No sampling kernel launches.
+ 23. The DDP solver: the sequential and associative Riccati passes on the card
+     against each other and the CPU at the shapes of
+     tests/test_parallel_riccati.py:31-41 (atol 2e-3, rtol 1e-3); GradientMPC
+     with use_DDP as a graph bit-equal to eager on the golden trot and push
+     ticks (trot at H = 24), and its
+     solve tick at H = 12 (sequential) and H = 24 ("auto": associative).
+ 24. The variant walks on the card, 3 s at 0.3 m/s blind, one a row of
+     VARIANT_WALKS, beside the JAX package's CPU rows (JAX_CPU_VARIANT_WALKS):
+     the band where the JAX row walks, upright at height for the static crawl;
+     every solve a graph replay, no sampling kernel. The kinodynamic
+     controller through QuadrupedPyMPCWrapper on the recorded MuJoCo loop (the
+     SRB harness feeds zero joint angles): finite torques, the OCP's
+     first-stage joints as the whole-body layer's joint targets on every step,
+     one copy an MPC tick (one more an apex call), nothing on the card between.
+     Their numbers are the "variants:" JSON line.
 """
 from __future__ import annotations
 
@@ -1942,7 +1975,8 @@ def grad_cfg(**over):
 def eager(mpc):
     """``mpc`` with every phase run eagerly on its device (the graphs' plain version)."""
     for name in ("_solve_dev", "_prepare_dev", "_feedback_dev"):
-        setattr(mpc, name, getattr(mpc, name).fn)
+        if getattr(mpc, name) is not None:  # no split under use_DDP
+            setattr(mpc, name, getattr(mpc, name).fn)
     return mpc
 
 
@@ -2100,17 +2134,9 @@ def phase_gradient_solve() -> dict:
                           ("eager", grad_tick(eager(GradientMPC(cfg)), "trot_nominal"), 5)):
         r[f"profile_{name}"] = profile_ticks(None, None, n=n, d2h=1, call=call)
     for key in ("profile_graph", "profile_eager"):
-        p = r[key]
-        if "launches" in p:
-            # A graph's device-to-device copies may be recorded as a kernel,
-            # "memcpy32_post" (49 a tick): copies, not kernels.
-            p["kernels_per_tick"] = sum(v for k, v in p["launches"].items()
-                                        if "memcpy" not in k.lower()
-                                        and "memset" not in k.lower()) / p["ticks"]
-            p["device_us_per_tick"] = sum(p["device_us_per_launch"][k] * v
-                                          for k, v in p["launches"].items()) / p["ticks"]
-            p.pop("device_us_per_launch")
-            p.pop("launches")
+        # A graph's device-to-device copies may be recorded as a kernel,
+        # "memcpy32_post" (49 a tick): copies, not kernels.
+        summarize_profile(r[key])
     log(f"phase 19 (d): {r['eager_ops_per_tick']} torch operations on the card in one eager "
         f"tick; graph ticks {json.dumps(r['profile_graph'])}; eager ticks "
         f"{json.dumps(r['profile_eager'])}")
@@ -2249,11 +2275,12 @@ def gait_search(device) -> dict:
             "final_step_freq": float(h.wb.pgg.step_freq)}
 
 
-def nominal_replay(cfg, counted=False) -> dict:
+def nominal_replay(cfg, counted=False, label="phase 21 wrapper", joints=False) -> dict:
     """The recorded MuJoCo observations through QuadrupedPyMPCWrapper with the
-    nominal MPC on the card: finite torques, the host clock of each step, and
-    (``counted``) one copy an MPC tick and one an apex call, nothing on the card on
-    any other step."""
+    gradient MPC of ``cfg`` on the card: finite torques, the host clock of each
+    step, (``counted``) one copy an MPC tick and one an apex call, nothing on the
+    card on any other step, and (``joints``) the kinodynamic OCP's first-stage
+    joint positions as the whole-body layer's joint targets on every step."""
     import torch
     from quadruped_pympc_tamols_torch.interfaces import QuadrupedPyMPCWrapper
     from quadruped_pympc_tamols_torch.sim.trace import ControlTrace
@@ -2284,16 +2311,22 @@ def nominal_replay(cfg, counted=False) -> dict:
             tau = w.compute_actions(**kw)
         (mpc_ms if mpc else other_ms).append((time.perf_counter() - t0) * 1e3)
         if not np.all(np.isfinite(tau.data)):
-            raise AssertionError(f"phase 21 wrapper step {i}: torques not finite")
+            raise AssertionError(f"{label} step {i}: torques not finite")
         want = int(mpc) + apex[0] - apex_before
         if counted and (Count.copies != want or (want == 0 and Count.ops)):
-            raise AssertionError(f"phase 21 wrapper step {i}: {Count.copies} copies and "
+            raise AssertionError(f"{label} step {i}: {Count.copies} copies and "
                                  f"{Count.ops} card operations, want {want} copies")
+        if joints:
+            q_now = np.asarray(kw["qpos_js"].data).reshape(4, 3)
+            plan = np.asarray(w.srbd_controller_interface.nmpc_joints_pos)[0].reshape(4, 3)
+            if not np.allclose(np.asarray(w.des_joints_pos.data).reshape(4, 3),
+                               q_now + np.clip(plan - q_now, -3.0, 3.0), rtol=0, atol=1e-6):
+                raise AssertionError(f"{label} step {i}: joint targets are not the OCP's")
         copies += Count.copies
     torch.cuda.synchronize()
     replays = w.srbd_controller_interface.controller._solve_dev.replays
     if replays != trace.steps // w._mpc_every:
-        raise AssertionError(f"phase 21 wrapper: {replays} graph replays")
+        raise AssertionError(f"{label}: {replays} graph replays")
     med = statistics.median
 
     def p99(xs):
@@ -2339,6 +2372,339 @@ def phase_gradient_walks() -> dict:
         f"{timed['compute_actions_ms_mpc_p99']:.4f}; other ticks median "
         f"{timed['compute_actions_ms_other_median']:.4f} ms, p99 "
         f"{timed['compute_actions_ms_other_p99']:.4f}")
+    return r
+
+
+# -- phases 22-24: the gradient variant core and the DDP solver on the card ------------
+# (mpc_type, gait, overrides) of the variant rows: the walk table of PERF.md
+# (tests/test_torch_variants_loop.py WALKS) but ddp, with the foothold boxes and
+# the crawl's ZMP rows beside them in phase 22.
+VARIANT_ROWS = {
+    "input_rates": ("input_rates", "trot", {}),
+    "lyapunov": ("lyapunov", "trot", {}),
+    "collaborative": ("collaborative", "trot", {}),
+    "zmp": ("nominal", "trot", {"mpc.gradient.use_zmp_stability": True}),
+    "foothold": ("nominal", "trot", {"mpc.gradient.use_foothold_optimization": True}),
+    "static_crawl": ("nominal", "crawl", {"mpc.gradient.use_static_stability": True}),
+    "kinodynamic": ("kinodynamic", "trot", {}),
+    "foothold_constraints": ("nominal", "trot", {"mpc.gradient.use_foothold_optimization": True,
+                                                 "mpc.gradient.use_foothold_constraints": True}),
+    "zmp_crawl": ("nominal", "crawl", {"mpc.gradient.use_zmp_stability": True}),
+}
+# Rows walked in phase 24 (kinodynamic runs the recorded MuJoCo loop instead: the
+# SRB harness feeds zero joint angles, and the JAX package's kinodynamic walk
+# diverges there) and whether the JAX package's row walks the band.
+VARIANT_WALKS = {"input_rates": True, "lyapunov": True, "collaborative": True, "zmp": True,
+                 "foothold": True, "ddp": True, "static_crawl": False}
+# The JAX package's variant walks on the CPU (3 s at 0.3 m/s, blind): walked m, min
+# z m, max |roll|,|pitch| rad, mean z of the second half m;
+# `python tests/test_torch_variants_loop.py`.
+JAX_CPU_VARIANT_WALKS = {"input_rates": (0.7821, 0.3308, 0.0313, 0.3343),
+                         "lyapunov": (0.5959, 0.3485, 0.0210, 0.3505),
+                         "collaborative": (1.2680, 0.3430, 0.0528, 0.3465),
+                         "zmp": (0.8930, 0.3488, 0.0078, 0.3493),
+                         "foothold": (0.9034, 0.3485, 0.0086, 0.3491),
+                         "ddp": (0.8914, 0.3473, 0.0082, 0.3481),
+                         "static_crawl": (0.3218, 0.3417, 0.1730, 0.3473)}
+VARIANT_ENSEMBLE = 2  # seeded perturbations of each QP in phase 22 (b)
+VARIANT_PERTURB = 3e-7  # relative, on the Hessian: the card's and the CPU's assembly differ so
+RICCATI_SHAPES = ((16, 4, 2), (12, 12, 12), (64, 6, 3))  # tests/test_parallel_riccati.py:31-41
+LEGS4 = ("FL", "FR", "RL", "RR")
+
+
+def variant_cfg(row, **extra):
+    from quadruped_pympc_tamols_torch import make_config
+    if row == "ddp":
+        return grad_cfg(**{"mpc.gradient.use_DDP": True}, **extra)
+    mpc_type, gait, over = VARIANT_ROWS[row]
+    return make_config("aliengo", mpc_type=mpc_type, gait=gait, **over, **extra)
+
+
+def variant_of(cfg) -> str:
+    return "nominal" if cfg.mpc.type == "nominal" else cfg.mpc.type
+
+
+def variant_tick(cfg):
+    """The golden trot tick (a crawl's: the three-stance one, where its rows are
+    active) with joint angles from the IK of its feet: (state, reference, seq)."""
+    from quadruped_pympc_tamols_torch.kinematics.leg_ik import LegKinematics
+    from quadruped_pympc_tamols_torch.utils.frames import euler_xyz_to_rot_np
+    from quadruped_pympc_tamols_torch.utils.verification import golden_nominal_scenarios
+    name = "three_stance_nominal" if cfg.sim.gait == "crawl" else "trot_nominal"
+    state, ref, seq = golden_nominal_scenarios(cfg)[name]
+    state = dict(state)
+    feet = np.stack([state[f"foot_{leg}"] for leg in LEGS4])
+    q0 = LegKinematics(cfg.robot).ik_world(feet, state["position"],
+                                           euler_xyz_to_rot_np(state["orientation"]))
+    for i, leg in enumerate(LEGS4):
+        state[f"joint_{leg}"] = q0[i]
+    return state, ref, seq
+
+
+def solve_inputs(mpc, tick):
+    """The host inputs compute_control hands ``mpc.solve`` on ``tick``."""
+    fn, got = mpc.solve, []
+
+    def solve(*a):
+        got.append([np.array(x, np.float32) for x in a])
+        return fn(*a)
+    mpc.solve = solve
+    mpc.compute_control(*tick)
+    mpc.solve = fn
+    return got[0]
+
+
+def variant_qp_gaps(cfg, q, S, iters) -> tuple:
+    """First-stage force-input gaps to float64 of the variant solve (hard or soft,
+    as the variant core solves it) at ``iters`` on the card and on the CPU, for q
+    and VARIANT_ENSEMBLE seeded perturbations of its Hessian: (card, CPU)."""
+    import torch
+    from quadruped_pympc_tamols_torch.controllers.gradient.qp import soft_qp_solve
+    from quadruped_pympc_tamols_torch.controllers.gradient.variants import variant_qp_solver
+    from quadruped_pympc_tamols_torch.utils.verification import (pdip_solve_np_f64,
+                                                                 soft_qp_augment_np)
+    gp = cfg.mpc.gradient
+    fn, _ = variant_qp_solver(gp, "cuda")
+    q = [np.asarray(a, np.float32) for a in q]
+    n = q[1].shape[0]
+    nu = n // cfg.mpc.horizon
+    forces = slice(nu - 12, nu)
+    rng = np.random.default_rng(22)
+    qps = [q]
+    for _ in range(VARIANT_ENSEMBLE):
+        E = rng.normal(0, VARIANT_PERTURB, q[0].shape)
+        qps.append([(q[0] * (1 + (E + E.T) / 2)).astype(np.float32)] + q[1:])
+    gaps = []
+    for qq in qps:
+        z64 = pdip_solve_np_f64(*(qq if S is None else soft_qp_augment_np(
+            *qq, S, gp.slack_l1, gp.slack_l2)))[0]
+        row = []
+        for device in ("cuda", "cpu"):
+            t = [torch.as_tensor(a, device=device)[None] for a in qq]
+            if S is None:
+                z = fn(*t, iters=iters).z[0]
+            else:
+                z = soft_qp_solve(*t, torch.as_tensor(S, device=device), zl=gp.slack_l1,
+                                  Zl=gp.slack_l2, solver=fn, iters=iters).z[0]
+            row.append(float(np.abs(z.cpu().numpy()[forces] - z64[forces]).max()))
+        gaps.append(row)
+    gaps = np.asarray(gaps)
+    return gaps[:, 0], gaps[:, 1]
+
+
+def summarize_profile(p) -> dict:
+    """Kernels and device microseconds a tick from a profile_ticks result (a
+    graph's device-to-device copies may be recorded as kernels: not counted)."""
+    if "launches" in p:
+        p["kernels_per_tick"] = sum(v for k, v in p["launches"].items()
+                                    if "memcpy" not in k.lower()
+                                    and "memset" not in k.lower()) / p["ticks"]
+        p["device_us_per_tick"] = sum(p["device_us_per_launch"][k] * v
+                                      for k, v in p["launches"].items()) / p["ticks"]
+        p.pop("device_us_per_launch")
+        p.pop("launches")
+    return p
+
+
+def phase_variant_solves() -> dict:
+    """Phase 22: each variant row's solve on the card (see the module docstring)."""
+    import torch
+    from quadruped_pympc_tamols_torch.controllers.gradient import VariantGradientMPC
+    from quadruped_pympc_tamols_torch.controllers.gradient.variants import (
+        make_variant_solver, variant_qp_solver)
+
+    out = {}
+    for row in VARIANT_ROWS:
+        label = f"phase 22 {row}"
+        t_row = time.perf_counter()
+        cfg = variant_cfg(row)
+        tick = variant_tick(cfg)
+        reset_counts()
+        host = VariantGradientMPC(cfg, variant_of(cfg), device="cpu")
+        ins = solve_inputs(host, tick)
+        # (a) the QP assembled on the card and on the CPU from the same inputs.
+        _, _, asm_cpu, S = make_variant_solver(cfg, host.spec, return_assembler=True,
+                                               device="cpu")
+        graphed = VariantGradientMPC(cfg, variant_of(cfg), device="cuda")
+        _, _, asm_card, _ = make_variant_solver(cfg, graphed.spec, return_assembler=True,
+                                                device="cuda")
+        q_cpu = [a.numpy() for a in asm_cpu(*(torch.from_numpy(a) for a in ins))]
+        q_card = [a.cpu().numpy() for a in asm_card(*(torch.from_numpy(a).cuda() for a in ins))]
+        rel = {part: float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+               for part, a, b in zip(("Hm", "g", "Cb", "d"), q_card, q_cpu)}
+        if max(rel.values()) > 1e-4:
+            raise AssertionError(f"{label} (a): card's QP off the CPU port's: {rel}")
+        # (b) first-stage forces against float64, on the card's QP and perturbed
+        # copies: the card and the CPU port, both at the card's budget.
+        card_iters = variant_qp_solver(cfg.mpc.gradient, "cuda")[1]
+        card_gaps, cpu_gaps = variant_qp_gaps(cfg, q_card, S, card_iters)
+        # Held on the tick's own QP, as phase 19 holds the golden QPs; the
+        # perturbed copies show the spread of a chaotic iterate (kinodynamic:
+        # 0.004-0.10 N on the card, 0.003-0.03 on the CPU) and are not held.
+        if not card_gaps[0] <= max(2 * cpu_gaps[0], GRAD_F64_FLOOR):
+            raise AssertionError(f"{label} (b): card {card_gaps[0]} off float64, CPU port at "
+                                 f"the card's budget {cpu_gaps[0]}")
+        # (c) graph replay bit-equal to the eager function and to a rerun; the fallback.
+        plain = VariantGradientMPC(cfg, variant_of(cfg), device="cuda")
+        plain._solve_dev = plain._solve_dev.fn
+        a, b, c = graphed.solve(*ins), plain.solve(*ins), graphed.solve(*ins)
+        if not (same_bits(a, b) and same_bits(a, c)):
+            raise AssertionError(f"{label} (c): graph replay, eager run and rerun differ")
+        g0 = graphed.compute_control(*tick)[0]
+        bad = dict(tick[0], position=np.array([np.nan, 0.0, 0.32]))
+        grfs, _, _, status, _ = graphed.compute_control(bad, *tick[1:])
+        if status != 1 or not np.array_equal(grfs, g0):
+            raise AssertionError(f"{label} (c): a NaN state did not take the fallback")
+        # (d) the host clock of the solve tick, its device time and kernels.
+        mpc = VariantGradientMPC(cfg, variant_of(cfg), device="cuda")
+
+        def call(mpc=mpc):
+            mpc.compute_control(*tick)
+        ms = median_host_ms(call, GRAD_TIMED)
+        prof = summarize_profile(profile_ticks(None, None, n=20, d2h=1, call=call))
+        check_counts(label, read_counts(), counts_of(), 1)
+        out[row] = {"n_variables": host.dims.nU, "qp_rows": q_cpu[3].shape[0],
+                    "soft_slacks": 0 if S is None else S.shape[1], "card_vs_cpu_qp_rel": rel,
+                    "card_gap_N": card_gaps.tolist(), "cpu_gap_at_card_budget_N":
+                    cpu_gaps.tolist(), "qp_iters": card_iters, "solve_tick_ms": ms,
+                    "graph_captures": mpc._solve_dev.captures, "profile": prof,
+                    "phase_s": time.perf_counter() - t_row}
+        unit = "N/s (GRF rates)" if row == "input_rates" else "N"
+        log(f"{label}: ok; {host.dims.nU} variables, {q_cpu[3].shape[0]} rows, "
+            f"{out[row]['soft_slacks']} slacks; QP card/CPU rel {max(rel.values()):.2e}; "
+            f"first-stage force gap to float64 card {card_gaps[0]:.4f} {unit} (CPU port at "
+            f"{card_iters} iterations {cpu_gaps[0]:.4f}; on {VARIANT_ENSEMBLE} perturbed "
+            f"copies card {np.round(card_gaps[1:], 4).tolist()}, CPU "
+            f"{np.round(cpu_gaps[1:], 4).tolist()}); graph == eager == rerun; "
+            f"NaN fallback; solve tick {ms:.4f} ms (median of {GRAD_TIMED}); "
+            f"{json.dumps(prof)}; {out[row]['phase_s']:.1f} s")
+    return out
+
+
+def random_ltv(H, n, m, seed):
+    """The random LTV problem of tests/test_parallel_riccati.py:13-28."""
+    rng = np.random.default_rng(seed)
+    F = rng.normal(size=(H, n, n)) * 0.3 + np.eye(n)
+    c = rng.normal(size=(H, n)) * 0.1
+    G = rng.normal(size=(H, n, m))
+    Q = np.stack([A @ A.T * 0.1 + 0.5 * np.eye(n) for A in rng.normal(size=(H, n, n))])
+    q = rng.normal(size=(H, n))
+    R = np.tile(np.eye(m), (H, 1, 1))
+    A = rng.normal(size=(n, n))
+    return [np.asarray(a, np.float32) for a in (F, c, G, Q, q, R, A @ A.T * 0.1 + np.eye(n),
+                                                rng.normal(size=n))]
+
+
+def phase_ddp() -> dict:
+    """Phase 23: the Riccati passes and the DDP solve on the card."""
+    import torch
+    from quadruped_pympc_tamols_torch.controllers.gradient import GradientMPC, parallel_riccati
+
+    r = {"riccati": {}}
+    for seed, (H, n, m) in enumerate(RICCATI_SHAPES):
+        args = random_ltv(H, n, m, seed)
+        runs = {(dev, kind): [x.cpu().numpy() for x in getattr(
+                    parallel_riccati, f"lqr_backward_{kind}")(
+                    *(torch.from_numpy(a).to(dev) for a in args))]
+                for dev in ("cuda", "cpu") for kind in ("sequential", "associative")}
+        err = {}
+        for a, b in ((("cuda", "associative"), ("cuda", "sequential")),
+                     (("cuda", "sequential"), ("cpu", "sequential")),
+                     (("cuda", "associative"), ("cpu", "associative"))):
+            for x, y in zip(runs[a], runs[b]):
+                if not np.allclose(x, y, atol=2e-3, rtol=1e-3):
+                    raise AssertionError(f"phase 23 {(H, n, m)}: {a} against {b}")
+            err[f"{a[0]} {a[1]} - {b[0]} {b[1]}"] = max(float(np.abs(x - y).max())
+                                                         for x, y in zip(runs[a], runs[b]))
+        r["riccati"]["x".join(map(str, (H, n, m)))] = err
+    log(f"phase 23 Riccati: ok; max abs differences {json.dumps(r['riccati'])} (atol 2e-3, "
+        f"rtol 1e-3)")
+    for label, over in (("H12", {}), ("H24", {"mpc.horizon": 24, "mpc.horizon_fine_grained": 2})):
+        cfg = variant_cfg("ddp", **over)
+        # riccati_backward "auto": the associative pass from H = 24 (ddp.py).
+        mode = "associative" if cfg.mpc.horizon >= 24 else "sequential"
+        graphed, plain = GradientMPC(cfg, device="cuda"), eager(GradientMPC(cfg, device="cuda"))
+        for name in ("trot_nominal", "push_nominal") if label == "H12" else ("trot_nominal",):
+            ins = grad_inputs(graphed, name)
+            a = graphed.solve(*ins, ins[4])
+            if not (same_bits(a, plain.solve(*ins, ins[4]))
+                    and same_bits(a, graphed.solve(*ins, ins[4]))):
+                raise AssertionError(f"phase 23 {label} {name}: graph replay, eager run and "
+                                     f"rerun differ")
+        reset_counts()
+        call = grad_tick(GradientMPC(cfg, device="cuda"), "trot_nominal")
+        ms = median_host_ms(call, GRAD_TIMED)
+        prof = summarize_profile(profile_ticks(None, None, n=20, d2h=1, call=call))
+        check_counts(f"phase 23 {label}", read_counts(), counts_of(), 1)
+        r[label] = {"riccati_backward": mode, "solve_tick_ms": ms, "profile": prof}
+        log(f"phase 23 DDP {label} (riccati_backward auto: {mode}, {cfg.mpc.horizon} stages): "
+            f"ok; graph == eager == rerun on golden ticks; solve tick {ms:.4f} ms (median of "
+            f"{GRAD_TIMED}); {json.dumps(prof)}")
+    return r
+
+
+def variant_walk(row) -> dict:
+    """Phase 24: the SRB harness on the card, WALK_S at WALK_VEL, blind; raises
+    unless the row walks the band (where the JAX package's walks) or stays upright
+    and at height (static_crawl), with no sampling kernel launched and every
+    solve a graph replay."""
+    import torch
+    from quadruped_pympc_tamols_torch.sim import SRBClosedLoopHarness
+
+    label = f"phase 24 {row}"
+    cfg = variant_cfg(row, **{"sim.visual_foothold_adaptation": "blind"})
+    h = SRBClosedLoopHarness(cfg, seed=0, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = h.run(WALK_S, WALK_VEL)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ticks = int(round(WALK_S / cfg.sim.dt)) // h._mpc_every
+    check_counts(label, read_counts(), counts_of(), ticks)
+    replays = h.ctrl.controller._solve_dev.replays
+    if replays != ticks:
+        raise AssertionError(f"{label}: {replays} graph replays for {ticks} ticks")
+    z = hist[:, 2]
+    dist, tilt = float(hist[-1, 0] - hist[0, 0]), float(np.abs(hist[:, 6:8]).max())
+    dz = float(np.mean(z[len(z) // 2:]) - cfg.sim.ref_z)
+    if VARIANT_WALKS[row]:
+        walk_band(label, cfg, hist)
+    elif not (np.all(np.isfinite(hist)) and z.min() > 0.15 and tilt < 0.5 and abs(dz) < 0.08):
+        raise AssertionError(f"{label}: not upright at height (min z {z.min()}, tilt {tilt}, "
+                             f"mean z - ref_z {dz})")
+    r = {"walked_m": dist, "min_z_m": float(z.min()), "max_tilt_rad": tilt,
+         "mean_z_second_half_m": float(np.mean(z[len(z) // 2:])), "ticks": ticks,
+         "graph_replays": replays, "harness_s_per_sim_s": wall / WALK_S}
+    log(f"{label}: ok; walked {dist:.4f} m, min z {z.min():.4f} m, max |roll|,|pitch| "
+        f"{tilt:.4f} rad, mean z of the second half {r['mean_z_second_half_m']:.4f} m; {replays} "
+        f"graph replays, no sampling kernel; harness {wall / WALK_S:.3f} s wall per simulated "
+        f"s; JAX package on the CPU: {JAX_CPU_VARIANT_WALKS.get(row)}")
+    return r
+
+
+def phase_variant_walks() -> dict:
+    """Phase 24: the variant walks and the kinodynamic wrapper on the recorded loop."""
+    from quadruped_pympc_tamols_torch.interop import config_from_dict
+    from quadruped_pympc_tamols_torch.sim.trace import ControlTrace
+
+    r = {"walks": {row: variant_walk(row) for row in VARIANT_WALKS}}
+    recorded = config_from_dict(ControlTrace().config)
+    kcfg = dataclasses.replace(recorded, mpc=dataclasses.replace(recorded.mpc, type="kinodynamic"))
+    reset_counts()
+    counted = nominal_replay(kcfg, counted=True, label="phase 24 kinodynamic wrapper",
+                             joints=True)
+    timed = nominal_replay(kcfg, label="phase 24 kinodynamic wrapper")
+    check_counts("phase 24 kinodynamic wrapper", read_counts(), counts_of(), 1)
+    r["kinodynamic_wrapper"] = {**timed, "d2h_copies": counted["d2h_copies"],
+                                "apex_calls": counted["apex_calls"]}
+    log(f"phase 24 kinodynamic wrapper: ok; {timed['steps']} recorded steps through "
+        f"QuadrupedPyMPCWrapper with the kinodynamic MPC on the card: finite torques, the "
+        f"OCP's joint trajectories the whole-body layer's joint targets on every step, "
+        f"{timed['solve_replays']} graph replays, {counted['d2h_copies']} device-to-host "
+        f"copies ({counted['apex_calls']} apex calls); compute_actions MPC ticks median "
+        f"{timed['compute_actions_ms_mpc_median']:.4f} ms, p99 "
+        f"{timed['compute_actions_ms_mpc_p99']:.4f}; other ticks median "
+        f"{timed['compute_actions_ms_other_median']:.4f} ms")
     return r
 
 
@@ -2516,6 +2882,9 @@ def main() -> int:
     gradient = {"solve": phase_gradient_solve(), "ladder": phase_gradient_ladder(),
                 **phase_gradient_walks()}
 
+    # -- phases 22-24: the variant core and the DDP solver -------------------------------
+    variants = {"solves": phase_variant_solves(), "ddp": phase_ddp(), **phase_variant_walks()}
+
     def row(name, source, short, par, err, ms, plain, bound, passes, **extra):
         return {"name": f"{name} ({short}{PAR_SUFFIX[par]})", "route": "cuda",
                 "source": f"quadruped_pympc_tamols_torch/ops/csrc/{source}.cu",
@@ -2597,6 +2966,7 @@ def main() -> int:
     log(f"tamols: {json.dumps({'scorer': scorer, 'walks': tamols_walks})}")
     log(f"torque: {json.dumps(torque)}")
     log(f"gradient: {json.dumps(gradient)}")
+    log(f"variants: {json.dumps(variants)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -146,21 +146,33 @@ def condense(lin: Linearization, dims: OCPDims):
     delta_u_j, and G (..., H, H, nx, nu), lower block triangular.
 
     The block recursion of the JAX package (F[k] = A_k F[k-1], G[k, j] = A_k
-    G[k-1, j] for j < k, G[k, k] = B_k): each stage's products, F and the k
-    blocks of G alike, are one batched matmul (nx = nu = 12)."""
+    G[k-1, j] for j < k, G[k, k] = B_k): where nx = nu (the nominal and the
+    foothold and kinodynamic variants) each stage's products, F and the k blocks
+    of G alike, are one batched matmul; otherwise F and G take one each."""
     H = dims.horizon
     A, B = lin.A, lin.B
     zero = torch.zeros_like(B[..., 0, None, :, :])
+
+    def padded(blocks, k):  # G[k, 0..k] then zeros to H blocks
+        return torch.cat([blocks, zero.expand(zero.shape[:-3] + (H - 1 - k,)
+                                              + zero.shape[-2:])], dim=-3)
+
+    if A.shape[-1] != B.shape[-1]:
+        F, row = [A[..., 0, :, :]], B[..., 0, None, :, :]
+        G = [padded(row, 0)]
+        for k in range(1, H):
+            F.append(A[..., k, :, :] @ F[-1])
+            row = torch.cat([A[..., k, None, :, :] @ row, B[..., k, None, :, :]], dim=-3)
+            G.append(padded(row, k))
+        return torch.stack(F, dim=-3), torch.stack(G, dim=-4)
     # row k: [F[k], G[k, 0], ..., G[k, k]]
     row = torch.stack([A[..., 0, :, :], B[..., 0, :, :]], dim=-3)
-    F, G = [row[..., 0, :, :]], [torch.cat([row[..., 1:, :, :], zero.expand(
-        zero.shape[:-3] + (H - 1,) + zero.shape[-2:])], dim=-3)]
+    F, G = [row[..., 0, :, :]], [padded(row[..., 1:, :, :], 0)]
     for k in range(1, H):
         prod = A[..., k, None, :, :] @ row
         row = torch.cat([prod, B[..., k, None, :, :]], dim=-3)
         F.append(row[..., 0, :, :])
-        G.append(torch.cat([row[..., 1:, :, :], zero.expand(
-            zero.shape[:-3] + (H - 1 - k,) + zero.shape[-2:])], dim=-3))
+        G.append(padded(row[..., 1:, :, :], k))
     return torch.stack(F, dim=-3), torch.stack(G, dim=-4)
 
 

@@ -58,6 +58,20 @@ def _rmv(M, v):
     return (M.transpose(-1, -2) @ v[..., None])[..., 0]
 
 
+def _cascade_mv(M, v):
+    """M v as an elementwise product and a sum, which torch reduces in cascade
+    (pairwise) order instead of the matmul's running float32 sum."""
+    return (M * v[..., None, :]).sum(-1)
+
+
+def _cascade_rmv(M, v):
+    return (M * v[..., :, None]).sum(-2)
+
+
+def _matvecs(cascade: bool):
+    return (_cascade_mv, _cascade_rmv) if cascade else (_mv, _rmv)
+
+
 def max_step(v, dv):
     """Fraction-to-boundary step (B,): the largest step in (0, 1] that keeps v + a dv
     positive, times 0.995."""
@@ -66,9 +80,9 @@ def max_step(v, dv):
     return torch.clamp(0.995 * ratio.amin(dim=-1), max=1.0)
 
 
-def _init(Hm, g, C, d, z0, lam0):
+def _init(Hm, g, C, d, z0, lam0, mv):
     z = torch.zeros_like(g) if z0 is None else z0
-    s = torch.clamp(d - _mv(C, z), min=1.0)
+    s = torch.clamp(d - mv(C, z), min=1.0)
     lam = torch.ones_like(d) if lam0 is None else lam0.expand_as(d)
     return z, s, lam
 
@@ -94,15 +108,19 @@ def _finish(z, lam, s, C, d):
 
 def pdip_solve(Hm, g, C, d, iters: int = 18, reg: float = 1e-7, sigma: float = 0.2,
                z0=None, mu_floor: float = 1e-4, sl_min: float = 1e-6, lam0=None,
-               w_cap: float = 1e4):
+               w_cap: float = 1e4, cascade: bool = False):
     """Solve a batch of dense QPs: Hm (B, n, n), g (B, n), C (B, m, n), d (B, m).
 
     Fixed ``iters`` Newton steps on the perturbed KKT system with fraction-to-boundary
     step sizes, no early exit. Float32-safe: the barrier target is floored at
     ``mu_floor`` and slack/dual magnitudes at ``sl_min``; the active-constraint
-    stiffness lam/s is clamped at ``w_cap`` (see the JAX package on why)."""
+    stiffness lam/s is clamped at ``w_cap`` (see the JAX package on why). With
+    ``cascade`` the residuals' matrix-vector products sum in cascade order
+    (``_cascade_mv``): the variant core's larger QPs need it (controllers/
+    gradient/variants.py), the nominal keeps the JAX package's matmuls."""
     m = d.shape[-1]
-    z, s, lam = _init(Hm, g, C, d, z0, lam0)
+    _mv, _rmv = _matvecs(cascade)
+    z, s, lam = _init(Hm, g, C, d, z0, lam0, _mv)
     for _ in range(iters):
         r_d = _mv(Hm, z) + g + _rmv(C, lam)
         r_p = _mv(C, z) + s - d
@@ -124,12 +142,14 @@ def pdip_solve(Hm, g, C, d, iters: int = 18, reg: float = 1e-7, sigma: float = 0
 
 def pdip_solve_mehrotra(Hm, g, C, d, iters: int = 8, reg: float = 1e-7, z0=None,
                         mu_floor: float = 1e-5, sl_min: float = 1e-6, lam0=None,
-                        w_cap: float = 1e4):
+                        w_cap: float = 1e4, cascade: bool = False):
     """Mehrotra predictor-corrector variant of :func:`pdip_solve`: one factorization
     serves the affine predictor and the corrector, with the adaptive centering
-    sigma = (mu_aff / mu)^3; the step freezes once mu reaches 2 mu_floor."""
+    sigma = (mu_aff / mu)^3; the step freezes once mu reaches 2 mu_floor.
+    ``cascade`` as in :func:`pdip_solve`."""
     m = d.shape[-1]
-    z, s, lam = _init(Hm, g, C, d, z0, lam0)
+    _mv, _rmv = _matvecs(cascade)
+    z, s, lam = _init(Hm, g, C, d, z0, lam0, _mv)
     for _ in range(iters):
         r_d = _mv(Hm, z) + g + _rmv(C, lam)
         r_p = _mv(C, z) + s - d
@@ -179,7 +199,7 @@ def soft_qp_solve(Hm, g, C, d, S, zl: float = 1000.0, Zl: float = 1.0, solver=No
     H_aug = Hm.new_zeros((B, n + ns, n + ns))
     H_aug[:, :n, :n] = Hm
     idx = torch.arange(n, n + ns, device=Hm.device)
-    H_aug[:, idx, idx] = Zl
+    H_aug[:, idx, idx] = Hm.new_full((ns,), Zl)  # a device value: capturable
     g_aug = torch.cat([g, g.new_full((B, ns), zl)], dim=-1)
     C_top = torch.cat([C, (-S).expand(B, -1, -1)], dim=-1)
     C_bot = torch.cat([C.new_zeros((ns, n)), -zl * torch.eye(ns, dtype=C.dtype,

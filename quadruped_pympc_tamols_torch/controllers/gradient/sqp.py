@@ -7,7 +7,9 @@ real-time-iteration split (prepare = linearize + condense at the predicted
 state; feedback = refresh the gradient with the measured x0 and solve the QP,
 acados' rti_phase 1/2), gravity-share z-force references, per-stage feet
 advanced at in-horizon touch-downs, the previous-GRF fallback on a failed
-solve, integral action, and the gait candidates as one batched solve.
+solve, integral action, and the gait candidates as one batched solve. With
+``mpc.gradient.use_DDP`` the solve is the DDP solver of ``ddp.py`` instead, with
+no prepare/feedback split.
 
 Where it runs: the device functions of ``make_rti_solver_split`` are torch ops
 with a leading batch dimension. ``GradientMPC`` packs a tick's host inputs
@@ -282,7 +284,33 @@ def _state_vector(state) -> np.ndarray:
                            np.asarray(state["angular_velocity"]).reshape(3)])
 
 
-class GradientMPC:
+class HostIO:
+    """Pinned host buffers per call site and the one device-to-host copy of a
+    tick's flat result (``self.device``, ``self._host`` a dict)."""
+
+    def _buffer(self, name, shape) -> torch.Tensor:
+        """A host float32 buffer per call site and shape, pinned on a CUDA device."""
+        key = (name, tuple(shape))
+        buf = self._host.get(key)
+        if buf is None:
+            buf = torch.empty(shape, dtype=torch.float32,
+                              pin_memory=self.device.type == "cuda")
+            self._host[key] = buf
+        return buf
+
+    def _to_host(self, out: torch.Tensor) -> np.ndarray:
+        """The tick's one device-to-host copy, of the flat result, as a numpy copy."""
+        if out.is_cuda:
+            host = self._buffer("out", out.shape)
+            host.copy_(out, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            ready.synchronize()
+            out = host
+        return out.numpy().copy()
+
+
+class GradientMPC(HostIO):
     """Host-facing nominal gradient MPC (counterpart of Acados_NMPC_Nominal).
 
     ``compute_control`` takes the reference's state/reference dict schema
@@ -297,11 +325,14 @@ class GradientMPC:
         self.cfg = cfg
         self.device = resolve_device(device)
         if cfg.mpc.gradient.use_DDP:
-            raise NotImplementedError(
-                "mpc.gradient.use_DDP: the DDP solver (controllers/gradient/ddp.py, "
-                "parallel_riccati.py) is the next slice of the port (ROADMAP queue 1 item 3)")
-        solve, prepare, feedback, self.dims = make_rti_solver_split(cfg, integrator,
-                                                                    device=self.device)
+            # The DDP nlp-solver option: a Riccati backward pass and a projected
+            # forward rollout instead of the condensed QP; no prepare/feedback split.
+            from .ddp import make_ddp_solver
+            solve, self.dims = make_ddp_solver(cfg, integrator, device=self.device)
+            prepare = feedback = None
+        else:
+            solve, prepare, feedback, self.dims = make_rti_solver_split(cfg, integrator,
+                                                                        device=self.device)
         H = self.dims.horizon
         self.layout = lay = TickLayout(H)
         self.static_params = make_params(cfg)
@@ -324,8 +355,10 @@ class GradientMPC:
         # On a CUDA device each phase replays its captured graph; on the CPU it runs
         # eagerly (the graph's plain version).
         self._solve_dev = GraphedFunction(solve_flat, self.device)
-        self._prepare_dev = GraphedFunction(prepare_flat, self.device)
-        self._feedback_dev = GraphedFunction(feedback_flat, self.device)
+        self._prepare_dev = self._feedback_dev = None
+        if prepare is not None:
+            self._prepare_dev = GraphedFunction(prepare_flat, self.device)
+            self._feedback_dev = GraphedFunction(feedback_flat, self.device)
         self._host = {}
         self.U_warm = np.zeros((H, 12), np.float32)
         self.previous_grfs = np.zeros((4, 3), np.float32)
@@ -336,16 +369,6 @@ class GradientMPC:
         self._last = None
 
     # -- device calls ---------------------------------------------------------
-    def _buffer(self, name, shape) -> torch.Tensor:
-        """A host float32 buffer per call site and shape, pinned on a CUDA device."""
-        key = (name, tuple(shape))
-        buf = self._host.get(key)
-        if buf is None:
-            buf = torch.empty(shape, dtype=torch.float32,
-                              pin_memory=self.device.type == "cuda")
-            self._host[key] = buf
-        return buf
-
     def _inputs(self, name, x0, feet_traj, seq, Xref, Uref, U_warm, wrench, srbd_rt):
         feet_traj = np.asarray(feet_traj, np.float32)
         B = feet_traj.shape[0] if feet_traj.ndim == 4 else 1
@@ -361,15 +384,7 @@ class GradientMPC:
         return buf, feet_traj.ndim == 4
 
     def _fetch(self, out: torch.Tensor, batched: bool) -> RTISolution:
-        """The tick's one device-to-host copy, of the flat result."""
-        if out.is_cuda:
-            host = self._buffer("out", out.shape)
-            host.copy_(out, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-            ready.synchronize()
-            out = host
-        sol = self.layout.unpack_result(out.numpy().copy())
+        sol = self.layout.unpack_result(self._to_host(out))
         return sol if batched else RTISolution(*(x[0] for x in sol))
 
     def solve(self, x0, feet_traj, seq, Xref, Uref, U_warm, wrench=None, srbd_rt=None):
@@ -493,7 +508,7 @@ class GradientMPC:
         linearize + condense + build the Hessian at the predicted next state from the
         just-shifted warm start. On the card it is dispatched without waiting, so it
         overlaps the plant step; the next compute_control consumes it."""
-        if not self.cfg.mpc.gradient.use_RTI or self._last is None:
+        if self._prepare_dev is None or not self.cfg.mpc.gradient.use_RTI or self._last is None:
             return None
         feet_traj, seq, Xref, Uref, wrench, srbd_rt, predicted = self._last
         self._prep = self.prepare(predicted, feet_traj, seq, Xref, Uref, self.U_warm, wrench,

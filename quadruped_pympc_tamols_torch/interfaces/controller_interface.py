@@ -5,11 +5,13 @@ Counterpart of ``quadruped_pympc_tamols_tpu/interfaces/controller_interface.py``
 from the config, reads its one host result per tick, masks the returned GRFs by
 the current contact (:225-230) and undoes the float32 recentering. Ported: the
 sampling family with the gait-adaptive sampler (``mpc.optimize_step_freq``), and
-the gradient family's nominal RTI-SQP (``mpc.type="nominal"``) with its RTI split
-and, in ``SRBDBatchedControllerInterface``, its batched gait-frequency search.
-The gradient variants (the stability, ZMP and foothold-optimization knobs of
-"nominal", and the types "input_rates", "lyapunov", "collaborative",
-"kinodynamic") raise NotImplementedError until the next slice. Both families
+the gradient family: the nominal RTI-SQP (``mpc.type="nominal"``, its RTI split,
+the DDP solver under ``mpc.gradient.use_DDP``, and in
+``SRBDBatchedControllerInterface`` its batched gait-frequency search), and the
+variant core (``VariantGradientMPC``) for the stability, ZMP and
+foothold-optimization knobs of "nominal" and for the types "input_rates",
+"lyapunov", "collaborative" and "kinodynamic", whose joint trajectories the
+interface hands on as ``nmpc_joints_pos`` / ``nmpc_joints_vel``. Both families
 track the reference footholds and ignore the TAMOLS boxes
 (``ref_foot_constraints``), as the JAX interface does.
 """
@@ -19,13 +21,11 @@ import numpy as np
 
 from ..config import Config
 from ..controllers.gradient.sqp import BatchedGradientMPC, GradientMPC
+from ..controllers.gradient.variants import VariantGradientMPC
 from ..controllers.sampling.gait_adaptive import GaitAdaptiveSamplingMPC, host_best_freq
 from ..controllers.sampling.sampling_mpc import SamplingMPC, host_summary
 from ..gait.periodic import contact_sequence, make_timer_dts
 from ..utils.legs import Legs
-
-_NEXT_SLICE = "the gradient variants (controllers/gradient/variants.py) are the next slice " \
-              "of the port (ROADMAP queue 1 item 3)"
 
 
 def recenter_state_and_reference(state_current: dict, ref_state: dict):
@@ -58,15 +58,15 @@ class SRBDControllerInterface:
                 self.controller = SamplingMPC(cfg, seed=seed, device=device)
         elif self.type == "nominal":
             if gp.use_static_stability or gp.use_zmp_stability or gp.use_foothold_optimization:
-                raise NotImplementedError(
-                    "mpc.gradient.use_static_stability / use_zmp_stability / "
-                    f"use_foothold_optimization: {_NEXT_SLICE}")
-            self.controller = GradientMPC(cfg, device=device)
+                self.controller = VariantGradientMPC(cfg, "nominal", device=device)
+            else:
+                self.controller = GradientMPC(cfg, device=device)
         elif self.type in ("input_rates", "lyapunov", "collaborative", "kinodynamic"):
-            raise NotImplementedError(f"mpc.type={self.type!r}: {_NEXT_SLICE}")
+            self.controller = VariantGradientMPC(cfg, self.type, device=device)
         else:
             raise ValueError(f"unsupported mpc type {self.type!r}")
         self._inflight = None
+        self.nmpc_joints_pos = self.nmpc_joints_vel = None
         # Only the nominal RTI solver consumes runtime inertia (JAX package
         # :63-66); callers use this to skip computing the composite tensor, a loop
         # over every MuJoCo body, and ``compute_control`` evaluates a callable
@@ -96,6 +96,10 @@ class SRBDControllerInterface:
             grfs, footholds, predicted, _, _ = self.controller.compute_control(
                 state_current, ref_state, contact_sequence,
                 external_wrenches=external_wrenches, **extra)
+            # The kinodynamic variant's joint trajectories, for the whole-body layer
+            # (reference srbd_controller_interface.py:184-207).
+            self.nmpc_joints_pos = getattr(self.controller, "nmpc_joints_pos", None)
+            self.nmpc_joints_vel = getattr(self.controller, "nmpc_joints_vel", None)
 
         # Mask by current contact (reference srbd_controller_interface.py:225-230).
         grfs = grfs * cur[:, None]

@@ -9,8 +9,10 @@ package, a saved run) is a configuration and a controller's state.
 * ``sampling_state_from_numpy`` wraps an incumbent and a CEM sigma as the port's
   ``SamplingState`` on a device.
 * ``set_gradient_state`` gives a ``GradientMPC`` the nominal gradient MPC's
-  state (warm start, previous GRFs, integral), so that two implementations start a
-  tick from the same state.
+  state (warm start, previous GRFs, integral), and ``set_variant_state`` a
+  ``VariantGradientMPC`` a variant controller's (warm start, the carried
+  augmented states, previous GRFs), so that two implementations start a tick
+  from the same state.
 * ``heightmaps_from_numpy`` takes the leaves of a heightmap (a JAX
   ``GridHeightMap``'s, as numpy) and returns the port's ``GridHeightMap``.
 """
@@ -100,4 +102,16 @@ def set_gradient_state(mpc, U_warm, previous_grfs, integral):
     mpc.U_warm = np.array(U_warm, np.float32).reshape(mpc.dims.horizon, 12)
     mpc.previous_grfs = np.array(previous_grfs, np.float32).reshape(4, 3)
     mpc.integral = np.array(integral).reshape(6)
+    return mpc
+
+
+def set_variant_state(mpc, U_warm, extra_state, previous_grfs):
+    """Give a ``VariantGradientMPC`` the state another one carries across ticks:
+    the warm start U_warm (H, nu), the augmented states beyond the base
+    extra_state (nx - 12: the force states of input_rates, the arm wrench of
+    collaborative, lyapunov's z1, z2 and phi) and previous_grfs (4, 3), as
+    float32 numpy copies."""
+    mpc.U_warm = np.array(U_warm, np.float32).reshape(mpc.dims.horizon, mpc.spec.nu)
+    mpc.extra_state = np.array(extra_state, np.float32).reshape(mpc.spec.nx - 12)
+    mpc.previous_grfs = np.array(previous_grfs, np.float32).reshape(4, 3)
     return mpc

@@ -1,4 +1,4 @@
-"""Analytic 3-DoF quadruped leg kinematics (host numpy).
+"""Analytic 3-DoF quadruped leg kinematics (host numpy; the FK also in torch).
 
 Counterpart of ``quadruped_pympc_tamols_tpu/kinematics/leg_ik.py``. Leg model
 (hip frame, x forward, y left, z up; legs identical up to the side sign of the
@@ -11,6 +11,7 @@ Per-tick IK is ~100 scalar flops per leg, so it stays on the host.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..config import RobotParams
 from ..utils.float32 import F32, atan2f, cosf, fmaf, sinf
@@ -40,7 +41,18 @@ class LegKinematics:
         ], dtype=np.float32)
 
     def fk(self, q, side_sign):
-        """q (..., 3) joint angles -> foot position in the hip frame (..., 3)."""
+        """q (..., 3) joint angles -> foot position in the hip frame (..., 3).
+
+        A torch tensor ``q`` (with ``side_sign`` a tensor on its device) takes the
+        differentiable torch path, in q's dtype, that the kinodynamic OCP runs
+        under ``torch.func``; anything else runs in float64 numpy."""
+        if isinstance(q, torch.Tensor):
+            d = self.d_abd * side_sign
+            q1, q2, q3 = q[..., 0], q[..., 1], q[..., 2]
+            s1, c1 = torch.sin(q1), torch.cos(q1)
+            E = self.l3 * torch.cos(q2) + self.l4 * torch.cos(q2 + q3)
+            x = -self.l3 * torch.sin(q2) - self.l4 * torch.sin(q2 + q3)
+            return torch.stack([x, d * c1 + E * s1, d * s1 - E * c1], dim=-1)
         q = np.asarray(q, np.float64)
         d = self.d_abd * np.asarray(side_sign, np.float64)
         q1, q2, q3 = q[..., 0], q[..., 1], q[..., 2]

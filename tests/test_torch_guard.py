@@ -33,12 +33,15 @@ TORQUE_AND_MUJOCO = ("interfaces.wrapper", "kinematics.ik_solvers", "sim.mjcf", 
 # The gradient family's nominal RTI-SQP, its CUDA-graph runner and its float64 ladder.
 GRADIENT = ("controllers.gradient", "controllers.gradient.ocp", "controllers.gradient.qp",
             "controllers.gradient.sqp", "utils.graphs", "utils.verification")
+# The gradient family's variant core, its DDP solver and the ZMP analysis.
+VARIANTS = ("controllers.gradient.variants", "controllers.gradient.ddp",
+            "controllers.gradient.parallel_riccati", "utils.analysis")
 
 
 def test_port_imports_no_jax():
     mods = _port_modules()
     assert len(mods) > 20
-    assert {f"{PKG}.{m}" for m in TORQUE_AND_MUJOCO + GRADIENT} <= set(mods)
+    assert {f"{PKG}.{m}" for m in TORQUE_AND_MUJOCO + GRADIENT + VARIANTS} <= set(mods)
     # Only modules the imports load count: the interpreter's startup may load others.
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -88,8 +91,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 
 
 def test_gradient_entry_points_need_cuda_unless_cpu_is_asked():
-    """The nominal gradient MPC, the controller interface and the wrapper built
-    for it, and the batched gait interface refuse to run on the CPU unless asked."""
+    """The nominal gradient MPC (with the RTI solve and with DDP), the variant
+    controllers, the controller interface and the wrapper built for it, and the
+    batched gait interface refuse to run on the CPU unless asked."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from quadruped_pympc_tamols_torch.controllers.gradient import BatchedGradientMPC, GradientMPC
@@ -105,6 +109,15 @@ def test_gradient_entry_points_need_cuda_unless_cpu_is_asked():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             entry(cfg)
         assert entry(cfg, device="cpu") is not None
+    from quadruped_pympc_tamols_torch import replace_config
+    from quadruped_pympc_tamols_torch.controllers.gradient import VariantGradientMPC
+    for over in ({"mpc.gradient.use_DDP": True}, {"mpc.type": "kinodynamic"},
+                 {"mpc.gradient.use_zmp_stability": True}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            SRBDControllerInterface(replace_config(cfg, **over))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        VariantGradientMPC(cfg, "lyapunov")
+    assert VariantGradientMPC(cfg, "lyapunov", device="cpu") is not None
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         QuadrupedPyMPCWrapper(cfg, Legs.zeros((3,)))
     assert QuadrupedPyMPCWrapper(cfg, Legs.zeros((3,)), device="cpu") is not None

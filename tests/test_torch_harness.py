@@ -106,11 +106,14 @@ def test_pipelined_interface_returns_previous_tick():
 
 
 def test_unported_options_raise():
-    """The gradient family's variants and its DDP solver are the next slice."""
+    """The gradient family's variants and its DDP solver, refused before the
+    variant slice, now build the harness on the CPU and step it through a solve
+    to finite states."""
     for over in ({"mpc.type": "lyapunov"}, {"mpc.type": "nominal", "mpc.gradient.use_DDP": True}):
         cfg = make_config("aliengo", **{**BLIND, "mpc.sampling.num_samples": 32, **over})
-        with pytest.raises(NotImplementedError):
-            SRBClosedLoopHarness(cfg, device="cpu")
+        h = SRBClosedLoopHarness(cfg, device="cpu")
+        x = h.step(np.array([0.3, 0.0, 0.0]))
+        assert np.all(np.isfinite(x)) and np.any(h.grfs.data), over
 
 
 def test_wb_interface_references_match_jax():

@@ -293,7 +293,8 @@ def test_wrapper_closed_loop_matches_jax(tmp_path, monkeypatch):
 
 def test_unported_pieces_raise():
     """The gradient variants (mpc.type "lyapunov") and the DDP solver
-    (mpc.gradient.use_DDP) wait for the next slice, video and the live viewer for
+    (mpc.gradient.use_DDP), refused before the variant slice, now build a
+    wrapper on the CPU and solve a tick; video and the live viewer still wait for
     sim/video.py; the wrapper, run_simulation and the heightmaps refuse a
     missing card instead of using the CPU."""
     from quadruped_pympc_tamols_torch.interfaces import QuadrupedPyMPCWrapper
@@ -301,13 +302,12 @@ def test_unported_pieces_raise():
     cfg = make_config("aliengo", mpc_type="sampling",
                       **{"sim.visual_foothold_adaptation": "blind",
                          "mpc.sampling.num_samples": 32})
-    with pytest.raises(NotImplementedError, match="item 3"):
-        QuadrupedPyMPCWrapper(replace_config(cfg, **{"mpc.type": "lyapunov"}), Legs.zeros((3,)),
-                              device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        QuadrupedPyMPCWrapper(replace_config(cfg, **{"mpc.type": "nominal",
-                                                     "mpc.gradient.use_DDP": True}),
-                              Legs.zeros((3,)), device="cpu")
+    for over in ({"mpc.type": "lyapunov"},
+                 {"mpc.type": "nominal", "mpc.gradient.use_DDP": True}):
+        w = QuadrupedPyMPCWrapper(replace_config(cfg, **over), Legs(TRACE.arrays["feet_pos"][0]),
+                                  device="cpu")
+        tau = w.compute_actions(**{**TRACE.inputs(0), "heightmaps": None})
+        assert np.all(np.isfinite(tau.data)) and np.any(w.nmpc_GRFs.data), over
     for kw in ({"video_path": "x.mp4"}, {"render": True}):
         with pytest.raises(NotImplementedError, match="sim/video.py"):
             simulation.run_simulation(cfg, episode_duration_s=0.01, device="cpu", **kw)
