@@ -14,7 +14,8 @@ recorded MuJoCo loop; then the gradient family's nominal RTI-SQP (CUDA graphs of
 torch ops): its solve against the CPU and float64, its QP ladder, its walks and
 the wrapper with it; then the gradient variants and the DDP solver, each solve
 one CUDA graph: against the CPU and float64, their ticks, their walks and the
-kinodynamic wrapper. It imports neither JAX nor the JAX package.
+kinodynamic wrapper; then the scenario fleet's kernel K1f and the fleet's
+walks and throughput. It imports neither JAX nor the JAX package.
 It exits non-zero without a CUDA device or without the package beside it.
 
 Output: the card's name and power limit, one line per phase, for each row the
@@ -24,8 +25,8 @@ and CEM rows (K1b, K1c, K1e-mppi, K1e-cem), the extraction kernel of the random
 sampling rows (K1a, K1e-rs) and the chain kernel of the K1d rows, a "tamols:"
 line with phases 16-17's numbers as JSON, a "torque:" line with phase 18's, a
 "gradient:" line with phases 19-21's, a "variants:" line with phases 22-24's, a
-``{"kernels": ...}`` line (rows of
-the main path's cubic splines, then ``-lin`` and ``-zo`` rows), and as the last
+"fleet:" line with phases 25-27's, a ``{"kernels": ...}`` line (rows of
+the main path's cubic splines, then ``-lin`` and ``-zo`` rows, then K1f's), and as the last
 line ``{"ok": true, "device": {...}}``.
 
 Phases (each raises on failure; every path is driven with all launch counts set
@@ -180,6 +181,25 @@ to 0 just before it and read just after):
      first-stage joints as the whole-body layer's joint targets on every step,
      one copy an MPC tick (one more an apex call), nothing on the card between.
      Their numbers are the "variants:" JSON line.
+ 25. K1f, the scenario-axis kernel of the fleet (ops/csrc/sampling_fleet.cu),
+     against its plain version for each method on injected noise at FLEET_CHECKS
+     (64 scenarios at N = 10 000, 64 at the JAX bench's 128, ragged 3 x 63 and
+     2 x 65): the costs, and the step on the kernel's own costs (the argmin, beta
+     and elites exactly); its Philox noise (the noise the pass wrote, checked the
+     same way, distinct a scenario, a rerun bit for bit); one scenario bit-equal
+     to K1a / K1b / K1c at their seed and offset; its times at 64 x 10 000.
+ 26. The fleet walks on the card, each tick one replay of the captured graph:
+     64 scenarios on perlin terrain with reflexes, random sampling, N = 10 000,
+     3 s at 0.25 m/s, every scenario above 0.1 m and the mean forward distance
+     within FLEET_DX_BAND of the JAX package's CPU row; a flat MPPI fleet, and a
+     flat CEM-MPPI fleet for TICK_LOOP ticks; K1f launched once a tick (plus the
+     capture's warm-up runs) and no other sampling kernel; the profiler sees one
+     K1f rollout and one extraction or update a tick and no device-to-host copy.
+ 27. Fleet throughput: scenario-steps per second at S = 64, 256 and 1024 with
+     N = 128 and at 64 with N = 10 000 (perlin, reflexes; graph replays on the
+     host clock), the eager tick's host ms, kernels and device us a tick and
+     K1f's passes' us (torch.profiler), and K1f's ptxas figures. Phases 25-27
+     print the "fleet:" JSON line and add K1f's rows to the kernels line.
 """
 from __future__ import annotations
 
@@ -623,7 +643,9 @@ def profile_ticks(mpc, tick, n=50, expect=None, d2h=None, absent=(), call=None) 
 # MPPI/CEM instantiation, <..., false>, is mangled with "Lb0E"; random sampling's
 # with "Lb1E").
 PASSES = {"rollout": "rollout_kernel", "update": "sm_update_kernel",
-          "extract": "rs_extract_kernel", "chain": "chain_kernel"}
+          "extract": "rs_extract_kernel", "chain": "chain_kernel",
+          "fleet_rollout": "fleet_rollout_kernel", "fleet_update": "fleet_update_kernel",
+          "fleet_extract": "fleet_extract_kernel"}
 PTXAS_ENTRY = {**{k: (v,) for k, v in PASSES.items()}, "chain": ("chain_kernel", "Lb0E")}
 
 
@@ -807,9 +829,11 @@ def group_bound_ms(gplan, knobs, groups) -> tuple:
 # Launch counts by kernel: K1a counts in sampling_rs.launches, K1b and K1c in
 # softmax_iteration.launches["mppi"] and ["cem_mppi"], K1d (the chain kernel, one
 # launch a chained solve) in sampling_chain.launches[method], K1e in
-# sampling_groups.launches[method].
+# sampling_groups.launches[method], K1f in sampling_fleet.fleet_iteration.launches[method]
+# (counted by the wrapper through utils/graphs.py:count_launch: a launch captured into
+# the fleet's graph is recorded at the capture and counted at each replay).
 COUNTED = ("K1a", "K1b", "K1c", "K1d_rs", "K1d_mppi", "K1d_cem", "K1e_rs", "K1e_mppi",
-           "K1e_cem")
+           "K1e_cem", "K1f_rs", "K1f_mppi", "K1f_cem")
 
 
 def reset_counts():
@@ -818,6 +842,7 @@ def reset_counts():
     ops.softmax_iteration.launches.update(mppi=0, cem_mppi=0)
     ops.sampling_chain.launches.update(random_sampling=0, mppi=0, cem_mppi=0)
     ops.sampling_groups.sampling_groups.launches.update(random_sampling=0, mppi=0, cem_mppi=0)
+    ops.fleet_iteration.launches.update(random_sampling=0, mppi=0, cem_mppi=0)
 
 
 def read_counts() -> dict:
@@ -825,9 +850,11 @@ def read_counts() -> dict:
     sm = ops.softmax_iteration.launches
     ch = ops.sampling_chain.launches
     sg = ops.sampling_groups.sampling_groups.launches
+    fl = ops.fleet_iteration.launches
     return {"K1a": ops.sampling_rs.launches, "K1b": sm["mppi"], "K1c": sm["cem_mppi"],
             "K1d_rs": ch["random_sampling"], "K1d_mppi": ch["mppi"], "K1d_cem": ch["cem_mppi"],
-            "K1e_rs": sg["random_sampling"], "K1e_mppi": sg["mppi"], "K1e_cem": sg["cem_mppi"]}
+            "K1e_rs": sg["random_sampling"], "K1e_mppi": sg["mppi"], "K1e_cem": sg["cem_mppi"],
+            "K1f_rs": fl["random_sampling"], "K1f_mppi": fl["mppi"], "K1f_cem": fl["cem_mppi"]}
 
 
 def walk(cfg, label, want_counts):
@@ -2708,6 +2735,343 @@ def phase_variant_walks() -> dict:
     return r
 
 
+# -- phases 25-27: the scenario fleet on K1f ------------------------------------------
+
+FLEET_S = 64  # scenarios of the fleet's walks and checks
+FLEET_VEL, FLEET_SECONDS = 0.25, 3.0  # tests/test_parallel.py's command, 3 s
+FLEET_Z_MIN = 0.1  # every scenario stays above it (tests/test_parallel.py:93)
+# K1f against its plain version: (S, N) at production width, the JAX bench's fleet
+# shape (bench.py:358-395: 64 scenarios of 128 samples) and ragged S and N.
+FLEET_CHECKS = ((FLEET_S, N_MAIN), (FLEET_S, 128), (3, 63), (2, 65))
+FLEET_THROUGHPUT = ((64, 128), (256, 128), (1024, 128), (64, N_MAIN))  # (S, N), perlin, reflexes
+FLEET_TIMED_TICKS = 50
+FLEET_PASSES = {k: v for k, v in PASSES.items() if k.startswith("fleet_")}
+# The JAX package's perlin fleet with reflexes on the CPU, 8 scenarios, 3 s at 0.25
+# m/s, N = 10 000 (`python tests/test_torch_fleet.py 8 3.0 10000`): min z (m), mean
+# forward distance (m), reflex firings. The port walks other heightfields (its own
+# draws) and 64 scenarios, so its mean distance is held to a band around this row.
+JAX_CPU_FLEET_WALK = {"min_z": 0.3432, "mean_dx": 0.7383, "reflex_triggers": 96.0}
+FLEET_DX_BAND = 0.25  # relative: other heightfields and noise than the JAX row's
+
+
+def fleet_cfg(method="random_sampling"):
+    from quadruped_pympc_tamols_torch import make_config
+    return make_config("aliengo", mpc_type="sampling", **{"mpc.sampling.method": method})
+
+
+def fleet_inputs(cfg, S, N, dev, rng):
+    """(plan, tick, incumbents, sigmas, seeds, offsets) of S distinct scenarios on
+    the card: trot sequences at random phases, perturbed states and feet."""
+    import torch
+    from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+
+    plan = sk.make_rs_plan(cfg, N, dev)
+    H, P = plan.horizon, plan.num_parameters
+    st = np.zeros((S, 12), np.float32)
+    st[:, 2] = cfg.sim.ref_z - 0.03 + 0.01 * rng.standard_normal(S)
+    st[:, 3] = 0.2 * rng.standard_normal(S)
+    feet = NOMINAL_FEET + 0.01 * rng.standard_normal((S, 4, 3))
+    ref = np.zeros((S, 12), np.float32)
+    ref[:, 2], ref[:, 3] = cfg.sim.ref_z, 0.3
+    ph = rng.random((S, 1)) + np.array([0.0, 0.5, 0.5, 0.0])
+    contact = np.mod(ph[:, :, None] + 1.4 * 0.02 * np.arange(H), 1.0) < 0.6
+    n = contact.sum(1)
+    share = np.broadcast_to((cfg.robot.mass * 9.81 / np.maximum(n, 1))[:, :, None], (S, H, 4))
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+
+    tick = fl.FleetTick(t(st), t(feet), t(ref), t(contact), t(share))
+    return (plan, tick, t(0.5 * rng.standard_normal((S, P))), t(0.5 + rng.random((S, P))),
+            torch.arange(S, dtype=torch.int64, device=dev) + 11,
+            torch.arange(S, dtype=torch.int64, device=dev) * 3)
+
+
+def fleet_noise(plan, knobs, S, rng, dev):
+    """(S, P, N) numpy noise of the method's distribution, column 0 zero."""
+    import torch
+    if knobs.method == "random_sampling":
+        z = np.stack([numpy_noise(plan, rng) for _ in range(S)])
+    else:
+        z = rng.standard_normal((S, plan.num_parameters, plan.num_samples)).astype(np.float32)
+        z *= 1.0 if knobs.cem else knobs.sigma_mppi
+        z[:, :, 0] = 0.0
+    return torch.as_tensor(z, device=dev)
+
+
+def fleet_check(plan, knobs, tick, inc, sigma, noise, res, label) -> dict:
+    """K1f's result res = (costs, out, sigma', elites) against its plain version
+    on the same noise: the costs against the plain rollout (COST_RTOL, COST_ATOL);
+    the optimizer step and the extraction against the plain step on the kernel's
+    own costs: the argmin index and beta exactly, the winner (PARAM_ATOL) or the
+    softmax parameters and sigma' (COMBINE_ATOL), the elites exactly, GRFs
+    (GRF_ATOL) and states (STATE_ATOL). Returns the largest errors."""
+    from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
+    costs_k, out_k, sigma_k, elites_k = res
+    plain = fl.fleet_iteration_reference(plan, knobs, tick, inc, sigma, noise)
+    errs = {"cost": check_costs(costs_k, plain.costs, label)}
+    ref = fl.fleet_iteration_reference(plan, knobs, tick, inc, sigma, noise, costs=costs_k)
+    if not (bool((out_k[:, 0] == ref.out[:, 0]).all())
+            and bool((out_k[:, 25] == ref.out[:, 25]).all())):
+        raise AssertionError(f"{label}: beta or its index differ from the plain step on the "
+                             "kernel's costs")
+    errs["grf"] = gap(out_k[:, 1:13], ref.out[:, 1:13])
+    errs["state"] = gap(out_k[:, 13:25], ref.out[:, 13:25])
+    errs["params"] = gap(out_k[:, 26:], ref.out[:, 26:])
+    errs["params_vs_fully_plain"] = gap(out_k[:, 26:], plain.out[:, 26:])
+    tols = [("grf", GRF_ATOL), ("state", STATE_ATOL),
+            ("params", PARAM_ATOL if knobs.method == "random_sampling" else COMBINE_ATOL)]
+    if knobs.cem:
+        if elites_k.long().tolist() != ref.elites.tolist():
+            raise AssertionError(f"{label}: elites differ from the plain step's")
+        errs["sigma"] = gap(sigma_k, ref.sigma)
+        tols.append(("sigma", COMBINE_ATOL))
+    for key, tol in tols:
+        if not errs[key] <= tol:
+            raise AssertionError(f"{label}: {key} error {errs[key]} > {tol}")
+    return errs
+
+
+def fleet_bound_ms(plan, knobs, S) -> tuple:
+    """Least time of one K1f iteration for S scenarios on an H100: S times K1a's
+    (random sampling) or K1b/K1c's operations (``k1a_bound_ms``,
+    ``softmax_bound_ms``); bytes: W's leg blocks once (shared by the scenarios),
+    and per scenario its tick row, seed and offset, incumbent (and sigma) read and
+    its N costs and packed output (and sigma', elites) written."""
+    from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
+    H, P_leg, P, N = plan.horizon, plan.params_per_leg, plan.num_parameters, plan.num_samples
+    flops = N * iteration_flops(plan, basis_nnz(plan.W_blocks))
+    if knobs.method != "random_sampling":
+        flops += N * (2 * P + 20)
+    per = 4 * (fl.row_floats(H) + P + N + 26 + P) + 16
+    if knobs.cem:
+        per += 4 * (2 * P + knobs.n_elite)
+    return bound_ms(S * flops, 4 * H * 12 * P_leg + S * per)
+
+
+def phase_fleet_kernels(dev, rng) -> dict:
+    """Phase 25: K1f against its plain version for each method at FLEET_CHECKS on
+    injected noise; its Philox noise (MPPI, CEM: the noise the pass wrote, checked
+    the same way; every method: a rerun bit for bit, distinct scenarios' streams);
+    S = 1 bit-equal to K1a / K1b / K1c at their seed and offset; then its times at
+    (FLEET_S, N_MAIN): through its wrapper with a prebuilt workspace (CUDA events),
+    its passes on the card, its plain version and its bound."""
+    import torch
+    from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+
+    out = {}
+    for method in sm.METHODS:
+        cfg = fleet_cfg(method)
+        knobs = sm.make_knobs(cfg)
+        errs = {}
+        for S, N in FLEET_CHECKS:
+            plan, tick, inc, sigma, seeds, offsets = fleet_inputs(cfg, S, N, dev, rng)
+            noise = fleet_noise(plan, knobs, S, rng, dev)
+            res = fl.fleet_iteration(plan, knobs, tick, inc, sigma, seeds, offsets, 0, noise)
+            label = f"phase 25 K1f {method} S={S} N={N}"
+            e = fleet_check(plan, knobs, tick, inc, sigma, noise, res, label)
+            ws = fl.fleet_workspace(plan, knobs, S, dev)
+            first = [x.clone() for x in fl.fleet_iteration(plan, knobs, tick, inc, sigma, seeds,
+                                                           offsets, 0, ws=ws) if x is not None]
+            again = fl.fleet_iteration(plan, knobs, tick, inc, sigma, seeds, offsets, 0, ws=ws)
+            if not all(torch.equal(a, b) for a, b in zip(first, [x for x in again
+                                                                if x is not None])):
+                raise AssertionError(f"{label}: a rerun on Philox noise differs")
+            if ws.noise is not None:
+                if not bool((ws.noise[:, :, 0] == 0).all()):
+                    raise AssertionError(f"{label}: the incumbent's column of the noise is not 0")
+                e["philox"] = fleet_check(plan, knobs, tick, inc, sigma, ws.noise, again,
+                                          label + " Philox")["cost"]
+                if S > 1 and torch.equal(ws.noise[0], ws.noise[1]):
+                    raise AssertionError(f"{label}: two scenarios drew the same noise")
+                if not knobs.cem:
+                    std = float(ws.noise[:, :, 1:].std())
+                    if abs(std / knobs.sigma_mppi - 1.0) > 0.05:
+                        raise AssertionError(f"{label}: Philox noise std {std}")
+            errs[f"S{S} N{N}"] = e
+            log(f"{label}: {e}")
+        # S = 1 at K1a's / K1b's / K1c's seed and offset: their bits.
+        plan, tick, inc, sigma, _, _ = fleet_inputs(cfg, 1, N_MAIN, dev, rng)
+        seed, offset = 1234, 77
+        c1, o1, s1, _ = (x.clone() if x is not None else None for x in fl.fleet_iteration(
+            plan, knobs, tick, inc, sigma, torch.tensor([seed], device=dev),
+            torch.tensor([offset], device=dev), 0))
+        one = sk.TickInputs(*(x[0].cpu().numpy() for x in tick))
+        if method == "random_sampling":
+            c2, o2 = sk.sampling_rs(plan, one, inc[0].contiguous(), seed, offset)
+            s2 = s1
+        else:
+            c2, o2, s2, _ = sm.softmax_iteration(plan, knobs, one, inc[0].contiguous(),
+                                                 sigma[0].contiguous(), seed, offset)
+        if not (torch.equal(c1[0], c2) and torch.equal(o1[0], o2)
+                and (not knobs.cem or torch.equal(s1[0], s2))):
+            raise AssertionError(f"phase 25 K1f {method}: S = 1 is not the single kernel's bits")
+        # Times at production width.
+        plan, tick, inc, sigma, seeds, offsets = fleet_inputs(cfg, FLEET_S, N_MAIN, dev, rng)
+        ws = fl.fleet_workspace(plan, knobs, FLEET_S, dev)
+        scen = fl.tick_buffer(tick)
+        noise = fleet_noise(plan, knobs, FLEET_S, rng, dev)
+
+        def launch():
+            fl.fleet_iteration(plan, knobs, tick, inc, sigma, seeds, offsets, 0, ws=ws, scen=scen)
+
+        passes = ("fleet_rollout", "fleet_extract" if method == "random_sampling"
+                  else "fleet_update")
+        r = {"errs": errs, "ms": time_cuda(launch, runs=50),
+             "passes": pass_profile(launch, 1, passes, n=20),
+             "plain_ms": time_cuda(lambda: fl.fleet_iteration_reference(
+                 plan, knobs, tick, inc, sigma, noise), runs=5, warmup=2),
+             "bound": fleet_bound_ms(plan, knobs, FLEET_S)}
+        log(f"phase 25 K1f {method} S={FLEET_S} N={N_MAIN}: {r['ms']:.4f} ms through the "
+            f"wrapper (median of 50), passes {r['passes']}, plain version {r['plain_ms']:.3f} "
+            f"ms, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+        out[method] = r
+    return out
+
+
+def fleet_state(cfg, S, N, terrain, reflexes, seed=0):
+    """(step, state, cmd) of an S-scenario fleet on the card."""
+    import torch
+    from quadruped_pympc_tamols_torch.parallel import (init_scenario_state, make_scenario_step,
+                                                       make_terrain_generator)
+    step, P = make_scenario_step(cfg, N, terrain=terrain, reflexes=reflexes)
+    gen = make_terrain_generator(terrain) if terrain else None
+    st = init_scenario_state(cfg, P, S, torch.Generator().manual_seed(seed), gen)
+    return step, st, torch.tensor([FLEET_VEL, 0.0, 0.0], device="cuda")
+
+
+def fleet_walk(label, method, terrain, reflexes, S=FLEET_S, N=N_MAIN, ticks=None) -> dict:
+    """A fleet walk on the card, each tick one replay of the captured graph, with
+    the launch counts zeroed just before and read just after: every scenario
+    above FLEET_Z_MIN all the way, K1f launched once a tick (the wrapper's count:
+    the capture's warm-up launches, then what the capture recorded, added at each
+    replay) and no other sampling kernel; then the profiler over 50 more ticks: one K1f rollout and one
+    extraction or update pass a tick and no device-to-host copy (none through
+    torch either, counted on the host)."""
+    import torch
+    from quadruped_pympc_tamols_torch.utils.graphs import WARMUP
+
+    cfg = fleet_cfg(method)
+    step, st, cmd = fleet_state(cfg, S, N, terrain, reflexes)
+    ticks = ticks or int(round(FLEET_SECONDS * cfg.sim.mpc_frequency))
+    x0 = st.x[:, 0].clone()
+    zmin = st.x[:, 2].clone()
+    trig = torch.zeros((), device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        m = step(st, cmd)
+        zmin = torch.minimum(zmin, st.x[:, 2])
+        trig = trig + m[:, 4].sum()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    key = {"random_sampling": "K1f_rs", "mppi": "K1f_mppi", "cem_mppi": "K1f_cem"}[method]
+    # The first tick captures the graph after WARMUP eager runs, which launch K1f too.
+    want = {**counts_of(**{key: 1})(ticks), key: ticks + WARMUP}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts} for {ticks} ticks, want {want}")
+    if step.graph.captures != 1 or step.graph.replays != ticks:
+        raise AssertionError(f"{label}: {step.graph.captures} captures, {step.graph.replays} "
+                             f"replays in {ticks} ticks")
+    if not bool(torch.isfinite(st.x).all()) or float(zmin.min()) <= FLEET_Z_MIN:
+        raise AssertionError(f"{label}: a scenario fell (min z {float(zmin.min()):.4f})")
+    w = {"ticks": ticks, "scenarios": S, "num_samples": N, "terrain": terrain,
+         "reflexes": reflexes, "launches": counts[key], "min_z": float(zmin.min()),
+         "mean_dx": float((st.x[:, 0] - x0).mean()), "reflex_triggers": float(trig),
+         "wall_ms_per_tick": wall / ticks * 1e3}
+    second = FLEET_PASSES["fleet_extract" if method == "random_sampling" else "fleet_update"]
+
+    def call():
+        step(st, cmd)
+
+    copies = host_d2h_copies(call, 10)
+    if copies:
+        raise AssertionError(f"{label}: {copies} device-to-host copies in 10 ticks")
+    prof = profile_ticks(None, None, expect={FLEET_PASSES["fleet_rollout"]: 1, second: 1},
+                         absent=("DtoH",), call=call)
+    recorded = prof.get("launches", {})
+    w.update({
+         "kernels_per_tick_recorded": sum(recorded.values()) / 50,
+         "device_us_per_tick_recorded": sum(prof["device_us_per_launch"][k] * n
+                                            for k, n in recorded.items()) / 50
+         if recorded else "not measured",
+         "device_busy_share_recorded": prof.get("device_busy_share_recorded"),
+         "k1f_us": {k.split("(")[0]: v for k, v in prof.get("device_us_per_launch", {}).items()
+                    if "fleet_" in k}})
+    log(f"{label}: {json.dumps(w)}")
+    return w
+
+
+def phase_fleet_walks() -> dict:
+    """Phase 26: the perlin fleet with reflexes at production width (random
+    sampling, N = 10 000) beside the JAX package's CPU row, and a flat MPPI fleet;
+    CEM-MPPI's fleet for TICK_LOOP ticks (its single-robot loop falls in both
+    packages, so it is held per tick: finite, upright)."""
+    perlin = fleet_walk("phase 26 perlin fleet", "random_sampling", "perlin", True)
+    want = JAX_CPU_FLEET_WALK["mean_dx"]
+    if abs(perlin["mean_dx"] / want - 1.0) > FLEET_DX_BAND:
+        raise AssertionError(f"phase 26: mean forward distance {perlin['mean_dx']:.4f} m vs "
+                             f"the JAX package's {want:.4f} m")
+    log(f"phase 26: JAX package on the CPU (8 scenarios): {JAX_CPU_FLEET_WALK}")
+    flat = fleet_walk("phase 26 flat MPPI fleet", "mppi", None, False)
+    cem = fleet_walk("phase 26 flat CEM-MPPI fleet", "cem_mppi", None, False, ticks=TICK_LOOP)
+    return {"perlin_rs": perlin, "flat_mppi": flat, "flat_cem_loop": cem}
+
+
+def phase_fleet_throughput(libs) -> dict:
+    """Phase 27: scenario-steps per second of the perlin fleet with reflexes at
+    FLEET_THROUGHPUT, from FLEET_TIMED_TICKS graph replays on the host clock; the
+    host ms a tick eagerly (the same tick's torch ops and K1f launches, not
+    captured); the rollout pass's share of the card (device us a tick and the
+    K1f passes' us, torch.profiler) and the ptxas figures of K1f's kernels."""
+    import torch
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+
+    rows = {}
+    for S, N in FLEET_THROUGHPUT:
+        step, st, cmd = fleet_state(fleet_cfg(), S, N, "perlin", True, seed=1)
+        for _ in range(3):
+            step(st, cmd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FLEET_TIMED_TICKS):
+            step(st, cmd)
+        torch.cuda.synchronize()
+        graph_s = (time.perf_counter() - t0) / FLEET_TIMED_TICKS
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step.tick(*st.tensors(), cmd)
+        torch.cuda.synchronize()
+        eager_s = (time.perf_counter() - t0) / 5
+
+        def call():
+            step(st, cmd)
+
+        prof = profile_ticks(None, None, n=20, expect={FLEET_PASSES["fleet_rollout"]: 1},
+                             call=call)
+        rec = prof.get("launches", {})
+        us = prof.get("device_us_per_launch", {})
+        r = {"scenario_steps_per_s": S / graph_s, "graph_ms_per_tick": graph_s * 1e3,
+             "eager_host_ms_per_tick": eager_s * 1e3,
+             "kernels_per_tick_recorded": sum(rec.values()) / 20,
+             "device_us_per_tick_recorded": sum(us[k] * n for k, n in rec.items()) / 20,
+             "k1f_rollout_us": next((v for k, v in us.items() if "fleet_rollout" in k), None),
+             "k1f_extract_us": next((v for k, v in us.items() if "fleet_extract" in k), None),
+             "device_busy_share_recorded": prof.get("device_busy_share_recorded")}
+        rows[f"S{S} N{N}"] = r
+        log(f"phase 27 fleet S={S} N={N}: {json.dumps(r)}")
+    p = sk.make_rs_plan(fleet_cfg(), 1, "cpu")
+    log_path = libs[("sampling_fleet", p.horizon, p.params_per_leg)].with_suffix(".log")
+    rows["ptxas"] = {name: ptxas_of(log_path, kname, *(("Li0EE",) if name == "fleet_rollout"
+                                                         else ()))
+                     for name, kname in FLEET_PASSES.items()}
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -2725,6 +3089,7 @@ def main() -> int:
     from quadruped_pympc_tamols_torch.controllers.sampling import (GaitAdaptiveSamplingMPC,
                                                                    SamplingMPC)
     from quadruped_pympc_tamols_torch.ops import build
+    from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
     from quadruped_pympc_tamols_torch.ops import sampling_groups as sg
     from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
     from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
@@ -2745,6 +3110,7 @@ def main() -> int:
         sm.load_library(H, P_leg)
         sm.load_chain_library(H, P_leg)
         sg.load_library(H, P_leg)
+        fl.load_library(H, P_leg)
     log(f"build: {len(libs)} libraries ({len(build.SOURCES)} sources x (H, P_leg) in "
         f"{list(build.INSTANTIATIONS)}) in {time.perf_counter() - t0:.1f} s (one nvcc per "
         f"source and pair, started together)")
@@ -2885,6 +3251,11 @@ def main() -> int:
     # -- phases 22-24: the variant core and the DDP solver -------------------------------
     variants = {"solves": phase_variant_solves(), "ddp": phase_ddp(), **phase_variant_walks()}
 
+    # -- phases 25-27: the scenario fleet on K1f -----------------------------------------
+    fleet_k = phase_fleet_kernels(dev, rng)
+    fleet_walks = phase_fleet_walks()
+    fleet_tp = phase_fleet_throughput(libs)
+
     def row(name, source, short, par, err, ms, plain, bound, passes, **extra):
         return {"name": f"{name} ({short}{PAR_SUFFIX[par]})", "route": "cuda",
                 "source": f"quadruped_pympc_tamols_torch/ops/csrc/{source}.cu",
@@ -2963,6 +3334,38 @@ def main() -> int:
                 f"mean of 50 calls); ptxas: {ptx}")
         if not r["launches"] > 0:
             raise AssertionError(f"{r['name']}: no launch on its path")
+    # K1f's rows: its launches on the fleet's walks (the perlin fleet for random
+    # sampling, the flat fleets for MPPI and CEM-MPPI), its time and errors at
+    # (FLEET_S, N_MAIN).
+    p = sk.make_rs_plan(main_cfg(), 1, "cpu")
+    fleet_log = libs[("sampling_fleet", p.horizon, p.params_per_leg)].with_suffix(".log")
+    for i, (method, short, walk_key) in enumerate((
+            ("random_sampling", "K1f-rs", "perlin_rs"), ("mppi", "K1f-mppi", "flat_mppi"),
+            ("cem_mppi", "K1f-cem", "flat_cem_loop"))):
+        r = fleet_k[method]
+        e = r["errs"][f"S{FLEET_S} N{N_MAIN}"]
+        row_f = {"name": f"fleet_iteration, {method} ({short})", "route": "cuda",
+                 "source": "quadruped_pympc_tamols_torch/ops/csrc/sampling_fleet.cu",
+                 "replaces": "quadruped_pympc_tamols_tpu/parallel/scenario_engine.py:220",
+                 "replaces_note": "no pl.pallas_call: the JAX fleet jax.vmaps the XLA solver "
+                                  "make_sampling_solver over its scenarios",
+                 "launches": fleet_walks[walk_key]["launches"], "max_abs_err": e["cost"],
+                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                 "bound_by": r["bound"][1], "library_ms": None, "parametrization": MAIN_PAR,
+                 "scenarios": FLEET_S, "num_samples": N_MAIN,
+                 **{f"{k}_max_abs_err": v for k, v in e.items() if k != "cost"}}
+        for pass_name, (kname, us) in r["passes"].items():
+            parts = (PASSES[pass_name],) + ((f"Li{i}EE",) if pass_name == "fleet_rollout" else ())
+            row_f[f"{pass_name}_kernel_us"] = us
+            row_f[f"{pass_name}_ptxas"] = ptxas_of(fleet_log, *parts)
+            log(f"{pass_name} pass of {row_f['name']}: {kname} {us:.2f} us a launch "
+                f"(torch.profiler, mean of 20 calls); ptxas: {row_f[pass_name + '_ptxas']}")
+        if not row_f["launches"] > 0:
+            raise AssertionError(f"{row_f['name']}: no launch on its path")
+        kernels.append(row_f)
+    fleet = {"kernels": {m: r["errs"] for m, r in fleet_k.items()}, "walks": fleet_walks,
+             "throughput": fleet_tp, "jax_cpu_walk": JAX_CPU_FLEET_WALK}
+    log(f"fleet: {json.dumps(fleet)}")
     log(f"tamols: {json.dumps({'scorer': scorer, 'walks': tamols_walks})}")
     log(f"torque: {json.dumps(torque)}")
     log(f"gradient: {json.dumps(gradient)}")

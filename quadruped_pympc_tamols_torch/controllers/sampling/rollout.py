@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ...dynamics.srbd import SRBDParams
+from ...utils.device import device_constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,28 +55,31 @@ def apply_force_model_rows(raw12, contact4, share, fm: ForceModelParams):
 
 
 def gravity_share(contact_seq, mass: float, gravity: float = 9.81):
-    """(H,) uniform share m*g/n_stance per step (reference :377-385)."""
-    n_stance = torch.sum(contact_seq, dim=0)
+    """(..., H) uniform share m*g/n_stance per step (reference :377-385) of
+    contact_seq (..., 4, H)."""
+    n_stance = torch.sum(contact_seq, dim=-2)
     mg = torch.tensor(float(mass), dtype=contact_seq.dtype) * gravity  # f32 product
     return mg / torch.clamp(n_stance, min=1.0)
 
 
 def equilibrium_share(feet, com_pos, contact_seq, mass, gravity, grf_max):
-    """Static-equilibrium per-leg vertical force distribution, (H, 4).
+    """Static-equilibrium per-leg vertical force distribution, (..., H, 4).
 
     The least-norm f_z with sum(f_z) = m*g and zero CoM moment per stage,
         f = A^T (A A^T + eps I)^(-1) b,   A = [c; (p_x - com_x) c; (p_y - com_y) c],
-    clipped to [0, grf_max] (see the JAX module for why the sampler wants it)."""
+    clipped to [0, grf_max] (see the JAX module for why the sampler wants it).
+    feet (..., 4, 3), com_pos (..., 3), contact_seq (..., 4, H). No host copy and
+    no error check that reads the device: the fleet runs this in a CUDA graph."""
     dtype = feet.dtype
-    mg = torch.tensor(float(mass), dtype=dtype) * float(gravity)  # f32 product
-    b = torch.stack([mg, torch.zeros_like(mg), torch.zeros_like(mg)]).to(feet.device)
-    dx = feet[:, 0] - com_pos[0]
-    dy = feet[:, 1] - com_pos[1]
-    c = contact_seq.T.to(dtype)  # (H, 4)
-    A = torch.stack([c, dx * c, dy * c], dim=1)  # (H, 3, 4)
-    M = A @ A.transpose(1, 2) + 1e-3 * torch.eye(3, dtype=dtype, device=feet.device)
-    y = torch.linalg.solve(M, b.expand(A.shape[0], 3))  # (H, 3)
-    f = torch.einsum("hij,hi->hj", A, y)
+    mg = np.float32(mass) * np.float32(gravity)  # f32 product
+    b = device_constant([mg, 0.0, 0.0], feet.device, dtype)
+    dx = feet[..., 0] - com_pos[..., None, 0]
+    dy = feet[..., 1] - com_pos[..., None, 1]
+    c = contact_seq.transpose(-1, -2).to(dtype)  # (..., H, 4)
+    A = torch.stack([c, dx[..., None, :] * c, dy[..., None, :] * c], dim=-2)  # (..., H, 3, 4)
+    M = A @ A.transpose(-1, -2) + 1e-3 * torch.eye(3, dtype=dtype, device=feet.device)
+    y = torch.linalg.solve_ex(M, b.expand(*A.shape[:-2], 3))[0]  # (..., H, 3)
+    f = torch.einsum("...hij,...hi->...hj", A, y)
     return torch.clamp(f, 0.0, float(grf_max))
 
 
@@ -97,20 +101,38 @@ def rollout_costs_soa(state12, feet, ref12, raw_steps, contact_seq, share, dts, 
             skipped.
         params, fm: SRB and force-model constants.
 
+    A leading batch shape B (the scenario fleet's scenarios) may come before the
+    shapes above in every per-tick input (state12, feet, ref12, raw_steps,
+    contact_seq, share); each batch entry then rolls out its own problem.
+
     Returns:
-        (N,) costs with NaN/Inf saturated to ``saturate``
+        (*B, N) costs with NaN/Inf saturated to ``saturate``
         (reference centroidal_nmpc_jax.py:686-687).
     """
-    H, _, N = raw_steps.shape
+    batch = tuple(state12.shape[:-1])
+    nb = len(batch)
+    H, N = raw_steps.shape[-3], raw_steps.shape[-1]
     dtype, device = raw_steps.dtype, raw_steps.device
     m = params.mass
     g = params.gravity
     I = params.inertia
     Iinv = params.inertia_inv
 
-    rows = tuple(state12[i].expand(N) for i in range(12))
-    cost = torch.zeros(N, dtype=dtype, device=device)
-    contact_t = contact_seq.T  # (H, 4)
+    def lead(x, k):
+        """x (*B, c_1..c_k) -> (c_1..c_k, *B, 1): component axes first, then the
+        batch, then an axis that broadcasts against the samples."""
+        return x.movedim(tuple(range(nb)), tuple(range(k, k + nb)))[..., None]
+
+    feet = lead(feet, 2)  # (4, 3, *B, 1)
+    ref12 = lead(ref12, 1)
+    contact_t = lead(contact_seq.transpose(-1, -2), 2)  # (H, 4, *B, 1)
+    if share.dim() == nb + 1:  # one share a step: the same for every leg
+        share = share[..., None].expand(*share.shape, 4)
+    share = lead(share, 2)  # (H, 4, *B, 1)
+    raw_steps = raw_steps.movedim(tuple(range(nb)), tuple(range(2, 2 + nb)))  # (H, 12, *B, N)
+    state = lead(state12, 1)
+    rows = tuple(state[i].expand(*batch, N) for i in range(12))
+    cost = torch.zeros(*batch, N, dtype=dtype, device=device)
     q_host = np.asarray(q_diag, np.float32)
 
     for n in range(H):

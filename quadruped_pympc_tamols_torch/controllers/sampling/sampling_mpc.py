@@ -25,6 +25,14 @@ Where the iterations run:
 * CPU: the kernels' plain versions through the same wrappers, for all three
   methods and the ZMP-band cost.
 
+``make_fleet_sampling_solver`` is the same solve for S scenarios at once, the
+counterpart of ``jax.vmap`` over the JAX solver that the scenario fleet runs
+(``parallel/scenario_engine.py``): every input and output has a leading scenario
+axis and stays on the device, and each iteration is one launch of K1f's passes for
+all S (``ops.sampling_fleet.fleet_iteration``) on CUDA, or its plain version on
+the CPU. It makes no host copy and reads nothing back, so a fleet tick can be
+captured as one CUDA graph.
+
 Random numbers: a ``SamplingState`` carries a (seed, offset) pair. The kernels key
 Philox4x32-10 on it; the CPU path seeds a ``torch.Generator`` from it. Each
 iteration advances the offset by one. The streams differ by construction, so the
@@ -39,6 +47,7 @@ import numpy as np
 import torch
 
 from ...config import Config
+from ...ops import sampling_fleet as fleet
 from ...ops import sampling_kernel as rs
 from ...ops import sampling_softmax as sm
 from ...utils.device import resolve_device
@@ -87,6 +96,16 @@ def _host(x) -> np.ndarray:
     return np.asarray(x, np.float32)
 
 
+def _first_knots(sp, H: int) -> list:
+    """The parameters of a leg's first x, y and z knots, which the solution shift
+    overwrites (JAX ``sampling_mpc.py:_first_knot_indices``)."""
+    if sp.parametrization == "zero_order":
+        return [0, H, 2 * H]
+    if sp.parametrization == "linear_spline":
+        return [0, sp.num_splines + 1, 2 * (sp.num_splines + 1)]
+    return [1, 5, 9]  # cubic: the first interior knot of x/y/z in chunk 0
+
+
 def make_sampling_solver(cfg: Config, num_samples: int | None = None, method: str | None = None,
                          device="cuda"):
     """Build the sampling-MPC solve function for a static config.
@@ -111,9 +130,7 @@ def make_sampling_solver(cfg: Config, num_samples: int | None = None, method: st
     mass = float(np.float32(cfg.robot.mass))
     shift_W = torch.as_tensor(make_shift_basis(sp.parametrization, H, sp.num_splines,
                                                1.0 / cfg.sim.mpc_frequency), device=device)
-    first_knots = ([0, H, 2 * H] if sp.parametrization == "zero_order"
-                   else [0, sp.num_splines + 1, 2 * (sp.num_splines + 1)]
-                   if sp.parametrization == "linear_spline" else [1, 5, 9])
+    first_knots = _first_knots(sp, H)
     best_freq = torch.tensor(cfg.gait_params.step_freq, dtype=torch.float32)
     no_footholds = torch.zeros(4, 3, device=device)  # built once: no fill launch per tick
 
@@ -167,6 +184,82 @@ def make_sampling_solver(cfg: Config, num_samples: int | None = None, method: st
                           best_cost=summary[0], costs=costs, sigma=sigma, best_freq=best_freq,
                           summary=summary)
         return out, SamplingState(best, seed, offset, sigma)
+
+    return solve, P
+
+
+@dataclasses.dataclass
+class FleetSamplingState:
+    """The fleet's controller state, one row a scenario, on the solver's device."""
+
+    best_parameters: torch.Tensor  # (S, P)
+    sigma: torch.Tensor  # (S, P) CEM sigma
+    seed: torch.Tensor  # (S,) int64 Philox key
+    offset: torch.Tensor  # (S,) int64 Philox offset of the next iteration
+
+
+class FleetSolveOutput(NamedTuple):
+    grfs: Any  # (S, 4, 3) step-0 GRFs
+    predicted_state: Any  # (S, 12)
+    best_parameters: Any  # (S, P)
+    best_cost: Any  # (S,)
+    costs: Any  # (S, N) every rollout cost of the last iteration
+    sigma: Any  # (S, P)
+
+
+def make_fleet_sampling_solver(cfg: Config, num_samples: int | None = None, device="cuda"):
+    """The sampling solve of ``make_sampling_solver`` for S scenarios at once.
+
+    Returns ``(solve, P)`` with ``solve(state12 (S, 12), feet (S, 4, 3), ref12 (S,
+    12), ref_feet (S, 4, 3), contact_seq (S, 4, H), current_contact (S, 4),
+    previous_contact (S, 4), state: FleetSamplingState, noise=None) ->
+    (FleetSolveOutput, FleetSamplingState)``, every tensor on ``device``. ``noise``
+    (one (S, P, N) tensor an iteration) replaces the drawn noise."""
+    device = resolve_device(device)
+    sp = cfg.mpc.sampling
+    knobs = sm.make_knobs(cfg)
+    if sp.num_iterations < 1:
+        raise ValueError(f"sampling.num_iterations must be >= 1, got {sp.num_iterations}")
+    plan = rs.make_rs_plan(cfg, num_samples or sp.num_samples, device)
+    H, P_leg, P = plan.horizon, plan.params_per_leg, plan.num_parameters
+    if device.type == "cuda":
+        sm.check_kernel_knobs(plan, knobs)
+    mass = float(np.float32(cfg.robot.mass))
+    shift_W = torch.as_tensor(make_shift_basis(sp.parametrization, H, sp.num_splines,
+                                               1.0 / cfg.sim.mpc_frequency), device=device)
+    first_knots = _first_knots(sp, H)
+    iterations = sp.num_iterations
+
+    def solve(state12, feet, ref12, ref_feet, contact_seq, current_contact, previous_contact,
+              st: FleetSamplingState, noise=None):
+        S = state12.shape[0]
+        # Swing-leg warm-start reset at lift-off edges (reference :612-625).
+        liftoff = (previous_contact == 1.0) & (current_contact == 0.0)
+        keep = (~liftoff)[:, :, None].expand(S, 4, P_leg).reshape(S, P)
+        best = st.best_parameters * keep.to(torch.float32)
+        if sp.shift_solution:
+            leg_params = best.reshape(S, 4, P_leg).clone()
+            shifted0 = leg_params @ shift_W  # (S, 4, 3)
+            for a in range(3):
+                leg_params[:, :, first_knots[a]] = shifted0[..., a]
+            best = leg_params.reshape(S, P)
+        feet_eff = torch.where(current_contact[..., None] == 0.0, ref_feet, feet)
+        if sp.equilibrium_share:
+            share = equilibrium_share(feet_eff, state12[:, :3], contact_seq, mass, 9.81,
+                                      cfg.mpc.grf_max)
+        else:
+            share = gravity_share(contact_seq, mass)[..., None].expand(S, H, 4)
+        tick = fleet.FleetTick(state12, feet_eff, ref12, contact_seq, share)
+        scen = fleet.tick_buffer(tick) if device.type == "cuda" else None
+        sigma = st.sigma
+        for it in range(iterations):
+            costs, out, sigma, _ = fleet.fleet_iteration(
+                plan, knobs, tick, best, sigma, st.seed, st.offset, it,
+                None if noise is None else noise[it], scen=scen)
+            best = out[:, rs.OUT_WINNER:]
+        res = FleetSolveOutput(out[:, 1:13].reshape(S, 4, 3), out[:, 13:25], best, out[:, 0],
+                               costs, sigma)
+        return res, FleetSamplingState(best, sigma, st.seed, st.offset + iterations)
 
     return solve, P
 

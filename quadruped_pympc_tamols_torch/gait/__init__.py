@@ -1,16 +1,22 @@
-from .periodic import PeriodicGaitGenerator, contact_sequence, make_timer_dts
-from .foothold_reference import FootholdReferenceGenerator, raibert_footholds
-from .swing import SwingTrajectoryController, bezier_swing_refs, swing_refs_np
+from .periodic import (PeriodicGaitGenerator, contact_sequence, contact_sequence_torch,
+                       make_timer_dts)
+from .foothold_reference import (FootholdReferenceGenerator, raibert_footholds,
+                                 raibert_footholds_torch)
+from .swing import (SwingTrajectoryController, bezier_swing_refs, bezier_swing_refs_torch,
+                    swing_refs_np)
 from .terrain import TerrainEstimator, estimate_terrain_step
 
 __all__ = [
     "PeriodicGaitGenerator",
     "contact_sequence",
+    "contact_sequence_torch",
     "make_timer_dts",
     "FootholdReferenceGenerator",
     "raibert_footholds",
+    "raibert_footholds_torch",
     "SwingTrajectoryController",
     "bezier_swing_refs",
+    "bezier_swing_refs_torch",
     "swing_refs_np",
     "TerrainEstimator",
     "estimate_terrain_step",

@@ -5,16 +5,19 @@ Counterpart of ``quadruped_pympc_tamols_tpu/gait/foothold_reference.py``
 the hips in the yaw-aligned horizontal frame, pushed forward by half a stance time
 of desired velocity (clipped to 1.5*hip_height) plus a capture-point correction
 sqrt(h/g)*(v_avg - v_ref) clipped to +-5 cm, then rotated back to the world frame.
-The z comes from the per-leg lift-off height.
+The z comes from the per-leg lift-off height. ``raibert_footholds_torch`` is the
+float32 device twin that the scenario fleet calls.
 """
 from __future__ import annotations
 
 import collections
 
 import numpy as np
+import torch
 
 from ..config import GRAVITY, GaitType
-from ..utils.frames import euler_xyz_to_rot_np, yaw_rot3_np
+from ..utils.device import device_constant
+from ..utils.frames import euler_xyz_to_rot_np, yaw_rot2, yaw_rot3_np
 from ..utils.legs import Legs
 
 # Stance-width y offset signs per leg (FL, FR, RL, RR): left legs widen +, right legs -.
@@ -54,6 +57,26 @@ def raibert_footholds(base_pos, base_rpy, base_vel_mavg_xy_h, ref_base_vel_xy, h
             base_rpy.shape[:-1] + (3, 3)) @ np.asarray(com_pos_offset_b)[..., None]
         feet_w_xy = feet_w_xy + off_w[..., None, :2, 0]
     return np.concatenate([feet_w_xy, np.asarray(liftoff_z)[..., :, None]], axis=-1)
+
+
+def raibert_footholds_torch(base_pos, base_rpy, base_vel_mavg_xy_h, ref_base_vel_xy, hips_pos,
+                            liftoff_z, stance_time: float, hip_height: float,
+                            com_height_nominal: float, hip_offset: float = 0.1,
+                            gravity: float = GRAVITY) -> torch.Tensor:
+    """``raibert_footholds`` on the device in float32 (no CoM offset), in the JAX
+    package's order of operations: tensors with the same leading shape,
+    (..., 4, 3) footholds."""
+    R2 = yaw_rot2(base_rpy[..., 2])
+    ref_vel_h = torch.einsum("...ij,...j->...i", R2, ref_base_vel_xy)
+    delta_ref_h = torch.clamp(0.5 * stance_time * ref_vel_h, -1.5 * hip_height, 1.5 * hip_height)
+    err_comp = torch.clamp(float(np.sqrt(com_height_nominal / gravity))
+                           * (base_vel_mavg_xy_h - ref_vel_h), -0.05, 0.05)
+    hips_h = torch.einsum("...ij,...kj->...ki", R2, hips_pos[..., :2] - base_pos[..., None, :2])
+    side = device_constant(hip_offset * _Y_OFFSET_SIGN, hips_h.device)
+    feet_h = torch.stack([hips_h[..., 0], hips_h[..., 1] + side], dim=-1)
+    feet_h = feet_h + delta_ref_h[..., None, :] + err_comp[..., None, :]
+    feet_w_xy = torch.einsum("...ji,...kj->...ki", R2, feet_h) + base_pos[..., None, :2]
+    return torch.cat([feet_w_xy, liftoff_z[..., :, None]], dim=-1)
 
 
 class FootholdReferenceGenerator:

@@ -3,12 +3,15 @@
 Counterpart of ``quadruped_pympc_tamols_tpu/gait/periodic.py`` (reference
 helpers/periodic_gait_generator.py:8-196). A leg's contact at elapsed time t is
 ``((phase0 + f*t) mod 1) < duty``, so the whole (4, H) sequence is one broadcasted
-comparison. The per-tick gait layer stays on the host: it is a few dozen scalar
-operations, far cheaper than a device round trip.
+comparison. The one-robot gait layer stays on the host: it is a few dozen scalar
+operations, far cheaper than a device round trip. The scenario fleet
+(``parallel/scenario_engine.py``) keeps its gait on the device and calls the
+torch twin ``contact_sequence_torch``.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..config import GAIT_PHASE_OFFSETS, GaitParams, GaitType, MPCParams
 
@@ -38,6 +41,14 @@ def contact_sequence(phase, step_freq, duty_factor, t_offsets, full_stance=False
     f = np.asarray(step_freq, np.float32)[..., None, None]
     ph = np.mod(phase[..., :, None] + f * t_offsets, np.float32(1.0))
     return (ph < np.asarray(duty_factor, np.float32)[..., None, None]).astype(np.float32)
+
+
+def contact_sequence_torch(phase: torch.Tensor, step_freq: float, duty_factor: float,
+                           t_offsets: torch.Tensor) -> torch.Tensor:
+    """``contact_sequence`` on the device, float32: phase (..., 4), t_offsets (H,) on
+    the phase's device; returns (..., 4, H)."""
+    ph = torch.remainder(phase[..., :, None] + step_freq * t_offsets, 1.0)
+    return (ph < duty_factor).to(torch.float32)
 
 
 class PeriodicGaitGenerator:

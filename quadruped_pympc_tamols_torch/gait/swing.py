@@ -11,12 +11,16 @@ the reference's options (helpers/swing_trajectory_controller.py:15-23):
   explicit_swing_trajectory_generator.py:57-74);
 * ``scipy``: an alias of ``bezier_ref`` with reflex re-planning.
 
-The per-tick swing math is ~1k scalar flops, so it stays on the host.
+The per-tick swing math is ~1k scalar flops, so it stays on the host for one
+robot. The scenario fleet evaluates its swing feet on the device with the float32
+twin ``bezier_swing_refs_torch``.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ..utils.device import device_constant
 from ..utils.float32 import F32, fmaf, powf
 
 # Binomial coefficients of the degree-6 Bernstein basis.
@@ -73,6 +77,41 @@ def bezier_swing_refs(swing_time, swing_period, step_height, lift_off, touch_dow
     pos = np.einsum("...i,...ij->...j", b, cp)
     vel = np.einsum("...i,...ij->...j", db, cp) / period[..., None]
     acc = np.einsum("...i,...ij->...j", d2b, cp) / (period ** 2)[..., None]
+    return pos, vel, acc
+
+
+def bezier_swing_refs_torch(swing_time, swing_period, step_height, lift_off, touch_down,
+                            liftoff_boost: float = 0.0):
+    """``bezier_swing_refs`` on the device in float32, in the JAX package's order of
+    operations: swing_time (...,), swing_period and step_height floats or (...,)
+    tensors, lift_off and touch_down (..., 3). Returns (pos, vel, acc), each
+    (..., 3)."""
+    p0, pf = lift_off, touch_down
+    s = torch.clamp(swing_time / swing_period, 0.0, 1.0)
+    # Python floats enter as scalars, never as host tensors: this runs inside the
+    # fleet's CUDA graph.
+    e_z = torch.zeros_like(p0[..., 2]) + 3.0 * (liftoff_boost * step_height)
+    e = torch.stack([torch.zeros_like(e_z), torch.zeros_like(e_z), e_z], dim=-1)
+    z_mid = torch.maximum(p0[..., 2], pf[..., 2]) + step_height
+    p3_z = (64.0 * z_mid - 22.0 * p0[..., 2] - 22.0 * pf[..., 2]) / 20.0 - 6.0 * e_z / 20.0
+    p3 = torch.cat([0.5 * (p0[..., :2] + pf[..., :2]), p3_z[..., None]], dim=-1)
+    cp = torch.stack([p0, p0 + e / 6.0, p0 + e / 3.0, p3, pf, pf, pf], dim=-2)  # (..., 7, 3)
+    i = torch.arange(7, dtype=s.dtype, device=s.device)
+    c6 = device_constant(_C6, s.device)
+    s_ = s[..., None]
+    si, ti = s_ ** i, (1.0 - s_) ** (6 - i)
+    b = c6 * si * ti
+    si_m1 = torch.where(i > 0, s_ ** torch.clamp(i - 1, min=0), 0.0)
+    ti_m1 = torch.where(i < 6, (1.0 - s_) ** torch.clamp(5 - i, min=0), 0.0)
+    db = c6 * (i * si_m1 * ti - (6 - i) * si * ti_m1)
+    si_m2 = torch.where(i > 1, s_ ** torch.clamp(i - 2, min=0), 0.0)
+    ti_m2 = torch.where(i < 5, (1.0 - s_) ** torch.clamp(4 - i, min=0), 0.0)
+    d2b = c6 * (i * (i - 1) * si_m2 * ti - 2 * i * (6 - i) * si_m1 * ti_m1
+                + (6 - i) * (5 - i) * si * ti_m2)
+    period = (torch.zeros_like(s) + swing_period)[..., None]
+    pos = torch.einsum("...i,...ij->...j", b, cp)
+    vel = torch.einsum("...i,...ij->...j", db, cp) / period
+    acc = torch.einsum("...i,...ij->...j", d2b, cp) / (period ** 2)
     return pos, vel, acc
 
 

@@ -15,6 +15,10 @@ package, a saved run) is a configuration and a controller's state.
   from the same state.
 * ``heightmaps_from_numpy`` takes the leaves of a heightmap (a JAX
   ``GridHeightMap``'s, as numpy) and returns the port's ``GridHeightMap``.
+* ``scenario_state_from_numpy`` takes a scenario fleet's state (a JAX
+  ``ScenarioState`` with a leading scenario axis, or anything with its fields,
+  read as numpy) and returns the port's ``ScenarioState``, so that both packages
+  step the same fleet.
 """
 from __future__ import annotations
 
@@ -92,6 +96,30 @@ def heightmaps_from_numpy(center, yaw, resolution, heights, device="cuda") -> Gr
 
     return GridHeightMap(center=t(center), yaw=t(yaw), resolution=t(resolution),
                          heights=t(heights))
+
+
+def scenario_state_from_numpy(state, seeds, device="cuda"):
+    """The port's ``parallel.ScenarioState`` on ``device`` from a fleet state with
+    the JAX ``ScenarioState``'s fields (x, feet, phase, swing_time, liftoff,
+    prev_contact, terrain, reflex, hitpoint, and mpc's best_parameters and sigma),
+    each with a leading scenario axis. The JAX sampling state's PRNG key has no
+    counterpart: each scenario gets Philox ``seeds[s]`` at offset 0."""
+    from .controllers.sampling.sampling_mpc import FleetSamplingState
+    from .parallel.scenario_engine import ScenarioState
+
+    dev = resolve_device(device)
+
+    def t(x, dtype=np.float32):
+        return torch.from_numpy(np.array(x, dtype)).to(dev)
+
+    S = np.asarray(state.x).shape[0]
+    seeds = np.broadcast_to(np.asarray(seeds, np.int64), (S,))
+    return ScenarioState(
+        x=t(state.x), feet=t(state.feet), phase=t(state.phase), swing_time=t(state.swing_time),
+        liftoff=t(state.liftoff), prev_contact=t(state.prev_contact),
+        mpc=FleetSamplingState(t(state.mpc.best_parameters), t(state.mpc.sigma),
+                               t(seeds, np.int64), t(np.zeros(S), np.int64)),
+        terrain=t(state.terrain), reflex=t(state.reflex), hitpoint=t(state.hitpoint))
 
 
 def set_gradient_state(mpc, U_warm, previous_grfs, integral):

@@ -9,6 +9,8 @@ from .sampling_kernel import (
 # The module, not its wrapper of the same name: ``ops.sampling_groups.sampling_groups``.
 from . import sampling_groups
 from .sampling_groups import GroupInputs, GroupPlan, group_iteration_reference, make_group_plan
+from .sampling_fleet import (FleetTick, fleet_iteration, fleet_iteration_reference,
+                             fleet_workspace)
 from .sampling_softmax import (
     Knobs,
     make_knobs,
@@ -18,9 +20,13 @@ from .sampling_softmax import (
 )
 
 __all__ = [
+    "FleetTick",
     "GroupInputs",
     "GroupPlan",
     "Knobs",
+    "fleet_iteration",
+    "fleet_iteration_reference",
+    "fleet_workspace",
     "RSPlan",
     "TickInputs",
     "group_iteration_reference",

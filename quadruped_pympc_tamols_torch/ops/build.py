@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("sampling_rs", "sampling_softmax", "sampling_groups", "sampling_chain")  # csrc/<name>.cu
+# csrc/<name>.cu
+SOURCES = ("sampling_rs", "sampling_softmax", "sampling_groups", "sampling_chain", "sampling_fleet")
 # The (horizon, parameters per leg) pairs every source is built for: at horizon 12
 # with 2 splines, cubic splines (the main path), linear splines and zero-order
 # holds (splines.num_params_per_leg). One line adds a pair.

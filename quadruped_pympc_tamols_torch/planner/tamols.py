@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..utils.device import resolve_device
+from ..utils.device import device_constant, resolve_device
 from .heightmap import GridHeightMap, lookup_nearest
 
 _BIG = 1.0e10
@@ -126,8 +126,6 @@ def make_tamols_scorer(cfg: Config, strategy: str | None = None, device="cuda"):
     ring_offs = 2.0 * offs
     alphas = const(_ALPHAS)
     one_minus_alphas = 1 - alphas
-    diag = const(_DIAG, torch.int64)
-    others = const(_OTHERS, torch.int64)
     sides = const(_Y_OFFSET_SIGN)
     box = const([tp.constraint_box_dx, tp.constraint_box_dy, 0.0])
     h_des = const([0.0, 0.0, tp.h_des])
@@ -136,22 +134,43 @@ def make_tamols_scorer(cfg: Config, strategy: str | None = None, device="cuda"):
     rx_f = min(tp.search_radius_forward, tp.search_radius)
     rx_b = min(tp.search_radius_back, tp.search_radius)
 
+    def leg_maps(L: int):
+        """(diag (L,), others (L, 3)): each leg's trot partner and its robot's other
+        three legs, for L = 4 * robots legs in robot-major order."""
+        base = 4 * (np.arange(L) // 4)
+        return (device_constant(base + _DIAG[np.arange(L) % 4], dev, torch.int64),
+                device_constant(base[:, None] + _OTHERS[np.arange(L) % 4], dev, torch.int64))
+
+    leg_maps(4)  # the one-robot maps reach the device now, not in a call
+
     def score(hms: GridHeightMap, x: torch.Tensor) -> TamolsResult:
         """Score every cell of every leg; ``x`` is ``_pack_inputs`` on the device."""
         legs = x[:4 * _LEG_COLS].reshape(4, _LEG_COLS)
-        seed, hip, foot_now, own = legs[:, 0:3], legs[:, 3:6], legs[:, 6:9], legs[:, 9:12]
-        in_stance, t_remain = legs[:, 12], legs[:, 13]
-        base_pos, base_vel = x[4 * _LEG_COLS:4 * _LEG_COLS + 3], x[4 * _LEG_COLS + 3:]
+        return score_legs(hms, legs[:, 0:3], legs[:, 3:6], x[4 * _LEG_COLS:4 * _LEG_COLS + 3],
+                          x[4 * _LEG_COLS + 3:], legs[:, 12], legs[:, 6:9], legs[:, 9:12],
+                          legs[:, 13])
+
+    def score_legs(hms: GridHeightMap, seed, hip, base_pos, base_vel, in_stance, foot_now, own,
+                   t_remain=None) -> TamolsResult:
+        """Score every cell of L legs (robot-major, 4 a robot): hms a GridHeightMap
+        with leaves of leading shape (L,), seed/hip/foot_now/own (L, 3), in_stance
+        and t_remain (L,) (t_remain None: 1e3, no flight-time gate), base_pos and
+        base_vel (3,) for one robot or (L, 3), each leg's robot's; all on the
+        device."""
+        L = seed.shape[0]
+        if t_remain is None:
+            t_remain = torch.full((L,), 1e3, device=dev)
+        diag, others = leg_maps(L)
 
         if strategy == "height":
             h = lookup_nearest(hms, seed[:, None, :2])[:, 0] + z_off
             fh = torch.cat([seed[:, :2], h[:, None]], dim=1)
-            return TamolsResult(fh, fh - _BIG, fh + _BIG, torch.zeros(4, device=dev),
-                                torch.ones(4, dtype=torch.bool, device=dev),
-                                torch.zeros((4, 0), device=dev))
+            return TamolsResult(fh, fh - _BIG, fh + _BIG, torch.zeros(L, device=dev),
+                                torch.ones(L, dtype=torch.bool, device=dev),
+                                torch.zeros((L, 0), device=dev))
 
-        cand_xy = hms.cell_world_xy().reshape(4, -1, 2)  # (4, M, 2)
-        yaw = hms.yaw.reshape(4, 1)
+        cand_xy = hms.cell_world_xy().reshape(L, -1, 2)  # (L, M, 2)
+        yaw = hms.yaw.reshape(L, 1)
         c_r, s_r = torch.cos(yaw), torch.sin(yaw)
 
         # One gather for every lookup of the call: the 3 x 3 patch (its center is
@@ -198,7 +217,7 @@ def make_tamols_scorer(cfg: Config, strategy: str | None = None, device="cuda"):
 
         # --- hard: lateral lane (leg-crossing guard).
         if tp.lateral_margin > 0.0:
-            rel_b = cand_xy - base_pos[:2]
+            rel_b = cand_xy - base_pos[..., None, :2]
             y_h = -s_r * rel_b[..., 0] + c_r * rel_b[..., 1]
             feas = feas & (sides[:, None] * y_h >= tp.lateral_margin)
 
@@ -242,15 +261,15 @@ def make_tamols_scorer(cfg: Config, strategy: str | None = None, device="cuda"):
         nominal = _sq3(diffn) * tp.weight_nominal_kinematic
 
         # --- soft: reference-velocity tracking (x only, :555-609).
-        vx = base_vel[0]
+        vx = base_vel[..., None, 0]
         dx = cand[..., 0] - seed[:, None, 0]
-        vel_mag = torch.sqrt(_sq2(base_vel[:2]))
+        vel_mag = torch.sqrt(_sq2(base_vel[..., None, :2]))
         oppose = ((vx > 0) & (dx < 0)) | ((vx < 0) & (dx > 0))
         track = torch.where(vel_mag < 0.01, 0.0, torch.where(oppose, dx * dx, 0.0)) \
             * tp.weight_reference_tracking
 
         # --- soft: trot stability against the diagonal-support segment (:611-714).
-        com_pred = base_pos[:2] + base_vel[:2] * tp.estimated_swing_time
+        com_pred = base_pos[..., None, :2] + base_vel[..., None, :2] * tp.estimated_swing_time
         p1 = cand[..., :2]
         p2 = foot_now[diag][:, :2]
         v = p2[:, None, :] - p1
@@ -294,7 +313,7 @@ def make_tamols_scorer(cfg: Config, strategy: str | None = None, device="cuda"):
         best = torch.argmin(cost, dim=1)  # the first minimum, as jnp.argmin
         best_cost = cost.gather(1, best[:, None])[:, 0]
         any_feas = best_cost < _BIG
-        best_cand = cand.gather(1, best[:, None, None].expand(4, 1, 3))[:, 0]
+        best_cand = cand.gather(1, best[:, None, None].expand(L, 1, 3))[:, 0]
 
         # Fallback when nothing is feasible: the height-snapped seed (reference
         # :223-228) or, with fallback 'foot', the leg's own anchor (known ground).
@@ -311,6 +330,7 @@ def make_tamols_scorer(cfg: Config, strategy: str | None = None, device="cuda"):
                         t_remain)
         return score(hms, torch.from_numpy(x).to(dev))
 
+    adapt.legs = score_legs
     return adapt
 
 

@@ -1,6 +1,7 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and constants cached on a device."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -17,3 +18,18 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+_CONSTANTS: dict = {}
+
+
+def device_constant(values, device, dtype=torch.float32) -> torch.Tensor:
+    """``values`` (numpy or nested lists) as a tensor on ``device``, made once and
+    cached: code that runs inside a CUDA-graph capture must not copy from the host,
+    and a graph's warm-up runs fill the cache before the capture."""
+    arr = np.ascontiguousarray(values, dtype=torch.empty((), dtype=dtype).numpy().dtype)
+    key = (arr.tobytes(), arr.shape, dtype, str(torch.device(device)))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.as_tensor(arr, device=device)
+    return t

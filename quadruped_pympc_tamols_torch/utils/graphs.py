@@ -11,7 +11,14 @@ Inputs on the host (CPU tensors, pinned for an asynchronous copy) are copied int
 buffers the graph owns. Inputs already on the card, such as the outputs of
 another graph, are read in place: the graph is bound to their address, which is
 part of the capture key. The outputs are the graph's static tensors, overwritten
-by the next replay. A failed capture raises; nothing falls back to eager mode.
+by the next replay. The inputs are saved before the warm-up runs and restored
+after them, so that a function that updates its inputs in place (the scenario
+fleet's tick) advances nothing at its capture and once at each replay. A failed
+capture raises; nothing falls back to eager mode.
+
+Kernel wrappers count their launches with ``count_launch``. A launch made while a
+graph is being captured runs at each replay, not at the capture: the capture
+records it, and each replay adds what its capture recorded.
 """
 from __future__ import annotations
 
@@ -20,6 +27,17 @@ import gc
 import torch
 
 WARMUP = 3  # eager runs on a side stream before a capture
+
+_recording: list | None = None  # (counter, key) launches of the capture in progress
+
+
+def count_launch(counter: dict, key) -> None:
+    """Add one launch of ``key`` to ``counter``, a wrapper's dict of launch counts;
+    inside a ``GraphedFunction``'s capture, record it for the graph's replays."""
+    if _recording is not None and torch.cuda.is_current_stream_capturing():
+        _recording.append((counter, key))
+    else:
+        counter[key] += 1
 
 
 class GraphedFunction:
@@ -43,27 +61,33 @@ class GraphedFunction:
         if entry is None:
             entry = self._capture(inputs)
             self._graphs[key] = entry
-        graph, static_in, out = entry
+        graph, static_in, out, launches = entry
         for buf, x in zip(static_in, inputs):
             if not x.is_cuda:
                 buf.copy_(x, non_blocking=True)
         graph.replay()
         self.replays += 1
+        for counter, k in launches:
+            counter[k] += 1
         return out
 
     def _capture(self, inputs):
+        global _recording
         static_in = tuple(x if x.is_cuda else torch.empty(x.shape, dtype=x.dtype,
                                                            device=self.device)
                           for x in inputs)
         for buf, x in zip(static_in, inputs):
             if not x.is_cuda:
                 buf.copy_(x)
+        saved = [x.clone() for x in static_in]
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             for _ in range(WARMUP):
                 self.fn(*static_in)
         torch.cuda.current_stream(self.device).wait_stream(side)
+        for x, copy in zip(static_in, saved):
+            x.copy_(copy)
         graph = torch.cuda.CUDAGraph()
         # No garbage collection inside the capture (a collected tensor's free would
         # reach the CUDA runtime mid-capture), and only this thread's calls count
@@ -71,11 +95,14 @@ class GraphedFunction:
         collecting = gc.isenabled()
         gc.collect()
         gc.disable()
+        launches, outer, _recording = [], _recording, []
         try:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 out = self.fn(*static_in)
+            launches = _recording
         finally:
+            _recording = outer
             if collecting:
                 gc.enable()
         self.captures += 1
-        return graph, static_in, out
+        return graph, static_in, out, launches

@@ -3,7 +3,9 @@ CPU: the sequential and the parallel-in-time (hand-written up-sweep/down-sweep
 scan) backward passes, the DDP solve on the golden nominal ticks with either
 pass, "auto" at a long horizon, and GradientMPC / BatchedGradientMPC with
 mpc.gradient.use_DDP. Inputs are seeded numpy arrays or the golden scenarios;
-the JAX side runs on the CPU as its own tests do.
+the JAX side runs on the CPU as its own tests do: live for the Riccati passes,
+recorded by ``jax_ddp_references`` (``tests/jax_references.py``,
+``tools/record_jax_references.py``) for the DDP solves and controllers.
 
 Tolerances: the Riccati passes at atol 2e-3, rtol 1e-3 (tests/test_parallel_riccati.py:
 31-41), closed-loop LQR trajectories at atol 1e-3; the DDP solve's inputs at
@@ -30,6 +32,8 @@ from quadruped_pympc_tamols_tpu.gait.periodic import make_timer_dts as jax_timer
 from quadruped_pympc_tamols_torch.controllers.gradient import (BatchedGradientMPC, GradientMPC,
                                                                ddp, parallel_riccati)
 from quadruped_pympc_tamols_torch.interop import config_from_dict
+from jax_references import check_inputs, digest
+from jax_references import load as load_jax
 from test_golden_traces import _scenarios, _state, _ref, _trot_seq
 
 torch.set_num_threads(1)
@@ -151,30 +155,11 @@ def _assert_ddp_close(got, want, label):
                                err_msg=label)
 
 
-@pytest.mark.parametrize("backward", ["sequential", "associative"])
-def test_ddp_solve_matches_jax(backward):
-    """make_ddp_solver on the five golden nominal ticks (B = 1) against the JAX
-    package's, with the given backward pass."""
-    jc, tc = _cfgs(**{"mpc.gradient.use_DDP": True, "mpc.gradient.riccati_backward": backward})
-    jsolve, _ = jddp.make_ddp_solver(jc)
-    tsolve, _ = ddp.make_ddp_solver(tc, device="cpu")
-    for name in NOMINAL:
-        ins = _ddp_inputs(jc, name)
-        want = jsolve(*(jnp.asarray(a) for a in ins))
-        got = tsolve(*(torch.from_numpy(np.asarray(a, np.float32))[None] for a in ins))
-        got = type(got)(*(x[0].numpy() for x in got))
-        _assert_ddp_close(got, want, f"{backward} {name}")
+BACKWARDS = ("sequential", "associative")
 
 
-def test_auto_takes_the_associative_pass_at_h24():
-    """riccati_backward="auto" at H = 24 runs the associative pass: the port's
-    solve equals its explicit associative solve bit for bit and matches the JAX
-    package's (tests/test_parallel_riccati.py:107-125 runs H = 48)."""
-    over = {"mpc.gradient.use_DDP": True, "mpc.horizon": 24, "mpc.horizon_fine_grained": 2}
-    jc, tc = _cfgs(**over)
-    assert tc.mpc.gradient.riccati_backward == "auto"
-    _, tc_assoc = _cfgs(**over, **{"mpc.gradient.riccati_backward": "associative"})
-    _, tc_seq = _cfgs(**over, **{"mpc.gradient.riccati_backward": "sequential"})
+def _h24_inputs(tc):
+    """The H = 24 tick of test_auto_takes_the_associative_pass_at_h24."""
     H = tc.mpc.horizon
     x0 = np.zeros(12, np.float32)
     x0[2], x0[3] = 0.30, 0.1
@@ -186,7 +171,97 @@ def test_auto_takes_the_associative_pass_at_h24():
     Xref[:, 2] = 0.35
     Uref = np.zeros((H, 12), np.float32)
     Uref[:, 2::3] = tc.robot.mass * 9.81 / 4
-    ins = (x0, feet, seq, Xref, Uref, Uref)
+    return (x0, feet, seq, Xref, Uref, Uref)
+
+
+H24 = {"mpc.gradient.use_DDP": True, "mpc.horizon": 24, "mpc.horizon_fine_grained": 2}
+MPC_TICKS = 5
+GAIT_PHASES = ([0.1, 0.6, 0.6, 0.1], [0.45, 0.95, 0.95, 0.45])
+
+
+def _mpc_ticks(jc):
+    """The 5 trot ticks with a drifting state of test_gradient_mpc_with_ddp_matches_jax."""
+    rng = np.random.default_rng(3)
+    seq0 = _trot_seq(jc.mpc.horizon)
+    return [(_state(pos=(0.01 * k, 0.0, 0.31 + 0.005 * k), vel=rng.normal([0.2, 0, 0], 0.05)),
+             _ref(jc, vel=(0.3, 0, 0)), np.roll(seq0, -k, axis=1)) for k in range(MPC_TICKS)]
+
+
+def jax_ddp_references() -> dict:
+    """The JAX package's side of this module's DDP tests (tests/jax_references.py):
+    the golden ticks' solve inputs and solves with either backward pass, the
+    H = 24 "auto" solve, GradientMPC(use_DDP) over MPC_TICKS ticks and the batched
+    gait candidates."""
+    out = {}
+    for backward in BACKWARDS:
+        jc, _ = _cfgs(**{"mpc.gradient.use_DDP": True, "mpc.gradient.riccati_backward": backward})
+        jsolve, _ = jddp.make_ddp_solver(jc)
+        out[f"digest/solve/{backward}"] = digest(jc)
+        for name in NOMINAL:
+            ins = _ddp_inputs(jc, name)
+            out.update({f"inputs/{name}/{i}": np.asarray(a, np.float32) for i, a in enumerate(ins)})
+            want = jsolve(*(jnp.asarray(a) for a in ins))
+            out[f"solve/{backward}/{name}/U"] = np.asarray(want.U)
+            out[f"solve/{backward}/{name}/cost"] = np.asarray(want.cost)
+    jc, tc = _cfgs(**H24)
+    want = jddp.make_ddp_solver(jc)[0](*(jnp.asarray(a) for a in _h24_inputs(tc)))
+    out["auto_h24/U"], out["auto_h24/cost"] = np.asarray(want.U), np.asarray(want.cost)
+    out["digest/auto_h24"] = digest(jc, _h24_inputs(tc))
+    jc, _ = _cfgs(**{"mpc.gradient.use_DDP": True, "mpc.gradient.use_RTI": True})
+    jaxm = JaxMPC(jc)
+    out["digest/mpc"] = digest(jc, _mpc_ticks(jc))
+    for k, tick in enumerate(_mpc_ticks(jc)):
+        for key, v in zip(("grfs", "footholds", "pred", "status", "cost"),
+                          jaxm.compute_control(*tick)):
+            out[f"mpc/{k}/{key}"] = np.asarray(v)
+        assert jaxm.compute_rti_prepare() is None
+    jc, _ = _cfgs(**{"mpc.gradient.use_DDP": True, "mpc.optimize_step_freq": True})
+    _, state, ref, _ = _scenarios()["trot_nominal"]
+    out["digest/gait"] = digest(jc, state, ref)
+    freqs = np.asarray(jc.mpc.step_freq_available, np.float32)
+    for i, phase in enumerate(GAIT_PHASES):
+        ph = np.tile(np.asarray(phase, np.float32), (len(freqs), 1))
+        seqs = np.asarray(jax_contact_sequence(jnp.asarray(ph), jnp.asarray(freqs), 0.65,
+                                               jnp.asarray(jax_timer_dts(jc.mpc))))
+        jcosts, jbest = JaxBatched(jc).optimize_gait(state, ref, seqs)
+        out[f"gait/{i}/seqs"], out[f"gait/{i}/costs"] = seqs, np.asarray(jcosts)
+        out[f"gait/{i}/best"] = np.asarray(jbest)
+    return out
+
+
+class _Want:
+    """A recorded DDP result: U and cost."""
+
+    def __init__(self, ref, key):
+        self.U, self.cost = ref[f"{key}/U"], ref[f"{key}/cost"]
+
+
+@pytest.mark.parametrize("backward", ["sequential", "associative"])
+def test_ddp_solve_matches_jax(backward):
+    """make_ddp_solver on the five golden nominal ticks (B = 1) against the JAX
+    package's (recorded: tests/jax_references.py), with the given backward pass."""
+    ref = load_jax("ddp")
+    jc, tc = _cfgs(**{"mpc.gradient.use_DDP": True, "mpc.gradient.riccati_backward": backward})
+    check_inputs(ref, f"solve/{backward}", jc)
+    tsolve, _ = ddp.make_ddp_solver(tc, device="cpu")
+    for name in NOMINAL:
+        ins = [ref[f"inputs/{name}/{i}"] for i in range(6)]
+        got = tsolve(*(torch.from_numpy(np.asarray(a, np.float32))[None] for a in ins))
+        got = type(got)(*(x[0].numpy() for x in got))
+        _assert_ddp_close(got, _Want(ref, f"solve/{backward}/{name}"), f"{backward} {name}")
+
+
+def test_auto_takes_the_associative_pass_at_h24():
+    """riccati_backward="auto" at H = 24 runs the associative pass: the port's
+    solve equals its explicit associative solve bit for bit and matches the JAX
+    package's (recorded; tests/test_parallel_riccati.py:107-125 runs H = 48)."""
+    jc, tc = _cfgs(**H24)
+    assert tc.mpc.gradient.riccati_backward == "auto"
+    _, tc_assoc = _cfgs(**H24, **{"mpc.gradient.riccati_backward": "associative"})
+    _, tc_seq = _cfgs(**H24, **{"mpc.gradient.riccati_backward": "sequential"})
+    ins = _h24_inputs(tc)
+    ref = load_jax("ddp")
+    check_inputs(ref, "auto_h24", jc, ins)
     outs = {}
     for label, cfg in (("auto", tc), ("associative", tc_assoc), ("sequential", tc_seq)):
         solve, _ = ddp.make_ddp_solver(cfg, device="cpu")
@@ -196,47 +271,41 @@ def test_auto_takes_the_associative_pass_at_h24():
     scale = max(1.0, float(outs["sequential"].U.abs().max()))
     np.testing.assert_allclose(outs["auto"].U.numpy(), outs["sequential"].U.numpy(),
                                atol=2e-3 * scale)
-    jsolve, _ = jddp.make_ddp_solver(jc)
-    want = jsolve(*(jnp.asarray(a) for a in ins))
     got = type(outs["auto"])(*(x[0].numpy() for x in outs["auto"]))
-    _assert_ddp_close(got, want, "auto H=24")
+    _assert_ddp_close(got, _Want(ref, "auto_h24"), "auto H=24")
 
 
 def test_gradient_mpc_with_ddp_matches_jax():
-    """GradientMPC(use_DDP) against the JAX package's over 5 trot ticks with a
-    drifting state, each carrying its own warm start: the same status, GRFs within
-    DDP_ATOL, the cost within COST_RTOL; no RTI split under DDP."""
+    """GradientMPC(use_DDP) against the JAX package's (recorded) over 5 trot ticks
+    with a drifting state, each carrying its own warm start: the same status, GRFs
+    within DDP_ATOL, the cost within COST_RTOL; no RTI split under DDP."""
     jc, tc = _cfgs(**{"mpc.gradient.use_DDP": True, "mpc.gradient.use_RTI": True})
-    port, jaxm = GradientMPC(tc, device="cpu"), JaxMPC(jc)
-    rng = np.random.default_rng(3)
-    seq0 = _trot_seq(jc.mpc.horizon)
-    for k in range(5):
-        state = _state(pos=(0.01 * k, 0.0, 0.31 + 0.005 * k), vel=rng.normal([0.2, 0, 0], 0.05))
-        ref = _ref(jc, vel=(0.3, 0, 0))
-        seq = np.roll(seq0, -k, axis=1)
-        g, fh, pred, status, cost = port.compute_control(state, ref, seq)
-        jg, jfh, jpred, jstatus, jcost = jaxm.compute_control(state, ref, seq)
+    ref = load_jax("ddp")
+    check_inputs(ref, "mpc", jc, _mpc_ticks(jc))
+    port = GradientMPC(tc, device="cpu")
+    for k, (state, rf, seq) in enumerate(_mpc_ticks(jc)):
+        g, fh, pred, status, cost = port.compute_control(state, rf, seq)
+        jg, jfh, jpred, jstatus, jcost = (ref[f"mpc/{k}/{key}"] for key in (
+            "grfs", "footholds", "pred", "status", "cost"))
         assert status == jstatus == 0
         np.testing.assert_allclose(g, jg, atol=DDP_ATOL, err_msg=f"tick {k}")
         np.testing.assert_allclose(cost, jcost, rtol=COST_RTOL, err_msg=f"tick {k}")
         np.testing.assert_array_equal(fh, jfh)
         np.testing.assert_allclose(pred, jpred, atol=1e-4)
-        assert port.compute_rti_prepare() is None and jaxm.compute_rti_prepare() is None
+        assert port.compute_rti_prepare() is None
     assert port._prepare_dev is None
 
 
 def test_batched_gait_candidates_with_ddp_match_jax():
     """BatchedGradientMPC(use_DDP): the K candidates as one batched DDP solve,
-    costs within 1e-3 relative of the JAX package's vmapped DDP and the same best
-    frequency."""
+    costs within 1e-3 relative of the JAX package's vmapped DDP (recorded) and the
+    same best frequency."""
     jc, tc = _cfgs(**{"mpc.gradient.use_DDP": True, "mpc.optimize_step_freq": True})
-    _, state, ref, _ = _scenarios()["trot_nominal"]
-    freqs = np.asarray(jc.mpc.step_freq_available, np.float32)
-    for phase in ([0.1, 0.6, 0.6, 0.1], [0.45, 0.95, 0.95, 0.45]):
-        ph = np.tile(np.asarray(phase, np.float32), (len(freqs), 1))
-        seqs = np.asarray(jax_contact_sequence(jnp.asarray(ph), jnp.asarray(freqs), 0.65,
-                                               jnp.asarray(jax_timer_dts(jc.mpc))))
-        jcosts, jbest = JaxBatched(jc).optimize_gait(state, ref, seqs)
-        costs, best = BatchedGradientMPC(tc, device="cpu").optimize_gait(state, ref, seqs)
-        np.testing.assert_allclose(costs, jcosts, rtol=1e-3)
-        assert best == jbest
+    _, state, rf, _ = _scenarios()["trot_nominal"]
+    ref = load_jax("ddp")
+    check_inputs(ref, "gait", jc, state, rf)
+    for i in range(len(GAIT_PHASES)):
+        costs, best = BatchedGradientMPC(tc, device="cpu").optimize_gait(state, rf,
+                                                                        ref[f"gait/{i}/seqs"])
+        np.testing.assert_allclose(costs, ref[f"gait/{i}/costs"], rtol=1e-3)
+        assert best == ref[f"gait/{i}/best"].item()

@@ -32,6 +32,8 @@ from quadruped_pympc_tamols_torch.sim import SRBClosedLoopHarness
 from quadruped_pympc_tamols_torch.sim.trace import ControlTrace
 from quadruped_pympc_tamols_torch.utils.legs import Legs
 from quadruped_pympc_tamols_torch.utils.verification import pdip_solve_np_f64
+from jax_references import check_inputs, digest
+from jax_references import load as load_jax
 from test_golden_traces import _ref, _state, _trot_seq
 
 torch.set_num_threads(1)
@@ -198,14 +200,28 @@ def test_gradient_state_carries_across():
     np.testing.assert_allclose(port.integral, jaxm.integral, rtol=0, atol=1e-6)
 
 
+LOOP_VEL = np.array([0.3, 0.0, 0.0])
+LOOP_SEED, LOOP_S = 0, 1.0
+
+
+def jax_closed_loop() -> dict:
+    """The JAX package's side of test_closed_loop_matches_jax (tests/jax_references.py):
+    its SRB harness's 1 s history, nominal, blind, 0.3 m/s."""
+    jc, _ = _cfgs(**BLIND)
+    return {"history": np.asarray(JaxHarness(jc, seed=LOOP_SEED).run(LOOP_S, LOOP_VEL)),
+            "digest/loop": digest(jc, LOOP_SEED, LOOP_S, LOOP_VEL)}
+
+
 def test_closed_loop_matches_jax():
-    """1 s of the SRB harness with the nominal controller, blind, 0.3 m/s: base
-    states to 1e-3 (the plants integrate in float32 and the swing curves run in
-    float32 on the JAX side, float64 in the port), and the robot moved."""
+    """1 s of the SRB harness with the nominal controller, blind, 0.3 m/s, against
+    the JAX harness's (recorded): base states to 1e-3 (the plants integrate in
+    float32 and the swing curves run in float32 on the JAX side, float64 in the
+    port), and the robot moved."""
     jc, tc = _cfgs(**BLIND)
-    vel = np.array([0.3, 0.0, 0.0])
-    jhist = JaxHarness(jc, seed=0).run(1.0, vel)
-    thist = SRBClosedLoopHarness(tc, seed=0, device="cpu").run(1.0, vel)
+    rec = load_jax("nominal_loop")
+    check_inputs(rec, "loop", jc, LOOP_SEED, LOOP_S, LOOP_VEL)
+    jhist = rec["history"]
+    thist = SRBClosedLoopHarness(tc, seed=LOOP_SEED, device="cpu").run(LOOP_S, LOOP_VEL)
     np.testing.assert_allclose(thist, jhist, rtol=0, atol=1e-3)
     assert thist[-1, 0] - thist[0, 0] > 0.2
 

@@ -36,12 +36,14 @@ GRADIENT = ("controllers.gradient", "controllers.gradient.ocp", "controllers.gra
 # The gradient family's variant core, its DDP solver and the ZMP analysis.
 VARIANTS = ("controllers.gradient.variants", "controllers.gradient.ddp",
             "controllers.gradient.parallel_riccati", "utils.analysis")
+# The on-device scenario fleet and its scenario-axis kernel K1f.
+FLEET = ("parallel", "parallel.scenario_engine", "ops.sampling_fleet")
 
 
 def test_port_imports_no_jax():
     mods = _port_modules()
     assert len(mods) > 20
-    assert {f"{PKG}.{m}" for m in TORQUE_AND_MUJOCO + GRADIENT + VARIANTS} <= set(mods)
+    assert {f"{PKG}.{m}" for m in TORQUE_AND_MUJOCO + GRADIENT + VARIANTS + FLEET} <= set(mods)
     # Only modules the imports load count: the interpreter's startup may load others.
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -121,6 +123,30 @@ def test_gradient_entry_points_need_cuda_unless_cpu_is_asked():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         QuadrupedPyMPCWrapper(cfg, Legs.zeros((3,)))
     assert QuadrupedPyMPCWrapper(cfg, Legs.zeros((3,)), device="cpu") is not None
+
+
+def test_fleet_entry_points_need_cuda_unless_cpu_is_asked():
+    """The scenario fleet's entry points refuse to run on the CPU unless asked, and
+    the JAX package's sharded and multi-chip fleet, not ported yet, raise
+    NotImplementedError naming the ROADMAP item that ports them."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from quadruped_pympc_tamols_torch import parallel
+    from quadruped_pympc_tamols_torch.controllers.sampling import make_fleet_sampling_solver
+
+    cfg = make_config("aliengo", **{"mpc.sampling.num_samples": 32})
+    gen = torch.Generator().manual_seed(0)
+    for entry in (lambda **d: parallel.make_scenario_step(cfg, 32, terrain="perlin", **d),
+                  lambda **d: parallel.make_terrain_generator("boxes", **d),
+                  lambda **d: parallel.make_terrain_adapter(cfg, **d),
+                  lambda **d: parallel.init_scenario_state(cfg, 96, 2, gen, **d),
+                  lambda **d: make_fleet_sampling_solver(cfg, 32, **d)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
+        assert entry(device="cpu") is not None
+    for name in ("make_sharded_sampling_solver", "make_multichip_step", "scenario_mesh"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+            getattr(parallel, name)(cfg)
 
 
 def test_importing_the_port_needs_no_mujoco():

@@ -33,6 +33,8 @@ from quadruped_pympc_tamols_torch.dynamics.srbd import make_params
 from quadruped_pympc_tamols_torch.interop import config_from_dict
 from quadruped_pympc_tamols_torch.utils.verification import (pdip_solve_np_f64,
                                                              soft_qp_ladder_report)
+from jax_references import check_inputs, digest
+from jax_references import load as load_jax
 from test_golden_traces import FIXTURE, _scenarios
 
 torch.set_num_threads(1)
@@ -347,16 +349,33 @@ LADDERS = {
 }
 
 
+LADDER_KEYS = ("n_active_slack_ticks", "soft_qp_gap_vs_f64_max_N")
+
+
+def jax_ladders() -> dict:
+    """The JAX package's side of test_soft_qp_ladder_beside_jax
+    (tests/jax_references.py): its report's LADDER_KEYS for each ladder."""
+    out = {}
+    for ladder, (over, _) in LADDERS.items():
+        jc = _cfgs(**over)[0]
+        rep = jax_ladder(jc, n_ticks=LADDER_TICKS)
+        out.update({f"{ladder}/{k}": np.asarray(rep[k]) for k in LADDER_KEYS})
+        out[f"digest/{ladder}"] = digest(jc, LADDER_TICKS)
+    return out
+
+
 @pytest.mark.parametrize("ladder", list(LADDERS))
 def test_soft_qp_ladder_beside_jax(ladder):
     """soft_qp_ladder_report on the port's own captured ticks (its SRB harness on
-    the CPU, LADDER_TICKS ticks), beside the JAX package's report on its ticks:
-    the same bound as the JAX test, float64 converged, the same count of
-    active-slack ticks, and the port's worst gap within max(2 x JAX's,
+    the CPU, LADDER_TICKS ticks), beside the JAX package's report on its ticks
+    (recorded): the same bound as the JAX test, float64 converged, the same count
+    of active-slack ticks, and the port's worst gap within max(2 x JAX's,
     F64_FLOOR)."""
     over, bound = LADDERS[ladder]
     jc, tc = _cfgs(**over)
-    jrep = jax_ladder(jc, n_ticks=LADDER_TICKS)
+    rec = load_jax("ladders")
+    check_inputs(rec, ladder, jc, LADDER_TICKS)
+    jrep = {k: rec[f"{ladder}/{k}"].item() for k in LADDER_KEYS}
     rep = soft_qp_ladder_report(tc, n_ticks=LADDER_TICKS, device="cpu")
     assert rep["n_ticks"] == LADDER_TICKS and rep["f64_mu_max"] < 1e-10, rep
     assert rep["n_active_slack_ticks"] == jrep["n_active_slack_ticks"], (rep, jrep)

@@ -34,6 +34,8 @@ from quadruped_pympc_tamols_torch.interop import config_from_dict, set_variant_s
 from quadruped_pympc_tamols_torch.sim import SRBClosedLoopHarness
 from quadruped_pympc_tamols_torch.sim.trace import ControlTrace
 from quadruped_pympc_tamols_torch.utils.legs import Legs
+from jax_references import check_inputs, digest
+from jax_references import load as load_jax
 from test_golden_traces import _ref, _state, _trot_seq
 from test_torch_variants import ENSEMBLE, assert_no_less_accurate, perturbed, solver_gaps_to_f64
 
@@ -274,9 +276,13 @@ def test_closed_loop_matches_jax(row):
     np.testing.assert_allclose(thist[:, :3], jhist[:, :3], rtol=0, atol=0.02)
 
 
+KINO_RUN = dict(episode_duration_s=0.2, ref_base_lin_vel=(0.0, 0.0), seed=0)
+
+
 def test_kinodynamic_run_simulation_matches_jax():
     """run_simulation with the kinodynamic controller, 0.2 s of MuJoCo (20 MPC
-    ticks) at zero commanded velocity, against the JAX package's on the CPU:
+    ticks) at zero commanded velocity, against the JAX package's on the CPU
+    (recorded):
     neither fell, and the base states stay within KINO_STATE_ATOL of each other.
     The float32 joint velocities of these ticks sit at their floor in both
     packages (the wrapper test above holds their solves through float64), and
@@ -284,18 +290,27 @@ def test_kinodynamic_run_simulation_matches_jax():
     on the angular velocity; 1e-4 m on the position) in 0.2 s (``... f64``), so
     the states are not held to STATE_ATOL."""
     pytest.importorskip("mujoco")
-    from quadruped_pympc_tamols_tpu.sim import simulation as jsim
     from quadruped_pympc_tamols_torch.sim import simulation
 
     jc, tc = _cfgs("kinodynamic", **BLIND)
-    jres = jsim.run_simulation(jc, episode_duration_s=0.2, ref_base_lin_vel=(0.0, 0.0),
-                               seed=0)[0]
-    tres = simulation.run_simulation(tc, episode_duration_s=0.2, ref_base_lin_vel=(0.0, 0.0),
-                                     seed=0, device="cpu")[0]
-    assert not tres.fell and not jres.fell
+    jres = load_jax("kinodynamic_run")
+    check_inputs(jres, "run", jc, KINO_RUN)
+    tres = simulation.run_simulation(tc, device="cpu", **KINO_RUN)[0]
+    assert not tres.fell and not bool(jres["fell"])
     assert np.all(np.isfinite(tres.state_history))
-    np.testing.assert_allclose(tres.state_history, jres.state_history, rtol=0,
+    np.testing.assert_allclose(tres.state_history, jres["state_history"], rtol=0,
                                atol=KINO_STATE_ATOL)
+
+
+def jax_kinodynamic_run() -> dict:
+    """The JAX package's side of test_kinodynamic_run_simulation_matches_jax
+    (tests/jax_references.py): its 0.2 s kinodynamic run_simulation, seed 0."""
+    from quadruped_pympc_tamols_tpu.sim import simulation as jsim
+
+    jc, _ = _cfgs("kinodynamic", **BLIND)
+    jres = jsim.run_simulation(jc, **KINO_RUN)[0]
+    return {"state_history": np.asarray(jres.state_history), "fell": np.asarray(jres.fell),
+            "digest/run": digest(jc, KINO_RUN)}
 
 
 # The variant walks of PERF.md's closed-loop table (3 s at 0.3 m/s, blind):
@@ -392,9 +407,8 @@ def report_float64_routes():
     from quadruped_pympc_tamols_tpu.sim import simulation as jsim
     from quadruped_pympc_tamols_torch.sim import simulation
     jk, tk = _cfgs("kinodynamic", **BLIND)
-    run = dict(episode_duration_s=0.2, ref_base_lin_vel=(0.0, 0.0), seed=0)
-    d = np.abs(simulation.run_simulation(tk, device="cpu", **run)[0].state_history
-               - jsim.run_simulation(jk, **run)[0].state_history).max(axis=0)
+    d = np.abs(simulation.run_simulation(tk, device="cpu", **KINO_RUN)[0].state_history
+               - jsim.run_simulation(jk, **KINO_RUN)[0].state_history).max(axis=0)
     print(f"kinodynamic MuJoCo run, 0.2 s: largest difference per state component "
           f"{np.round(d, 4).tolist()}")
 
