@@ -181,25 +181,33 @@ to 0 just before it and read just after):
      first-stage joints as the whole-body layer's joint targets on every step,
      one copy an MPC tick (one more an apex call), nothing on the card between.
      Their numbers are the "variants:" JSON line.
- 25. K1f, the scenario-axis kernel of the fleet (ops/csrc/sampling_fleet.cu),
-     against its plain version for each method on injected noise at FLEET_CHECKS
-     (64 scenarios at N = 10 000, 64 at the JAX bench's 128, ragged 3 x 63 and
-     2 x 65): the costs, and the step on the kernel's own costs (the argmin, beta
-     and elites exactly); its Philox noise (the noise the pass wrote, checked the
-     same way, distinct a scenario, a rerun bit for bit); one scenario bit-equal
-     to K1a / K1b / K1c at their seed and offset; its times at 64 x 10 000.
+ 25. K1f, the scenario-axis kernel of the fleet (ops/csrc/sampling_fleet.cu), in
+     both its layouts (the four-lane one and the large-batch one the wrapper
+     runs from sampling_fleet.CROSSOVER samples in all): each against its plain
+     version for each method on injected noise at FLEET_CHECKS (64 scenarios at
+     N = 10 000, 1024 and 64 at the JAX bench's 128, ragged 3 x 63 and 2 x 65)
+     and the two against each other bit for bit (costs, argmin keys, outputs);
+     on Philox noise every layout, its update reading the noise back or drawing
+     it again, bit for bit, the noise the pass drew checked against the plain
+     version (distinct a scenario, a rerun bit for bit); one scenario in each
+     layout bit-equal to K1a / K1b / K1c at their seed and offset; each layout's
+     times and passes at FLEET_TIMES, the nonzero softmax weights, K1f's ptxas
+     figures, and the crossover sweep (FLEET_SWEEP).
  26. The fleet walks on the card, each tick one replay of the captured graph:
      64 scenarios on perlin terrain with reflexes, random sampling, N = 10 000,
      3 s at 0.25 m/s, every scenario above 0.1 m and the mean forward distance
      within FLEET_DX_BAND of the JAX package's CPU row; a flat MPPI fleet, and a
-     flat CEM-MPPI fleet for TICK_LOOP ticks; K1f launched once a tick (plus the
-     capture's warm-up runs) and no other sampling kernel; the profiler sees one
-     K1f rollout and one extraction or update a tick and no device-to-host copy.
+     flat CEM-MPPI fleet for TICK_LOOP ticks (all three on the large-batch
+     layout); the same three for TICK_LOOP ticks at 64 x 128 (the four-lane
+     layout); K1f launched once a tick in the layout its S x N picks (plus the
+     capture's warm-up runs) and no other sampling kernel or layout; the profiler
+     sees one rollout of that layout and one extraction or update a tick and no
+     device-to-host copy.
  27. Fleet throughput: scenario-steps per second at S = 64, 256 and 1024 with
-     N = 128 and at 64 with N = 10 000 (perlin, reflexes; graph replays on the
-     host clock), the eager tick's host ms, kernels and device us a tick and
-     K1f's passes' us (torch.profiler), and K1f's ptxas figures. Phases 25-27
-     print the "fleet:" JSON line and add K1f's rows to the kernels line.
+     N = 128 and at 64 and 256 with N = 10 000 (perlin, reflexes; graph replays
+     on the host clock), the eager tick's host ms, kernels and device us a tick
+     and K1f's passes' us (torch.profiler). Phases 25-27 print the "fleet:" JSON
+     line and add K1f's rows, one a method and layout, to the kernels line.
 """
 from __future__ import annotations
 
@@ -645,7 +653,7 @@ def profile_ticks(mpc, tick, n=50, expect=None, d2h=None, absent=(), call=None) 
 PASSES = {"rollout": "rollout_kernel", "update": "sm_update_kernel",
           "extract": "rs_extract_kernel", "chain": "chain_kernel",
           "fleet_rollout": "fleet_rollout_kernel", "fleet_update": "fleet_update_kernel",
-          "fleet_extract": "fleet_extract_kernel"}
+          "fleet_extract": "fleet_extract_kernel", "fleet_rollout_wide": "fleet_rollout_wide_kernel"}
 PTXAS_ENTRY = {**{k: (v,) for k, v in PASSES.items()}, "chain": ("chain_kernel", "Lb0E")}
 
 
@@ -830,10 +838,12 @@ def group_bound_ms(gplan, knobs, groups) -> tuple:
 # softmax_iteration.launches["mppi"] and ["cem_mppi"], K1d (the chain kernel, one
 # launch a chained solve) in sampling_chain.launches[method], K1e in
 # sampling_groups.launches[method], K1f in sampling_fleet.fleet_iteration.launches[method]
-# (counted by the wrapper through utils/graphs.py:count_launch: a launch captured into
-# the fleet's graph is recorded at the capture and counted at each replay).
+# (the four-lane layout) and .launches_wide[method] (the large-batch layout) (counted
+# by the wrapper through utils/graphs.py:count_launch: a launch captured into the
+# fleet's graph is recorded at the capture and counted at each replay).
 COUNTED = ("K1a", "K1b", "K1c", "K1d_rs", "K1d_mppi", "K1d_cem", "K1e_rs", "K1e_mppi",
-           "K1e_cem", "K1f_rs", "K1f_mppi", "K1f_cem")
+           "K1e_cem", "K1f_rs", "K1f_mppi", "K1f_cem", "K1f_rs_wide", "K1f_mppi_wide",
+           "K1f_cem_wide")
 
 
 def reset_counts():
@@ -843,6 +853,7 @@ def reset_counts():
     ops.sampling_chain.launches.update(random_sampling=0, mppi=0, cem_mppi=0)
     ops.sampling_groups.sampling_groups.launches.update(random_sampling=0, mppi=0, cem_mppi=0)
     ops.fleet_iteration.launches.update(random_sampling=0, mppi=0, cem_mppi=0)
+    ops.fleet_iteration.launches_wide.update(random_sampling=0, mppi=0, cem_mppi=0)
 
 
 def read_counts() -> dict:
@@ -851,10 +862,13 @@ def read_counts() -> dict:
     ch = ops.sampling_chain.launches
     sg = ops.sampling_groups.sampling_groups.launches
     fl = ops.fleet_iteration.launches
+    fw = ops.fleet_iteration.launches_wide
     return {"K1a": ops.sampling_rs.launches, "K1b": sm["mppi"], "K1c": sm["cem_mppi"],
             "K1d_rs": ch["random_sampling"], "K1d_mppi": ch["mppi"], "K1d_cem": ch["cem_mppi"],
             "K1e_rs": sg["random_sampling"], "K1e_mppi": sg["mppi"], "K1e_cem": sg["cem_mppi"],
-            "K1f_rs": fl["random_sampling"], "K1f_mppi": fl["mppi"], "K1f_cem": fl["cem_mppi"]}
+            "K1f_rs": fl["random_sampling"], "K1f_mppi": fl["mppi"], "K1f_cem": fl["cem_mppi"],
+            "K1f_rs_wide": fw["random_sampling"], "K1f_mppi_wide": fw["mppi"],
+            "K1f_cem_wide": fw["cem_mppi"]}
 
 
 def walk(cfg, label, want_counts):
@@ -2740,10 +2754,18 @@ def phase_variant_walks() -> dict:
 FLEET_S = 64  # scenarios of the fleet's walks and checks
 FLEET_VEL, FLEET_SECONDS = 0.25, 3.0  # tests/test_parallel.py's command, 3 s
 FLEET_Z_MIN = 0.1  # every scenario stays above it (tests/test_parallel.py:93)
-# K1f against its plain version: (S, N) at production width, the JAX bench's fleet
-# shape (bench.py:358-395: 64 scenarios of 128 samples) and ragged S and N.
-FLEET_CHECKS = ((FLEET_S, N_MAIN), (FLEET_S, 128), (3, 63), (2, 65))
-FLEET_THROUGHPUT = ((64, 128), (256, 128), (1024, 128), (64, N_MAIN))  # (S, N), perlin, reflexes
+# K1f against its plain version, in both layouts: (S, N) at production width, the
+# JAX bench's fleet shape (bench.py:358-395: 64 scenarios of 128 samples) and its
+# largest S, and ragged S and N.
+FLEET_CHECKS = ((FLEET_S, N_MAIN), (1024, 128), (FLEET_S, 128), (3, 63), (2, 65))
+# K1f's times in each layout (phase 25), and the shapes of the crossover sweep:
+# one iteration's device time in each layout from one wave of the four-lane
+# rollout to production width.
+FLEET_TIMES = ((FLEET_S, 128), (1024, 128), (FLEET_S, N_MAIN))
+FLEET_SWEEP = ((64, 128), (128, 128), (192, 128), (256, 128), (384, 128), (512, 128),
+               (64, 1000), (1024, 128), (64, 2500), (64, N_MAIN))
+# (S, N), perlin, reflexes; 256 x 10 000 is ROADMAP queue 1 item 5's density step.
+FLEET_THROUGHPUT = ((64, 128), (256, 128), (1024, 128), (64, N_MAIN), (256, N_MAIN))
 FLEET_TIMED_TICKS = 50
 FLEET_PASSES = {k: v for k, v in PASSES.items() if k.startswith("fleet_")}
 # The JAX package's perlin fleet with reflexes on the CPU, 8 scenarios, 3 s at 0.25
@@ -2850,13 +2872,87 @@ def fleet_bound_ms(plan, knobs, S) -> tuple:
     return bound_ms(S * flops, 4 * H * 12 * P_leg + S * per)
 
 
-def phase_fleet_kernels(dev, rng) -> dict:
-    """Phase 25: K1f against its plain version for each method at FLEET_CHECKS on
-    injected noise; its Philox noise (MPPI, CEM: the noise the pass wrote, checked
-    the same way; every method: a rerun bit for bit, distinct scenarios' streams);
-    S = 1 bit-equal to K1a / K1b / K1c at their seed and offset; then its times at
-    (FLEET_S, N_MAIN): through its wrapper with a prebuilt workspace (CUDA events),
-    its passes on the card, its plain version and its bound."""
+def fleet_layouts(method) -> dict:
+    """K1f's layouts worth timing for a method: {name: layout}. Random sampling has
+    no update pass, so REGEN changes nothing for it."""
+    from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
+    if method == "random_sampling":
+        return {"four_lane": fl.FOUR_LANE, "large_batch": fl.LARGE_BATCH}
+    return {"four_lane": fl.FOUR_LANE, "four_lane_regen": fl.REGEN, "wide_read_back": fl.WIDE,
+            "large_batch": fl.LARGE_BATCH}
+
+
+def fleet_run(plan, knobs, tick, inc, sigma, seeds, offsets, layout, noise=None,
+              keep_noise=False) -> tuple:
+    """One K1f iteration in ``layout`` on a workspace of its own: (costs, out,
+    sigma', elites, argmin keys (S,), the kept noise or None), cloned."""
+    import torch
+    from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
+    ws = fl.fleet_workspace(plan, knobs, inc.shape[0], inc.device, layout, keep_noise)
+    res = fl.fleet_iteration(plan, knobs, tick, inc, sigma, seeds, offsets, 0, noise, ws=ws,
+                             layout=layout)
+    torch.cuda.synchronize()
+    return tuple(None if x is None else x.clone() for x in (*res, ws.argmin[0::2], ws.noise))
+
+
+def same_tensors(a, b) -> bool:
+    """Bit-equality of two tuples of tensors (None where both have none)."""
+    import torch
+    return all((x is None and y is None) or (x is not None and y is not None
+                                             and torch.equal(x, y)) for x, y in zip(a, b))
+
+
+def fleet_crossover(dev, rng) -> dict:
+    """Device us of one K1f iteration (its rollout and its extraction or update
+    pass, torch.profiler, mean of 20 launches through the wrapper with a prebuilt
+    workspace) in the four-lane and the large-batch layout at each (S, N) of
+    FLEET_SWEEP, for random sampling and MPPI. The crossover is the smallest S * N
+    of the sweep from which the large-batch layout takes less device time at every
+    larger S * N for both (None if it never does). CUDA events would time the
+    host's enqueue at the small shapes, where a pass takes ~10-25 us."""
+    from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+
+    rows = []
+    for method in ("random_sampling", "mppi"):
+        cfg = fleet_cfg(method)
+        knobs = sm.make_knobs(cfg)
+        second = "fleet_extract" if method == "random_sampling" else "fleet_update"
+        for S, N in FLEET_SWEEP:
+            plan, tick, inc, sigma, seeds, offsets = fleet_inputs(cfg, S, N, dev, rng)
+            scen = fl.tick_buffer(tick)
+            r = {"method": method, "S": S, "N": N}
+            for name, layout in (("four_lane", fl.FOUR_LANE), ("large_batch", fl.LARGE_BATCH)):
+                ws = fl.fleet_workspace(plan, knobs, S, dev, layout)
+
+                def launch():
+                    fl.fleet_iteration(plan, knobs, tick, inc, sigma, seeds, offsets, 0, ws=ws,
+                                       scen=scen, layout=layout)
+
+                rollout = "fleet_rollout_wide" if layout & fl.WIDE else "fleet_rollout"
+                prof = pass_profile(launch, 1, (rollout, second), n=20)
+                r[name + "_us"] = sum(us for _, us in prof.values())
+            rows.append(r)
+    sizes = sorted({r["S"] * r["N"] for r in rows})
+    crossover = None
+    for size in reversed(sizes):
+        if all(r["large_batch_us"] < r["four_lane_us"] for r in rows if r["S"] * r["N"] >= size):
+            crossover = size
+    return {"rows": rows, "crossover": crossover, "wrapper_crossover": fl.CROSSOVER}
+
+
+def phase_fleet_kernels(dev, rng, libs) -> dict:
+    """Phase 25: K1f against its plain version for each method at FLEET_CHECKS in
+    both layouts, the four-lane and the large-batch one: on injected noise, each
+    against the plain version and the two bit for bit (costs, argmin keys,
+    outputs); on Philox noise (kept by the workspace), a rerun bit for bit, the
+    noise against the plain version, distinct scenarios' streams, the two rollouts
+    and (MPPI, CEM) the update that reads the noise back and the one that draws it
+    again, all bit for bit; S = 1 in each layout bit-equal to K1a / K1b / K1c at
+    their seed and offset; then its times in each layout at FLEET_TIMES: through its
+    wrapper with a prebuilt workspace (CUDA events) and its passes on the card
+    (torch.profiler); at (FLEET_S, N_MAIN) its plain version and its bound; the
+    ptxas figures of every K1f kernel; and the crossover sweep."""
     import torch
     from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
     from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
@@ -2870,65 +2966,111 @@ def phase_fleet_kernels(dev, rng) -> dict:
         for S, N in FLEET_CHECKS:
             plan, tick, inc, sigma, seeds, offsets = fleet_inputs(cfg, S, N, dev, rng)
             noise = fleet_noise(plan, knobs, S, rng, dev)
-            res = fl.fleet_iteration(plan, knobs, tick, inc, sigma, seeds, offsets, 0, noise)
             label = f"phase 25 K1f {method} S={S} N={N}"
-            e = fleet_check(plan, knobs, tick, inc, sigma, noise, res, label)
-            ws = fl.fleet_workspace(plan, knobs, S, dev)
-            first = [x.clone() for x in fl.fleet_iteration(plan, knobs, tick, inc, sigma, seeds,
-                                                           offsets, 0, ws=ws) if x is not None]
-            again = fl.fleet_iteration(plan, knobs, tick, inc, sigma, seeds, offsets, 0, ws=ws)
-            if not all(torch.equal(a, b) for a, b in zip(first, [x for x in again
-                                                                if x is not None])):
-                raise AssertionError(f"{label}: a rerun on Philox noise differs")
-            if ws.noise is not None:
-                if not bool((ws.noise[:, :, 0] == 0).all()):
+            runs, e = {}, {}
+            for name, layout in (("four_lane", fl.FOUR_LANE), ("large_batch", fl.LARGE_BATCH)):
+                runs[name] = fleet_run(plan, knobs, tick, inc, sigma, seeds, offsets, layout, noise)
+                e[name] = fleet_check(plan, knobs, tick, inc, sigma, noise, runs[name][:4],
+                                      f"{label} {name}")
+            if not same_tensors(runs["four_lane"][:5], runs["large_batch"][:5]):
+                raise AssertionError(f"{label}: the layouts differ on the same injected noise")
+            # Philox noise, kept: every layout, a rerun, the noise against the plain version.
+            philox = {name: fleet_run(plan, knobs, tick, inc, sigma, seeds, offsets, layout,
+                                      keep_noise=True)
+                      for name, layout in fleet_layouts(method).items()}
+            again = fleet_run(plan, knobs, tick, inc, sigma, seeds, offsets, fl.LARGE_BATCH,
+                              keep_noise=True)
+            first = philox["four_lane"]
+            for name, res in {**philox, "rerun": again}.items():
+                if not (same_tensors(first[:5], res[:5]) and same_tensors(first[5:], res[5:])):
+                    raise AssertionError(f"{label}: {name} on Philox noise differs from the "
+                                         "four-lane layout's bits")
+            kept = first[5]
+            if kept is not None:
+                if not bool((kept[:, :, 0] == 0).all()):
                     raise AssertionError(f"{label}: the incumbent's column of the noise is not 0")
-                e["philox"] = fleet_check(plan, knobs, tick, inc, sigma, ws.noise, again,
+                e["philox"] = fleet_check(plan, knobs, tick, inc, sigma, kept, first[:4],
                                           label + " Philox")["cost"]
-                if S > 1 and torch.equal(ws.noise[0], ws.noise[1]):
+                if S > 1 and torch.equal(kept[0], kept[1]):
                     raise AssertionError(f"{label}: two scenarios drew the same noise")
                 if not knobs.cem:
-                    std = float(ws.noise[:, :, 1:].std())
+                    std = float(kept[:, :, 1:].std())
                     if abs(std / knobs.sigma_mppi - 1.0) > 0.05:
                         raise AssertionError(f"{label}: Philox noise std {std}")
             errs[f"S{S} N{N}"] = e
-            log(f"{label}: {e}")
-        # S = 1 at K1a's / K1b's / K1c's seed and offset: their bits.
+            log(f"{label}: both layouts bit-equal on injected and Philox noise"
+                f"{' (read-back and regenerating updates too)' if kept is not None else ''}; "
+                f"{e}")
+        # S = 1 at K1a's / K1b's / K1c's seed and offset: their bits, in both layouts.
         plan, tick, inc, sigma, _, _ = fleet_inputs(cfg, 1, N_MAIN, dev, rng)
         seed, offset = 1234, 77
-        c1, o1, s1, _ = (x.clone() if x is not None else None for x in fl.fleet_iteration(
-            plan, knobs, tick, inc, sigma, torch.tensor([seed], device=dev),
-            torch.tensor([offset], device=dev), 0))
         one = sk.TickInputs(*(x[0].cpu().numpy() for x in tick))
         if method == "random_sampling":
             c2, o2 = sk.sampling_rs(plan, one, inc[0].contiguous(), seed, offset)
-            s2 = s1
+            s2 = None
         else:
             c2, o2, s2, _ = sm.softmax_iteration(plan, knobs, one, inc[0].contiguous(),
                                                  sigma[0].contiguous(), seed, offset)
-        if not (torch.equal(c1[0], c2) and torch.equal(o1[0], o2)
-                and (not knobs.cem or torch.equal(s1[0], s2))):
-            raise AssertionError(f"phase 25 K1f {method}: S = 1 is not the single kernel's bits")
-        # Times at production width.
+        for layout in (fl.FOUR_LANE, fl.LARGE_BATCH):
+            c1, o1, s1, _, _, _ = fleet_run(plan, knobs, tick, inc, sigma,
+                                            torch.tensor([seed], device=dev),
+                                            torch.tensor([offset], device=dev), layout)
+            if not (torch.equal(c1[0], c2) and torch.equal(o1[0], o2)
+                    and (not knobs.cem or torch.equal(s1[0], s2))):
+                raise AssertionError(f"phase 25 K1f {method} layout {layout}: S = 1 is not the "
+                                     "single kernel's bits")
+        # Times in each layout.
+        times = {}
+        for S, N in FLEET_TIMES:
+            plan, tick, inc, sigma, seeds, offsets = fleet_inputs(cfg, S, N, dev, rng)
+            scen = fl.tick_buffer(tick)
+            for name, layout in fleet_layouts(method).items():
+                ws = fl.fleet_workspace(plan, knobs, S, dev, layout)
+
+                def launch():
+                    fl.fleet_iteration(plan, knobs, tick, inc, sigma, seeds, offsets, 0, ws=ws,
+                                       scen=scen, layout=layout)
+
+                rollout = "fleet_rollout_wide" if layout & fl.WIDE else "fleet_rollout"
+                passes = (rollout, "fleet_extract" if method == "random_sampling"
+                          else "fleet_update")
+                r = {"ms": time_cuda(launch, runs=50),
+                     "passes": pass_profile(launch, 1, passes, n=20)}
+                if method != "random_sampling":
+                    # The softmax weights exp(-(c - beta)/T) that are not 0: the
+                    # samples whose noise the update pass reads or draws again.
+                    w = torch.exp(-(ws.costs - ws.costs.min(1, keepdim=True).values)
+                                  / knobs.temperature)
+                    r["nonzero_weights"] = int((w != 0).sum())
+                times[f"S{S} N{N} {name}"] = r
+                log(f"phase 25 K1f {method} S={S} N={N} {name}: {r['ms']:.4f} ms through the "
+                    f"wrapper (median of 50), passes {r['passes']}")
         plan, tick, inc, sigma, seeds, offsets = fleet_inputs(cfg, FLEET_S, N_MAIN, dev, rng)
-        ws = fl.fleet_workspace(plan, knobs, FLEET_S, dev)
-        scen = fl.tick_buffer(tick)
         noise = fleet_noise(plan, knobs, FLEET_S, rng, dev)
-
-        def launch():
-            fl.fleet_iteration(plan, knobs, tick, inc, sigma, seeds, offsets, 0, ws=ws, scen=scen)
-
-        passes = ("fleet_rollout", "fleet_extract" if method == "random_sampling"
-                  else "fleet_update")
-        r = {"errs": errs, "ms": time_cuda(launch, runs=50),
-             "passes": pass_profile(launch, 1, passes, n=20),
+        main = f"S{FLEET_S} N{N_MAIN}"
+        r = {"errs": errs, "times": times,
              "plain_ms": time_cuda(lambda: fl.fleet_iteration_reference(
                  plan, knobs, tick, inc, sigma, noise), runs=5, warmup=2),
              "bound": fleet_bound_ms(plan, knobs, FLEET_S)}
-        log(f"phase 25 K1f {method} S={FLEET_S} N={N_MAIN}: {r['ms']:.4f} ms through the "
-            f"wrapper (median of 50), passes {r['passes']}, plain version {r['plain_ms']:.3f} "
-            f"ms, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+        log(f"phase 25 K1f {method} {main}: four-lane {times[main + ' four_lane']['ms']:.4f} ms, "
+            f"large-batch {times[main + ' large_batch']['ms']:.4f} ms, plain version "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
         out[method] = r
+    p = sk.make_rs_plan(fleet_cfg(), 1, "cpu")
+    log_path = libs[("sampling_fleet", p.horizon, p.params_per_leg)].with_suffix(".log")
+    ptx = {}
+    for i, method in enumerate(sm.METHODS):
+        for kname in ("fleet_rollout_kernel", "fleet_rollout_wide_kernel"):
+            ptx[f"{kname} {method}"] = ptxas_of(log_path, kname, f"Li{i}EE")
+    for regen in (0, 1):
+        ptx[f"fleet_update_kernel regen={regen}"] = ptxas_of(log_path, "fleet_update_kernel",
+                                                             f"Lb{regen}EE")
+    ptx["fleet_extract_kernel"] = ptxas_of(log_path, "fleet_extract_kernel")
+    log(f"phase 25 K1f ptxas: {json.dumps(ptx)}")
+    cross = fleet_crossover(dev, rng)
+    log(f"phase 25 K1f crossover sweep (iteration ms in each layout): {json.dumps(cross)}")
+    out["ptxas"] = ptx
+    out["crossover"] = cross
     return out
 
 
@@ -2946,12 +3088,14 @@ def fleet_state(cfg, S, N, terrain, reflexes, seed=0):
 def fleet_walk(label, method, terrain, reflexes, S=FLEET_S, N=N_MAIN, ticks=None) -> dict:
     """A fleet walk on the card, each tick one replay of the captured graph, with
     the launch counts zeroed just before and read just after: every scenario
-    above FLEET_Z_MIN all the way, K1f launched once a tick (the wrapper's count:
-    the capture's warm-up launches, then what the capture recorded, added at each
-    replay) and no other sampling kernel; then the profiler over 50 more ticks: one K1f rollout and one
-    extraction or update pass a tick and no device-to-host copy (none through
-    torch either, counted on the host)."""
+    above FLEET_Z_MIN all the way, K1f launched once a tick in the layout the
+    wrapper picks for S x N (the wrapper's count: the capture's warm-up launches,
+    then what the capture recorded, added at each replay) and no other sampling
+    kernel or layout; then the profiler over 50 more ticks: one rollout of that
+    layout and one extraction or update pass a tick and no device-to-host copy
+    (none through torch either, counted on the host)."""
     import torch
+    from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
     from quadruped_pympc_tamols_torch.utils.graphs import WARMUP
 
     cfg = fleet_cfg(method)
@@ -2969,7 +3113,9 @@ def fleet_walk(label, method, terrain, reflexes, S=FLEET_S, N=N_MAIN, ticks=None
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    wide = bool(fl.fleet_layout(S, N) & fl.WIDE)
     key = {"random_sampling": "K1f_rs", "mppi": "K1f_mppi", "cem_mppi": "K1f_cem"}[method]
+    key += "_wide" if wide else ""
     # The first tick captures the graph after WARMUP eager runs, which launch K1f too.
     want = {**counts_of(**{key: 1})(ticks), key: ticks + WARMUP}
     if counts != want:
@@ -2980,7 +3126,8 @@ def fleet_walk(label, method, terrain, reflexes, S=FLEET_S, N=N_MAIN, ticks=None
     if not bool(torch.isfinite(st.x).all()) or float(zmin.min()) <= FLEET_Z_MIN:
         raise AssertionError(f"{label}: a scenario fell (min z {float(zmin.min()):.4f})")
     w = {"ticks": ticks, "scenarios": S, "num_samples": N, "terrain": terrain,
-         "reflexes": reflexes, "launches": counts[key], "min_z": float(zmin.min()),
+         "reflexes": reflexes, "layout": "large_batch" if wide else "four_lane",
+         "launches": counts[key], "min_z": float(zmin.min()),
          "mean_dx": float((st.x[:, 0] - x0).mean()), "reflex_triggers": float(trig),
          "wall_ms_per_tick": wall / ticks * 1e3}
     second = FLEET_PASSES["fleet_extract" if method == "random_sampling" else "fleet_update"]
@@ -2991,8 +3138,8 @@ def fleet_walk(label, method, terrain, reflexes, S=FLEET_S, N=N_MAIN, ticks=None
     copies = host_d2h_copies(call, 10)
     if copies:
         raise AssertionError(f"{label}: {copies} device-to-host copies in 10 ticks")
-    prof = profile_ticks(None, None, expect={FLEET_PASSES["fleet_rollout"]: 1, second: 1},
-                         absent=("DtoH",), call=call)
+    rollout = FLEET_PASSES["fleet_rollout_wide" if wide else "fleet_rollout"]
+    prof = profile_ticks(None, None, expect={rollout: 1, second: 1}, absent=("DtoH",), call=call)
     recorded = prof.get("launches", {})
     w.update({
          "kernels_per_tick_recorded": sum(recorded.values()) / 50,
@@ -3008,9 +3155,11 @@ def fleet_walk(label, method, terrain, reflexes, S=FLEET_S, N=N_MAIN, ticks=None
 
 def phase_fleet_walks() -> dict:
     """Phase 26: the perlin fleet with reflexes at production width (random
-    sampling, N = 10 000) beside the JAX package's CPU row, and a flat MPPI fleet;
-    CEM-MPPI's fleet for TICK_LOOP ticks (its single-robot loop falls in both
-    packages, so it is held per tick: finite, upright)."""
+    sampling, N = 10 000: the large-batch layout) beside the JAX package's CPU row,
+    and a flat MPPI fleet; CEM-MPPI's fleet for TICK_LOOP ticks (its single-robot
+    loop falls in both packages, so it is held per tick: finite, upright). Then the
+    same three fleets for TICK_LOOP ticks at the JAX bench's 64 x 128, where the
+    wrapper picks the four-lane layout."""
     perlin = fleet_walk("phase 26 perlin fleet", "random_sampling", "perlin", True)
     want = JAX_CPU_FLEET_WALK["mean_dx"]
     if abs(perlin["mean_dx"] / want - 1.0) > FLEET_DX_BAND:
@@ -3019,17 +3168,24 @@ def phase_fleet_walks() -> dict:
     log(f"phase 26: JAX package on the CPU (8 scenarios): {JAX_CPU_FLEET_WALK}")
     flat = fleet_walk("phase 26 flat MPPI fleet", "mppi", None, False)
     cem = fleet_walk("phase 26 flat CEM-MPPI fleet", "cem_mppi", None, False, ticks=TICK_LOOP)
-    return {"perlin_rs": perlin, "flat_mppi": flat, "flat_cem_loop": cem}
+    small = {f"{key}_n128": fleet_walk(f"phase 26 {label} fleet N=128", method, terrain, terrain
+                                       is not None, N=128, ticks=TICK_LOOP)
+             for key, label, method, terrain in (("perlin_rs", "perlin", "random_sampling",
+                                                  "perlin"),
+                                                 ("flat_mppi", "flat MPPI", "mppi", None),
+                                                 ("flat_cem_loop", "flat CEM-MPPI", "cem_mppi",
+                                                  None))}
+    return {"perlin_rs": perlin, "flat_mppi": flat, "flat_cem_loop": cem, **small}
 
 
-def phase_fleet_throughput(libs) -> dict:
+def phase_fleet_throughput() -> dict:
     """Phase 27: scenario-steps per second of the perlin fleet with reflexes at
     FLEET_THROUGHPUT, from FLEET_TIMED_TICKS graph replays on the host clock; the
     host ms a tick eagerly (the same tick's torch ops and K1f launches, not
     captured); the rollout pass's share of the card (device us a tick and the
-    K1f passes' us, torch.profiler) and the ptxas figures of K1f's kernels."""
+    K1f passes' us, torch.profiler). Phase 25 reports K1f's ptxas figures."""
     import torch
-    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+    from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
 
     rows = {}
     for S, N in FLEET_THROUGHPUT:
@@ -3051,11 +3207,13 @@ def phase_fleet_throughput(libs) -> dict:
         def call():
             step(st, cmd)
 
-        prof = profile_ticks(None, None, n=20, expect={FLEET_PASSES["fleet_rollout"]: 1},
-                             call=call)
+        # "fleet_rollout" names the rollout of either layout (fleet_rollout_kernel,
+        # fleet_rollout_wide_kernel); the layout is the wrapper's choice for S x N.
+        prof = profile_ticks(None, None, n=20, expect={"fleet_rollout": 1}, call=call)
         rec = prof.get("launches", {})
         us = prof.get("device_us_per_launch", {})
-        r = {"scenario_steps_per_s": S / graph_s, "graph_ms_per_tick": graph_s * 1e3,
+        r = {"layout": "large_batch" if fl.fleet_layout(S, N) & fl.WIDE else "four_lane",
+             "scenario_steps_per_s": S / graph_s, "graph_ms_per_tick": graph_s * 1e3,
              "eager_host_ms_per_tick": eager_s * 1e3,
              "kernels_per_tick_recorded": sum(rec.values()) / 20,
              "device_us_per_tick_recorded": sum(us[k] * n for k, n in rec.items()) / 20,
@@ -3064,11 +3222,54 @@ def phase_fleet_throughput(libs) -> dict:
              "device_busy_share_recorded": prof.get("device_busy_share_recorded")}
         rows[f"S{S} N{N}"] = r
         log(f"phase 27 fleet S={S} N={N}: {json.dumps(r)}")
-    p = sk.make_rs_plan(fleet_cfg(), 1, "cpu")
-    log_path = libs[("sampling_fleet", p.horizon, p.params_per_leg)].with_suffix(".log")
-    rows["ptxas"] = {name: ptxas_of(log_path, kname, *(("Li0EE",) if name == "fleet_rollout"
-                                                         else ()))
-                     for name, kname in FLEET_PASSES.items()}
+    return rows
+
+
+def fleet_rows(fleet_k, fleet_walks) -> list:
+    """K1f's rows of the kernels line, one a method and layout, from phases 25-26:
+    the four-lane layout's launches on the fleets at the JAX bench's 64 x 128
+    (phase 26's N=128 loops), the large-batch layout's on the fleets at 64 x
+    10 000 (the perlin walk for random sampling, the flat walks for MPPI and
+    CEM-MPPI); the time, passes, ptxas figures and errors of each at (FLEET_S,
+    N_MAIN), its times at FLEET_TIMES beside them. Raises for a row launched no
+    time on its path."""
+    rows = []
+    main_shape = f"S{FLEET_S} N{N_MAIN}"
+    for method, short, walk_key in (("random_sampling", "K1f-rs", "perlin_rs"),
+                                    ("mppi", "K1f-mppi", "flat_mppi"),
+                                    ("cem_mppi", "K1f-cem", "flat_cem_loop")):
+        r = fleet_k[method]
+        for layout, suffix, walk_run in (("four_lane", "", walk_key + "_n128"),
+                                         ("large_batch", "-wide", walk_key)):
+            t = r["times"][f"{main_shape} {layout}"]
+            e = r["errs"][main_shape][layout]
+            wide = layout == "large_batch"
+            row_f = {"name": f"fleet_iteration, {method}, "
+                             f"{'large-batch' if wide else 'four-lane'} layout ({short}{suffix})",
+                     "route": "cuda",
+                     "source": "quadruped_pympc_tamols_torch/ops/csrc/sampling_fleet.cu",
+                     "replaces": "quadruped_pympc_tamols_tpu/parallel/scenario_engine.py:220",
+                     "replaces_note": "no pl.pallas_call: the JAX fleet jax.vmaps the XLA solver "
+                                      "make_sampling_solver over its scenarios",
+                     "launches": fleet_walks[walk_run]["launches"], "max_abs_err": e["cost"],
+                     "ms": t["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                     "bound_by": r["bound"][1], "library_ms": None, "parametrization": MAIN_PAR,
+                     "scenarios": FLEET_S, "num_samples": N_MAIN,
+                     "launches_on": f"{fleet_walks[walk_run]['scenarios']} x "
+                                    f"{fleet_walks[walk_run]['num_samples']}",
+                     **{f"{k}_max_abs_err": v for k, v in e.items() if k != "cost"},
+                     "times": {k: v for k, v in r["times"].items() if k.endswith(" " + layout)}}
+            rollout_k = "fleet_rollout_wide_kernel" if wide else "fleet_rollout_kernel"
+            row_f["rollout_ptxas"] = fleet_k["ptxas"][f"{rollout_k} {method}"]
+            if method != "random_sampling":
+                row_f["update_ptxas"] = fleet_k["ptxas"][f"fleet_update_kernel regen={int(wide)}"]
+            for pass_name, (kname, us) in t["passes"].items():
+                row_f[f"{pass_name}_kernel_us"] = us
+                log(f"{pass_name} pass of {row_f['name']}: {kname} {us:.2f} us a launch "
+                    f"(torch.profiler, mean of 20 calls)")
+            if not row_f["launches"] > 0:
+                raise AssertionError(f"{row_f['name']}: no launch on its path")
+            rows.append(row_f)
     return rows
 
 
@@ -3252,9 +3453,9 @@ def main() -> int:
     variants = {"solves": phase_variant_solves(), "ddp": phase_ddp(), **phase_variant_walks()}
 
     # -- phases 25-27: the scenario fleet on K1f -----------------------------------------
-    fleet_k = phase_fleet_kernels(dev, rng)
+    fleet_k = phase_fleet_kernels(dev, rng, libs)
     fleet_walks = phase_fleet_walks()
-    fleet_tp = phase_fleet_throughput(libs)
+    fleet_tp = phase_fleet_throughput()
 
     def row(name, source, short, par, err, ms, plain, bound, passes, **extra):
         return {"name": f"{name} ({short}{PAR_SUFFIX[par]})", "route": "cuda",
@@ -3334,36 +3535,10 @@ def main() -> int:
                 f"mean of 50 calls); ptxas: {ptx}")
         if not r["launches"] > 0:
             raise AssertionError(f"{r['name']}: no launch on its path")
-    # K1f's rows: its launches on the fleet's walks (the perlin fleet for random
-    # sampling, the flat fleets for MPPI and CEM-MPPI), its time and errors at
-    # (FLEET_S, N_MAIN).
-    p = sk.make_rs_plan(main_cfg(), 1, "cpu")
-    fleet_log = libs[("sampling_fleet", p.horizon, p.params_per_leg)].with_suffix(".log")
-    for i, (method, short, walk_key) in enumerate((
-            ("random_sampling", "K1f-rs", "perlin_rs"), ("mppi", "K1f-mppi", "flat_mppi"),
-            ("cem_mppi", "K1f-cem", "flat_cem_loop"))):
-        r = fleet_k[method]
-        e = r["errs"][f"S{FLEET_S} N{N_MAIN}"]
-        row_f = {"name": f"fleet_iteration, {method} ({short})", "route": "cuda",
-                 "source": "quadruped_pympc_tamols_torch/ops/csrc/sampling_fleet.cu",
-                 "replaces": "quadruped_pympc_tamols_tpu/parallel/scenario_engine.py:220",
-                 "replaces_note": "no pl.pallas_call: the JAX fleet jax.vmaps the XLA solver "
-                                  "make_sampling_solver over its scenarios",
-                 "launches": fleet_walks[walk_key]["launches"], "max_abs_err": e["cost"],
-                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-                 "bound_by": r["bound"][1], "library_ms": None, "parametrization": MAIN_PAR,
-                 "scenarios": FLEET_S, "num_samples": N_MAIN,
-                 **{f"{k}_max_abs_err": v for k, v in e.items() if k != "cost"}}
-        for pass_name, (kname, us) in r["passes"].items():
-            parts = (PASSES[pass_name],) + ((f"Li{i}EE",) if pass_name == "fleet_rollout" else ())
-            row_f[f"{pass_name}_kernel_us"] = us
-            row_f[f"{pass_name}_ptxas"] = ptxas_of(fleet_log, *parts)
-            log(f"{pass_name} pass of {row_f['name']}: {kname} {us:.2f} us a launch "
-                f"(torch.profiler, mean of 20 calls); ptxas: {row_f[pass_name + '_ptxas']}")
-        if not row_f["launches"] > 0:
-            raise AssertionError(f"{row_f['name']}: no launch on its path")
-        kernels.append(row_f)
-    fleet = {"kernels": {m: r["errs"] for m, r in fleet_k.items()}, "walks": fleet_walks,
+    kernels += fleet_rows(fleet_k, fleet_walks)
+    fleet = {"kernels": {m: {"errs": fleet_k[m]["errs"], "times": fleet_k[m]["times"]}
+                         for m in sm.METHODS},
+             "ptxas": fleet_k["ptxas"], "crossover": fleet_k["crossover"], "walks": fleet_walks,
              "throughput": fleet_tp, "jax_cpu_walk": JAX_CPU_FLEET_WALK}
     log(f"fleet: {json.dumps(fleet)}")
     log(f"tamols: {json.dumps({'scorer': scorer, 'walks': tamols_walks})}")

@@ -6,26 +6,37 @@ problems a tick, one a scenario, as the JAX fleet ``jax.vmap``s the XLA solver
 (JAX ``parallel/scenario_engine.py:220, 273``). K1a-K1c solve one problem a launch
 with the tick's inputs in the launch's by-value argument block, so S scenarios
 would cost S launches and S host round trips. K1f (``csrc/sampling_fleet.cu``)
-gives the existing passes a scenario axis instead: one rollout launch over a grid
-(ceil(N/16), S) whose blocks stage their scenario's row of a device buffer
-[state | effective feet | reference | contact (H, 4) | share (H, 4)] and its
-Philox seed and offset, then one extraction (random sampling) or update pass
-(MPPI, CEM-MPPI) launch over all S. Nothing of a tick crosses to or from the
-host, so a fleet tick can be one CUDA graph. K1f replaces no Pallas kernel; see
-the source for its design.
+gives the passes a scenario axis instead: one rollout launch whose blocks stage
+their scenario's row of a device buffer [state | effective feet | reference |
+contact (H, 4) | share (H, 4)] and its Philox seed and offset, then one
+extraction (random sampling) or update pass (MPPI, CEM-MPPI) launch over all S.
+Nothing of a tick crosses to or from the host, so a fleet tick can be one CUDA
+graph. K1f replaces no Pallas kernel; see the source for its design.
+
+K1f has two layouts, one int of its C entry, and the wrapper picks one from S *
+N (``fleet_layout``): below ``CROSSOVER`` the four-lane rollout of K1a (grid
+(ceil(N/16), S)) and an update pass that reads back the (S, P, N) noise the
+rollout wrote; from it the large-batch layout (``LARGE_BATCH``): one thread a
+sample in blocks of ``WIDE_SAMPLES`` samples of one scenario, the basis product
+on each row's window of nonzero weights (``basis_windows``, once a plan), and an
+update pass that draws each nonzero-weight sample's noise again from its Philox
+counter, so that no (S, P, N) buffer exists. Both give the same bits on finite
+inputs.
 
 ``fleet_iteration`` is the wrapper: on CUDA tensors it launches K1f (adding one
-to ``fleet_iteration.launches[method]`` through ``utils.graphs.count_launch``, so
-that a launch captured into a CUDA graph counts at each replay) or raises; on CPU
-tensors it runs
+to ``fleet_iteration.launches[method]`` for the four-lane layout and
+``fleet_iteration.launches_wide[method]`` for the large-batch rollout, through
+``utils.graphs.count_launch``, so that a launch captured into a CUDA graph counts
+at each replay) or raises; on CPU tensors it runs
 ``fleet_iteration_reference``, the plain torch version (the batched rollout of
 ``controllers/sampling/rollout.py`` and each scenario's argmin, softmax and
 elites), with each scenario's noise from ``cpu_generator(seed, offset)``. There
-is no fallback from one to the other.
+is no fallback from one to the other, nor from one layout to the other.
 """
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -33,12 +44,61 @@ import torch
 
 from ..controllers.sampling.rollout import apply_force_model_rows, rollout_costs_soa
 from ..dynamics.srbd import integrate_euler
+from ..utils.device import device_constant
 from ..utils.graphs import count_launch
 from . import build
 from . import sampling_kernel as rs
 from . import sampling_softmax as sm
 
 METHODS = sm.METHODS
+
+# The layout bits of the C entry (FLEET_WIDE, FLEET_REGEN in sampling_fleet.cu;
+# every library's getters are checked against them): 0 is the four-lane rollout
+# with the noise read back.
+FOUR_LANE = 0
+WIDE = 1  # the rollout pass one thread a sample (fleet_rollout_wide_kernel)
+REGEN = 2  # the update pass draws the noise again from Philox instead of reading it
+LARGE_BATCH = WIDE | REGEN
+WIDE_SAMPLES = 128  # samples a block of the large-batch rollout (FLEET_WIDE_SAMPLES)
+WINDOW = 4  # weights of a basis row's window (FLEET_WINDOW)
+# S * N from which fleet_iteration runs LARGE_BATCH: 192 scenarios of 128 samples.
+# chip_smoke.py phase 25's crossover sweep (one H100 80GB HBM3, 700.00 W; device
+# us of an iteration's two passes in each layout, random sampling and MPPI, at
+# S x N from 64 x 128 to 64 x 10 000): the four-lane layout is faster at 64 x 128
+# (20.2 / 24.7 us against 25.9 / 31.2), the two tie at 128 x 128, and from 192 x
+# 128 on the large-batch one is faster for both (30.7 / 40.1 against 40.9 / 48.0).
+CROSSOVER = 24_576
+
+
+def fleet_layout(num_scenarios: int, num_samples: int) -> int:
+    """The layout ``fleet_iteration`` runs for S scenarios of N samples: the
+    four-lane one below ``CROSSOVER`` samples in all, where a launch fills the
+    card about once and K1a's latency-bound design is the faster; the
+    large-batch one from it."""
+    return LARGE_BATCH if num_scenarios * num_samples >= CROSSOVER else FOUR_LANE
+
+
+def basis_windows(blocks: np.ndarray, params_per_leg: int) -> np.ndarray:
+    """The large-batch rollout's basis table (``struct BasisWindow``): for each row r
+    of the own-leg blocks (H*12, >= P_leg), WINDOW weights as float32 [0:4] and, as
+    int32 bits in [4], the leg-major index of the window's first parameter
+    (leg * P_leg + j0, the leg (r % 12) // 3), with j0 the row's first nonzero
+    moved left as far as the window must to end within the leg; (H*12, 8) float32.
+    Raises NotImplementedError for a row whose nonzeros span more than WINDOW."""
+    R = blocks.shape[0]
+    if params_per_leg < WINDOW:
+        raise NotImplementedError(f"the large-batch rollout needs at least {WINDOW} "
+                                  f"parameters a leg, not {params_per_leg}")
+    out = np.zeros((R, 8), np.float32)
+    for r in range(R):
+        nz = np.flatnonzero(blocks[r, :params_per_leg])
+        j0 = min(int(nz[0]) if nz.size else 0, params_per_leg - WINDOW)
+        if nz.size and nz[-1] >= j0 + WINDOW:
+            raise NotImplementedError(f"basis row {r} has nonzeros at {nz.tolist()}: wider than "
+                                      f"the large-batch rollout's window of {WINDOW}")
+        out[r, :WINDOW] = blocks[r, j0:j0 + WINDOW]
+        out[r:r + 1, 4:5].view(np.int32)[0, 0] = (r % 12) // 3 * params_per_leg + j0
+    return out
 
 
 class FleetArgs(ctypes.Structure):
@@ -83,7 +143,9 @@ class FleetWorkspace(NamedTuple):
     argmin: torch.Tensor  # (2 S,) int64: each scenario's argmin key and ticket
     partials: torch.Tensor | None  # (S, part_stride) float32 (MPPI, CEM)
     keys: torch.Tensor | None  # (S, key_stride) int64 (CEM)
-    noise: torch.Tensor | None  # (S, P, N) the noise the update pass reads back (MPPI, CEM)
+    # (S, P, N) the noise the rollout pass drew (MPPI, CEM): what a read-back
+    # update reads, or kept for a caller that asks for it; None otherwise
+    noise: torch.Tensor | None
 
 
 def _strides(num_samples: int, num_parameters: int, knobs) -> tuple:
@@ -96,10 +158,18 @@ def _strides(num_samples: int, num_parameters: int, knobs) -> tuple:
     return part + (-part) % 4, keys + keys % 2
 
 
-def fleet_workspace(plan: rs.RSPlan, knobs, num_scenarios: int, device) -> FleetWorkspace:
+def fleet_workspace(plan: rs.RSPlan, knobs, num_scenarios: int, device, layout: int | None = None,
+                    keep_noise: bool = False) -> FleetWorkspace:
+    """Outputs and scratch of ``fleet_iteration`` in ``layout`` (``fleet_layout``'s
+    choice if None). The (S, P, N) noise buffer exists for MPPI and CEM only where
+    the update pass reads the noise back (a layout without REGEN) or the caller
+    asks to keep the noise the rollout drew (``keep_noise``)."""
     S, P, N = num_scenarios, plan.num_parameters, plan.num_samples
     part, keys = _strides(N, P, knobs)
     softmax, cem = knobs.method != "random_sampling", knobs.cem
+    if layout is None:
+        layout = fleet_layout(S, N)
+    noise = softmax and (keep_noise or not layout & REGEN)
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=device)
@@ -110,7 +180,7 @@ def fleet_workspace(plan: rs.RSPlan, knobs, num_scenarios: int, device) -> Fleet
         torch.empty(2 * S, dtype=torch.int64, device=device),
         f32(S, part) if softmax else None,
         torch.empty(S, keys, dtype=torch.int64, device=device) if cem else None,
-        f32(S, P, N) if softmax else None)
+        f32(S, P, N) if noise else None)
 
 
 # -- the plain version ------------------------------------------------------------
@@ -201,7 +271,9 @@ def load_library(horizon: int, params_per_leg: int) -> ctypes.CDLL:
         rs.int_getters(lib, ("fleet_args_size", "fleet_layout_size", "fleet_knobs_size",
                              "fleet_block", "fleet_rollout_samples", "fleet_max_elite",
                              "fleet_horizon", "fleet_params_per_leg",
-                             "fleet_padded_params_per_leg", "fleet_row_floats"))
+                             "fleet_padded_params_per_leg", "fleet_row_floats",
+                             "fleet_layout_wide", "fleet_layout_regen", "fleet_wide_samples",
+                             "fleet_window", "fleet_window_bytes"))
         if (lib.fleet_args_size() != ctypes.sizeof(rs.RSArgs)
                 or lib.fleet_layout_size() != ctypes.sizeof(FleetArgs)
                 or lib.fleet_knobs_size() != ctypes.sizeof(sm.SMKnobs)
@@ -210,14 +282,17 @@ def load_library(horizon: int, params_per_leg: int) -> ctypes.CDLL:
                 or lib.fleet_max_elite() != sm.MAX_ELITE
                 or (lib.fleet_horizon(), lib.fleet_params_per_leg()) != key
                 or lib.fleet_padded_params_per_leg() != rs.padded_params_per_leg(params_per_leg)
-                or lib.fleet_row_floats() != row_floats(horizon)):
+                or lib.fleet_row_floats() != row_floats(horizon)
+                or (lib.fleet_layout_wide(), lib.fleet_layout_regen()) != (WIDE, REGEN)
+                or lib.fleet_wide_samples() != WIDE_SAMPLES or lib.fleet_window() != WINDOW
+                or lib.fleet_window_bytes() != 4 * 8):
             raise RuntimeError(f"sampling_fleet.cu for {key} and its ctypes mirror disagree")
         lib.fleet_error_string.restype = ctypes.c_char_p
         lib.fleet_error_string.argtypes = [ctypes.c_int]
         lib.fleet_launch.restype = ctypes.c_int
         lib.fleet_launch.argtypes = ([ctypes.POINTER(rs.RSArgs), ctypes.POINTER(FleetArgs),
-                                      ctypes.POINTER(sm.SMKnobs), ctypes.c_int, ctypes.c_int]
-                                     + [ctypes.c_void_p] * 16)
+                                      ctypes.POINTER(sm.SMKnobs), ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int] + [ctypes.c_void_p] * 17)
         _LIBS[key] = lib
     return _LIBS[key]
 
@@ -229,10 +304,26 @@ def _check(name, x, shape, dtype=torch.float32):
                          f"inner stride, got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
+_WINDOWS: dict = {}  # id(plan.W_blocks) -> (weak reference to it, its windows on its device)
+
+
+def plan_windows(plan: rs.RSPlan) -> torch.Tensor:
+    """``basis_windows`` of the plan on its device, made once a plan: code inside a
+    CUDA-graph capture must not copy between host and device, and a graph's
+    warm-up runs make it before the capture."""
+    W = plan.W_blocks
+    hit = _WINDOWS.get(id(W))
+    if hit is None or hit[0]() is not W:
+        hit = _WINDOWS[id(W)] = (weakref.ref(W), device_constant(
+            basis_windows(W.cpu().numpy(), plan.params_per_leg), W.device))
+    return hit[1]
+
+
 def fleet_iteration(plan: rs.RSPlan, knobs, tick: FleetTick, incumbent: torch.Tensor,
                     sigma: torch.Tensor | None, seeds: torch.Tensor, offsets: torch.Tensor,
                     iteration: int = 0, noise_in: torch.Tensor | None = None,
-                    ws: FleetWorkspace | None = None, scen: torch.Tensor | None = None):
+                    ws: FleetWorkspace | None = None, scen: torch.Tensor | None = None,
+                    layout: int | None = None):
     """One iteration of ``knobs.method`` for S scenarios, each around its incumbent
     (S, P) (rows may be strided, as ``out[:, 26:]`` of an earlier iteration is) with
     its Philox seed and ``offsets + iteration`` (seeds, offsets: (S,) int64).
@@ -241,8 +332,11 @@ def fleet_iteration(plan: rs.RSPlan, knobs, tick: FleetTick, incumbent: torch.Te
     the incumbent's device, ``out`` packed as K1a's; for CEM ``sigma`` is the
     refit and ``elites`` the elite indices, else the given ``sigma`` and None.
     ``noise_in`` (S, P, N) replaces the generated noise. On CUDA the outputs live
-    in ``ws`` (``fleet_workspace``; a new one if None) and ``scen`` is the tick
-    buffer (``tick_buffer(tick)`` if None)."""
+    in ``ws`` (``fleet_workspace``; a new one if None; the rollout writes the
+    noise it drew into ``ws.noise`` where there is one), ``scen`` is the tick
+    buffer (``tick_buffer(tick)`` if None) and ``layout`` the kernel's layout
+    (``fleet_layout(S, N)`` if None; with ``noise_in`` the update reads it, so
+    REGEN is dropped)."""
     S, P, N = incumbent.shape[0], plan.num_parameters, plan.num_samples
     if incumbent.device.type == "cpu":
         noise = noise_in if noise_in is not None else sample_noise(
@@ -257,25 +351,36 @@ def fleet_iteration(plan: rs.RSPlan, knobs, tick: FleetTick, incumbent: torch.Te
         _check("sigma", sigma, (S, P))
     _check("seeds", seeds, (S,), torch.int64)
     _check("offsets", offsets, (S,), torch.int64)
+    if layout is None:
+        layout = fleet_layout(S, N)
     if noise_in is not None:
         _check("noise_in", noise_in, (S, P, N))
         if not noise_in.is_contiguous():
             raise ValueError("noise_in must be contiguous")
+        if ws is None:
+            ws = fleet_workspace(plan, knobs, S, incumbent.device, layout | REGEN)
+        layout &= ~REGEN
     if scen is None:
         scen = tick_buffer(tick)
     _check("scen", scen, (S, scen.shape[1]))
     if ws is None:
-        ws = fleet_workspace(plan, knobs, S, incumbent.device)
+        ws = fleet_workspace(plan, knobs, S, incumbent.device, layout)
+    if (knobs.method != "random_sampling" and not layout & REGEN and noise_in is None
+            and ws.noise is None):
+        raise ValueError("this layout's update pass reads the noise back: the workspace needs "
+                         "its noise buffer (fleet_workspace with the same layout)")
     part, keys = _strides(N, P, knobs)
-    layout = FleetArgs(S, scen.stride(0), incumbent.stride(0), int(iteration), part, keys)
+    fleet_args = FleetArgs(S, scen.stride(0), incumbent.stride(0), int(iteration), part, keys)
     args = rs.RSArgs.from_buffer_copy(plan.args_template)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
     lib = load_library(plan.horizon, plan.params_per_leg)
-    rc = lib.fleet_launch(ctypes.byref(args), ctypes.byref(layout), ctypes.byref(knobs.struct()),
-                          METHODS.index(knobs.method), plan.params_per_leg,
+    rc = lib.fleet_launch(ctypes.byref(args), ctypes.byref(fleet_args),
+                          ctypes.byref(knobs.struct()), METHODS.index(knobs.method),
+                          plan.params_per_leg, int(layout),
+                          plan_windows(plan).data_ptr() if layout & WIDE else None,
                           plan.W_blocks.data_ptr(), scen.data_ptr(), seeds.data_ptr(),
                           offsets.data_ptr(), incumbent.data_ptr(),
                           ptr(sigma) if knobs.cem else None, ptr(noise_in),
@@ -287,8 +392,10 @@ def fleet_iteration(plan: rs.RSPlan, knobs, tick: FleetTick, incumbent: torch.Te
         msg = ("unsupported shape, knob, layout or alignment" if rc < 0
                else lib.fleet_error_string(rc).decode())
         raise RuntimeError(f"sampling_fleet launch failed ({rc}): {msg}")
-    count_launch(fleet_iteration.launches, knobs.method)
+    count_launch(fleet_iteration.launches_wide if layout & WIDE else fleet_iteration.launches,
+                 knobs.method)
     return ws.costs, ws.out, ws.sigma if knobs.cem else sigma, ws.elites
 
 
 fleet_iteration.launches = dict.fromkeys(METHODS, 0)
+fleet_iteration.launches_wide = dict.fromkeys(METHODS, 0)

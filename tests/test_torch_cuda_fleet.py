@@ -6,9 +6,15 @@ Runs only where CUDA is present (it skips elsewhere): on the H100, run
 ``python -m pytest --noconftest -q tests/test_torch_cuda_fleet.py``. The cases
 cover ragged sample counts (63, 65: the last rollout and update blocks cut short)
 and scenario counts (1, 3, 7), every method, S = 1 bit-equal to K1a, K1b and K1c
-on the same seed and offset, a rerun on Philox noise bit for bit, launches that
-reuse one workspace, the fleet's graph bit-equal to its eager tick, and its
-replays counting the K1f launches its capture recorded.
+on the same seed and offset in both layouts, a rerun on Philox noise bit for bit,
+launches that reuse one workspace, the fleet's graph bit-equal to its eager tick,
+and its replays counting the K1f launches its capture recorded. The two layouts
+(``sampling_fleet.FOUR_LANE`` and ``LARGE_BATCH``) are held against the plain
+version and against each other bit for bit on each side of the crossover,
+64 x 10 000 included; the update pass that draws the noise again (``REGEN``)
+against the one that reads it back, bit for bit; the dispatch against
+``CROSSOVER``; and the fleet's captured tick above the crossover against any
+(S, P, N) allocation.
 Tolerances as chip_smoke.py's: costs rtol 1e-5 with a 1e-2 floor (the rollout's
 float32 ops in another fusion than torch's); the optimizer step against the plain
 step on the kernel's own costs: the argmin index, beta and the elites exactly,
@@ -96,15 +102,16 @@ def test_k1f_matches_its_plain_version(cuda_device, method, S, N):
     check_against_plain(plan, knobs, tick, inc, sigma, (costs, out, sig, elites, noise))
 
 
+@pytest.mark.parametrize("layout", [fl.FOUR_LANE, fl.LARGE_BATCH])
 @pytest.mark.parametrize("method", METHODS)
-def test_k1f_at_one_scenario_is_the_single_kernel(cuda_device, method):
+def test_k1f_at_one_scenario_is_the_single_kernel(cuda_device, method, layout):
     cfg = make_config("aliengo", mpc_type="sampling", **{"mpc.sampling.method": method})
     knobs = sm.make_knobs(cfg)
     plan, tick, inc, sigma, _, _, _ = fleet_inputs(cfg, 1, 10000, cuda_device, seed=1)
     seed, offset = 1234, 77
     costs, out, sig, _ = fl.fleet_iteration(
         plan, knobs, tick, inc, sigma, torch.tensor([seed], device=cuda_device),
-        torch.tensor([offset], device=cuda_device), 0)
+        torch.tensor([offset], device=cuda_device), 0, layout=layout)
     one = sk.TickInputs(*(x[0].cpu().numpy() for x in tick))
     if method == "random_sampling":
         costs1, out1 = sk.sampling_rs(plan, one, inc[0].contiguous(), seed, offset)
@@ -169,3 +176,99 @@ def test_fleet_graph_counts_the_launches_it_captured(cuda_device):
     assert step.graph.captures == 1 and step.graph.replays == 5
     assert fl.fleet_iteration.launches == {"random_sampling": 0, "mppi": 2 * (WARMUP + 5),
                                            "cem_mppi": 0}
+
+
+def same_outputs(a, b) -> bool:
+    """Bit-equality of two fleet_iteration results (None where a method has none)."""
+    return all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
+
+
+def run_layout(plan, knobs, tick, inc, sigma, seeds, offsets, layout, noise_in=None,
+               keep_noise=False):
+    """One iteration in ``layout`` on its own workspace: (costs, out, sigma', elites,
+    argmin keys (S,), the kept noise or None), cloned."""
+    ws = fl.fleet_workspace(plan, knobs, inc.shape[0], inc.device, layout, keep_noise)
+    res = fl.fleet_iteration(plan, knobs, tick, inc, sigma, seeds, offsets, 0, noise_in, ws=ws,
+                             layout=layout)
+    torch.cuda.synchronize()
+    return tuple(None if x is None else x.clone()
+                 for x in (*res, ws.argmin[0::2], ws.noise))
+
+
+@pytest.mark.parametrize("S,N", [(3, 65), (7, 128), (300, 128), (64, 10000)])
+@pytest.mark.parametrize("method", METHODS)
+def test_k1f_layouts_match_plain_and_each_other(cuda_device, method, S, N):
+    """On injected noise, on each side of the crossover: both layouts against the
+    plain version, and their costs, argmin keys and outputs equal bit for bit."""
+    cfg = make_config("aliengo", mpc_type="sampling", **{"mpc.sampling.method": method})
+    knobs = sm.make_knobs(cfg)
+    plan, tick, inc, sigma, noise, seeds, offsets = fleet_inputs(cfg, S, N, cuda_device, seed=3)
+    four = run_layout(plan, knobs, tick, inc, sigma, seeds, offsets, fl.FOUR_LANE, noise)
+    wide = run_layout(plan, knobs, tick, inc, sigma, seeds, offsets, fl.LARGE_BATCH, noise)
+    check_against_plain(plan, knobs, tick, inc, sigma, (*four[:4], noise))
+    check_against_plain(plan, knobs, tick, inc, sigma, (*wide[:4], noise))
+    assert same_outputs(four[:5], wide[:5])
+
+
+@pytest.mark.parametrize("S,N", [(5, 1000), (64, 10000)])
+@pytest.mark.parametrize("method", ["mppi", "cem_mppi"])
+def test_k1f_regenerated_update_is_the_read_back_one(cuda_device, method, S, N):
+    """On Philox noise: the update pass that draws each sample's noise again equals
+    the one that reads back the noise the rollout wrote, bit for bit, after either
+    rollout layout, and the two rollouts give the same bits; the noise they drew
+    holds against the plain version."""
+    cfg = make_config("aliengo", mpc_type="sampling", **{"mpc.sampling.method": method})
+    knobs = sm.make_knobs(cfg)
+    plan, tick, inc, sigma, _, seeds, offsets = fleet_inputs(cfg, S, N, cuda_device, seed=4)
+    runs = {layout: run_layout(plan, knobs, tick, inc, sigma, seeds, offsets, layout,
+                               keep_noise=True)
+            for layout in (fl.FOUR_LANE, fl.REGEN, fl.WIDE, fl.LARGE_BATCH)}
+    first = runs[fl.FOUR_LANE]
+    for layout, res in runs.items():
+        assert same_outputs(first[:5], res[:5]), layout
+        assert torch.equal(first[5], res[5]), layout
+    check_against_plain(plan, knobs, tick, inc, sigma, (*first[:4], first[5]))
+
+
+def test_k1f_dispatch_follows_the_crossover(cuda_device):
+    """fleet_layout's choice on each side of CROSSOVER, the launch count of the
+    rollout that ran, and the workspace's noise buffer only where the update reads
+    it back."""
+    cfg = make_config("aliengo", mpc_type="sampling", **{"mpc.sampling.method": "mppi"})
+    knobs = sm.make_knobs(cfg)
+    above = -(-fl.CROSSOVER // 128)  # the fewest scenarios of 128 samples at the crossover
+    assert fl.fleet_layout(above - 1, 128) == fl.FOUR_LANE
+    assert fl.fleet_layout(above, 128) == fl.LARGE_BATCH
+    assert fl.fleet_layout(1, 10000) == fl.FOUR_LANE
+    assert fl.fleet_layout(64, 10000) == fl.LARGE_BATCH
+    for S, want in ((above - 1, fl.FOUR_LANE), (above, fl.LARGE_BATCH)):
+        plan, tick, inc, sigma, _, seeds, offsets = fleet_inputs(cfg, S, 128, cuda_device)
+        ws = fl.fleet_workspace(plan, knobs, S, cuda_device)
+        assert (ws.noise is None) == bool(want & fl.REGEN)
+        fl.fleet_iteration.launches.update(dict.fromkeys(METHODS, 0))
+        fl.fleet_iteration.launches_wide.update(dict.fromkeys(METHODS, 0))
+        fl.fleet_iteration(plan, knobs, tick, inc, sigma, seeds, offsets, 0, ws=ws)
+        torch.cuda.synchronize()
+        wide = fl.fleet_iteration.launches_wide["mppi"]
+        assert (wide, fl.fleet_iteration.launches["mppi"]) == ((1, 0) if want & fl.WIDE
+                                                               else (0, 1))
+
+
+def test_fleet_tick_allocates_no_noise_buffer(cuda_device):
+    """The fleet's MPPI tick at 64 x 10 000 (above the crossover): its warm-up runs
+    and its capture together allocate less than one (S, P, N) noise buffer."""
+    cfg = make_config("aliengo", mpc_type="sampling", **{"mpc.sampling.method": "mppi"})
+    S, N = 64, 10000
+    assert fl.fleet_layout(S, N) == fl.LARGE_BATCH
+    step, P = make_scenario_step(cfg, N)
+    st = init_scenario_state(cfg, P, S, torch.Generator().manual_seed(0))
+    cmd = torch.tensor([0.25, 0.0, 0.0], device=cuda_device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(st, cmd)
+    step(st, cmd)
+    torch.cuda.synchronize()
+    assert step.graph.captures == 1 and step.graph.replays == 2
+    grown = torch.cuda.max_memory_allocated() - base
+    assert grown < 4 * S * P * N, (grown, 4 * S * P * N)

@@ -364,3 +364,34 @@ if __name__ == "__main__":
 
     args = [float(a) if "." in a else int(a) for a in sys.argv[1:]]
     print(json.dumps(reference_walk(*args)))
+
+
+def test_large_batch_layout_plan():
+    """K1f's large-batch layout on the CPU, as pure functions: the basis windows of
+    each parametrization give the JAX basis's per-leg products (the rows' nonzeros
+    all lie in their window), and the wrapper's layout follows CROSSOVER."""
+    from quadruped_pympc_tamols_tpu.controllers.sampling.splines import (
+        make_step_major_basis as jax_basis)
+    from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+
+    rng = np.random.default_rng(0)
+    for par in ("cubic_spline", "linear_spline", "zero_order"):
+        cfg = make_config("aliengo", mpc_type="sampling", **{"mpc.sampling.parametrization": par})
+        plan = sk.make_rs_plan(cfg, 8, "cpu")
+        PL, H = plan.params_per_leg, plan.horizon
+        win = fl.basis_windows(plan.W_blocks.numpy(), PL)
+        first = win[:, 4].copy().view(np.int32)
+        cols = first[:, None] + np.arange(fl.WINDOW)
+        dense = np.zeros((H * 12, 4 * PL), np.float64)
+        np.put_along_axis(dense, cols, win[:, :fl.WINDOW].astype(np.float64), axis=1)
+        W = np.asarray(jax_basis(par, H, cfg.mpc.sampling.num_splines), np.float64)
+        np.testing.assert_array_equal(dense, W)
+        assert np.all(cols // PL == (np.arange(H * 12) % 12 // 3)[:, None])  # within the leg
+        prm = rng.standard_normal(4 * PL)
+        np.testing.assert_allclose((win[:, :fl.WINDOW] * prm[cols]).sum(1), W @ prm, atol=1e-6)
+    assert fl.fleet_layout(1, fl.CROSSOVER - 1) == fl.FOUR_LANE
+    assert fl.fleet_layout(1, fl.CROSSOVER) == fl.LARGE_BATCH
+    assert fl.fleet_layout(64, 10_000) == fl.LARGE_BATCH == fl.WIDE | fl.REGEN
+    with pytest.raises(NotImplementedError, match="window"):
+        fl.basis_windows(np.ones((12, 8), np.float32), 8)
