@@ -208,11 +208,29 @@ to 0 just before it and read just after):
      on the host clock), the eager tick's host ms, kernels and device us a tick
      and K1f's passes' us (torch.profiler). Phases 25-27 print the "fleet:" JSON
      line and add K1f's rows, one a method and layout, to the kernels line.
+ 28. The sharded solver: (a) the two knobs the sample-sharded merge needs (the
+     drawn column 0 on K1a-K1c and K1f in both layouts, the caller's beta and the
+     unnormalized sums on K1b and K1c) against the plain versions, bit-equal
+     at their defaults; (b) ``parallel.make_sharded_sampling_solver`` at world size
+     1 (NCCL) bit-equal to the single iteration on the same noise, one K1a/K1b/K1c
+     launch a call and no K1d, its solve tick (median of 200) beside SamplingMPC's;
+     (c) two ranks on the one card over gloo (``--gloo-rank``, host-staged), their
+     merge against the plain two-rank merge.
+ 29. ``parallel.make_multichip_step`` at world size 1: 64 scenarios x 10 000 samples,
+     flat and over boxes, 3 s; K1f once a tick; every scenario upright and moving;
+     scenario-steps/s beside phase 27's.
+ 30. ``runtime.ControllerNode`` on the card in the four modes (inline, pipelined,
+     thread, shared_memory) for the default configuration and the nominal one over
+     the recorded MuJoCo loop: finite torques, K1a once a solve, control_tick host
+     ms (median, p99), solves a second; the control bus's write -> read latency.
+     Phases 28-30 print the "parallel:" and "runtime:" JSON lines and add their
+     launches to the kernels line's K1a-K1c and K1f rows.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -3273,6 +3291,480 @@ def fleet_rows(fleet_k, fleet_walks) -> list:
     return rows
 
 
+# -- phases 28-30: the sharded solver, the multi-chip fleet step and the runtime -------
+SHARDED_TIMED = 200  # sharded solve ticks behind each median (phase 28)
+GLOO_RANKS = 2  # phase 28 (c): ranks on the one card over gloo
+MULTICHIP_S = 64  # phase 29: scenarios of the one rank
+NODE_MODES = ("inline", "pipelined", "thread", "shared_memory")
+BUS_SAMPLES = 2000  # phase 30: bus write -> read latencies behind the median
+
+
+def knob_noise(plan, knobs, rng, dev, sigma=None):
+    """(P, N) injected noise of the method's distribution with column 0 drawn too,
+    as a sample shard other than the first draws it."""
+    import torch
+    if knobs.method == "random_sampling":
+        z = numpy_noise(plan, rng)
+        z[:, 0] = plan.sigma_random[1] * rng.standard_normal(plan.num_parameters)
+    else:
+        z = rng.standard_normal((plan.num_parameters, plan.num_samples)).astype(np.float32)
+        z *= (sigma.cpu().numpy()[:, None] if knobs.cem else knobs.sigma_mppi)
+    return torch.as_tensor(z.astype(np.float32), device=dev)
+
+
+def single_iteration(plan, knobs, tick, inc, sigma, seed, offset, noise_in=None, **kw):
+    """K1a or K1b/K1c through its wrapper, the noise it drew kept unless injected:
+    (costs, out, sigma', elites, noise), cloned after a sync."""
+    import torch
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+
+    drawn = None if noise_in is not None else torch.empty(plan.num_parameters, plan.num_samples,
+                                                          device=inc.device)
+    if knobs.method == "random_sampling":
+        res = (*sk.sampling_rs(plan, tick, inc, seed, offset, noise_in, drawn), None, None)
+    else:
+        res = sm.softmax_iteration(plan, knobs, tick, inc, sigma, seed, offset, noise_in, drawn,
+                                   **kw)
+    torch.cuda.synchronize()
+    return tuple(None if x is None else x.clone() for x in res) + (
+        noise_in if noise_in is not None else drawn,)
+
+
+def same_results(a, b) -> bool:
+    import torch
+    return all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_knobs(dev, rng) -> dict:
+    """Phase 28 (a): the sharded solve's two knobs against the plain versions at the
+    main path's shapes. The drawn column 0 on K1a, K1b, K1c (N = 10 000) and K1f in
+    both layouts (64 x 10 000 large-batch, 64 x 128 four-lane): on Philox noise it
+    changes column 0 alone, and the result holds against the plain version on the
+    noise the kernel drew (K1a: check_against_plain; K1b/K1c: check_softmax, K1f:
+    fleet_check); on injected noise it changes no bit. The caller's beta and the
+    unnormalized sums on K1b and K1c: handed their own beta back, the outputs are the plain
+    launch's bit for bit and incumbent + S / Z is the kernel's new parameters bit
+    for bit; with beta 3 below it, the sums against softmax_sums on the kernel's
+    own costs and noise (Z rtol 1e-5, S / Z atol COMBINE_ATOL)."""
+    import torch
+    from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+
+    errs = {}
+    for method in sm.METHODS:
+        cfg = main_cfg(**{"mpc.sampling.method": method})
+        knobs = sm.make_knobs(cfg)
+        plan = sk.make_rs_plan(cfg, N_MAIN, dev)
+        col0 = sk.with_drawn_column0(plan)
+        tick = example_tick(cfg, plan)
+        P = plan.num_parameters
+        inc = torch.as_tensor(0.3 * rng.standard_normal(P).astype(np.float32), device=dev)
+        sigma = torch.as_tensor((0.5 + rng.random(P)).astype(np.float32), device=dev)
+        label = f"phase 28 (a) {method}"
+        base = single_iteration(plan, knobs, tick, inc, sigma, 21, 4)
+        drawn = single_iteration(col0, knobs, tick, inc, sigma, 21, 4)
+        if not (torch.equal(base[4][:, 1:], drawn[4][:, 1:]) and not bool(base[4][:, 0].any())
+                and bool(drawn[4][:, 0].any())):
+            raise AssertionError(f"{label}: the drawn column 0 changed more than column 0")
+        if method == "random_sampling":
+            e, _ = check_against_plain(col0, tick, inc, drawn[4], drawn[0], drawn[1], label)
+        else:
+            e = check_softmax(col0, knobs, tick, inc, drawn[4], drawn[0], drawn[1], drawn[2],
+                              drawn[3], label)
+        e["col0_std_over_sigma"] = float(drawn[4][:, 0].std()) / (
+            plan.sigma_random[1] if method == "random_sampling" else
+            float(sigma.mean()) if knobs.cem else knobs.sigma_mppi)
+        noise = knob_noise(plan, knobs, rng, dev, sigma)
+        if not same_results(single_iteration(plan, knobs, tick, inc, sigma, 21, 4, noise),
+                         single_iteration(col0, knobs, tick, inc, sigma, 21, 4, noise)):
+            raise AssertionError(f"{label}: the drawn column 0 moved injected noise's bits")
+        if method != "random_sampling":
+            sums = torch.empty(P + 1, device=dev)
+            own = single_iteration(plan, knobs, tick, inc, sigma, 21, 4,
+                                   merge_beta=lambda lo: lo.clone(), sums=sums)
+            if not (same_results(base, own) and torch.equal(inc + sums[:P] / sums[P], own[1][26:])):
+                raise AssertionError(f"{label}: the caller's own beta moved the bits")
+            shifted = single_iteration(plan, knobs, tick, inc, sigma, 21, 4,
+                                       merge_beta=lambda lo: lo - 3.0, sums=sums)
+            S, Z = sm.softmax_sums(shifted[0], shifted[4], shifted[1][0] - 3.0, knobs.temperature)
+            e["sums_Z_rel_err"] = abs(float(sums[P]) / float(Z) - 1.0)
+            e["sums_S_over_Z_err"] = gap(sums[:P] / sums[P], S / Z)
+            if not (e["sums_Z_rel_err"] <= 1e-5 and e["sums_S_over_Z_err"] <= COMBINE_ATOL
+                    and torch.equal(shifted[1][26:], inc + sums[:P] / sums[P])):
+                raise AssertionError(f"{label}: the sums off softmax_sums: {e}")
+        errs[method] = e
+        # K1f in each layout.
+        for S_, N_, layout in ((FLEET_S, N_MAIN, fl.LARGE_BATCH), (FLEET_S, 128, fl.FOUR_LANE)):
+            fplan, ftick, finc, fsig, seeds, offsets = fleet_inputs(cfg, S_, N_, dev, rng)
+
+            def run(p, **kw):
+                ws = fl.fleet_workspace(p, knobs, S_, dev, layout, keep_noise=True)
+                res = fl.fleet_iteration(p, knobs, ftick, finc, fsig, seeds, offsets, ws=ws,
+                                         layout=layout, **kw)
+                torch.cuda.synchronize()
+                return tuple(None if x is None else x.clone() for x in (*res, ws.noise))
+
+            flabel = f"{label} K1f {S_} x {N_}"
+            fb, fd = run(fplan), run(sk.with_drawn_column0(fplan))
+            if fb[4] is not None:
+                ok = torch.equal(fb[4][:, :, 1:], fd[4][:, :, 1:]) and bool(fd[4][:, :, 0].any())
+                fleet_check(fplan, knobs, ftick, finc, fsig, fd[4], fd[:4], flabel)
+            else:
+                ok = torch.equal(fb[0][:, 1:], fd[0][:, 1:]) and not torch.equal(fb[0][:, 0],
+                                                                                 fd[0][:, 0])
+            if not ok:
+                raise AssertionError(f"{flabel}: the drawn column 0 changed more than column 0")
+            z = torch.randn(S_, P, N_, device=dev) * 0.3
+            if not same_results(run(fplan, noise_in=z)[:4],
+                                run(sk.with_drawn_column0(fplan), noise_in=z)[:4]):
+                raise AssertionError(f"{flabel}: the drawn column 0 moved injected noise's bits")
+    log(f"phase 28 (a): ok; the drawn column 0 on K1a-K1c and K1f and the caller's beta and "
+        f"sums on K1b and K1c against the plain versions: {json.dumps(errs)}")
+    return errs
+
+
+def sharded_noise(cfg, knobs, rng, dev, sigma, shards):
+    """(P, N_MAIN) injected noise of a whole sharded solve of ``shards`` shards, and
+    the samples a shard: column 0 of every shard after the first drawn, the
+    first's zero."""
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+    z = knob_noise(sk.make_rs_plan(cfg, N_MAIN, "cpu"), knobs, rng, dev, sigma)
+    z[:, 0] = 0.0
+    return z.contiguous(), N_MAIN // shards
+
+
+def phase_sharded(dev, rng, tick_ms) -> dict:
+    """Phase 28 (b): the sharded solver at world size 1 (NCCL, in this process; the
+    group stays up for phase 29), N = 10 000, H = 12, cubic splines, each method,
+    against the iteration SamplingMPC runs (the K1a/K1b/K1c wrapper) on the same
+    injected noise: best cost and parameters bit for bit (the merge of one shard
+    adds nothing, and incumbent + S / Z is the kernel's own finish), CEM's sigma
+    within COMBINE_ATOL (refit on the elite columns in torch, not in the kernel),
+    GRFs within GRF_ATOL (torch's extraction); one K1a/K1b/K1c launch a call and no
+    K1d. Then SHARDED_TIMED solve ticks on Philox noise, the counts zeroed just
+    before and read just after, their median host ms beside SamplingMPC's solve
+    tick (``tick_ms``, one iteration, this run)."""
+    import torch
+    from quadruped_pympc_tamols_torch.controllers.sampling import SamplingState
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+    from quadruped_pympc_tamols_torch.parallel import (find_free_port, init_multihost,
+                                                       make_sharded_sampling_solver,
+                                                       scenario_mesh)
+
+    init_multihost(f"127.0.0.1:{find_free_port()}", 1, 0, device="cuda")
+    mesh = scenario_mesh(1, 1)
+    out = {}
+    for method, key in (("random_sampling", "K1a"), ("mppi", "K1b"), ("cem_mppi", "K1c")):
+        cfg = main_cfg(**{"mpc.sampling.method": method})
+        knobs = sm.make_knobs(cfg)
+        solve, P = make_sharded_sampling_solver(cfg, mesh, N_MAIN, method)
+        plan = solve.plan
+        tick = example_tick(cfg, plan)
+        inc = torch.as_tensor(0.3 * rng.standard_normal(P).astype(np.float32), device=dev)
+        sigma = torch.as_tensor((0.5 + rng.random(P)).astype(np.float32), device=dev)
+        noise, _ = sharded_noise(cfg, knobs, rng, dev, sigma, 1)
+        label = f"phase 28 (b) {method}"
+        reset_counts()
+        grfs, st, best = solve(tick.state12, tick.feet, tick.ref12, tick.contact_seq,
+                               SamplingState(inc, 21, 4, sigma), noise=noise)
+        torch.cuda.synchronize()
+        check_counts(label, read_counts(), counts_of(**{key: 1}), 1)
+        ref = single_iteration(plan, knobs, tick, inc, sigma, 21, 4, noise)
+        e = {"grf": gap(grfs.reshape(12), ref[1][1:13])}
+        if not (torch.equal(best, ref[1][0:1]) and torch.equal(st.best_parameters, ref[1][26:])
+                and e["grf"] <= GRF_ATOL and st.offset == 5):
+            raise AssertionError(f"{label}: off the single iteration: {e}, best "
+                                 f"{float(best)} vs {float(ref[1][0])}")
+        if knobs.cem:
+            e["sigma"] = gap(st.sigma, ref[2])
+            if not e["sigma"] <= COMBINE_ATOL:
+                raise AssertionError(f"{label}: sigma off by {e['sigma']}")
+        state = SamplingState(inc, 21, 4, sigma)
+
+        def call():
+            nonlocal state
+            g, state, _ = solve(tick.state12, tick.feet, tick.ref12, tick.contact_seq, state)
+            g.cpu()
+
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+        reset_counts()
+        ms = median_host_ms(call, SHARDED_TIMED)
+        counts = read_counts()
+        check_counts(label + " timed", counts, counts_of(**{key: 1}), SHARDED_TIMED + 10)
+        e.update(best_cost_and_params="bit-equal", launches=counts[key],
+                 sharded_tick_ms=ms, sampling_mpc_tick_ms=tick_ms[method])
+        out[method] = e
+        log(f"{label}: ok; bit-equal best cost and parameters to the single iteration on "
+            f"the same noise, {json.dumps(e)}")
+    return out
+
+
+def gloo_child(store: str, rank: int) -> int:
+    """Phase 28 (c), one rank: GLOO_RANKS ranks on the one card over gloo (CUDA
+    tensors staged through host memory), each method's sharded solve of N = 10 000
+    on injected noise against the plain two-rank merge (the same solve with
+    device="cpu" over the same group). Prints its gaps as one JSON line."""
+    import torch
+    import torch.distributed as dist
+    from quadruped_pympc_tamols_torch.controllers.sampling import SamplingState
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+    from quadruped_pympc_tamols_torch.parallel import (init_multihost,
+                                                       make_sharded_sampling_solver,
+                                                       scenario_mesh)
+
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    init_multihost(store, GLOO_RANKS, rank, device="cpu", timeout_s=300)
+    mesh = scenario_mesh(1, GLOO_RANKS)
+    col = mesh.coords[1]
+    report = {}
+    for k, (method, key) in enumerate((("random_sampling", "K1a"), ("mppi", "K1b"),
+                                       ("cem_mppi", "K1c"))):
+        cfg = main_cfg(**{"mpc.sampling.method": method})
+        knobs = sm.make_knobs(cfg)
+        rng = np.random.default_rng(100 + k)  # the same draws on every rank
+        solves = {d: make_sharded_sampling_solver(cfg, mesh, N_MAIN, method, device=d)[0]
+                  for d in ("cuda", "cpu")}
+        plan = solves["cuda"].plan
+        P = plan.num_parameters
+        tick = example_tick(cfg, plan)
+        inc = (0.3 * rng.standard_normal(P)).astype(np.float32)
+        sigma = (0.5 + rng.random(P)).astype(np.float32)
+        full, n_local = sharded_noise(cfg, knobs, rng, "cpu", torch.from_numpy(sigma),
+                                      GLOO_RANKS)
+        mine = full[:, col * n_local:(col + 1) * n_local].contiguous()
+        res = {}
+        for d, solve in solves.items():
+            reset_counts()
+            g, st, best = solve(tick.state12, tick.feet, tick.ref12, tick.contact_seq,
+                                SamplingState(torch.from_numpy(inc).to(d), 21, 4,
+                                              torch.from_numpy(sigma).to(d)),
+                                noise=mine.to(d))
+            counts = read_counts()
+            res[d] = (g.cpu(), st.best_parameters.cpu(), best.cpu(), st.sigma.cpu(), counts)
+        c, p = res["cuda"], res["cpu"]
+        e = {"grf": gap(c[0], p[0]), "params": gap(c[1], p[1]),
+             "best_cost_rel": abs(float(c[2]) / float(p[2]) - 1.0),
+             "launches": c[4][key], "launches_cpu": p[4][key]}
+        if knobs.cem:
+            e["sigma"] = gap(c[3], p[3])
+        tol = PARAM_ATOL if method == "random_sampling" else COMBINE_ATOL
+        if not (e["params"] <= tol and e["grf"] <= GRF_ATOL and e["best_cost_rel"] <= COST_RTOL
+                and e.get("sigma", 0.0) <= COMBINE_ATOL and e["launches"] == 1
+                and e["launches_cpu"] == 0):
+            raise AssertionError(f"phase 28 (c) rank {rank} {method}: {e}")
+        report[method] = e
+    print(json.dumps({"rank": rank, "gaps": report}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_gloo() -> dict:
+    """Phase 28 (c): GLOO_RANKS processes of ``gloo_child`` on the one card."""
+    from pathlib import Path
+
+    from quadruped_pympc_tamols_torch.parallel.multihost import find_free_port, spawn, wait_all
+
+    here = Path(__file__).resolve().parent
+    store = f"127.0.0.1:{find_free_port()}"
+    t0 = time.perf_counter()
+    procs = [spawn([sys.executable, str(here / "chip_smoke.py"), "--gloo-rank", str(r), store],
+                   dict(os.environ), here) for r in range(GLOO_RANKS)]
+    outs = wait_all(procs, 600.0, "phase 28 (c) rank")
+    reports = [json.loads(next(line for line in o.splitlines() if line.startswith("{")))
+               for o, _ in outs]
+    r = {"ranks": GLOO_RANKS, "wall_s": time.perf_counter() - t0,
+         "gaps": {rep["rank"]: rep["gaps"] for rep in reports}}
+    log(f"phase 28 (c): ok; {GLOO_RANKS} ranks on the one card over gloo, the merged "
+        f"output against the plain {GLOO_RANKS}-rank merge on the same noise: {json.dumps(r)}")
+    return r
+
+
+def phase_multichip(fleet_tp) -> dict:
+    """Phase 29: make_multichip_step at world size 1 (the NCCL group of phase 28) on
+    K1f: MULTICHIP_S scenarios x 10 000 samples, flat and over boxes, FLEET_SECONDS
+    at 0.25 m/s, the counts zeroed just before and read just after: K1f (the
+    large-batch layout S x N picks) once a tick and no other kernel, every scenario
+    above FLEET_Z_MIN, the fleet moving forward, finite metrics; scenario-steps/s
+    on the host clock (eager ticks: gloo and NCCL calls are not captured) beside
+    phase 27's scenario-engine figure at the same S x N."""
+    import torch
+    import torch.distributed as dist
+    from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
+    from quadruped_pympc_tamols_torch.parallel import make_multichip_step, scenario_mesh
+
+    mesh = scenario_mesh(1, 1)
+    out = {}
+    key = "K1f_rs_wide" if fl.fleet_layout(MULTICHIP_S, N_MAIN) & fl.WIDE else "K1f_rs"
+    for terrain in (None, "boxes"):
+        cfg = fleet_cfg()
+        step, init, _ = make_multichip_step(cfg, mesh, MULTICHIP_S, N_MAIN, terrain)
+        st = init(seed=0)
+        cmd = torch.tensor([[FLEET_VEL, 0.0, 0.0]] * MULTICHIP_S, device="cuda")
+        ticks = int(round(FLEET_SECONDS * cfg.sim.mpc_frequency))
+        x0 = st.x[:, 0].clone()
+        zmin = st.x[:, 2].clone()
+        label = f"phase 29 multichip {terrain or 'flat'}"
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            st, m = step(st, cmd)
+            zmin = torch.minimum(zmin, st.x[:, 2])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        check_counts(label, counts, counts_of(**{key: 1}), ticks)
+        dx = float((st.x[:, 0] - x0).mean())
+        if not (bool(torch.isfinite(st.x).all()) and bool(torch.isfinite(m).all())
+                and float(zmin.min()) > FLEET_Z_MIN and dx > 0.0):
+            raise AssertionError(f"{label}: min z {float(zmin.min())}, mean dx {dx}")
+        r = {"scenarios": MULTICHIP_S, "num_samples": N_MAIN, "ticks": ticks,
+             "launches": counts[key],
+             "layout": key, "min_z": float(zmin.min()), "mean_dx": dx,
+             "fleet_vel_err": float(m[0]), "fleet_cost": float(m[1]),
+             "ms_per_tick": wall / ticks * 1e3, "scenario_steps_per_s": MULTICHIP_S * ticks / wall,
+             "scenario_engine_steps_per_s_phase27":
+                 fleet_tp.get(f"S{MULTICHIP_S} N{N_MAIN}", {}).get("scenario_steps_per_s")}
+        out[terrain or "flat"] = r
+        log(f"{label}: ok; {json.dumps(r)}")
+    dist.destroy_process_group()
+    return out
+
+
+def bus_latency() -> dict:
+    """Phase 30 (c): the control bus's write -> read latency: a writer thread stamps
+    each block with the host clock, a reader waits on the seq-lock (wait_new)."""
+    import threading
+    from quadruped_pympc_tamols_torch.runtime.control_bus import (OFF_TIMING, PAYLOAD_DOUBLES,
+                                                                  ControlBus)
+
+    name = f"/qpympc_smoke_lat_{os.getpid()}"
+    w, r = ControlBus(name, create=True), ControlBus(name, create=False)
+    lat, stop = [], threading.Event()
+
+    def writer():
+        block = np.zeros(PAYLOAD_DOUBLES)
+        while not stop.is_set():
+            block[OFF_TIMING + 1] = time.perf_counter()
+            w.write(block)
+            time.sleep(0.0005)
+
+    th = threading.Thread(target=writer)
+    th.start()
+    try:
+        seq = 0
+        while len(lat) < BUS_SAMPLES:
+            seq, data = r.wait_new(seq, timeout_s=1.0)
+            if not seq:
+                raise AssertionError("phase 30 (c): the bus published nothing for 1 s")
+            lat.append((time.perf_counter() - data[OFF_TIMING + 1]) * 1e6)
+    finally:
+        stop.set()
+        th.join()
+        r.close()
+        w.close()
+    return {"samples": BUS_SAMPLES, "write_to_read_us_median": statistics.median(lat),
+            "write_to_read_us_p99": float(np.percentile(lat, 99))}
+
+
+NODE_WARMUP_S = 60.0  # at most, for a node's first two solves (a graph's capture)
+
+
+def node_run(cfg, mode, inputs, feet0, label) -> dict:
+    """Phase 30: ControllerNode(cfg, mode) on the card over the recorded trace, one
+    control tick a step paced at the simulation step (a tick that overruns it
+    starts the next at once), after ticks on the first step until the node has
+    completed two solves (the gradient family captures its graphs at its first
+    solve, on the MPC thread in the background modes); the counts zeroed just
+    before the timed ticks and read just after: finite torques; control_tick host
+    ms, median and p99; the solves completed in the window (per second)."""
+    import torch
+    from quadruped_pympc_tamols_torch.runtime import ControllerNode
+    from quadruped_pympc_tamols_torch.utils.legs import Legs
+
+    node = ControllerNode(cfg, Legs(feet0.copy()), mode,
+                          bus_name=f"/qpympc_smoke_{os.getpid()}_{label.replace(' ', '_')}")
+    ms = []
+    try:
+        kw0 = inputs[0]
+        s0 = dict(kw0, joints_vel=kw0["qvel_js"])
+        deadline = time.perf_counter() + NODE_WARMUP_S
+        while node.solves < 2:
+            node.control_tick(lambda: s0, kw0["ref_base_lin_vel"], kw0["ref_base_ang_vel"],
+                              kw0["simulation_dt"])
+            time.sleep(kw0["simulation_dt"])
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{label}: {node.solves} solves in {NODE_WARMUP_S} s")
+        torch.cuda.synchronize()
+        reset_counts()
+        solves0 = node.solves
+        t_start = time.perf_counter()
+        next_t = t_start
+        for kw in inputs:
+            s = dict(kw, joints_vel=kw["qvel_js"])
+            t0 = time.perf_counter()
+            tau, _, _ = node.control_tick(lambda: s, kw["ref_base_lin_vel"],
+                                          kw["ref_base_ang_vel"], kw["simulation_dt"])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if not np.all(np.isfinite(np.asarray(tau.data))):
+                raise AssertionError(f"{label}: torques not finite")
+            next_t = max(next_t + kw["simulation_dt"], time.perf_counter())
+            time.sleep(max(0.0, next_t - time.perf_counter()))
+        wall = time.perf_counter() - t_start
+        solves = node.solves - solves0
+    finally:
+        node.shutdown()
+    torch.cuda.synchronize()
+    return {"ticks": len(inputs), "control_tick_ms_median": statistics.median(ms),
+            "control_tick_ms_p99": float(np.percentile(ms, 99)),
+            "control_tick_ms_max": max(ms), "solves": solves, "solves_per_s": solves / wall,
+            "wall_s": wall, "launches": read_counts()}
+
+
+def phase_nodes() -> dict:
+    """Phase 30: ControllerNode on the card in each mode for the default
+    configuration (sampling, TAMOLS footholds, N = 10 000) and mpc_type="nominal",
+    the recorded MuJoCo loop (500 steps) as the state provider. Inline and
+    pipelined solve every tick: K1a once a tick for the default configuration (as
+    phase 18's wrapper once an MPC tick), none for the nominal; thread and
+    shared_memory launch K1a once a completed solve (give or take the one in flight
+    when the window opens or the node shuts down). Then the bus's latency."""
+    from quadruped_pympc_tamols_torch import make_config
+    from quadruped_pympc_tamols_torch.sim.trace import ControlTrace
+
+    trace = ControlTrace()
+    inputs = [trace.inputs(i, device="cuda") for i in range(trace.steps)]
+    feet0 = trace.arrays["feet_pos"][0]
+    out = {}
+    for family, cfg in (("sampling", make_config("aliengo")),
+                        ("nominal", make_config("aliengo", mpc_type="nominal"))):
+        for mode in NODE_MODES:
+            label = f"phase 30 {family} {mode}"
+            r = node_run(cfg, mode, inputs, feet0, label)
+            solves, got = r["solves"], r["launches"]
+            k1a = got["K1a"]
+            others = {k: v for k, v in got.items() if k != "K1a" and v}
+            inline = mode in ("inline", "pipelined")
+            if family == "sampling":
+                ok = k1a == solves if inline else abs(k1a - solves) <= 1
+            else:
+                ok = k1a == 0
+            if not ok or others or solves == 0 or (inline and solves != len(inputs)):
+                raise AssertionError(f"{label}: {solves} solves, launches {got}")
+            r["launches"] = k1a
+            out[f"{family} {mode}"] = r
+            log(f"{label}: ok; {json.dumps(r)}")
+    out["bus"] = bus_latency()
+    log(f"phase 30 (c): ok; {json.dumps(out['bus'])}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3320,6 +3812,14 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas {name} H={H} P_leg={P_leg}: {line.strip()}")
 
+    t_lap = [time.perf_counter(), "phases 1-2"]
+
+    def lap(next_group):
+        """Log the seconds the group of phases that ends here took."""
+        now = time.perf_counter()
+        log(f"time: {t_lap[1]}: {now - t_lap[0]:.1f} s")
+        t_lap[:] = [now, next_group]
+
     # -- phases 1-2: K1a against its plain version, same noise; Philox noise ------------
     rng = np.random.default_rng(0)
     cfg = main_cfg()
@@ -3327,11 +3827,13 @@ def main() -> int:
     tick = example_tick(cfg, plan)
     errs_rs = {MAIN_PAR: phase_rs(dev, rng)}
 
+    lap("phase 3")
     # -- phase 3: the first slice's path ----------------------------------------------
     counts_rs, wall, _ = walk(cfg, "phase 3", counts_of(K1a=1))
     log(f"phase 3: JAX package on the CPU (distance, min z, max |roll|,|pitch|): "
         f"{JAX_CPU_WALKS['random_sampling x 1']}")
 
+    lap("phase 4")
     # -- phase 4: times of K1a --------------------------------------------------------
     t_rs = {MAIN_PAR: rs_times(dev, rng)}
     mpc = SamplingMPC(cfg, device="cuda")
@@ -3340,10 +3842,12 @@ def main() -> int:
     log(f"phase 4: solve tick with host glue {tick_med:.4f} ms (median of 200); harness "
         f"{wall / WALK_S:.3f} s wall per simulated s")
 
+    lap("phases 5-6")
     # -- phases 5-6: K1b, K1c and K1d against their plain version ---------------------
     errs_sm = {MAIN_PAR: phase_softmax(dev, rng)}
     chain_err = {MAIN_PAR: phase_chain(dev, rng)}
 
+    lap("phase 7")
     # -- phase 7: MPPI x 3 on the chain kernel, MPPI x 1 on K1b -------------------------
     mcfg = softmax_cfg("mppi")
     counts_mppi, wall_mppi, _ = walk(mcfg, "phase 7", counts_of(K1d_mppi=1))
@@ -3356,18 +3860,22 @@ def main() -> int:
     counts_k1b = tick_loop(SamplingMPC(softmax_cfg("mppi", iterations=1), device="cuda"), tick,
                            "phase 7 mppi x 1", counts_of(K1b=1))
 
+    lap("phase 8")
     # -- phase 8: CEM-MPPI closed loop; CEM-MPPI x 1 on K1c ----------------------------
     counts_cem, _ = cem_loop(softmax_cfg("cem_mppi"), "phase 8", counts_of(K1d_cem=1),
                              JAX_CPU_WALKS["cem_mppi x 3"])
     counts_k1c = tick_loop(SamplingMPC(softmax_cfg("cem_mppi", iterations=1), device="cuda"),
                            tick, "phase 8 cem_mppi x 1", counts_of(K1c=1))
 
+    lap("phase 9")
     # -- phase 9: times of K1b, K1c, K1d ------------------------------------------------
     t9 = {MAIN_PAR: phase_softmax_times(dev, rng)}
 
+    lap("phase 10")
     # -- phase 10: K1e against its plain version ---------------------------------------
     errs_g = {MAIN_PAR: phase_groups(dev, rng)}
 
+    lap("phase 11")
     # -- phase 11: this slice's path, gait-adaptive sampling ---------------------------
     walks = {}
     for method, key in (("random_sampling", "K1e_rs"), ("mppi", "K1e_mppi")):
@@ -3380,6 +3888,7 @@ def main() -> int:
                          tick, d2h=1)
     log(f"phase 11: profile of 50 gait-adaptive solve ticks: {prof}")
 
+    lap("phase 12")
     # -- phase 12: times of K1e ---------------------------------------------------------
     t12 = {MAIN_PAR: phase_group_times(dev, rng)}
 
@@ -3391,6 +3900,7 @@ def main() -> int:
                 ("K1e-mppi", MAIN_PAR): walks["mppi"][0]["K1e_mppi"],
                 ("K1e-cem", MAIN_PAR): counts_gcem["K1e_cem"]}
 
+    lap("phase 13")
     # -- phase 13: the other parametrizations' kernels against their plain versions ----
     for par in NEW_PARS:
         errs_rs[par] = phase_rs(dev, rng, par, "phase 13")
@@ -3398,6 +3908,7 @@ def main() -> int:
         chain_err[par] = phase_chain(dev, rng, par, "phase 13")
         errs_g[par] = phase_groups(dev, rng, par, "phase 13")
 
+    lap("phase 14")
     # -- phase 14: their paths ----------------------------------------------------------
     # The walks whose JAX reference walks (random sampling x 1 with each, MPPI x 3
     # with zero-order holds); every other method through its controller on the
@@ -3429,33 +3940,50 @@ def main() -> int:
                           f"phase 14 gait {method} {par}", counts_of(**{key: 1}))
             launches[("K1e-" + key[4:], par)] = c[key]
 
+    lap("phase 15")
     # -- phase 15: their times ----------------------------------------------------------
     for par in NEW_PARS:
         t_rs[par] = rs_times(dev, rng, par, "phase 15")
         t9[par] = phase_softmax_times(dev, rng, par, "phase 15")
         t12[par] = phase_group_times(dev, rng, par, "phase 15")
 
+    lap("phase 16")
     # -- phase 16: the TAMOLS scorer on the card against the CPU; its cost a call ------
     scorer = phase_scorer(dev, rng)
 
+    lap("phase 17")
     # -- phase 17: the default configuration's walks with TAMOLS / "height" ------------
     tamols_walks = {f"{st} {ter}": tamols_walk(st, ter, fn, scorer[st]["launches_per_call"])
                     for (st, ter), fn in TAMOLS_WALKS.items()}
 
+    lap("phase 18")
     # -- phase 18: the torque path and the wrapper on the recorded MuJoCo loop --------
     torque = phase_wrapper(phase_torque_trace())
 
+    lap("phases 19-21")
     # -- phases 19-21: the gradient family's nominal RTI-SQP ----------------------------
     gradient = {"solve": phase_gradient_solve(), "ladder": phase_gradient_ladder(),
                 **phase_gradient_walks()}
 
+    lap("phases 22-24")
     # -- phases 22-24: the variant core and the DDP solver -------------------------------
     variants = {"solves": phase_variant_solves(), "ddp": phase_ddp(), **phase_variant_walks()}
 
+    lap("phases 25-27")
     # -- phases 25-27: the scenario fleet on K1f -----------------------------------------
     fleet_k = phase_fleet_kernels(dev, rng, libs)
     fleet_walks = phase_fleet_walks()
     fleet_tp = phase_fleet_throughput()
+
+    lap("phases 28-30")
+    # -- phases 28-30: the sharded solver, the multi-chip fleet step, the runtime --------
+    knob_errs = phase_knobs(dev, rng)
+    sharded = phase_sharded(dev, rng, {"random_sampling": tick_med,
+                                       "mppi": t9[MAIN_PAR]["mppi"]["tick1_ms"],
+                                       "cem_mppi": t9[MAIN_PAR]["cem_mppi"]["tick1_ms"]})
+    gloo = phase_gloo()
+    multichip = phase_multichip(fleet_tp)
+    nodes = phase_nodes()
 
     def row(name, source, short, par, err, ms, plain, bound, passes, **extra):
         return {"name": f"{name} ({short}{PAR_SUFFIX[par]})", "route": "cuda",
@@ -3536,6 +4064,17 @@ def main() -> int:
         if not r["launches"] > 0:
             raise AssertionError(f"{r['name']}: no launch on its path")
     kernels += fleet_rows(fleet_k, fleet_walks)
+    # Phases 28-30's launches and the knobs' errors on the rows that run them.
+    for r in kernels:
+        short = r["name"].rsplit("(", 1)[1][:-1]
+        method = {"K1a": "random_sampling", "K1b": "mppi", "K1c": "cem_mppi"}.get(short)
+        if method:
+            r["launches_sharded"] = sharded[method]["launches"]
+            r["sharded_knobs_max_abs_err"] = knob_errs[method]
+        if short == "K1a":
+            r["launches_node_inline"] = nodes["sampling inline"]["launches"]
+        if short == "K1f-rs-wide":
+            r["launches_multichip"] = sum(m["launches"] for k, m in multichip.items())
     fleet = {"kernels": {m: {"errs": fleet_k[m]["errs"], "times": fleet_k[m]["times"]}
                          for m in sm.METHODS},
              "ptxas": fleet_k["ptxas"], "crossover": fleet_k["crossover"], "walks": fleet_walks,
@@ -3545,6 +4084,10 @@ def main() -> int:
     log(f"torque: {json.dumps(torque)}")
     log(f"gradient: {json.dumps(gradient)}")
     log(f"variants: {json.dumps(variants)}")
+    parallel = {"knobs": knob_errs, "sharded": sharded, "gloo": gloo, "multichip": multichip}
+    log(f"parallel: {json.dumps(parallel)}")
+    log(f"runtime: {json.dumps(nodes)}")
+    lap("the kernels line")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3553,4 +4096,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--gloo-rank":
+        sys.exit(gloo_child(sys.argv[3], int(sys.argv[2])))
     sys.exit(main())

@@ -75,6 +75,10 @@ struct RSArgs {
   float ref[12];
   float contact[RS_HMAX * 4];   // step-major: n*4 + leg
   float share[RS_HMAX * 4];     // step-major: n*4 + leg
+  // 0: sample 0 is the incumbent (zero noise). 1: sample 0 draws noise as the
+  // others do (random sampling: N(0, sigma2)), for the shards of a sample-sharded
+  // solve other than the first, which must not each add a copy of the incumbent.
+  int draw_col0;
 };
 
 __device__ __forceinline__ float max_nan(float x, float y) { return (x > y || x != x) ? x : y; }

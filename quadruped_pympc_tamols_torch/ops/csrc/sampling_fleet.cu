@@ -190,13 +190,14 @@ __device__ __forceinline__ float4 fleet_noise4(const RSArgs& a, unsigned long lo
                                                const float* sigma, int i, int k, int p,
                                                int valid) {
   if constexpr (METHOD == 0) {
-    return rs_noise4(seed, offset, a.band1, a.band2, a.sigma1, a.sigma2, a.sigma3, i, k);
+    return rs_noise4(seed, offset, a.band1, a.band2, a.sigma1, a.sigma2, a.sigma3, i, k,
+                     a.draw_col0);
   } else {
     float s[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       s[c] = sigma == nullptr ? sigma_mppi : c < valid ? __ldg(&sigma[p + c]) : 0.f;
-    return sm_noise4(seed, offset, i, k, make_float4(s[0], s[1], s[2], s[3]));
+    return sm_noise4(seed, offset, i, k, make_float4(s[0], s[1], s[2], s[3]), a.draw_col0);
   }
 }
 

@@ -5,19 +5,20 @@
 #include "sampling_common.cuh"
 
 // Noise of parameters 4k..4k+3 of sample i. Counter (i, k, offset), key seed.
-// Sample 0 is the incumbent; [1, band1) ~ N(0, s1), [band1, band2) ~ N(0, s2),
-// the rest ~ U[-s3, s3).
+// Sample 0 is the incumbent (zero) unless col0 (RSArgs::draw_col0), and then ~
+// N(0, s2), as the JAX package's sharded solver draws it on its other shards;
+// [1, band1) ~ N(0, s1), [band1, band2) ~ N(0, s2), the rest ~ U[-s3, s3).
 __device__ __forceinline__ float4 rs_noise4(unsigned long long seed, unsigned long long offset,
                                             int band1, int band2, float s1, float s2, float s3,
-                                            int i, int k) {
-  if (i == 0) return make_float4(0.f, 0.f, 0.f, 0.f);
+                                            int i, int k, int col0) {
+  if (i == 0 && !col0) return make_float4(0.f, 0.f, 0.f, 0.f);
   const uint4 x = philox_words(seed, offset, i, k);
   if (i >= band2) {
     const float w = __fmul_rn(2.0f, s3);
     return make_float4(__fadd_rn(-s3, __fmul_rn(w, u01(x.x))), __fadd_rn(-s3, __fmul_rn(w, u01(x.y))),
                        __fadd_rn(-s3, __fmul_rn(w, u01(x.z))), __fadd_rn(-s3, __fmul_rn(w, u01(x.w))));
   }
-  const float s = (i < band1) ? s1 : s2;
+  const float s = (i > 0 && i < band1) ? s1 : s2;
   const float4 z = normals4(x);
   return make_float4(__fmul_rn(z.x, s), __fmul_rn(z.y, s), __fmul_rn(z.z, s), __fmul_rn(z.w, s));
 }
@@ -27,7 +28,8 @@ __device__ __forceinline__ float4 rs_noise4(unsigned long long seed, unsigned lo
 struct RandomBands {
   __device__ float4 operator()(const RSArgs& a, unsigned long long offset, int i, int k, int,
                                int) const {
-    return rs_noise4(a.seed, offset, a.band1, a.band2, a.sigma1, a.sigma2, a.sigma3, i, k);
+    return rs_noise4(a.seed, offset, a.band1, a.band2, a.sigma1, a.sigma2, a.sigma3, i, k,
+                     a.draw_col0);
   }
 };
 
@@ -59,7 +61,8 @@ __device__ __forceinline__ void rs_extract(const RSArgs& a, unsigned long long o
     if (noise_in != nullptr) {
       z = load_params4(noise_in, N, idx, p, valid);
     } else {
-      z = rs_noise4(a.seed, offset, a.band1, a.band2, a.sigma1, a.sigma2, a.sigma3, idx, k);
+      z = rs_noise4(a.seed, offset, a.band1, a.band2, a.sigma1, a.sigma2, a.sigma3, idx, k,
+                    a.draw_col0);
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {

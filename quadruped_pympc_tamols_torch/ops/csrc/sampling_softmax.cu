@@ -47,16 +47,20 @@ static int sm_launch_t(const RSArgs* a, const SMKnobs* kn, const float* w_blk,
                        const float* incumbent, const float* sigma_in, const float* noise_in,
                        float* noise_out, float* costs, unsigned long long* argmin,
                        float* partials, unsigned long long* block_keys, float* out,
-                       float* sigma_out, int* elites, cudaStream_t stream) {
-  cudaError_t err = cudaMemsetAsync(argmin, 0xFF, 2 * sizeof(unsigned long long), stream);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_rollout<H, PL>(*a, scaled_normals(*kn, sigma_in),
-                             StaticSource<H, PL>{w_blk, a->num_samples, 1}, incumbent, noise_in,
-                             noise_out, costs, argmin, stream);
-  if (err != cudaSuccess) return (int)err;
+                       float* sigma_out, int* elites, int phases, const float* beta_in,
+                       float* sums_out, cudaStream_t stream) {
+  if (phases & SM_PHASE_ROLLOUT) {
+    cudaError_t err = cudaMemsetAsync(argmin, 0xFF, 2 * sizeof(unsigned long long), stream);
+    if (err != cudaSuccess) return (int)err;
+    err = launch_rollout<H, PL>(*a, scaled_normals(*kn, sigma_in),
+                               StaticSource<H, PL>{w_blk, a->num_samples, 1}, incumbent, noise_in,
+                               noise_out, costs, argmin, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (!(phases & SM_PHASE_UPDATE)) return 0;
   return (int)launch_update<PL>(*a, *kn, w_blk, incumbent, noise_in ? noise_in : noise_out,
                                 costs, argmin, partials, block_keys, out, sigma_out, elites,
-                                stream);
+                                stream, beta_in, sums_out);
 }
 
 extern "C" {
@@ -79,6 +83,11 @@ int sm_params_per_leg(void) { return SAMPLING_PL; }
 // host pads to (sampling_kernel.pad_blocks).
 int sm_padded_params_per_leg(void) { return padded_pl(SAMPLING_PL); }
 
+// The phase bits of sm_launch (ops/sampling_softmax.py checks its constants).
+int sm_phase_rollout(void) { return SM_PHASE_ROLLOUT; }
+
+int sm_phase_update(void) { return SM_PHASE_UPDATE; }
+
 // Blocks of the update pass that one SM holds at once for an iteration of
 // num_samples samples (cem, n_elite as SMKnobs), from
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor; minus a CUDA error code.
@@ -97,12 +106,21 @@ const char* sm_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 // or -1 for a shape or knob this build does not take (a horizon or parameter
 // count other than SAMPLING_H, SAMPLING_PL), no noise buffer, or a basis
 // (zero-padded rows, as rs_launch) or partials that are not 16-byte aligned.
+//
+// phases: SM_PHASE_ROLLOUT (the memset and the rollout pass), SM_PHASE_UPDATE
+// (the update pass, after a launch of the rollout phase with the same buffers),
+// or both, the whole iteration. A sample-sharded solve runs them apart, to merge
+// the shards' lowest costs between them: beta_in (one float on the card), if not
+// nullptr, is then the weights' beta in place of this launch's lowest cost, and
+// sums_out (P + 1), if not nullptr, receives the unnormalized sums [S (P), Z] of
+// the finish. The default (both phases, two nullptrs) is the plain iteration.
 int sm_launch(const RSArgs* a, const SMKnobs* kn, int params_per_leg, const float* w_blk,
               const float* incumbent, const float* sigma_in, const float* noise_in,
               float* noise_out, float* costs, unsigned long long* argmin, float* partials,
               unsigned long long* block_keys, float* out, float* sigma_out, int* elites,
-              void* stream) {
+              int phases, const float* beta_in, float* sums_out, void* stream) {
   if (a->horizon != SAMPLING_H || params_per_leg != SAMPLING_PL || a->num_samples < 1) return -1;
+  if (phases < 1 || phases > (SM_PHASE_ROLLOUT | SM_PHASE_UPDATE)) return -1;
   if (((uintptr_t)w_blk & 15) != 0) return -1;
   if (!(kn->temperature > 0.f)) return -1;
   if ((noise_in == nullptr && noise_out == nullptr) || ((uintptr_t)partials & 15) != 0) return -1;
@@ -110,7 +128,8 @@ int sm_launch(const RSArgs* a, const SMKnobs* kn, int params_per_leg, const floa
     return -1;
   return sm_launch_t<SAMPLING_H, SAMPLING_PL>(a, kn, w_blk, incumbent, sigma_in, noise_in,
                                               noise_out, costs, argmin, partials, block_keys,
-                                              out, sigma_out, elites, (cudaStream_t)stream);
+                                              out, sigma_out, elites, phases, beta_in, sums_out,
+                                              (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -6,6 +6,10 @@
 #include "sampling_common.cuh"
 
 #define SM_KMAX 32
+// The phases of an iteration sm_launch runs: the memset and the rollout pass, then
+// the update pass.
+#define SM_PHASE_ROLLOUT 1
+#define SM_PHASE_UPDATE 2
 
 // The optimizer's constants, passed by value beside RSArgs (whose random-sampling
 // band fields these kernels do not read).
@@ -18,10 +22,11 @@ struct SMKnobs {
 };
 
 // Noise of parameters 4k..4k+3 of sample i: standard normals from counter
-// (i, k, offset) times s. Sample 0 is the incumbent.
+// (i, k, offset) times s. Sample 0 is the incumbent (zero) unless col0
+// (RSArgs::draw_col0).
 __device__ __forceinline__ float4 sm_noise4(unsigned long long seed, unsigned long long offset,
-                                            int i, int k, float4 s) {
-  if (i == 0) return make_float4(0.f, 0.f, 0.f, 0.f);
+                                            int i, int k, float4 s, int col0) {
+  if (i == 0 && !col0) return make_float4(0.f, 0.f, 0.f, 0.f);
   const float4 z = normals4(philox_words(seed, offset, i, k));
   return make_float4(__fmul_rn(z.x, s.x), __fmul_rn(z.y, s.y), __fmul_rn(z.z, s.z),
                      __fmul_rn(z.w, s.w));
@@ -40,7 +45,7 @@ struct ScaledNormals {
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       s[c] = sigma == nullptr ? sigma_mppi : c < valid ? load_in<R>(&sigma[p + c]) : 0.f;
-    return sm_noise4(a.seed, offset, i, k, make_float4(s[0], s[1], s[2], s[3]));
+    return sm_noise4(a.seed, offset, i, k, make_float4(s[0], s[1], s[2], s[3]), a.draw_col0);
   }
 };
 
@@ -258,7 +263,10 @@ __device__ __forceinline__ bool last_ticket(unsigned long long* ticket, int tile
 // warps 0-3 sum the B partial rows' columns in block order, write out's new
 // parameters (inc_r + S / Z, inc_r from finish_incumbent) and, on warp 0, the
 // step-0 extraction, beta and its index from best_key; for CEM, warps 4-15 select
-// the elites from the B*K block keys and refit sigma. R: how the noise is read.
+// the elites from the B*K block keys and refit sigma. sums_out (P + 1), if not
+// nullptr, receives the unnormalized sums [S (P), Z] as well, for a caller that
+// merges them with other shards' (a sample-sharded solve). R: how the noise is
+// read.
 template <int PL, Read R>
 __device__ __forceinline__ void update_finish(const RSArgs& a, const SMKnobs& kn,
                                               const float* w_blk, const float* inc_r,
@@ -266,7 +274,7 @@ __device__ __forceinline__ void update_finish(const RSArgs& a, const SMKnobs& kn
                                               int B, float* partials,
                                               unsigned long long* block_keys, float* out,
                                               float* sigma_out, int* elites,
-                                              unsigned char* arena) {
+                                              unsigned char* arena, float* sums_out = nullptr) {
   constexpr int P = 4 * PL;
   constexpr int CH = P / 4;
   constexpr int ROW = P + 1;
@@ -312,6 +320,11 @@ __device__ __forceinline__ void update_finish(const RSArgs& a, const SMKnobs& kn
 #pragma unroll
     for (int u = 0; u < COLS; ++u)
       if (t + u * SM_COL_THREADS < ROW) sum_s[t + u * SM_COL_THREADS] = s[u];
+    if (sums_out != nullptr) {
+#pragma unroll
+      for (int u = 0; u < COLS; ++u)
+        if (t + u * SM_COL_THREADS < ROW) sums_out[t + u * SM_COL_THREADS] = s[u];
+    }
     group_sync<3, SM_COL_THREADS>();
 #pragma unroll
     for (int u = 0; u < PCOLS; ++u) {
@@ -426,7 +439,9 @@ __device__ __forceinline__ void update_finish(const RSArgs& a, const SMKnobs& kn
 
 // The update pass as one launch (K1b, K1c, K1e-mppi, K1e-cem): block b runs tile
 // b; argmin: the iteration's argmin key; ticket: its second scratch word, set to
-// all ones by the iteration's memset.
+// all ones by the iteration's memset. beta_in, if not nullptr, is the weights'
+// beta in place of the lowest cost of the argmin key (a sample-sharded solve
+// passes the lowest over every shard); sums_out as update_finish's.
 template <int PL>
 __global__ void __launch_bounds__(SM_UPDATE_THREADS, SM_UPDATE_MIN_BLOCKS)
 sm_update_kernel(const RSArgs a, const SMKnobs kn, const float* __restrict__ w_blk,
@@ -434,18 +449,20 @@ sm_update_kernel(const RSArgs a, const SMKnobs kn, const float* __restrict__ w_b
                  const float* __restrict__ costs, const unsigned long long* __restrict__ argmin,
                  unsigned long long* ticket, float* partials, unsigned long long* block_keys,
                  float* __restrict__ out, float* __restrict__ sigma_out,
-                 int* __restrict__ elites) {
+                 int* __restrict__ elites, const float* __restrict__ beta_in,
+                 float* __restrict__ sums_out) {
   extern __shared__ __align__(16) unsigned char arena[];
   float inc_r[(4 * PL + SM_COL_THREADS - 1) / SM_COL_THREADS];
   finish_incumbent<PL, Read::ReadOnly>(incumbent, inc_r);
   const unsigned long long best_key = *argmin;
-  update_tile<PL, Read::ReadOnly>(a, kn, noise, costs,
-                                  __uint_as_float((unsigned int)(best_key >> 32)), blockIdx.x,
-                                  partials, block_keys, arena);
+  const float beta =
+      beta_in != nullptr ? __ldg(beta_in) : __uint_as_float((unsigned int)(best_key >> 32));
+  update_tile<PL, Read::ReadOnly>(a, kn, noise, costs, beta, blockIdx.x, partials, block_keys,
+                                  arena);
   if (!last_ticket(ticket, gridDim.x)) return;
   __threadfence();
   update_finish<PL, Read::ReadOnly>(a, kn, w_blk, inc_r, noise, best_key, gridDim.x, partials,
-                                    block_keys, out, sigma_out, elites, arena);
+                                    block_keys, out, sigma_out, elites, arena, sums_out);
 }
 
 // Above 48 KB dynamic shared memory needs an opt-in, given once for the most the
@@ -480,19 +497,21 @@ static int update_blocks_per_sm(int cem, int n_elite, int num_samples) {
 
 // The update pass's launch, for K1b/K1c and K1e. argmin points at two words, the
 // argmin key and the ticket, both reset by the iteration's memset; noise is the
-// (P, N) noise the rollout pass read or wrote.
+// (P, N) noise the rollout pass read or wrote; beta_in and sums_out as
+// sm_update_kernel's (nullptr: the iteration's own beta, no sums).
 template <int PL>
 static cudaError_t launch_update(const RSArgs& a, const SMKnobs& kn, const float* w_blk,
                                  const float* incumbent, const float* noise, const float* costs,
                                  unsigned long long* argmin, float* partials,
                                  unsigned long long* block_keys, float* out, float* sigma_out,
-                                 int* elites, cudaStream_t stream) {
+                                 int* elites, cudaStream_t stream,
+                                 const float* beta_in = nullptr, float* sums_out = nullptr) {
   cudaError_t err = update_opt_in<PL>();
   if (err != cudaSuccess) return err;
   const int blocks = (a.num_samples + RS_BLOCK - 1) / RS_BLOCK;
   const int smem = sm_update_smem(4 * PL, kn.cem, kn.n_elite, blocks);
   sm_update_kernel<PL><<<blocks, SM_UPDATE_THREADS, smem, stream>>>(
       a, kn, w_blk, incumbent, noise, costs, argmin, argmin + 1, partials, block_keys, out,
-      sigma_out, elites);
+      sigma_out, elites, beta_in, sums_out);
   return cudaGetLastError();
 }

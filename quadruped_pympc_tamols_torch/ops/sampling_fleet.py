@@ -32,6 +32,9 @@ at each replay) or raises; on CPU tensors it runs
 ``controllers/sampling/rollout.py`` and each scenario's argmin, softmax and
 elites), with each scenario's noise from ``cpu_generator(seed, offset)``. There
 is no fallback from one to the other, nor from one layout to the other.
+
+For a sample-sharded fleet (``parallel/sharded.py``) K1f takes the plan's
+``draw_col0``, as K1a-K1c do: sample 0 of every scenario draws noise.
 """
 from __future__ import annotations
 
@@ -252,7 +255,8 @@ def sample_noise(plan: rs.RSPlan, knobs, seeds, offsets, sigma=None) -> torch.Te
             out.append(rs.sample_noise_reference(plan, gen))
         else:
             out.append(sm.sample_noise_reference(plan.num_parameters, plan.num_samples, knobs,
-                                                 gen, None if sigma is None else sigma[s]))
+                                                 gen, None if sigma is None else sigma[s],
+                                                 plan.draw_col0))
     return torch.stack(out)
 
 

@@ -72,7 +72,8 @@ class RSArgs(ctypes.Structure):
                 ("state", ctypes.c_float * 12), ("feet", ctypes.c_float * 12),
                 ("ref", ctypes.c_float * 12),
                 ("contact", ctypes.c_float * (_HMAX * 4)),
-                ("share", ctypes.c_float * (_HMAX * 4))]
+                ("share", ctypes.c_float * (_HMAX * 4)),
+                ("draw_col0", ctypes.c_int)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +94,9 @@ class RSPlan:
     zmp_weight: float  # ZMP-band cost (plain version only; the kernel refuses > 0)
     zmp_margin: float
     args_template: bytes  # RSArgs with every constant filled, per-tick fields zero
+    # Sample 0 draws noise as the others do instead of being the incumbent: the
+    # shards of a sample-sharded solve after the first (``with_drawn_column0``).
+    draw_col0: bool = False
 
     @property
     def num_parameters(self) -> int:
@@ -157,6 +161,18 @@ def make_rs_plan(cfg: Config, num_samples: int, device) -> RSPlan:
                   dts=cfg.mpc.dts(), q_diag=q_diag,
                   srbd=make_params(cfg, device=device), fm=fm, zmp_weight=sp.zmp_weight,
                   zmp_margin=sp.zmp_margin, args_template=bytes(a))
+
+
+def with_drawn_column0(plan: RSPlan) -> RSPlan:
+    """``plan`` with sample 0 drawing noise instead of being the incumbent: the
+    kernels' ``RSArgs::draw_col0`` and the plain noise's column 0. Random sampling
+    draws it from N(0, sigma2), MPPI and CEM-MPPI as their other samples, as the
+    JAX package's sharded solver does on every shard but the first
+    (``parallel/sharded.py:58-73``), so that the shards do not each add a copy of
+    the incumbent."""
+    a = RSArgs.from_buffer_copy(plan.args_template)
+    a.draw_col0 = 1
+    return dataclasses.replace(plan, draw_col0=True, args_template=bytes(a))
 
 
 def padded_params_per_leg(P_leg: int) -> int:
@@ -240,8 +256,8 @@ def band_edges(num_samples: int) -> tuple:
 
 def sample_noise_reference(plan: RSPlan, generator: torch.Generator) -> torch.Tensor:
     """(P, N) three-band exploration noise on the CPU (reference
-    centroidal_nmpc_jax.py:644-677); the kernel draws the same distribution
-    from Philox."""
+    centroidal_nmpc_jax.py:644-677), column 0 zero or, with ``plan.draw_col0``,
+    N(0, sigma2); the kernel draws the same distribution from Philox."""
     P, N = plan.num_parameters, plan.num_samples
     s1, s2, s3 = plan.sigma_random
     b1, b2 = band_edges(N)
@@ -249,6 +265,8 @@ def sample_noise_reference(plan: RSPlan, generator: torch.Generator) -> torch.Te
     noise[:, 1:b1] = s1 * torch.randn(P, b1 - 1, generator=generator)
     noise[:, b1:b2] = s2 * torch.randn(P, b2 - b1, generator=generator)
     noise[:, b2:] = (2.0 * torch.rand(P, N - b2, generator=generator) - 1.0) * s3
+    if plan.draw_col0:
+        noise[:, 0] = s2 * torch.randn(P, generator=generator)
     return noise
 
 

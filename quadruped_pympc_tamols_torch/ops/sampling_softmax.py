@@ -27,7 +27,13 @@ K1a/K1b/K1c launches; each chained solve adds one to
 counts. One iteration stays a K1a/K1b/K1c launch.
 
 The wrapper ``softmax_iteration`` runs K1b or K1c as ``knobs.method`` says and
-counts each launch in ``softmax_iteration.launches[knobs.method]``. On CUDA
+counts each launch in ``softmax_iteration.launches[knobs.method]``. For a
+sample-sharded solve (``parallel/sharded.py``) it takes ``merge_beta``: the C
+entry then runs the rollout pass, the wrapper hands the shard's lowest cost to
+``merge_beta`` (an all-reduce over the shards) and the update pass weighs the
+samples by the beta it returns and hands back the unnormalized sums [S, Z] for
+the next all-reduce; with the plan's ``draw_col0`` (``sampling_kernel.
+with_drawn_column0``) sample 0 draws noise instead of being the incumbent. On CUDA
 tensors the wrappers launch their kernel or raise; on CPU tensors they run the
 plain version (``softmax_iteration_reference``, and for K1d the same loop over the
 plain single iterations), with noise from ``cpu_generator(seed, offset)``. There
@@ -48,6 +54,8 @@ from . import build
 from . import sampling_kernel as rs
 
 BLOCK = 64  # samples per block of the update pass (RS_BLOCK): sizes the partials and keys
+PHASE_ROLLOUT, PHASE_UPDATE = 1, 2  # SM_PHASE_*: the phases of an iteration a C entry runs
+BOTH_PHASES = PHASE_ROLLOUT | PHASE_UPDATE
 MAX_ELITE = 32  # SM_KMAX
 METHODS = ("random_sampling", "mppi", "cem_mppi")  # the chain kernel's method codes 0, 1, 2
 
@@ -117,6 +125,13 @@ class SoftmaxResult(NamedTuple):
     next_state: torch.Tensor  # (12,) one-step Euler state under them
 
 
+def softmax_sums(costs, noise, beta, temperature: float):
+    """The unnormalized sums (S (P,), Z) of w = exp(-(c - beta)/T): S = noise @ w,
+    Z = sum(w), for a caller that merges them over the shards of a solve."""
+    w = torch.exp(-(costs - beta) / temperature)
+    return noise @ w, torch.sum(w)
+
+
 def mppi_update(costs, noise, incumbent, temperature: float):
     """(beta, incumbent + noise @ w) with w the normalized softmax weights
     exp(-(c - beta)/T) (JAX ``sampling_mpc.py:166-170``)."""
@@ -140,12 +155,22 @@ def cem_refit(noise, elites, sigma_min: float, sigma_max: float):
 
 
 def softmax_combine_reference(costs, noise, incumbent, W, state12, feet, contact_seq, share,
-                              dts, srbd: SRBDParams, fm: ForceModelParams,
-                              knobs: Knobs) -> SoftmaxResult:
+                              dts, srbd: SRBDParams, fm: ForceModelParams, knobs: Knobs,
+                              beta=None, sums=None) -> SoftmaxResult:
     """The optimizer step of an MPPI / CEM-MPPI iteration on given costs (N,): the
     softmax update, for CEM the elites and the refit, and the step-0 GRFs and
-    one-step state of the new parameters."""
-    beta, new_params = mppi_update(costs, noise, incumbent, knobs.temperature)
+    one-step state of the new parameters. With ``beta`` (a sharded solve's merged
+    lowest cost) the weights are exp(-(c - beta)/T), the new parameters incumbent
+    + S / Z as the kernel's finish forms them, and ``sums`` (P + 1), if given,
+    receives [S, Z]; the result's beta stays the lowest of ``costs``."""
+    if beta is None:
+        beta, new_params = mppi_update(costs, noise, incumbent, knobs.temperature)
+    else:
+        S, Z = softmax_sums(costs, noise, beta, knobs.temperature)
+        new_params = incumbent + S / Z
+        beta = torch.min(costs)
+        if sums is not None:
+            sums.copy_(torch.cat([S, Z.reshape(1)]))
     sigma = elites = None
     if knobs.cem:
         elites = cem_elites(costs, knobs.n_elite)
@@ -174,27 +199,32 @@ def softmax_iteration_reference(noise, incumbent, W, state12, feet, ref12, conta
 
 
 def sample_noise_reference(num_parameters: int, num_samples: int, knobs: Knobs,
-                           generator: torch.Generator, sigma=None) -> torch.Tensor:
+                           generator: torch.Generator, sigma=None,
+                           draw_col0: bool = False) -> torch.Tensor:
     """(P, N) MPPI / CEM exploration noise on the CPU, column 0 zero (reference
-    centroidal_nmpc_jax.py:804-812, :951-958); the kernels draw the same
-    distribution from Philox."""
+    centroidal_nmpc_jax.py:804-812, :951-958) or, with ``draw_col0``, drawn as
+    the others; the kernels draw the same distribution from Philox."""
     P, N = num_parameters, num_samples
-    if knobs.cem:
-        z = torch.randn(P, N - 1, generator=generator) * sigma.cpu()[:, None]
-    else:
-        z = knobs.sigma_mppi * torch.randn(P, N - 1, generator=generator)
-    return torch.cat([torch.zeros(P, 1), z], dim=1)
+    scale = sigma.cpu()[:, None] if knobs.cem else knobs.sigma_mppi
+    z = torch.randn(P, N - 1, generator=generator) * scale
+    col0 = torch.randn(P, 1, generator=generator) * scale if draw_col0 else torch.zeros(P, 1)
+    return torch.cat([col0, z], dim=1)
 
 
-def _plain(plan, knobs, tick, incumbent, sigma, seed, offset, noise_in, noise_out):
+def _plain(plan, knobs, tick, incumbent, sigma, seed, offset, noise_in, noise_out,
+           merge_beta=None, sums=None):
     noise = noise_in if noise_in is not None else sample_noise_reference(
-        plan.num_parameters, plan.num_samples, knobs, rs.cpu_generator(seed, offset), sigma)
+        plan.num_parameters, plan.num_samples, knobs, rs.cpu_generator(seed, offset), sigma,
+        plan.draw_col0)
     if noise_out is not None:
         noise_out.copy_(noise)
     state12, feet, ref12, contact, share = rs.tick_tensors(tick, incumbent.device)
-    res = softmax_iteration_reference(noise, incumbent, plan.W, state12, feet, ref12, contact,
-                                      share, plan.dts, plan.q_diag, plan.srbd, plan.fm, knobs,
-                                      plan.zmp_weight, plan.zmp_margin)
+    costs = rs.rollout_costs_reference(incumbent[:, None] + noise, plan.W, state12, feet, ref12,
+                                       contact, share, plan.dts, plan.q_diag, plan.srbd, plan.fm,
+                                       plan.zmp_weight, plan.zmp_margin)
+    beta = None if merge_beta is None else merge_beta(torch.min(costs).reshape(1))[0]
+    res = softmax_combine_reference(costs, noise, incumbent, plan.W, state12, feet, contact,
+                                    share, plan.dts, plan.srbd, plan.fm, knobs, beta, sums)
     out = rs.pack_result(res.beta, res.grfs, res.next_state, res.best_index, res.new_params)
     return res.costs, out, res.sigma, res.elites
 
@@ -213,8 +243,10 @@ def load_library(horizon: int, params_per_leg: int) -> ctypes.CDLL:
         lib = build.load("sampling_softmax", horizon, params_per_leg)
         rs.int_getters(lib, ("sm_args_size", "sm_knobs_size", "sm_block", "sm_rollout_samples",
                              "sm_max_elite", "sm_horizon", "sm_params_per_leg",
-                             "sm_padded_params_per_leg"))
+                             "sm_padded_params_per_leg", "sm_phase_rollout", "sm_phase_update"))
         if (lib.sm_args_size() != ctypes.sizeof(rs.RSArgs)
+                or (lib.sm_phase_rollout(), lib.sm_phase_update()) != (PHASE_ROLLOUT,
+                                                                        PHASE_UPDATE)
                 or lib.sm_knobs_size() != ctypes.sizeof(SMKnobs)
                 or lib.sm_block() != BLOCK or lib.sm_rollout_samples() != rs.ROLLOUT_SAMPLES
                 or lib.sm_max_elite() != MAX_ELITE
@@ -227,7 +259,8 @@ def load_library(horizon: int, params_per_leg: int) -> ctypes.CDLL:
         lib.sm_update_blocks_per_sm.argtypes = [ctypes.c_int] * 3
         lib.sm_launch.restype = ctypes.c_int
         lib.sm_launch.argtypes = ([ctypes.POINTER(rs.RSArgs), ctypes.POINTER(SMKnobs),
-                                   ctypes.c_int] + [ctypes.c_void_p] * 13)
+                                   ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int]
+                                  + [ctypes.c_void_p] * 3)
         _LIBS[key] = lib
     return _LIBS[key]
 
@@ -292,9 +325,11 @@ def scratch_pointers(ws: Workspace, num_samples: int, knobs) -> tuple:
 
 
 def launch(lib, args: rs.RSArgs, kn: SMKnobs, plan: rs.RSPlan, ws: Workspace, incumbent, sigma,
-           noise_in=None, noise_out=None, stream=None) -> None:
+           noise_in=None, noise_out=None, stream=None, phases: int = BOTH_PHASES,
+           beta_in=None, sums_out=None) -> None:
     """One K1b/K1c iteration through the C entry, into ``ws``; raises on a refused
-    launch. ``stream`` is the CUDA stream handle (the current stream if None)."""
+    launch. ``stream`` is the CUDA stream handle (the current stream if None);
+    ``phases``, ``beta_in`` (1,) and ``sums_out`` (P + 1,) as the C entry's."""
     def ptr(x):
         return None if x is None else x.data_ptr()
 
@@ -307,17 +342,25 @@ def launch(lib, args: rs.RSArgs, kn: SMKnobs, plan: rs.RSPlan, ws: Workspace, in
                        plan.W_blocks.data_ptr(), incumbent.data_ptr(),
                        ptr(sigma) if kn.cem else None, ptr(noise_in), ptr(noise_out),
                        ws.costs.data_ptr(), argmin, partials, keys, ws.out.data_ptr(),
-                       ptr(ws.sigma), ptr(ws.elites), stream)
+                       ptr(ws.sigma), ptr(ws.elites), phases, ptr(beta_in), ptr(sums_out),
+                       stream)
     if rc != 0:
         msg = ("unsupported shape, knob or alignment" if rc < 0
                else lib.sm_error_string(rc).decode())
         raise RuntimeError(f"sampling_softmax launch failed ({rc}): {msg}")
 
 
+def key_cost(keys: torch.Tensor) -> torch.Tensor:
+    """The costs (float32) in the high words of argmin keys (int64, cost bits << 32 |
+    index), on the keys' device."""
+    return (keys >> 32).to(torch.int32).view(torch.float32)
+
+
 def softmax_iteration(plan: rs.RSPlan, knobs: Knobs, tick: rs.TickInputs,
                       incumbent: torch.Tensor, sigma: torch.Tensor | None, seed: int, offset: int,
                       noise_in: torch.Tensor | None = None,
-                      noise_out: torch.Tensor | None = None):
+                      noise_out: torch.Tensor | None = None, merge_beta=None,
+                      sums: torch.Tensor | None = None):
     """One MPPI or CEM-MPPI iteration around ``incumbent`` (kernel K1b, or K1c when
     ``knobs.cem``, on CUDA); ``sigma`` (P,) is CEM's per-parameter sigma and is
     not read by MPPI.
@@ -329,11 +372,19 @@ def softmax_iteration(plan: rs.RSPlan, knobs: Knobs, tick: rs.TickInputs,
     ``elites`` the elite indices; for MPPI they are the given ``sigma`` and None.
     ``noise_in`` (P, N) replaces the generated noise; ``noise_out`` (P, N)
     receives the noise used. A CUDA launch adds one to
-    ``softmax_iteration.launches[knobs.method]``."""
+    ``softmax_iteration.launches[knobs.method]``.
+
+    ``merge_beta`` (a sample-sharded solve) maps this iteration's lowest cost, a
+    (1,) tensor on its device, to the beta of the weights, a (1,) float32 tensor
+    there (the lowest over every shard); ``sums`` (P + 1,) then receives the
+    unnormalized [S, Z] of those weights, and ``out``'s new parameters are
+    incumbent + S / Z of this shard alone."""
     P, N = plan.num_parameters, plan.num_samples
+    if sums is not None and merge_beta is None:
+        raise ValueError("sums is handed back only with merge_beta")
     if incumbent.device.type == "cpu":
         costs, out, new_sigma, elites = _plain(plan, knobs, tick, incumbent, sigma, seed, offset,
-                                               noise_in, noise_out)
+                                               noise_in, noise_out, merge_beta, sums)
         return costs, out, new_sigma if knobs.cem else sigma, elites
     if incumbent.device.type != "cuda":
         raise ValueError(f"unsupported device {incumbent.device}")
@@ -344,10 +395,20 @@ def softmax_iteration(plan: rs.RSPlan, knobs: Knobs, tick: rs.TickInputs,
     for name, x in (("noise_in", noise_in), ("noise_out", noise_out)):
         if x is not None:
             rs.check_cuda(name, x, (P, N))
+    if sums is not None:
+        rs.check_cuda("sums", sums, (P + 1,))
     ws = workspace(plan, knobs, incumbent.device)
-    launch(load_library(plan.horizon, plan.params_per_leg),
-           rs.kernel_args(plan, tick, seed, offset), knobs.struct(), plan, ws,
-           incumbent, sigma, noise_in, noise_out)
+    lib = load_library(plan.horizon, plan.params_per_leg)
+    args, kn = rs.kernel_args(plan, tick, seed, offset), knobs.struct()
+    if merge_beta is None:
+        launch(lib, args, kn, plan, ws, incumbent, sigma, noise_in, noise_out)
+    else:
+        launch(lib, args, kn, plan, ws, incumbent, sigma, noise_in, noise_out,
+               phases=PHASE_ROLLOUT)
+        beta = merge_beta(key_cost(ws.scratch[0:1]))
+        rs.check_cuda("merge_beta's beta", beta, (1,))
+        launch(lib, args, kn, plan, ws, incumbent, sigma, noise_in, noise_out,
+               phases=PHASE_UPDATE, beta_in=beta, sums_out=sums)
     softmax_iteration.launches[knobs.method] += 1
     return ws.costs, ws.out, ws.sigma if knobs.cem else sigma, ws.elites
 

@@ -1,11 +1,20 @@
-"""The on-device scenario fleet (counterpart of the JAX package's ``parallel``).
+"""The on-device scenario fleet and the multi-device tier (counterpart of the JAX
+package's ``parallel``).
 
-``scenario_engine`` is ported. The JAX package's sample-axis sharded solver and
-multi-chip fleet step (``parallel/sharded.py``, ``parallel/multihost.py``) are
-not yet: ``make_sharded_sampling_solver``, ``make_multichip_step`` and
-``scenario_mesh`` raise NotImplementedError naming the ROADMAP item that ports
-them.
+``scenario_engine``: S closed loops a tick on one device (K1f). ``sharded``: the
+sample-sharded solver and the multi-chip fleet step over a ("scenario",
+"sample") mesh of ranks on torch.distributed. ``multihost``: the same mesh over
+hosts, its process group and its local launcher.
 """
+from .multihost import (
+    find_free_port,
+    init_multihost,
+    launch_local_multihost,
+    make_multihost_fleet,
+    multihost_mesh,
+    run_fleet,
+    scaling_table,
+)
 from .scenario_engine import (
     METRICS,
     ScenarioState,
@@ -14,28 +23,11 @@ from .scenario_engine import (
     make_terrain_adapter,
     make_terrain_generator,
 )
-
-_NEXT_SLICE = ("is not ported yet: parallel/sharded.py and parallel/multihost.py on "
-               "torch.distributed are ROADMAP queue 1 item 5")
-
-
-def make_sharded_sampling_solver(*args, **kwargs):
-    """Not ported yet (ROADMAP queue 1 item 5)."""
-    raise NotImplementedError(f"make_sharded_sampling_solver {_NEXT_SLICE}")
-
-
-def make_multichip_step(*args, **kwargs):
-    """Not ported yet (ROADMAP queue 1 item 5)."""
-    raise NotImplementedError(f"make_multichip_step {_NEXT_SLICE}")
-
-
-def scenario_mesh(*args, **kwargs):
-    """Not ported yet (ROADMAP queue 1 item 5)."""
-    raise NotImplementedError(f"scenario_mesh {_NEXT_SLICE}")
-
+from .sharded import Mesh, make_multichip_step, make_sharded_sampling_solver, scenario_mesh
 
 __all__ = [
     "METRICS",
+    "Mesh",
     "ScenarioState",
     "make_scenario_step",
     "init_scenario_state",
@@ -44,4 +36,11 @@ __all__ = [
     "make_sharded_sampling_solver",
     "make_multichip_step",
     "scenario_mesh",
+    "find_free_port",
+    "init_multihost",
+    "launch_local_multihost",
+    "make_multihost_fleet",
+    "multihost_mesh",
+    "run_fleet",
+    "scaling_table",
 ]

@@ -14,7 +14,8 @@ part of the capture key. The outputs are the graph's static tensors, overwritten
 by the next replay. The inputs are saved before the warm-up runs and restored
 after them, so that a function that updates its inputs in place (the scenario
 fleet's tick) advances nothing at its capture and once at each replay. A failed
-capture raises; nothing falls back to eager mode.
+capture raises; nothing falls back to eager mode, and the device's default
+random generator is left as it was (``_release_generator``).
 
 Kernel wrappers count their launches with ``count_launch``. A launch made while a
 graph is being captured runs at each replay, not at the capture: the capture
@@ -29,6 +30,16 @@ import torch
 WARMUP = 3  # eager runs on a side stream before a capture
 
 _recording: list | None = None  # (counter, key) launches of the capture in progress
+
+
+def _release_generator(device: torch.device) -> None:
+    """Give ``device``'s default CUDA generator a fresh state with its seed and
+    offset. A capture registers the generator and marks it as capturing, and torch
+    clears the mark only when the capture ends cleanly: after a failed capture
+    every later draw on the device would raise."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    gen = torch.cuda.default_generators[index]
+    gen.graphsafe_set_state(gen.clone_state())
 
 
 def count_launch(counter: dict, key) -> None:
@@ -100,6 +111,9 @@ class GraphedFunction:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 out = self.fn(*static_in)
             launches = _recording
+        except BaseException:
+            _release_generator(self.device)
+            raise
         finally:
             _recording = outer
             if collecting:

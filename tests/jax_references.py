@@ -29,6 +29,7 @@ RECORDERS = (
     ("nominal_loop", "test_torch_gradient_loop:jax_closed_loop"),
     ("ladders", "test_torch_variants:jax_ladders"),
     ("kinodynamic_run", "test_torch_variants_loop:jax_kinodynamic_run"),
+    ("parallel", "test_torch_parallel:jax_parallel_references"),
 )
 _CACHE: dict = {}
 

@@ -158,3 +158,5 @@ def test_failed_capture_raises_and_never_runs_eagerly(cfg):
         with pytest.raises(RuntimeError):
             fn(x)
     assert fn.captures == 0 and fn.replays == 0
+    # The failed capture leaves the device's random generator usable.
+    assert torch.randn(4, device="cuda").isfinite().all()

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from quadruped_pympc_tamols_torch import make_config
+from quadruped_pympc_tamols_torch import Legs, make_config
 
 torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -126,12 +126,16 @@ def test_gradient_entry_points_need_cuda_unless_cpu_is_asked():
 
 
 def test_fleet_entry_points_need_cuda_unless_cpu_is_asked():
-    """The scenario fleet's entry points refuse to run on the CPU unless asked, and
-    the JAX package's sharded and multi-chip fleet, not ported yet, raise
-    NotImplementedError naming the ROADMAP item that ports them."""
+    """The scenario fleet's, the sharded solver's, the multi-chip fleet's and the
+    runtime's entry points refuse to run on the CPU unless asked, and build when
+    asked; the mesh refuses a world smaller than itself, as the JAX package's
+    refuses too few devices. The mesh and the sharded entry points run on a
+    one-rank gloo group made here."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    from quadruped_pympc_tamols_torch import parallel
+    import torch.distributed as dist
+
+    from quadruped_pympc_tamols_torch import parallel, runtime
     from quadruped_pympc_tamols_torch.controllers.sampling import make_fleet_sampling_solver
 
     cfg = make_config("aliengo", **{"mpc.sampling.num_samples": 32})
@@ -144,9 +148,27 @@ def test_fleet_entry_points_need_cuda_unless_cpu_is_asked():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             entry()
         assert entry(device="cpu") is not None
-    for name in ("make_sharded_sampling_solver", "make_multichip_step", "scenario_mesh"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            getattr(parallel, name)(cfg)
+    parallel.init_multihost(f"127.0.0.1:{parallel.find_free_port()}", 1, 0, device="cpu")
+    try:
+        with pytest.raises(ValueError, match="need 2 ranks"):
+            parallel.scenario_mesh(1, 2)
+        mesh = parallel.scenario_mesh(1, 1)
+        assert mesh.member and mesh.shape == {"scenario": 1, "sample": 1}
+        for entry in (lambda **d: parallel.make_sharded_sampling_solver(cfg, mesh, 32, **d),
+                      lambda **d: parallel.make_multichip_step(cfg, mesh, 2, 32, **d)):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                entry()
+            assert entry(device="cpu") is not None
+    finally:
+        dist.destroy_process_group()
+    feet = Legs(np.asarray([[0.25, 0.15, 0.0], [0.25, -0.15, 0.0], [-0.25, 0.15, 0.0],
+                            [-0.25, -0.15, 0.0]]))
+    for entry in (lambda **d: runtime.ControllerNode(cfg, feet, **d),
+                  lambda **d: runtime.ControllerBridge(cfg, runtime.LocalTransport(), **d)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
+        node = entry(device="cpu")
+        node.shutdown()
 
 
 def test_importing_the_port_needs_no_mujoco():
