@@ -225,6 +225,30 @@ to 0 just before it and read just after):
      ms (median, p99), solves a second; the control bus's write -> read latency.
      Phases 28-30 print the "parallel:" and "runtime:" JSON lines and add their
      launches to the kernels line's K1a-K1c and K1f rows.
+ 31. The ZMP-band cost (weight 500) on every kernel at N = 10 000, P = 96, on a trot
+     with the base 5 cm off the diagonals: K1a, K1b, K1c, K1d (MPPI x 3 and CEM x 3,
+     bit-equal to single iterations), K1e (each method) and K1f (each method, both
+     layouts, 4 scenarios) against their plain versions, and the band each adds (its
+     costs less its costs at weight 0) against the plain band sample by sample; at
+     weight 0 every kernel's outputs bit-equal to its outputs at weight 0 with a
+     margin every ZMP point lies outside (``OFF_MARGIN``); the rollout pass's device
+     us with the band and without. (That no bit moved from the parent commit at
+     weight 0 is ``tools/cost_digest.py PARENT_TREE THIS_TREE``'s to show.)
+ 32. The stone-field entry's sampling knobs (the band at 500, equilibrium_share,
+     random sampling) walking the SRB harness 3 s at 0.3 m/s at N = 2 000 and
+     10 000, blind on flat ground and with TAMOLS over the 5 cm step, K1a once an
+     MPC tick, each beside the JAX package's walk on the CPU (``JAX_CPU_ZMP_WALKS``).
+ 33. The pair grid ``PAIR_GRID`` ((8, cubic, 2), (16, cubic, 3), (24, cubic, 4),
+     (12, linear, 4), (24, zero-order)) built cold together (each pair's seconds);
+     at each pair K1a-K1c at N = 10 000 against their plain versions with their
+     times, passes and bounds, and K1d, K1e and K1f at PAIR_N against theirs.
+ 34. CEM with K = 33, 100 and 1 000 of N = 10 000 on K1c, K1d, K1e-cem and K1f (three
+     layouts): elite sets equal to the plain selection's, sigma within tolerance,
+     the update pass's device us.
+ 35. ``gait.make_swing_ik_step`` on the card (one CUDA graph) against the CPU over 300
+     scripted steps, both generators; its host ms a call with the joints read back.
+     Phases 31-35 print the "last slice:" JSON line and add their figures to the
+     kernels line's rows.
 """
 from __future__ import annotations
 
@@ -342,7 +366,7 @@ def plain_on_device(plan, tick, incumbent, noise):
     from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
     t = sk.tick_tensors(tick, incumbent.device)
     return sk.sampling_iteration_reference(noise, incumbent, plan.W, *t, plan.dts, plan.q_diag,
-                                           plan.srbd, plan.fm)
+                                           plan.srbd, plan.fm, plan.zmp_weight, plan.zmp_margin)
 
 
 def check_against_plain(plan, tick, incumbent, noise, costs_k, out_k, label):
@@ -404,7 +428,8 @@ def check_softmax(plan, knobs, tick, inc, noise, costs_k, out_k, sigma_k, elites
 
     t = sk.tick_tensors(tick, inc.device)
     plain = sm.softmax_iteration_reference(noise, inc, plan.W, *t, plan.dts, plan.q_diag,
-                                           plan.srbd, plan.fm, knobs)
+                                           plan.srbd, plan.fm, knobs, plan.zmp_weight,
+                                           plan.zmp_margin)
     errs = {"cost": check_costs(costs_k, plain.costs, label)}
     ref = sm.softmax_combine_reference(costs_k, noise, inc, plan.W, t[0], t[1], t[3], t[4],
                                        plan.dts, plan.srbd, plan.fm, knobs)
@@ -418,15 +443,35 @@ def check_softmax(plan, knobs, tick, inc, noise, costs_k, out_k, sigma_k, elites
     errs["params_vs_fully_plain"] = gap(new_k, plain.new_params)
     tols = [("params", COMBINE_ATOL), ("grf", GRF_ATOL), ("state", STATE_ATOL)]
     if knobs.cem:
-        if elites_k.tolist() != ref.elites.tolist():
+        if not elites_match(knobs, elites_k, ref.elites):
             raise AssertionError(f"{label}: elites {elites_k.tolist()} vs {ref.elites.tolist()}")
         errs["sigma"] = gap(sigma_k, ref.sigma)
         errs["sigma_vs_fully_plain"] = gap(sigma_k, plain.sigma)
-        tols.append(("sigma", COMBINE_ATOL))
+        tols.append(("sigma", sigma_atol(knobs, ref.sigma)))
     for key, tol in tols:
         if not errs[key] <= tol:
             raise AssertionError(f"{label}: {key} error {errs[key]} > {tol}")
     return errs
+
+
+def elites_match(knobs, got, want) -> bool:
+    """The kernel's elites against the plain version's, which lists them in (cost,
+    index) order: the same list up to the key lists' LIST_ELITE, the same set
+    above it, which the kernels list in index order."""
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+    K = knobs.n_elite
+    got, want = got.long().reshape(-1, K).tolist(), want.long().reshape(-1, K).tolist()
+    return got == (want if K <= sm.LIST_ELITE else [sorted(w) for w in want])
+
+
+def sigma_atol(knobs, sigma) -> float:
+    """The refit sigma's tolerance: COMBINE_ATOL up to the key lists' 32 elites;
+    above them the refit sums up to 1000 squares in another order than
+    torch.var, so 1e-4 of sigma on top."""
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+    if knobs.n_elite <= sm.LIST_ELITE:
+        return COMBINE_ATOL
+    return COMBINE_ATOL + 1e-4 * float(sigma.abs().max())
 
 
 def time_cuda(fn, runs=TIMED_RUNS, warmup=10) -> float:
@@ -514,12 +559,12 @@ def median_host_ms(call, n) -> float:
 # or nothing, is profiled again, up to PROFILE_WINDOWS windows in all. The
 # active step also receives, now and then, the last device records of the
 # warm-up step (a window of 20 nominal ticks held 21 copies and ~760 kernels
-# more than 20 ticks launch; such a copy starts 50.0-51.0 ms before the
-# profiled call, a pad earlier, tools/profiler_records.py): ``window_rows``
+# more than 20 ticks launch; such a copy started 50.0-51.0 ms before the
+# profiled call, a pad of 50 ms earlier, tools/profiler_records.py): ``window_rows``
 # keeps only the records of the profiled call, so a lost record never adds one
 # and a count above what the check allows fails at once.
 PROFILE_WINDOWS = 5
-PROFILE_PAD_S = 0.05
+PROFILE_PAD_S = 0.2  # see window_rows
 PROFILED_CALL = "chip_smoke profiled call"
 
 
@@ -553,7 +598,9 @@ def window_rows(prof):
     of the call's host range: the warm-up step's records, which the active step
     receives now and then, start a whole pad or more before it, and the call's
     own device records have started up to ~6 ms past the end of its host range
-    (once up to ~40 ms on both sides: records left out then count as lost)."""
+    (once up to ~40 ms on both sides: records left out then count as lost). With a
+    pad of 50 ms a warm-up step's copy once started inside that margin and counted
+    as the call's, hence the pad of 200 ms."""
     from torch.autograd import DeviceType
 
     events = prof.events()
@@ -1231,7 +1278,8 @@ def check_groups(gplan, knobs, tick, groups, inc, noise, res, label) -> dict:
     t = sk.tick_tensors(tick, dev)
     g = [torch.as_tensor(x, device=dev) for x in (groups.contact, groups.share, groups.offsets)]
     plain = sg.group_costs_reference(inc[:, None] + noise, groups.dense(dev), *g, t[0], t[1],
-                                     t[2], p.dts, p.q_diag, p.srbd, p.fm)
+                                     t[2], p.dts, p.q_diag, p.srbd, p.fm, p.zmp_weight,
+                                     p.zmp_margin)
     errs = {"cost": check_costs(costs_k, plain, label)}
     k = int(out_k[25])
     if k != int(torch.argmin(costs_k)) or float(out_k[0]) != float(costs_k[k]):
@@ -1251,11 +1299,11 @@ def check_groups(gplan, knobs, tick, groups, inc, noise, res, label) -> dict:
                     state=gap(out_k[13:25], ref.next_state))
         tols = [("params", COMBINE_ATOL), ("grf", GRF_ATOL), ("state", STATE_ATOL)]
         if knobs.cem:
-            if elites_k.tolist() != ref.elites.tolist():
+            if not elites_match(knobs, elites_k, ref.elites):
                 raise AssertionError(f"{label}: elites {elites_k.tolist()} vs "
                                      f"{ref.elites.tolist()}")
             errs["sigma"] = gap(sigma_k, ref.sigma)
-            tols.append(("sigma", COMBINE_ATOL))
+            tols.append(("sigma", sigma_atol(knobs, ref.sigma)))
     for key, tol in tols:
         if not errs[key] <= tol:
             raise AssertionError(f"{label}: {key} error {errs[key]} > {tol}")
@@ -2465,7 +2513,7 @@ JAX_CPU_VARIANT_WALKS = {"input_rates": (0.7821, 0.3308, 0.0313, 0.3343),
                          "foothold": (0.9034, 0.3485, 0.0086, 0.3491),
                          "ddp": (0.8914, 0.3473, 0.0082, 0.3481),
                          "static_crawl": (0.3218, 0.3417, 0.1730, 0.3473)}
-VARIANT_ENSEMBLE = 2  # seeded perturbations of each QP in phase 22 (b)
+VARIANT_ENSEMBLE = 1  # seeded perturbations of each QP in phase 22 (b)
 VARIANT_PERTURB = 3e-7  # relative, on the Hessian: the card's and the CPU's assembly differ so
 RICCATI_SHAPES = ((16, 4, 2), (12, 12, 12), (64, 6, 3))  # tests/test_parallel_riccati.py:31-41
 LEGS4 = ("FL", "FR", "RL", "RR")
@@ -2863,10 +2911,10 @@ def fleet_check(plan, knobs, tick, inc, sigma, noise, res, label) -> dict:
     tols = [("grf", GRF_ATOL), ("state", STATE_ATOL),
             ("params", PARAM_ATOL if knobs.method == "random_sampling" else COMBINE_ATOL)]
     if knobs.cem:
-        if elites_k.long().tolist() != ref.elites.tolist():
+        if not elites_match(knobs, elites_k, ref.elites):
             raise AssertionError(f"{label}: elites differ from the plain step's")
         errs["sigma"] = gap(sigma_k, ref.sigma)
-        tols.append(("sigma", COMBINE_ATOL))
+        tols.append(("sigma", sigma_atol(knobs, ref.sigma)))
     for key, tol in tols:
         if not errs[key] <= tol:
             raise AssertionError(f"{label}: {key} error {errs[key]} > {tol}")
@@ -3765,6 +3813,589 @@ def phase_nodes() -> dict:
     return out
 
 
+# -- phases 31-35: the ZMP band, the pair grid, CEM above the key lists, swing-IK -------
+
+ZMP_WEIGHT = 500.0  # the stone-field entry's (tests/test_closed_loop_walking.py:554)
+ZMP_KNOBS = {"mpc.sampling.zmp_weight": ZMP_WEIGHT, "mpc.sampling.equilibrium_share": True}
+# Phase 31's second weight-0 run: a margin that every ZMP point lies outside, so
+# that the band, were any of it computed and kept, would move every two-stance cost.
+OFF_MARGIN = -1.0
+# The JAX package's SRB walks with the stone-field knobs on the CPU, 3 s at 0.3 m/s:
+# (samples, strategy, terrain) -> (distance, min z, max |roll|,|pitch|);
+# `python tests/test_torch_sampling_cases.py` (phase 32 prints them beside the card's).
+JAX_CPU_ZMP_WALKS = {(2000, "blind", "flat"): (0.95, 0.3423, 0.0512),
+                     (2000, "tamols", "step"): (0.8978, 0.3428, 0.1148),
+                     (10_000, "blind", "flat"): (0.874, 0.3341, 0.0866),
+                     (10_000, "tamols", "step"): (0.9064, 0.3314, 0.1189)}
+# Phase 33's (horizon, splines) pairs: name -> (parametrization, H, splines).
+PAIR_GRID = {"8-cubic-2": ("cubic_spline", 8, 2), "16-cubic-3": ("cubic_spline", 16, 3),
+             "24-cubic-4": ("cubic_spline", 24, 4), "12-linear-4": ("linear_spline", 12, 4),
+             "24-zero_order": ("zero_order", 24, 2)}
+PAIR_N = 2000  # samples of phase 33's K1d, K1e and K1f checks (K1a-K1c at N_MAIN)
+LARGE_ELITES = (33, 100, 1000)  # phase 34's CEM elite counts
+SWING_STEPS = 300  # phase 35's scripted control steps
+# Per sample and step, the band's operations: the ZMP point (~6) and six segment
+# distances (~25 each with the clip and the square root).
+ZMP_FLOPS_PER_STEP = 160
+# Phase 31's band tolerance a sample: absolute, and relative to the sample's cost.
+BAND_ATOL, BAND_RTOL = 1e-3, 2e-6
+
+
+def zmp_tick(cfg, H):
+    """Phase 31's solve: a trot (the diagonals stand in turn two steps each, a
+    four-stance step between) with the base 5 cm off the diagonals' crossing, so
+    that the two-stance ZMP leaves the band's margin."""
+    from quadruped_pympc_tamols_torch.controllers.sampling.rollout import gravity_share
+    from quadruped_pympc_tamols_torch.ops.sampling_kernel import TickInputs
+    import torch
+
+    seq = np.ones((4, H), np.float32)
+    for n in range(H):
+        if n % 5 in (1, 2):
+            seq[[1, 2], n] = 0.0
+        elif n % 5 in (3, 4):
+            seq[[0, 3], n] = 0.0
+    state12 = np.zeros(12, np.float32)
+    state12[1:5] = 0.05, cfg.sim.ref_z - 0.03, 0.2, 0.05
+    ref12 = np.zeros(12, np.float32)
+    ref12[1:4] = 0.05, cfg.sim.ref_z, 0.3
+    feet = np.array([[0.27, 0.16, 0], [0.27, -0.16, 0], [-0.25, 0.16, 0.05], [-0.25, -0.16, 0]],
+                    np.float32)
+    share = gravity_share(torch.from_numpy(seq), cfg.robot.mass)[:, None].expand(H, 4).numpy()
+    return TickInputs(state12, feet, ref12, seq, np.ascontiguousarray(share))
+
+
+def fleet_of(tick, S, rng, dev):
+    """The single tick as S scenarios, each state and foot nudged by 1 cm."""
+    import torch
+    from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+
+    return fl.FleetTick(
+        t(np.repeat(tick.state12[None], S, 0) + 0.01 * rng.standard_normal((S, 12))),
+        t(np.repeat(tick.feet[None], S, 0) + 0.01 * rng.standard_normal((S, 4, 3))),
+        t(np.repeat(tick.ref12[None], S, 0)), t(np.repeat(tick.contact_seq[None], S, 0)),
+        t(np.repeat(tick.share[None], S, 0)))
+
+
+def band_of(costs, costs0, plain, plain0, label) -> dict:
+    """The band as a kernel adds it (its costs at ZMP_WEIGHT less its costs at
+    weight 0 on the same noise) against the plain version's band: each sample's
+    to BAND_ATOL plus BAND_RTOL of that sample's plain cost (a few float32
+    rounding steps of its running sum); the mean of those errors within a tenth of
+    the mean tolerance (rounding of either sign averages out, a term off or left
+    out does not); and the kernel's own band above 1e-3 on at least a hundredth of
+    the samples. Returns its figures, each error beside its tolerance."""
+    band, band_p = (costs - costs0).double().flatten(), (plain - plain0).double().flatten()
+    gap = band - band_p
+    tol = BAND_ATOL + BAND_RTOL * plain.double().abs().flatten()
+    worst = int((gap.abs() / tol).argmax())
+    r = {"band_worst_err": float(gap[worst]), "band_worst_tol": float(tol[worst]),
+         "band_max_abs_err": float(gap.abs().max()), "band_mean_err": float(gap.mean()),
+         "band_mean_tol": 0.1 * float(tol.mean()),
+         "band_active_share": float((band > 1e-3).double().mean()),
+         "band_active_share_plain": float((band_p > 1e-3).double().mean()),
+         "band_max": float(band_p.max()), "band_mean": float(band_p.mean())}
+    if not abs(r["band_worst_err"]) <= r["band_worst_tol"]:
+        raise AssertionError(f"{label}: sample {worst}'s band is {r['band_worst_err']} off the "
+                             f"plain one's (> {r['band_worst_tol']})")
+    if not abs(r["band_mean_err"]) <= r["band_mean_tol"]:
+        raise AssertionError(f"{label}: the band's mean error {r['band_mean_err']} exceeds "
+                             f"{r['band_mean_tol']}")
+    if not r["band_active_share"] >= max(1, band.numel() // 100) / band.numel():
+        raise AssertionError(f"{label}: the kernel's band moved a share "
+                             f"{r['band_active_share']} of the costs")
+    return r
+
+
+def off_bits(a, b, label) -> None:
+    """Raise unless the outputs a and b (tuples of tensors or None) are bit-equal."""
+    import torch
+    for x, y in zip(a, b, strict=True):
+        if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+            raise AssertionError(f"{label}: the outputs at weight 0 depend on the band's margin")
+
+
+def k1a_pass_us(plan, tick, inc, dev, passes=("rollout",)) -> dict:
+    """K1a's passes through its C entry with the argument block built once."""
+    import torch
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+
+    lib = sk.load_library(plan.horizon, plan.params_per_leg)
+    args = sk.kernel_args(plan, tick, 5, 0)
+    costs_t = torch.empty(plan.num_samples, device=dev)
+    out_t = torch.empty(sk.OUT_WINNER + plan.num_parameters, device=dev)
+    argmin_t = torch.empty(1, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        rc = lib.rs_launch(sk.ctypes.byref(args), plan.params_per_leg, plan.W_blocks.data_ptr(),
+                           inc.data_ptr(), None, None, costs_t.data_ptr(), argmin_t.data_ptr(),
+                           out_t.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"rs_launch returned {rc}")
+
+    return {"ms": time_cuda(launch), "passes": pass_profile(launch, 1, passes)}
+
+
+def phase_zmp(dev, rng) -> dict:
+    """Phase 31: every kernel with the ZMP band at weight 500 on the trot tick at
+    N = 10 000 (P = 96) against its plain version, the band each adds against the
+    plain band; K1d's chain bit-equal to its single iterations; every kernel's
+    outputs at weight 0 bit-equal to its outputs at weight 0 with OFF_MARGIN (the
+    band's inputs reach nothing where it is off); the rollout pass's device us with
+    the band and without."""
+    import torch
+    from quadruped_pympc_tamols_torch.controllers.sampling import group_operators
+    from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
+    from quadruped_pympc_tamols_torch.ops import sampling_groups as sg
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+
+    cfgs = {w: main_cfg(**{"mpc.sampling.zmp_weight": w}) for w in (ZMP_WEIGHT, 0.0)}
+    cfgs["off"] = main_cfg(**{"mpc.sampling.zmp_weight": 0.0,
+                              "mpc.sampling.zmp_margin": OFF_MARGIN})
+    plans = {w: sk.make_rs_plan(c, N_MAIN, dev) for w, c in cfgs.items()}
+    plan, plan0 = plans[ZMP_WEIGHT], plans[0.0]
+    tick = zmp_tick(cfgs[0.0], plan.horizon)
+    P = plan.num_parameters
+    inc = torch.as_tensor(rng.standard_normal(P).astype(np.float32), device=dev)
+    sigma = torch.as_tensor(rng.uniform(0.3, 4.0, P).astype(np.float32), device=dev)
+    t = sk.tick_tensors(tick, dev)
+    out = {}
+
+    def plain_costs(p, noise):
+        return sk.rollout_costs_reference(inc[:, None] + noise, p.W, *t, p.dts, p.q_diag, p.srbd,
+                                          p.fm, p.zmp_weight, p.zmp_margin)
+
+    # K1a, K1b, K1c on numpy noise.
+    noise_rs = torch.as_tensor(numpy_noise(plan, rng), device=dev)
+    res = [sk.sampling_rs(p, tick, inc, 0, 0, noise_in=noise_rs) for p in plans.values()]
+    torch.cuda.synchronize()
+    off_bits(res[1], res[2], "phase 31 K1a")
+    errs, _ = check_against_plain(plan, tick, inc, noise_rs, *res[0], "phase 31 K1a")
+    out["K1a"] = {**errs, **band_of(res[0][0], res[1][0], plain_costs(plan, noise_rs),
+                                    plain_costs(plan0, noise_rs), "phase 31 K1a")}
+    for method, short in (("mppi", "K1b"), ("cem_mppi", "K1c")):
+        knobs = sm.make_knobs(cfgs[0.0], method)
+        z = rng.standard_normal((P, N_MAIN)).astype(np.float32)
+        noise = torch.as_tensor(z, device=dev) * (sigma[:, None] if knobs.cem
+                                                  else knobs.sigma_mppi)
+        noise[:, 0] = 0.0
+        res = [sm.softmax_iteration(p, knobs, tick, inc, sigma, 0, 0, noise_in=noise)
+               for p in plans.values()]
+        torch.cuda.synchronize()
+        off_bits(res[1], res[2], f"phase 31 {short}")
+        errs = check_softmax(plan, knobs, tick, inc, noise, *res[0], f"phase 31 {short}")
+        out[short] = {**errs, **band_of(res[0][0], res[1][0], plain_costs(plan, noise),
+                                        plain_costs(plan0, noise), f"phase 31 {short}")}
+    # K1d, MPPI x 3 and CEM x 3: the chain bit-equal to single iterations, the first
+    # of which is held against the plain version on the noise it drew.
+    for method, short in (("mppi", "K1d"), ("cem_mppi", "K1d_cem")):
+        knobs = sm.make_knobs(cfgs[0.0], method)
+        chains = {w: sm.sampling_chain(p, knobs, tick, inc, sigma, 7, 3, 3)
+                  for w, p in plans.items()}
+        dump = torch.empty(P, N_MAIN, device=dev)
+        x, s = inc, sigma
+        singles = []
+        for it in range(3):
+            r = sm.softmax_iteration(plan, knobs, tick, x, s, 7, 3 + it,
+                                     noise_out=dump if it == 0 else None)
+            if it == 0:
+                torch.cuda.synchronize()
+                errs = check_softmax(plan, knobs, tick, inc, dump, *r, f"phase 31 {short}")
+                first_plain = plain_costs(plan, dump)
+                first_plain0 = plain_costs(plan0, dump)
+            singles.append(tuple(None if y is None else y.clone() for y in r))
+            x, s = r[1][sk.OUT_WINNER:], r[2]
+        torch.cuda.synchronize()
+        off_bits([x for r in chains[0.0] for x in r], [x for r in chains["off"] for x in r],
+                 f"phase 31 {short}")
+        for a, b in zip(chains[ZMP_WEIGHT], singles):
+            if not (torch.equal(a.costs, b[0]) and torch.equal(a.out, b[1])
+                    and (not knobs.cem or torch.equal(a.sigma, b[2]))):
+                raise AssertionError(f"phase 31 {short}: the chain differs from its single "
+                                     "iterations")
+        out[short] = {**errs, **band_of(chains[ZMP_WEIGHT][0].costs, chains[0.0][0].costs,
+                                        first_plain, first_plain0, f"phase 31 {short}")}
+    # K1e, each method, on numpy noise (each group's own contact columns).
+    gcfgs = {w: gait_cfg("random_sampling", **{"mpc.sampling.zmp_weight": w})
+             for w in (ZMP_WEIGHT, 0.0)}
+    gcfgs["off"] = gait_cfg("random_sampling", **{"mpc.sampling.zmp_weight": 0.0,
+                                                  "mpc.sampling.zmp_margin": OFF_MARGIN})
+    gplans = {w: sg.make_group_plan(c, N_MAIN, dev) for w, c in gcfgs.items()}
+    groups = group_operators(gcfgs[0.0], GAIT_PHASE, np.asarray(GAIT_FREQS, np.float32))
+    g = [torch.as_tensor(x, device=dev) for x in (groups.contact, groups.share, groups.offsets)]
+    n = gplans[0.0].num_used
+    for method, short in (("random_sampling", "K1e-rs"), ("mppi", "K1e-mppi"),
+                          ("cem_mppi", "K1e-cem")):
+        knobs = sm.make_knobs(gcfgs[0.0], method)
+        noise = torch.as_tensor(rng.standard_normal((P, n)).astype(np.float32), device=dev)
+        noise = noise * (sigma[:, None] if knobs.cem else 3.0)
+        noise[:, 0] = 0.0
+        res = {w: sg.sampling_groups(gp, knobs, tick, groups, inc, sigma, 0, 0, noise_in=noise)
+               for w, gp in gplans.items()}
+        torch.cuda.synchronize()
+        off_bits(res[0.0], res["off"], f"phase 31 {short}")
+        errs = check_groups(gplans[ZMP_WEIGHT], knobs, tick, groups, inc, noise,
+                            res[ZMP_WEIGHT], f"phase 31 {short}")
+        plain = {w: sg.group_costs_reference(inc[:, None] + noise, groups.dense(dev), *g, t[0],
+                                             t[1], t[2], gp.base.dts, gp.base.q_diag,
+                                             gp.base.srbd, gp.base.fm, gp.base.zmp_weight,
+                                             gp.base.zmp_margin)
+                 for w, gp in gplans.items() if w != "off"}
+        out[short] = {**errs, **band_of(res[ZMP_WEIGHT][0], res[0.0][0], plain[ZMP_WEIGHT],
+                                        plain[0.0], f"phase 31 {short}")}
+    # K1f, both layouts, four scenarios of 10 000 on numpy noise.
+    S = 4
+    ftick = fleet_of(tick, S, rng, dev)
+    finc = inc.repeat(S, 1)
+    fsig = sigma.repeat(S, 1)
+    seeds = torch.arange(S, dtype=torch.int64, device=dev) + 11
+    offsets = torch.zeros(S, dtype=torch.int64, device=dev)
+    for method, short in (("random_sampling", "K1f-rs"), ("mppi", "K1f-mppi"),
+                          ("cem_mppi", "K1f-cem")):
+        knobs = sm.make_knobs(cfgs[0.0], method)
+        noise = fleet_noise(plan, knobs, S, rng, dev)
+        if knobs.cem:
+            noise = noise * fsig[:, :, None]
+        for layout, tag in ((fl.FOUR_LANE, ""), (fl.WIDE, "-wide")):
+            res = {w: fleet_run(p, knobs, ftick, finc, fsig, seeds, offsets, layout, noise)[:4]
+                   for w, p in plans.items()}
+            off_bits(res[0.0], res["off"], f"phase 31 {short}{tag}")
+            errs = fleet_check(plan, knobs, ftick, finc, fsig, noise, res[ZMP_WEIGHT],
+                               f"phase 31 {short}{tag}")
+            plain = {w: fl.fleet_iteration_reference(p, knobs, ftick, finc, fsig, noise).costs
+                     for w, p in plans.items() if w != "off"}
+            out[short + tag] = {**errs, **band_of(res[ZMP_WEIGHT][0], res[0.0][0],
+                                                   plain[ZMP_WEIGHT], plain[0.0],
+                                                   f"phase 31 {short}{tag}")}
+    for short, r in out.items():
+        log(f"phase 31 {short}: ok; weight 0 bit-equal at margin {OFF_MARGIN}; against the "
+            f"plain version with the band {r}")
+    # The rollout pass with the band and without (K1a's C entry, the same inputs).
+    times = {w: k1a_pass_us(plans[w], tick, inc, dev) for w in (ZMP_WEIGHT, 0.0)}
+    flops = iteration_flops(plan, basis_nnz(plan.W_blocks)) * N_MAIN
+    bound = bound_ms(flops + N_MAIN * plan.horizon * ZMP_FLOPS_PER_STEP, 4 * (
+        plan.horizon * 12 * plan.params_per_leg + P + N_MAIN + 26 + P))
+    r = {"rollout_us_band": times[ZMP_WEIGHT]["passes"]["rollout"][1],
+         "rollout_us_no_band": times[0.0]["passes"]["rollout"][1],
+         "k1a_ms_band": times[ZMP_WEIGHT]["ms"], "k1a_ms_no_band": times[0.0]["ms"],
+         "plain_ms_band": time_cuda(lambda: plain_on_device(plan, tick, inc, noise_rs), runs=20),
+         "bound_ms_band": bound[0], "bound_by": bound[1], "kernels": out}
+    log(f"phase 31: the rollout pass {r['rollout_us_band']:.2f} us with the band, "
+        f"{r['rollout_us_no_band']:.2f} us without (torch.profiler, mean of 50); K1a "
+        f"{r['k1a_ms_band']:.4f} / {r['k1a_ms_no_band']:.4f} ms; plain version with the band "
+        f"{r['plain_ms_band']:.4f} ms; bound with the band {bound[0]:.5f} ms ({bound[1]})")
+    return r
+
+
+def zmp_walk(num_samples, strategy, terrain) -> dict:
+    """Phase 32: the stone-field entry's sampling knobs (the ZMP band at 500,
+    equilibrium_share, random sampling) walking the SRB harness on the card for
+    WALK_S at WALK_VEL, blind or with TAMOLS sensing as phase 17 does; the launch
+    counts zeroed just before and read just after (K1a once an MPC tick)."""
+    import torch
+    from quadruped_pympc_tamols_torch.planner import heightmap_from_fn
+    from quadruped_pympc_tamols_torch.sim import SRBClosedLoopHarness
+
+    label = f"phase 32 N={num_samples} {strategy} {terrain}"
+    cfg = main_cfg(**{**ZMP_KNOBS, "mpc.sampling.num_samples": num_samples,
+                      "sim.visual_foothold_adaptation": strategy})
+    fn = TAMOLS_WALKS.get((strategy, terrain), flat)
+    h = SRBClosedLoopHarness(cfg, seed=0, terrain_fn=fn, device="cuda")
+    tp = cfg.tamols
+    n = int(round(WALK_S / cfg.sim.dt))
+    hist = np.zeros((n, 12))
+    reset_counts()
+    t0 = time.perf_counter()
+    for i in range(n):
+        hms = None
+        if h.wb.vfa is not None and not h.wb.vfa.initialized:
+            ref = np.asarray(h.wb.frg.last_reference_footholds.data)
+            hms = heightmap_from_fn(fn, ref[:, :2], np.full(4, h.x[8]), tp.heightmap_resolution,
+                                    tp.heightmap_rows, tp.heightmap_cols, device="cuda")
+        hist[i] = h.step(WALK_VEL, heightmaps=hms)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    ticks = n // h._mpc_every
+    dist, min_z, tilt, dz = walk_band(label, cfg, hist)
+    check_counts(label, counts, counts_of(K1a=1), ticks)
+    jax_row = JAX_CPU_ZMP_WALKS.get((num_samples, strategy, terrain), "not measured")
+    log(f"{label}: ok; walked {dist:.4f} m, min z {min_z:.4f} m, max |roll|,|pitch| "
+        f"{tilt:.4f} rad; JAX package on the CPU (distance, min z, max tilt): {jax_row}; "
+        f"K1a {counts['K1a']} launches for {ticks} ticks; {wall / WALK_S:.3f} s wall per "
+        "simulated s")
+    return {"walked_m": dist, "min_z_m": min_z, "max_tilt_rad": tilt, "mean_z_minus_ref_m": dz,
+            "launches": counts["K1a"], "ticks": ticks, "harness_s_per_sim_s": wall / WALK_S,
+            "jax_cpu": jax_row}
+
+
+def phase_zmp_walks() -> dict:
+    return {f"N={n} {s} {t}": zmp_walk(n, s, t) for n, s, t in JAX_CPU_ZMP_WALKS}
+
+
+def pair_cfg(name, **over):
+    par, H, splines = PAIR_GRID[name]
+    return main_cfg(par, **{"mpc.horizon": H, "mpc.sampling.num_splines": splines, **over})
+
+
+def phase_pairs(dev, rng) -> dict:
+    """Phase 33: the pair grid's libraries built cold, all together (each pair's
+    seconds are its slowest nvcc process's); at each pair K1a, K1b and K1c at
+    N = 10 000 against their plain versions with their times, passes and bounds,
+    and K1d (MPPI x 3 and CEM x 3, bit-equal to single iterations), K1e (each
+    method) and K1f (each method, both layouts, 2 scenarios) at PAIR_N against
+    theirs."""
+    import torch
+    from quadruped_pympc_tamols_torch.controllers.sampling import group_operators
+    from quadruped_pympc_tamols_torch.ops import build
+    from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
+    from quadruped_pympc_tamols_torch.ops import sampling_groups as sg
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+
+    pairs = {}
+    for name in PAIR_GRID:
+        p = sk.make_rs_plan(pair_cfg(name), 1, "cpu")
+        pairs[name] = (p.horizon, p.params_per_leg)
+    t0 = time.perf_counter()
+    build.build_all(tuple(pairs.values()))
+    total = time.perf_counter() - t0
+    build_s = {pair: max(build.nvcc_seconds(name, *pair) or 0.0 for name in build.SOURCES)
+               for pair in pairs.values()}
+    log(f"phase 33: the grid's {len(pairs) * len(build.SOURCES)} libraries built cold together "
+        f"in {total:.1f} s; slowest nvcc a pair {build_s}")
+    out = {}
+    for name, pair in pairs.items():
+        cfg = pair_cfg(name)
+        plan = sk.make_rs_plan(cfg, N_MAIN, dev)
+        tick = zmp_tick(cfg, plan.horizon)
+        P = plan.num_parameters
+        inc = torch.as_tensor(rng.standard_normal(P).astype(np.float32), device=dev)
+        sigma = torch.as_tensor(rng.uniform(0.3, 4.0, P).astype(np.float32), device=dev)
+        r = {"horizon": pair[0], "params_per_leg": pair[1], "P": P,
+             "build_s": build_s[pair]}
+        noise = torch.as_tensor(numpy_noise(plan, rng), device=dev)
+        res = sk.sampling_rs(plan, tick, inc, 0, 0, noise_in=noise)
+        torch.cuda.synchronize()
+        r["K1a"], _ = check_against_plain(plan, tick, inc, noise, *res, f"phase 33 {name} K1a")
+        k1a = k1a_pass_us(plan, tick, inc, dev, ("rollout", "extract"))
+        r["K1a"].update(ms=k1a["ms"], passes=k1a["passes"], bound_ms=k1a_bound_ms(plan)[0],
+                        bound_by=k1a_bound_ms(plan)[1],
+                        plain_ms=time_cuda(lambda: plain_on_device(plan, tick, inc, noise),
+                                           runs=20))
+        for method, short in (("mppi", "K1b"), ("cem_mppi", "K1c")):
+            knobs = sm.make_knobs(cfg, method)
+            z = torch.as_tensor(rng.standard_normal((P, N_MAIN)).astype(np.float32), device=dev)
+            z = z * (sigma[:, None] if knobs.cem else knobs.sigma_mppi)
+            z[:, 0] = 0.0
+
+            def call(knobs=knobs, z=z):
+                return sm.softmax_iteration(plan, knobs, tick, inc, sigma, 0, 0, noise_in=z)
+
+            res = call()
+            torch.cuda.synchronize()
+            e = check_softmax(plan, knobs, tick, inc, z, *res, f"phase 33 {name} {short}")
+            t_ = sk.tick_tensors(tick, dev)
+            b = softmax_bound_ms(plan, knobs)
+            e.update(ms=time_cuda(call), passes=pass_profile(call, 1, ("rollout", "update")),
+                     bound_ms=b[0], bound_by=b[1],
+                     plain_ms=time_cuda(lambda knobs=knobs, z=z: sm.softmax_iteration_reference(
+                         z, inc, plan.W, *t_, plan.dts, plan.q_diag, plan.srbd, plan.fm, knobs),
+                         runs=20))
+            r[short] = e
+        small = sk.make_rs_plan(cfg, PAIR_N, dev)
+        for method in ("mppi", "cem_mppi"):
+            knobs = sm.make_knobs(cfg, method)
+            chain = sm.sampling_chain(small, knobs, tick, inc, sigma, 7, 3, 3)
+            x, s = inc, sigma
+            for it, a in enumerate(chain):
+                b = sm.softmax_iteration(small, knobs, tick, x, s, 7, 3 + it)
+                torch.cuda.synchronize()
+                if not (torch.equal(a.costs, b[0]) and torch.equal(a.out, b[1])):
+                    raise AssertionError(f"phase 33 {name} K1d {method}: the chain differs "
+                                         "from its single iterations")
+                x, s = b[1][sk.OUT_WINNER:].clone(), b[2]
+        r["K1d"] = "bit-equal to single iterations (MPPI x 3, CEM x 3)"
+        gcfg = pair_cfg(name, **{"mpc.optimize_step_freq": True})
+        gplan = sg.make_group_plan(gcfg, PAIR_N, dev)
+        groups = group_operators(gcfg, GAIT_PHASE, np.asarray(gcfg.mpc.step_freq_available,
+                                                              np.float32))
+        for method in sm.METHODS:
+            knobs = sm.make_knobs(gcfg, method)
+            z = torch.as_tensor(rng.standard_normal((P, gplan.num_used)).astype(np.float32),
+                                device=dev) * (sigma[:, None] if knobs.cem else 3.0)
+            z[:, 0] = 0.0
+            res = sg.sampling_groups(gplan, knobs, tick, groups, inc, sigma, 0, 0, noise_in=z)
+            torch.cuda.synchronize()
+            r[f"K1e {method}"] = check_groups(gplan, knobs, tick, groups, inc, z, res,
+                                              f"phase 33 {name} K1e {method}")
+        S = 2
+        ftick = fleet_of(tick, S, rng, dev)
+        finc, fsig = inc.repeat(S, 1), sigma.repeat(S, 1)
+        seeds = torch.arange(S, dtype=torch.int64, device=dev) + 5
+        offsets = torch.zeros(S, dtype=torch.int64, device=dev)
+        for method in sm.METHODS:
+            knobs = sm.make_knobs(cfg, method)
+            z = fleet_noise(small, knobs, S, rng, dev)
+            if knobs.cem:
+                z = z * fsig[:, :, None]
+            for layout, tag in ((fl.FOUR_LANE, ""), (fl.WIDE, "-wide")):
+                res = fleet_run(small, knobs, ftick, finc, fsig, seeds, offsets, layout, z)[:4]
+                r[f"K1f {method}{tag}"] = fleet_check(small, knobs, ftick, finc, fsig, z, res,
+                                                      f"phase 33 {name} K1f {method}{tag}")
+        log(f"phase 33 {name} (H={pair[0]}, P_leg={pair[1]}, P={P}): ok; cold build "
+            f"{r['build_s']:.1f} s; K1a {r['K1a']['ms']:.4f} ms (rollout "
+            f"{r['K1a']['passes']['rollout'][1]:.2f} us, bound {r['K1a']['bound_ms']:.5f} ms, "
+            f"plain {r['K1a']['plain_ms']:.4f} ms); K1b {r['K1b']['ms']:.4f} ms (update "
+            f"{r['K1b']['passes']['update'][1]:.2f} us); K1c {r['K1c']['ms']:.4f} ms (update "
+            f"{r['K1c']['passes']['update'][1]:.2f} us); K1d, K1e and K1f against their plain "
+            "versions")
+        out[name] = r
+    return {"build_total_s": total, "pairs": out}
+
+
+def phase_large_k(dev, rng) -> dict:
+    """Phase 34: CEM with K = 33, 100 and 1000 of N = 10 000 on K1c, K1d (CEM x 3),
+    K1e-cem (three groups of 3333) and K1f (two scenarios, both layouts, and the
+    large-batch one drawing its noise again): costs against the plain rollout, the
+    elite set equal to the plain selection's on the kernel's own costs
+    (``elites_match``), sigma within its tolerance; the update pass's device us."""
+    import torch
+    from quadruped_pympc_tamols_torch.controllers.sampling import group_operators
+    from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
+    from quadruped_pympc_tamols_torch.ops import sampling_groups as sg
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+
+    out = {}
+    for K in LARGE_ELITES:
+        cfg = main_cfg(**{"mpc.sampling.method": "cem_mppi", "mpc.sampling.cem_elite": K})
+        plan = sk.make_rs_plan(cfg, N_MAIN, dev)
+        knobs = sm.make_knobs(cfg)
+        tick = example_tick(cfg, plan)
+        P = plan.num_parameters
+        inc = torch.as_tensor(rng.standard_normal(P).astype(np.float32), device=dev)
+        sigma = torch.as_tensor(rng.uniform(0.3, 4.0, P).astype(np.float32), device=dev)
+        z = torch.as_tensor(rng.standard_normal((P, N_MAIN)).astype(np.float32), device=dev)
+        z = z * sigma[:, None]
+        z[:, 0] = 0.0
+
+        def call(z=z, plan=plan, knobs=knobs, tick=tick, inc=inc, sigma=sigma):
+            return sm.softmax_iteration(plan, knobs, tick, inc, sigma, 0, 0, noise_in=z)
+
+        res = call()
+        torch.cuda.synchronize()
+        r = {"K1c": check_softmax(plan, knobs, tick, inc, z, *res, f"phase 34 K={K} K1c")}
+        t_ = sk.tick_tensors(tick, dev)
+        b = softmax_bound_ms(plan, knobs)
+        r["K1c"].update(passes=pass_profile(call, 1, ("rollout", "update")), ms=time_cuda(call),
+                        bound_ms=b[0], bound_by=b[1], plain_ms=time_cuda(
+                            lambda: sm.softmax_iteration_reference(
+                                z, inc, plan.W, *t_, plan.dts, plan.q_diag, plan.srbd, plan.fm,
+                                knobs), runs=20))
+        chain = sm.sampling_chain(plan, knobs, tick, inc, sigma, 7, 3, 3)
+        x, s = inc, sigma
+        for it, a in enumerate(chain):
+            b = sm.softmax_iteration(plan, knobs, tick, x, s, 7, 3 + it)
+            torch.cuda.synchronize()
+            if not (torch.equal(a.costs, b[0]) and torch.equal(a.out, b[1])
+                    and torch.equal(a.sigma, b[2]) and torch.equal(a.elites, b[3])):
+                raise AssertionError(f"phase 34 K={K} K1d: the chain differs from its single "
+                                     "iterations")
+            x, s = b[1][sk.OUT_WINNER:].clone(), b[2]
+        r["K1d"] = "bit-equal to three single iterations"
+        gcfg = gait_cfg("cem_mppi", **{"mpc.sampling.cem_elite": K})
+        gplan = sg.make_group_plan(gcfg, N_MAIN, dev)
+        groups = group_operators(gcfg, GAIT_PHASE, np.asarray(GAIT_FREQS, np.float32))
+        gz = z[:, :gplan.num_used].contiguous()
+        res = sg.sampling_groups(gplan, knobs, tick, groups, inc, sigma, 0, 0, noise_in=gz)
+        torch.cuda.synchronize()
+        r["K1e-cem"] = check_groups(gplan, knobs, tick, groups, inc, gz, res,
+                                    f"phase 34 K={K} K1e-cem")
+        S = 2
+        ftick = fleet_of(tick, S, rng, dev)
+        finc, fsig = inc.repeat(S, 1), sigma.repeat(S, 1)
+        seeds = torch.arange(S, dtype=torch.int64, device=dev) + 5
+        offsets = torch.zeros(S, dtype=torch.int64, device=dev)
+        fz = fleet_noise(plan, knobs, S, rng, dev) * fsig[:, :, None]
+        for layout, tag in ((fl.FOUR_LANE, "K1f-cem"), (fl.WIDE, "K1f-cem-wide")):
+            res = fleet_run(plan, knobs, ftick, finc, fsig, seeds, offsets, layout, fz)[:4]
+            r[tag] = fleet_check(plan, knobs, ftick, finc, fsig, fz, res, f"phase 34 K={K} {tag}")
+        res = fleet_run(plan, knobs, ftick, finc, fsig, seeds, offsets, fl.LARGE_BATCH,
+                        keep_noise=True)
+        r["K1f-cem-regen"] = fleet_check(plan, knobs, ftick, finc, fsig, res[5], res[:4],
+                                         f"phase 34 K={K} K1f-cem-regen")
+        log(f"phase 34 K={K}: ok; elite sets equal to the plain selection's on K1c, K1e-cem "
+            f"and K1f (three layouts), K1d bit-equal; sigma error K1c "
+            f"{r['K1c']['sigma']:.2e}; K1c {r['K1c']['ms']:.4f} ms, update pass "
+            f"{r['K1c']['passes']['update'][1]:.2f} us (torch.profiler), bound "
+            f"{r['K1c']['bound_ms']:.5f} ms, plain version {r['K1c']['plain_ms']:.4f} ms")
+        out[K] = r
+    return out
+
+
+def swing_script(k):
+    """Control step k's inputs of tests/test_torch_swing_ik.py:scripted."""
+    period = (0.35 + 0.01 * np.arange(4)).astype(np.float32)
+    t = np.mod(0.002 * k + np.array([0.0, 0.17, 0.17, 0.0]), period).astype(np.float32)
+    lift_off = np.array([[0.3, 0.15, 0.0], [0.3, -0.15, 0.01], [-0.2, 0.15, 0.0],
+                         [-0.2, -0.15, 0.02]], np.float32)
+    lift_off[:, 0] += np.float32(0.001 * k)
+    touch_down = (lift_off + [0.1, 0.0, 0.03]).astype(np.float32)
+    mask = (np.mod(k // 60 + np.arange(4), 2) == 0).astype(np.float32)
+    base = np.array([0.05 + 0.001 * k, 0.0, 0.33], np.float32)
+    rpy = np.array([0.02 * np.sin(0.05 * k), 0.03 * np.cos(0.03 * k), 0.01 * k], np.float32)
+    return (t, period, np.full(4, 0.08, np.float32), lift_off, touch_down, mask,
+            (lift_off + 0.01).astype(np.float32), base, rpy)
+
+
+def phase_swing_ik() -> dict:
+    """Phase 35: gait.make_swing_ik_step on the card (one CUDA graph a call) against
+    the same step on the CPU over SWING_STEPS scripted steps, both generators, to
+    float32 tolerance (positions 1e-6 m, velocities 1e-5, accelerations 1e-4,
+    joints 1e-5 rad, as tests/test_torch_swing_ik.py holds the CPU to JAX); its
+    host ms a call with the joints read back (the counterpart of BENCH_r05's
+    wb_swing_ik_tick_ms)."""
+    import torch
+    from quadruped_pympc_tamols_torch.gait import make_swing_ik_step
+
+    robot = main_cfg().robot
+    out = {}
+    for gen in ("bezier_ref", "explicit"):
+        card, cpu = make_swing_ik_step(robot, gen, "cuda"), make_swing_ik_step(robot, gen, "cpu")
+        worst = [0.0] * 4
+        for k in range(SWING_STEPS):
+            x = [torch.from_numpy(a) for a in swing_script(k)]
+            got = [y.cpu() for y in card(*x)]
+            want = cpu(*x)
+            for i, tol in enumerate((1e-6, 1e-5, 1e-4, 1e-5)):
+                err = float((got[i] - want[i]).abs().max())
+                worst[i] = max(worst[i], err)
+                if not err <= tol + 1e-5 * float(want[i].abs().max()):
+                    raise AssertionError(f"phase 35 {gen}: output {i} off the CPU by {err}")
+        inputs = [torch.from_numpy(a).pin_memory() for a in swing_script(7)]
+        ms = []
+        for k in range(SWING_STEPS):
+            t0 = time.perf_counter()
+            card(*inputs)[3].cpu()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        r = {"max_abs_err": dict(zip(("pos", "vel", "acc", "q"), worst)),
+             "host_ms_a_call": statistics.median(ms), "host_ms_p99": float(np.percentile(ms, 99)),
+             "captures": card.captures, "replays": card.replays}
+        if card.captures != 1:
+            raise AssertionError(f"phase 35 {gen}: {card.captures} captures")
+        log(f"phase 35 {gen}: ok; card against the CPU over {SWING_STEPS} steps {r['max_abs_err']};"
+            f" {r['host_ms_a_call']:.4f} ms host clock a call with the joints read back (median, "
+            f"p99 {r['host_ms_p99']:.4f}); one graph, {card.replays} replays")
+        out[gen] = r
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3798,14 +4429,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = build.build_all()
-    for H, P_leg in build.INSTANTIATIONS:
+    for H, P_leg in build.MAIN_PAIRS:
         sk.load_library(H, P_leg)
         sm.load_library(H, P_leg)
         sm.load_chain_library(H, P_leg)
         sg.load_library(H, P_leg)
         fl.load_library(H, P_leg)
     log(f"build: {len(libs)} libraries ({len(build.SOURCES)} sources x (H, P_leg) in "
-        f"{list(build.INSTANTIATIONS)}) in {time.perf_counter() - t0:.1f} s (one nvcc per "
+        f"{list(build.MAIN_PAIRS)}) in {time.perf_counter() - t0:.1f} s (one nvcc per "
         f"source and pair, started together)")
     for (name, H, P_leg), lib_path in libs.items():
         for line in lib_path.with_suffix(".log").read_text().splitlines():
@@ -3985,6 +4616,18 @@ def main() -> int:
     multichip = phase_multichip(fleet_tp)
     nodes = phase_nodes()
 
+    lap("phase 31")
+    # -- phases 31-35: the ZMP band, the pair grid, CEM above 32 elites, swing-IK -------
+    zmp = phase_zmp(dev, rng)
+    lap("phase 32")
+    zmp_walks = phase_zmp_walks()
+    lap("phase 33")
+    pair_grid = phase_pairs(dev, rng)
+    lap("phase 34")
+    large_k = phase_large_k(dev, rng)
+    lap("phase 35")
+    swing_ik = phase_swing_ik()
+
     def row(name, source, short, par, err, ms, plain, bound, passes, **extra):
         return {"name": f"{name} ({short}{PAR_SUFFIX[par]})", "route": "cuda",
                 "source": f"quadruped_pympc_tamols_torch/ops/csrc/{source}.cu",
@@ -4075,6 +4718,32 @@ def main() -> int:
             r["launches_node_inline"] = nodes["sampling inline"]["launches"]
         if short == "K1f-rs-wide":
             r["launches_multichip"] = sum(m["launches"] for k, m in multichip.items())
+        # Phases 31-34 on the main path's rows.
+        zkey = {"K1d": "K1d"}.get(short, short)
+        if zkey in zmp["kernels"]:
+            r["zmp_band"] = zmp["kernels"][zkey]
+        if short == "K1d":
+            r["zmp_band_cem_x3"] = zmp["kernels"]["K1d_cem"]
+        if short == "K1a":
+            r["zmp_rollout_us"] = {"band": zmp["rollout_us_band"],
+                                   "no_band": zmp["rollout_us_no_band"]}
+            r["zmp_bound_ms"] = zmp["bound_ms_band"]
+            r["zmp_plain_ms"] = zmp["plain_ms_band"]
+            r["launches_zmp_walks"] = {k: w["launches"] for k, w in zmp_walks.items()}
+        if short in ("K1a", "K1b", "K1c"):
+            r["pair_grid"] = {
+                name: {"ms": g[short]["ms"], "passes_us": {k: v[1] for k, v in
+                                                           g[short]["passes"].items()},
+                       "bound_ms": g[short]["bound_ms"], "plain_ms": g[short]["plain_ms"],
+                       "max_abs_err": g[short]["cost"], "build_s": g["build_s"]}
+                for name, g in pair_grid["pairs"].items()}
+        if short == "K1c":
+            r["large_k"] = {str(K): {"ms": v["K1c"]["ms"],
+                                     "update_us": v["K1c"]["passes"]["update"][1],
+                                     "bound_ms": v["K1c"]["bound_ms"],
+                                     "plain_ms": v["K1c"]["plain_ms"],
+                                     "sigma_max_abs_err": v["K1c"]["sigma"]}
+                            for K, v in large_k.items()}
     fleet = {"kernels": {m: {"errs": fleet_k[m]["errs"], "times": fleet_k[m]["times"]}
                          for m in sm.METHODS},
              "ptxas": fleet_k["ptxas"], "crossover": fleet_k["crossover"], "walks": fleet_walks,
@@ -4087,6 +4756,14 @@ def main() -> int:
     parallel = {"knobs": knob_errs, "sharded": sharded, "gloo": gloo, "multichip": multichip}
     log(f"parallel: {json.dumps(parallel)}")
     log(f"runtime: {json.dumps(nodes)}")
+    last = {"zmp": {k: v for k, v in zmp.items() if k != "kernels"}, "zmp_walks": zmp_walks,
+            "pair_build_s": {k: g["build_s"] for k, g in pair_grid["pairs"].items()},
+            "pair_build_total_s": pair_grid["build_total_s"],
+            "large_k": {str(K): {k: v[k] for k in ("K1c", "K1e-cem", "K1f-cem",
+                                                    "K1f-cem-wide", "K1f-cem-regen")}
+                        for K, v in large_k.items()},
+            "swing_ik": swing_ik}
+    log(f"last slice: {json.dumps(last, default=str)}")
     lap("the kernels line")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -259,8 +259,7 @@ class SamplingParams:
     # zmp_margin pay quadratically. Built for the stone-field regime where
     # mixed-height stances destabilized the sampling family (round-5 attempt
     # ladder, test_sampling_family_stone_field_entry). 0 = reference parity.
-    # The plain torch rollout honours it; the CUDA sampling kernel does not
-    # compute it yet, so a CUDA solver refuses a weight > 0.
+    # The plain torch rollout and every CUDA sampling kernel (K1a-K1f) compute it.
     zmp_weight: float = 0.0
     zmp_margin: float = 0.04
 

@@ -100,6 +100,13 @@ def sqp_iterations(gp) -> int:
     return max(1, gp.num_qp_iterations)
 
 
+def make_rti_solver(cfg: Config, integrator: str = "euler", device="cuda"):
+    """The one-shot RTI solve and the dims (JAX ``make_rti_solver``): ``(solve,
+    dims)`` of ``make_rti_solver_split``, whose docstring gives the arguments."""
+    solve, _, _, dims = make_rti_solver_split(cfg, integrator, device=device)
+    return solve, dims
+
+
 def make_rti_solver_split(cfg: Config, integrator: str = "euler",
                           return_assembler: bool = False, device="cuda"):
     """The RTI machinery as eager torch functions on ``device``: ``(solve, prepare,

@@ -18,10 +18,11 @@ Where the iterations run:
   tick's inputs ride each launch as its by-value argument block and the outputs
   stay on the card; the host copies back one 25-float summary [best cost, GRFs
   (12), predicted state (12)] per tick (``SamplingMPC`` starts that copy,
-  ``host_summary`` reads it). The kernels are built for cubic splines, linear
-  splines (2 splines each) and zero-order holds at horizon 12
-  (``ops/build.py:INSTANTIATIONS``); another (horizon, parameters per leg) pair
-  raises NotImplementedError, and so does the ZMP-band cost.
+  ``host_summary`` reads it). The kernels are built for a (horizon, parameters
+  per leg) pair the first time a solver asks for it (``ops/build.py``): any
+  parametrization up to horizon 24, beyond which ``build.check_pair`` raises
+  NotImplementedError naming the bound; they compute the ZMP-band cost
+  (``sampling.zmp_weight > 0``) and CEM with any elite count 2 <= K <= N.
 * CPU: the kernels' plain versions through the same wrappers, for all three
   methods and the ZMP-band cost.
 

@@ -10,10 +10,36 @@ torch twin ``contact_sequence_torch``.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from ..config import GAIT_PHASE_OFFSETS, GaitParams, GaitType, MPCParams
+
+
+@dataclasses.dataclass
+class GaitState:
+    """Per-leg phase signal in [0, 1): a (..., 4) tensor (batch dimensions allowed),
+    the counterpart of the JAX package's pytree of the same name."""
+
+    phase: torch.Tensor  # (..., 4)
+
+
+def advance_phase(phase, dt, step_freq):
+    """Advance the per-leg phase: (phase + dt*f) mod 1 (reference
+    periodic_gait_generator.py:53-56); a tensor for a tensor, else numpy."""
+    if isinstance(phase, torch.Tensor):
+        return torch.remainder(phase + dt * step_freq, 1.0)
+    f = np.asarray(step_freq, np.float32)
+    return np.mod(np.asarray(phase, np.float32) + np.float32(dt) * f, np.float32(1.0))
+
+
+def contact_from_phase(phase, duty_factor):
+    """Stance mask, float32: phase < duty (reference periodic_gait_generator.py:71-74)."""
+    if isinstance(phase, torch.Tensor):
+        return (phase < duty_factor).to(torch.float32)
+    return (np.asarray(phase) < duty_factor).astype(np.float32)
 
 
 def make_timer_dts(mpc: MPCParams) -> np.ndarray:

@@ -13,7 +13,9 @@ the reference's options (helpers/swing_trajectory_controller.py:15-23):
 
 The per-tick swing math is ~1k scalar flops, so it stays on the host for one
 robot. The scenario fleet evaluates its swing feet on the device with the float32
-twin ``bezier_swing_refs_torch``.
+twin ``bezier_swing_refs_torch``, and ``make_swing_ik_step`` fuses all four legs'
+references and the whole-body IK into one device function (one CUDA graph on the
+card), the counterpart of the JAX package's jitted step.
 """
 from __future__ import annotations
 
@@ -139,6 +141,73 @@ def explicit_swing_refs(swing_time, swing_period, step_height, lift_off, touch_d
     f = (t < half)[..., None]
     return (np.where(f, pu, pd), np.where(f, vu, vd) / half[..., None],
             np.where(f, au, ad) / (half * half)[..., None])
+
+
+def _cubic_bezier_torch(p0, pf, t):
+    """Cubic Bezier with zero end velocities: (pos, vel, acc) at t in [0, 1]."""
+    d = pf - p0
+    b = t * t * (3.0 - 2.0 * t)
+    db = 6.0 * t * (1.0 - t)
+    d2b = 6.0 - 12.0 * t
+    return p0 + d * b[..., None], d * db[..., None], d * d2b[..., None]
+
+
+def explicit_swing_refs_torch(swing_time, swing_period, step_height, lift_off, touch_down):
+    """``explicit_swing_refs`` on the device in float32, in the JAX package's order
+    of operations; arguments as ``bezier_swing_refs_torch``."""
+    half = swing_period / 2.0
+    apex = torch.cat([0.5 * (lift_off[..., :2] + touch_down[..., :2]),
+                      (torch.maximum(lift_off[..., 2], touch_down[..., 2])
+                       + step_height)[..., None]], dim=-1)
+    t = torch.minimum(torch.clamp(swing_time, min=0.0), torch.zeros_like(swing_time)
+                      + swing_period)
+    first = t < half
+    t1 = torch.clamp(t / half, 0.0, 1.0)
+    t2 = torch.clamp((t - half) / half, 0.0, 1.0)
+    p_up, v_up, a_up = _cubic_bezier_torch(lift_off, apex, t1)
+    p_dn, v_dn, a_dn = _cubic_bezier_torch(apex, touch_down, t2)
+    f = first[..., None]
+    half = (torch.zeros_like(t) + half)[..., None]
+    return (torch.where(f, p_up, p_dn), torch.where(f, v_up, v_dn) / half,
+            torch.where(f, a_up, a_dn) / (half * half))
+
+
+# The JAX package's names for its jitted references; here the device twins.
+bezier_swing_refs_jit = bezier_swing_refs_torch
+explicit_swing_refs_jit = explicit_swing_refs_torch
+
+
+def make_swing_ik_step(robot, generator: str = "bezier_ref", device="cuda"):
+    """One fused per-control-step function: all four legs' swing references and the
+    whole-body IK (JAX ``gait/swing.py:make_swing_ik_step``):
+
+        step(t, period, step_h, lift_off, touch_down, swing_mask, stance_des,
+             base_pos, base_rpy) -> (des_pos (4, 3), des_vel, des_acc, des_q (4, 3))
+
+    t, period, step_h and swing_mask (4,), lift_off, touch_down and stance_des
+    (4, 3), base_pos and base_rpy (3,), float32 tensors (host tensors are copied
+    in). Swing legs (mask 1) follow their reference, stance legs pass their
+    foothold through to the IK. On a CUDA ``device`` each call replays one CUDA
+    graph captured at the first call (``utils/graphs.GraphedFunction``; the
+    outputs are its static tensors, overwritten by the next call); on the CPU the
+    same function runs eagerly."""
+    from ..kinematics.leg_ik import LegKinematics
+    from ..utils.device import resolve_device
+    from ..utils.frames import euler_xyz_to_rot
+    from ..utils.graphs import GraphedFunction
+
+    kin = LegKinematics(robot)
+    refs = explicit_swing_refs_torch if generator == "explicit" else bezier_swing_refs_torch
+
+    def step(t, period, step_h, lift_off, touch_down, swing_mask, stance_des, base_pos,
+             base_rpy):
+        pos, vel, acc = refs(t, period, step_h, lift_off, touch_down)
+        m = swing_mask[:, None]
+        des_pos = m * pos + (1.0 - m) * stance_des
+        R = euler_xyz_to_rot(base_rpy)
+        return des_pos, m * vel, m * acc, kin.ik_world(des_pos, base_pos, R)
+
+    return GraphedFunction(step, resolve_device(device))
 
 
 def _powi(x, n):

@@ -36,6 +36,9 @@ def estimate_terrain_step(base_position, yaw, feet_pos, prev_roll, prev_pitch, p
     return float(new_roll), float(new_pitch), float(new_height)
 
 
+estimate_terrain = estimate_terrain_step  # the JAX package's name for it
+
+
 class TerrainEstimator:
     """Stateful wrapper mirroring the reference class."""
 

@@ -1,4 +1,5 @@
-"""Analytic 3-DoF quadruped leg kinematics (host numpy; the FK also in torch).
+"""Analytic 3-DoF quadruped leg kinematics (host numpy; the FK, the IK and the
+world-frame IK also in torch).
 
 Counterpart of ``quadruped_pympc_tamols_tpu/kinematics/leg_ik.py``. Leg model
 (hip frame, x forward, y left, z up; legs identical up to the side sign of the
@@ -6,7 +7,8 @@ abduction offset d):
     x = -l3 sin(q2) - l4 sin(q2 + q3)
     y = d cos(q1) + E sin(q1)
     z = d sin(q1) - E cos(q1),    E = l3 cos(q2) + l4 cos(q2 + q3).
-Per-tick IK is ~100 scalar flops per leg, so it stays on the host.
+Per-tick IK is ~100 scalar flops per leg, so the control loop keeps it on the
+host; ``gait.swing.make_swing_ik_step`` runs the torch path on the card.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from ..config import RobotParams
+from ..utils.device import device_constant
 from ..utils.float32 import F32, atan2f, cosf, fmaf, sinf
 from ..utils.frames import euler_xyz_to_rot_np
 
@@ -64,7 +67,12 @@ class LegKinematics:
 
     def ik(self, p, side_sign):
         """Foot position in the hip frame (..., 3) -> joint angles (..., 3), closed
-        form, with the target clamped to the reachable annulus."""
+        form, with the target clamped to the reachable annulus. A torch tensor
+        ``p`` (``side_sign`` a tensor on its device) takes the torch path in p's
+        dtype, in the JAX package's order of operations; anything else runs in
+        float64 numpy."""
+        if isinstance(p, torch.Tensor):
+            return self._ik_torch(p, side_sign)
         p = np.asarray(p, np.float64)
         d = self.d_abd * np.asarray(side_sign, np.float64)
         x, y, z = p[..., 0], p[..., 1], p[..., 2]
@@ -78,6 +86,23 @@ class LegKinematics:
         q3 = -np.arccos(np.clip(cos_knee, -1.0, 1.0))  # knee bends backward
         q2 = np.arctan2(-x, E) + np.arctan2(l4 * np.sin(-q3), l3 + l4 * np.cos(-q3))
         return np.clip(np.stack([q1, q2, q3], axis=-1), self.q_lo, self.q_hi)
+
+    def _ik_torch(self, p, side_sign):
+        d = self.d_abd * side_sign
+        x, y, z = p[..., 0], p[..., 1], p[..., 2]
+        l3, l4 = self.l3, self.l4
+        E2 = torch.clamp(y * y + z * z - d * d, min=1e-9)
+        E = torch.sqrt(E2)
+        q1 = torch.atan2(z, y) + torch.atan2(E, d * torch.ones_like(E))
+        q1 = torch.atan2(torch.sin(q1), torch.cos(q1))  # wrap to (-pi, pi]
+        r2 = torch.clamp(x * x + E2, (l3 - l4) ** 2 + 1e-9, (l3 + l4) ** 2 - 1e-9)
+        cos_knee = (r2 - l3 * l3 - l4 * l4) / (2 * l3 * l4)
+        q3 = -torch.arccos(torch.clamp(cos_knee, -1.0, 1.0))  # knee bends backward
+        q2 = (torch.atan2(-x, E)
+              + torch.atan2(l4 * torch.sin(-q3), l3 + l4 * torch.cos(-q3)))
+        q = torch.stack([q1, q2, q3], dim=-1)
+        return torch.minimum(torch.maximum(q, device_constant(self.q_lo, p.device)),
+                             device_constant(self.q_hi, p.device))
 
     def ik_all_f32(self, p_legs):
         """(4, 3) hip-frame targets -> (4, 3) float32 joints with the bits of the
@@ -134,11 +159,19 @@ class LegKinematics:
         return self.jacobian(q_legs, SIDE_SIGN)
 
     def hips_world(self, base_pos, R_b2w):
-        """(3,), (3, 3) -> (4, 3) hip positions in the world frame."""
+        """(3,), (3, 3) -> (4, 3) hip positions in the world frame (torch for torch
+        tensors)."""
+        if isinstance(R_b2w, torch.Tensor):
+            return base_pos + device_constant(self.hip_offsets_b, R_b2w.device) @ R_b2w.T
         return np.asarray(base_pos) + self.hip_offsets_b @ np.asarray(R_b2w).T
 
     def ik_world(self, feet_world, base_pos, R_b2w):
-        """World-frame foot targets (4, 3) -> joint angles (4, 3) for a rigid base pose."""
+        """World-frame foot targets (4, 3) -> joint angles (4, 3) for a rigid base pose
+        (torch for torch tensors)."""
+        if isinstance(R_b2w, torch.Tensor):
+            p_hip = torch.einsum("ij,lj->li", R_b2w.T, feet_world - self.hips_world(base_pos,
+                                                                                      R_b2w))
+            return self.ik(p_hip, device_constant(SIDE_SIGN, R_b2w.device))
         p_hip = (np.asarray(feet_world) - self.hips_world(base_pos, R_b2w)) @ np.asarray(R_b2w)
         return self.ik_all(p_hip)
 

@@ -80,8 +80,11 @@ chain_kernel(const RSArgs a, const SMKnobs kn, const ChainBuffers buf, int itera
   constexpr int P = 4 * PL;
   constexpr int OUT = RS_OUT_WINNER + P;
   static_assert(CHAIN_THREADS % ROLLOUT_THREADS == 0, "whole rollout tiles");
-  extern __shared__ __align__(16) unsigned char arena[];
-  __shared__ __align__(16) float w_s[H * 12 * padded_pl(PL)];
+  // The staged basis (basis_smem: the start of the dynamic shared memory for the
+  // largest pairs), then the update pass's arena.
+  extern __shared__ __align__(16) unsigned char dyn_s[];
+  float* w_s = basis_smem<H, PL>(dyn_s);
+  unsigned char* arena = dyn_s + basis_dyn_bytes<H, PL>();
   __shared__ __align__(16) float c_s[H * 4];
   __shared__ __align__(16) float sh_s[H * 4];
   __shared__ __align__(8) unsigned long long bar;
@@ -164,7 +167,7 @@ chain_kernel(const RSArgs a, const SMKnobs kn, const ChainBuffers buf, int itera
                                   buf.block_keys, arena);
         if (last_ticket(ticket, B)) {
           __threadfence();
-          update_finish<PL, Read::L2>(a, kn, buf.w_blk, inc_r, buf.noise, best_key, B,
+          update_finish<PL, Read::L2>(a, kn, buf.w_blk, inc_r, buf.noise, costs, best_key, B,
                                       buf.partials, buf.block_keys, out,
                                       kn.cem ? buf.sigma_out + (size_t)it * P : nullptr,
                                       kn.cem ? buf.elites + (size_t)it * kn.n_elite : nullptr,
@@ -181,13 +184,15 @@ chain_kernel(const RSArgs a, const SMKnobs kn, const ChainBuffers buf, int itera
 }
 
 // Above 48 KB dynamic shared memory needs an opt-in, given once for the most the
-// update pass can ask for (as update_opt_in).
+// update pass can ask for (as update_opt_in), after the staged basis where it is
+// dynamic.
 template <int H, int PL, bool RS>
 static cudaError_t chain_opt_in() {
   static bool opted_in = false;
   if (opted_in) return cudaSuccess;
   const int most =
-      RS ? 0 : sm_tile_bytes(4 * PL, SM_TILE_ROWS) + (SM_STAGE_KEYS + SM_KMAX * SM_KMAX) * 8;
+      basis_dyn_bytes<H, PL>() +
+      (RS ? 0 : sm_tile_bytes(4 * PL, SM_TILE_ROWS) + (SM_STAGE_KEYS + SM_KMAX * SM_KMAX) * 8);
   cudaError_t err = cudaFuncSetAttribute(chain_kernel<H, PL, RS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, most);
   if (err == cudaSuccess)
@@ -198,12 +203,13 @@ static cudaError_t chain_opt_in() {
   return err;
 }
 
-// Dynamic shared memory of a chain launch: the update pass's (none for random
-// sampling).
+// Dynamic shared memory of a chain launch: the staged basis where it is dynamic,
+// then the update pass's (none for random sampling).
 static int chain_smem(int method, const SMKnobs& kn, int num_samples) {
-  if (method == 0) return 0;
-  return sm_update_smem(4 * SAMPLING_PL, kn.cem, kn.n_elite,
-                        (num_samples + RS_BLOCK - 1) / RS_BLOCK);
+  const int basis = basis_dyn_bytes<SAMPLING_H, SAMPLING_PL>();
+  if (method == 0) return basis;
+  return basis + sm_update_smem(4 * SAMPLING_PL, kn.cem, kn.n_elite,
+                                (num_samples + RS_BLOCK - 1) / RS_BLOCK);
 }
 
 // Blocks of the chain kernel one SM holds at once with smem bytes of dynamic
@@ -282,7 +288,8 @@ int chain_blocks_per_sm(int method, int cem, int n_elite, int num_samples) {
 // N), out (iterations, 26 + P) and, for CEM, sigma_out (iterations, P) and elites
 // (iterations, K). Scratch as sm_launch: scratch (2 words plus, for MPPI and CEM,
 // block_keys (B, K) for CEM and partials (B, P + 1), B = ceil(N / chain_block())),
-// noise (P, N) for MPPI and CEM. The kernel sets the scratch words itself; nothing
+// noise (P, N) for MPPI and CEM; above SM_KMAX elites block_keys is not read and
+// each iteration's elites are in index order. The kernel sets the scratch words itself; nothing
 // needs a memset. max_blocks: 0 for the co-resident grid, or fewer blocks (the
 // bits do not depend on it). Returns 0, a CUDA error code (among them
 // cudaErrorCooperativeLaunchTooLarge for a grid that would not be co-resident, and
@@ -301,10 +308,10 @@ int chain_launch(const RSArgs* a, const SMKnobs* kn, int method, int params_per_
   if (method > 0 && (!(kn->temperature > 0.f) || noise == nullptr || partials == nullptr ||
                      ((uintptr_t)partials & 15) != 0))
     return -1;
-  if (method == 2 && (kn->n_elite < 2 || kn->n_elite > SM_KMAX ||
-                      kn->n_elite > a->num_samples || sigma_in == nullptr ||
-                      block_keys == nullptr || ((uintptr_t)block_keys & 15) != 0 ||
-                      sigma_out == nullptr || elites == nullptr))
+  if (method == 2 && (kn->n_elite < 2 || kn->n_elite > a->num_samples || sigma_in == nullptr ||
+                      (kn->n_elite <= SM_KMAX && block_keys == nullptr) ||
+                      ((uintptr_t)block_keys & 15) != 0 || sigma_out == nullptr ||
+                      elites == nullptr))
     return -1;
   const ChainBuffers buf{w_blk,    incumbent,  sigma_in, noise, costs,    scratch,
                          partials, block_keys, out,      sigma_out, elites};

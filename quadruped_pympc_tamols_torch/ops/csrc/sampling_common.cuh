@@ -21,8 +21,11 @@
 // on isnan/isinf.
 //
 // Each library is built for one (horizon, parameters per leg) pair, given as
-// -DSAMPLING_H and -DSAMPLING_PL: ops/build.py's INSTANTIATIONS lists the pairs
-// and starts one nvcc per source and pair. A leg's PL parameters are drawn as
+// -DSAMPLING_H and -DSAMPLING_PL: ops/build.py builds a pair's libraries the first
+// time a solver asks for the pair, one nvcc per source. The kernels take H up to
+// RS_HMAX and PL up to RS_MAX_PL (zero-order holds at H = 24, cubic splines with
+// six splines); a basis above RS_STATIC_BASIS_BYTES is staged in dynamic shared
+// memory (basis_smem). A leg's PL parameters are drawn as
 // ceil(PL/4) Philox chunks of four (the last one cut short when PL % 4 != 0, as
 // for linear splines with 9), and its basis rows arrive padded to a stride of
 // padded_pl(PL) with zero weights; every other layout (the incumbent, sigma, the
@@ -36,7 +39,11 @@
 #error "build with -DSAMPLING_H=<horizon> -DSAMPLING_PL=<parameters per leg> (see ops/build.py)"
 #endif
 
-#define RS_HMAX 16
+#define RS_HMAX 24    // the per-step arrays of RSArgs
+#define RS_MAX_PL 72  // 3 * RS_HMAX: a zero-order hold at the longest horizon
+static_assert(SAMPLING_H >= 2 && SAMPLING_H <= RS_HMAX && SAMPLING_PL >= 4 &&
+                  SAMPLING_PL <= RS_MAX_PL,
+              "ops/build.py:check_pair refuses the pair");
 #define RS_BLOCK 64  // threads of the extraction kernel; samples a block of the update pass
 // The rollout pass: lanes per sample (one per leg), samples per block, and the
 // blocks per SM its register budget must allow (65 536 / (8 * 64) = 128 a thread).
@@ -79,6 +86,9 @@ struct RSArgs {
   // others do (random sampling: N(0, sigma2)), for the shards of a sample-sharded
   // solve other than the first, which must not each add a copy of the incumbent.
   int draw_col0;
+  // The ZMP-band cost (config sampling.zmp_weight, zmp_margin; zmp_band); a
+  // weight of 0 skips it.
+  float zmp_weight, zmp_margin;
 };
 
 __device__ __forceinline__ float max_nan(float x, float y) { return (x > y || x != x) ? x : y; }
@@ -214,9 +224,11 @@ __device__ __forceinline__ float from_lane(float v, int q) {
 // the same operands, so the same bits as one thread making every call, but three
 // such calls a lane and step in place of eleven (y_dot's division stays on every
 // lane).
+// axy, if not nullptr, receives the step's horizontal accelerations (ax, ay), which
+// the ZMP band reads.
 template <bool LANES>
 __device__ __forceinline__ void srb_body(float* s, const float* f, float dt, const float* feet,
-                                         const RSModel& m, int leg) {
+                                         const RSModel& m, int leg, float* axy = nullptr) {
   const float px = s[0], py = s[1], pz = s[2];
   const float vx = s[3], vy = s[4], vz = s[5];
   const float rr = s[6], pp = s[7], yy = s[8];
@@ -292,6 +304,43 @@ __device__ __forceinline__ void srb_body(float* s, const float* f, float dt, con
   s[9] = wx + wdx * dt;
   s[10] = wy + wdy * dt;
   s[11] = wz + wdz * dt;
+  if (axy != nullptr) {
+    axy[0] = ax;
+    axy[1] = ay;
+  }
+}
+
+// The ZMP-band cost of one step, zmp_weight * pen, in the order of operations of
+// controllers/sampling/rollout.py: the ZMP z = p_xy - (p_z / g) a_xy of the
+// integrated position (px, py, pz) and the step's accelerations (ax, ay), and for
+// each of the six two-stance pairs (i, j; k, l swing), masked by c_i c_j (1 - c_k)
+// (1 - c_l) of the step's contact column c, the squared excess over zmp_margin of
+// z's distance to the segment between feet i and j (ft, leg-major xyz).
+__device__ __forceinline__ float zmp_band(const RSArgs& a, const float* c, const float* ft,
+                                          float px, float py, float pz, float ax, float ay) {
+  // Pair q (i, j, k, l) in byte q, two bits a leg (i highest): (0,3,1,2) (1,2,0,3)
+  // (0,2,1,3) (1,3,0,2) (0,1,2,3) (2,3,0,1).
+  constexpr unsigned long long PAIRS = 0xB11B72276336ull;
+  const float g = a.model.gravity;
+  const float zx = px - (pz / g) * ax;
+  const float zy = py - (pz / g) * ay;
+  float pen = 0.f;
+#pragma unroll
+  for (int q = 0; q < 6; ++q) {
+    const int b = (int)((PAIRS >> (8 * q)) & 0xFFull);
+    const int i = b >> 6, j = (b >> 4) & 3, k = (b >> 2) & 3, l = b & 3;
+    const float mask = c[i] * c[j] * (1.f - c[k]) * (1.f - c[l]);
+    const float axp = ft[3 * i], ayp = ft[3 * i + 1];
+    const float vxp = ft[3 * j] - axp, vyp = ft[3 * j + 1] - ayp;
+    const float denom = vxp * vxp + vyp * vyp + 1e-9f;
+    const float t = clip_nan(((zx - axp) * vxp + (zy - ayp) * vyp) / denom, 0.f, 1.f);
+    const float dxp = zx - (axp + t * vxp);
+    const float dyp = zy - (ayp + t * vyp);
+    const float dist = sqrtf(dxp * dxp + dyp * dyp + 1e-12f);
+    const float e = max_nan(dist - a.zmp_margin, 0.f);
+    pen = pen + mask * (e * e);
+  }
+  return a.zmp_weight * pen;
 }
 
 // The (cost bits << 32 | index) key. Costs are >= 0 (sums of non-negative
@@ -379,6 +428,49 @@ __device__ __forceinline__ void step0_extract_lanes(const RSArgs& a, const float
 // overlap, so the lanes share a step's sines, cosines and four of its five
 // divisions; and the unrolled loop cost more in instruction fetch than its
 // scheduling freedom saved, so it is rolled.
+
+// Bytes of a solve's staged own-leg basis blocks (H*12, padded_pl(PL)). Up to
+// RS_STATIC_BASIS_BYTES (27.6 KB at (24, 24) and at (16, 36)) they are a
+// static shared array, as for the first pairs; above it (55 KB for cubic splines
+// with four splines at H = 24, 83 KB for zero-order holds there) static shared
+// memory cannot hold them, and they take the first basis_dyn_bytes of the kernel's
+// dynamic shared memory, which its launch asks for (and opts in to above 48 KB).
+// Both paths keep the bits, but at the flagship's (12, 24) the rollout pass took
+// 9 % longer on an H100 with the basis in dynamic shared memory (19.2-19.5 us
+// against 17.7-17.9, tools/pass_times.py), so the smaller pairs keep the array.
+#define RS_STATIC_BASIS_BYTES 32768
+template <int H, int PL>
+__host__ __device__ constexpr int basis_bytes() {
+  return H * 12 * padded_pl(PL) * 4;
+}
+template <int H, int PL>
+__host__ __device__ constexpr int basis_dyn_bytes() {
+  return basis_bytes<H, PL>() > RS_STATIC_BASIS_BYTES ? basis_bytes<H, PL>() : 0;
+}
+// The staged basis of the pair: a static array, or the start of dyn.
+template <int H, int PL>
+__device__ __forceinline__ float* basis_smem(unsigned char* dyn) {
+  if constexpr (basis_dyn_bytes<H, PL>() > 0) {
+    return reinterpret_cast<float*>(dyn);
+  } else {
+    __shared__ __align__(16) float w_s[H * 12 * padded_pl(PL)];
+    return w_s;
+  }
+}
+
+// Opts kernel in to `bytes` of dynamic shared memory once (above 48 KB a launch
+// needs it), with the carveout that gives shared memory the most of an SM.
+template <class Kernel>
+static cudaError_t opt_in_smem(Kernel kernel, int bytes, bool& done) {
+  if (done || bytes <= 48 * 1024) return cudaSuccess;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  done = err == cudaSuccess;
+  return err;
+}
 
 // Shared-memory address of a generic pointer into shared memory.
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -483,7 +575,8 @@ __device__ __forceinline__ float lane_rollout_cost(const RSArgs& a, const float*
       f[q * 3 + 1] = from_lane(fy, q);
       f[q * 3 + 2] = from_lane(fz, q);
     }
-    srb_body<true>(st, f, a.dts[n], ft, md, leg);
+    float axy[2];
+    srb_body<true>(st, f, a.dts[n], ft, md, leg, axy);
 #pragma unroll
     for (int j = 0; j < 12; ++j) {
       const float w = a.q_diag[j];
@@ -492,6 +585,8 @@ __device__ __forceinline__ float lane_rollout_cost(const RSArgs& a, const float*
         cost = cost + w * e * e;
       }
     }
+    if (a.zmp_weight > 0.f)  // uniform over the grid
+      cost = cost + zmp_band(a, &c_s[n * 4], ft, st[0], st[1], st[2], axy[0], axy[1]);
   }
   if (isnan(cost) || isinf(cost)) cost = 1.0e6f;
   return cost;
@@ -564,7 +659,8 @@ rollout_kernel(const RSArgs a, const Noise noise, const Source src,
   constexpr int PLP = padded_pl(PL);
   static_assert((H * 12 * PLP * 4) % 16 == 0 && (H * 4 * 4) % 16 == 0,
                 "bulk copies move multiples of 16 bytes");
-  __shared__ __align__(16) float w_s[H * 12 * PLP];
+  extern __shared__ __align__(16) unsigned char dyn_s[];
+  float* w_s = basis_smem<H, PL>(dyn_s);
   __shared__ __align__(16) float c_s[H * 4];
   __shared__ __align__(16) float sh_s[H * 4];
   __shared__ __align__(8) unsigned long long bar;
@@ -594,8 +690,12 @@ static cudaError_t launch_rollout(const RSArgs& a, const Noise& noise, const Sou
                                   const float* incumbent, const float* noise_in,
                                   float* noise_out, float* costs, unsigned long long* argmin,
                                   cudaStream_t stream) {
+  constexpr int smem = basis_dyn_bytes<H, PL>();
+  static bool opted_in = false;
+  const cudaError_t err = opt_in_smem(rollout_kernel<H, PL, Noise, Source>, smem, opted_in);
+  if (err != cudaSuccess) return err;
   const dim3 grid((src.group_size + ROLLOUT_SAMPLES - 1) / ROLLOUT_SAMPLES, src.num_groups);
-  rollout_kernel<H, PL, Noise, Source><<<grid, ROLLOUT_THREADS, 0, stream>>>(
+  rollout_kernel<H, PL, Noise, Source><<<grid, ROLLOUT_THREADS, smem, stream>>>(
       a, noise, src, incumbent, noise_in, noise_out, costs, argmin);
   return cudaGetLastError();
 }

@@ -122,7 +122,8 @@ fleet_rollout_kernel(const __grid_constant__ RSArgs a, const __grid_constant__ F
   constexpr int PLP = padded_pl(PL);
   constexpr int bytes = H * 12 * PLP * 4;
   static_assert(bytes % 16 == 0, "bulk copies move multiples of 16 bytes");
-  __shared__ __align__(16) float w_s[H * 12 * PLP];
+  extern __shared__ __align__(16) unsigned char dyn_s[];
+  float* w_s = basis_smem<H, PL>(dyn_s);
   __shared__ __align__(16) RSArgs a_s;
   __shared__ __align__(8) unsigned long long bar;
   const int s = blockIdx.y;
@@ -156,6 +157,27 @@ fleet_rollout_kernel(const __grid_constant__ RSArgs a, const __grid_constant__ F
   const float cost = lane_rollout_cost<H, PL>(a_s, w_s, prm, a_s.contact, a_s.share, leg);
   if (live && leg == 0) costs[(size_t)s * N + j] = cost;
   fold_argmin(live ? cost_key(cost, j) : ~0ull, argmin + 2 * s);
+}
+
+// The four-lane rollout's launch, with the dynamic shared memory of the largest
+// pairs' staged basis (basis_smem).
+template <int H, int PL, int METHOD>
+static cudaError_t launch_rollout_four(const RSArgs& a, const FleetArgs& f, float sigma_mppi,
+                                       const float* w_blk, const float* scen,
+                                       const unsigned long long* seeds,
+                                       const unsigned long long* offsets, const float* incumbent,
+                                       const float* sigma, const float* noise_in,
+                                       float* noise_out, float* costs,
+                                       unsigned long long* argmin, cudaStream_t stream) {
+  constexpr int smem = basis_dyn_bytes<H, PL>();
+  static bool opted_in = false;
+  const cudaError_t err = opt_in_smem(fleet_rollout_kernel<H, PL, METHOD>, smem, opted_in);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.num_samples + ROLLOUT_SAMPLES - 1) / ROLLOUT_SAMPLES, f.num_scenarios);
+  fleet_rollout_kernel<H, PL, METHOD><<<grid, ROLLOUT_THREADS, smem, stream>>>(
+      a, f, sigma_mppi, w_blk, scen, seeds, offsets, incumbent, sigma, noise_in, noise_out, costs,
+      argmin);
+  return cudaGetLastError();
 }
 
 // -- the large-batch rollout (layout FLEET_WIDE) --------------------------------------
@@ -218,7 +240,7 @@ __device__ __forceinline__ float via_lane(float v) {
 // lanes pass theirs through from_lane. The same functions of the same operands in
 // code of the same shape, so the same bits.
 __device__ __forceinline__ void srb_body_wide(float* s, const float* f, float dt,
-                                              const float* feet, const RSModel& m) {
+                                              const float* feet, const RSModel& m, float* axy) {
   const float px = s[0], py = s[1], pz = s[2];
   const float vx = s[3], vy = s[4], vz = s[5];
   const float rr = s[6], pp = s[7], yy = s[8];
@@ -284,6 +306,8 @@ __device__ __forceinline__ void srb_body_wide(float* s, const float* f, float dt
   s[9] = wx + wdx * dt;
   s[10] = wy + wdy * dt;
   s[11] = wz + wdz * dt;
+  axy[0] = ax;
+  axy[1] = ay;
 }
 
 // One sample's H-step rollout cost, NaN/Inf -> 1e6, by one thread: lane_rollout_cost
@@ -332,7 +356,8 @@ __device__ __forceinline__ float wide_rollout_cost(const RSArgs& a, const float4
     }
 #pragma unroll
     for (int j = 0; j < 12; ++j) f[j] = via_lane(fl[j]);
-    srb_body_wide(st, f, a.dts[n], ft, md);
+    float axy[2];
+    srb_body_wide(st, f, a.dts[n], ft, md, axy);
 #pragma unroll
     for (int j = 0; j < 12; ++j) {
       const float w = a.q_diag[j];
@@ -341,6 +366,8 @@ __device__ __forceinline__ float wide_rollout_cost(const RSArgs& a, const float4
         cost = cost + w * e * e;
       }
     }
+    if (a.zmp_weight > 0.f)  // the scenario's contact column n
+      cost = cost + zmp_band(a, &c_s[n * 4], ft, st[0], st[1], st[2], axy[0], axy[1]);
   }
   if (isnan(cost) || isinf(cost)) cost = 1.0e6f;
   return cost;
@@ -516,7 +543,6 @@ __device__ __forceinline__ void regen_update_tiles(const RSArgs& a, const SMKnob
   static_assert(RS_BLOCK % 32 == 0 && LANES >= 1 && LANES * T * RS_BLOCK == SM_UPDATE_THREADS &&
                     (LANES & (LANES - 1)) == 0,
                 "whole warps of samples; a power-of-two group of threads ranks each key");
-  static_assert(T * ROW <= SM_UPDATE_THREADS, "one partial column of a tile a thread");
   __shared__ int nz_s[T * RS_BLOCK];
   __shared__ float nzw_s[T * RS_BLOCK];
   __shared__ unsigned long long key_s[T * RS_BLOCK];
@@ -588,16 +614,17 @@ __device__ __forceinline__ void regen_update_tiles(const RSArgs& a, const SMKnob
   if (t < T * RS_BLOCK && t % RS_BLOCK < pick(m, t / RS_BLOCK)) buf_s[t * ROW + P] = nzw_s[t];
   __syncthreads();
 
-  // 3. Each tile's partial row: its columns summed over its nonzero rows in order.
-  if (t < T * ROW) {
-    const int tl = t / ROW, col = t % ROW, nb = pick(m, tl);
+  // 3. Each tile's partial row: its columns summed over its nonzero rows in order
+  // (two columns a thread above P = 255).
+  for (int tc = t; tc < T * ROW; tc += SM_UPDATE_THREADS) {
+    const int tl = tc / ROW, col = tc % ROW, nb = pick(m, tl);
     float acc = 0.f;
     const float* rows = &buf_s[tl * RS_BLOCK * ROW + col];
 #pragma unroll 8
     for (int r = 0; r < nb; ++r) acc = __fadd_rn(acc, rows[r * ROW]);
     if (b0 + tl < B) partials[(size_t)(b0 + tl) * ROW + col] = acc;
   }
-  if (kn.cem) {
+  if (kn.cem && kn.n_elite <= SM_KMAX) {
     // Rank of each key in its tile, LANES threads a key; equal keys (only the ~0ull
     // of missing samples) rank by thread. The K lowest land in rank order.
     constexpr int SPAN = RS_BLOCK / LANES;
@@ -619,18 +646,17 @@ __device__ __forceinline__ void regen_update_tiles(const RSArgs& a, const SMKnob
 
 // update_finish's CEM half (warps 4-15) with the K elites' noise regenerated from
 // their Philox counters, one (elite, chunk) pair a thread, in place of read back:
-// the same selection of the elites from the B*K block keys and the same refit in
-// elite order, so the same bits. The caller runs update_finish's other half
-// (warps 0-3) beside it.
+// the same selection of the elites from the B*K block keys (above SM_KMAX elites:
+// from the scenario's N costs) and the same refit in elite order, so the same
+// bits. The caller runs update_finish's other half (warps 0-3) beside it.
 template <int PL>
 __device__ __forceinline__ void regen_cem_finish(const RSArgs& a, const SMKnobs& kn,
-                                                 const float* sigma, int B,
+                                                 const float* sigma, const float* costs, int B,
                                                  unsigned long long* block_keys,
                                                  float* sigma_out, int* elites,
                                                  unsigned char* arena) {
   constexpr int P = 4 * PL;
   constexpr int CH = padded_pl(PL) / 4;
-  static_assert(P <= SM_CEM_THREADS, "one parameter of the refit a thread");
   __shared__ int elite_s[SM_KMAX];
   __shared__ unsigned long long t0_s;
   __shared__ int ncand_s;
@@ -639,6 +665,25 @@ __device__ __forceinline__ void regen_cem_finish(const RSArgs& a, const SMKnobs&
   const int mk = B * K;
   unsigned long long* stage_s =
       reinterpret_cast<unsigned long long*>(arena + sm_tile_bytes(P, B));
+  if (K > SM_KMAX) {
+    const int n = a.num_samples;
+    compact_elites<Read::ReadOnly>(costs, n, kth_lowest_key<Read::ReadOnly>(costs, n, K, ct),
+                                   elites, ct);
+    group_sync<1, SM_CEM_THREADS>();
+    refit_in_batches<P, 4 * CH>(
+        kn, elites, K,
+        [&](int i, int k, float* row) {
+          const int q = k % CH, p = (k / CH) * PL + 4 * q;
+          const int valid = min(4, PL - 4 * q);
+          const float4 z =
+              fleet_noise4<1>(a, a.seed, a.offset, kn.sigma_mppi, sigma, i, k, p, valid);
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (c < valid) row[p + c] = comp(z, c);
+        },
+        reinterpret_cast<float*>(stage_s), sigma_out, ct);
+    return;
+  }
   const int staged = mk < FLEET_REGEN_STAGE_KEYS ? mk : FLEET_REGEN_STAGE_KEYS;
   for (int q = ct; q < staged / 2; q += SM_CEM_THREADS)
     cp_async16(&stage_s[2 * q], &block_keys[2 * q]);  // block_keys is 16-byte aligned
@@ -700,8 +745,7 @@ __device__ __forceinline__ void regen_cem_finish(const RSArgs& a, const SMKnobs&
       if (c < valid) xe[c] = comp(z, c);
   }
   group_sync<1, SM_CEM_THREADS>();
-  if (ct < P) {
-    const int p = ct;
+  for (int p = ct; p < P; p += SM_CEM_THREADS) {
     float mean = 0.f;
 #pragma unroll 4
     for (int e = 0; e < K; ++e) mean += x_s[e * P + p];
@@ -775,13 +819,15 @@ fleet_update_kernel(const __grid_constant__ RSArgs a, const __grid_constant__ Fl
   if constexpr (REGEN) {
     SMKnobs cols = kn;
     cols.cem = 0;  // update_finish's warps 0-3 only: the column sums and the extraction
-    update_finish<PL, Read::ReadOnly>(a_s, cols, w_blk, inc_r, nullptr, best_key, B, part_s,
-                                      nullptr, out_s, nullptr, nullptr, arena);
+    update_finish<PL, Read::ReadOnly>(a_s, cols, w_blk, inc_r, nullptr, nullptr, best_key, B,
+                                      part_s, nullptr, out_s, nullptr, nullptr, arena);
     if (kn.cem && threadIdx.x >= SM_COL_THREADS)
-      regen_cem_finish<PL>(a_s, kn, sigma_s, B, keys_s, sigma_out_s, elites_s, arena);
+      regen_cem_finish<PL>(a_s, kn, sigma_s, costs + (size_t)s * N, B, keys_s, sigma_out_s,
+                           elites_s, arena);
   } else {
-    update_finish<PL, Read::ReadOnly>(a_s, kn, w_blk, inc_r, noise_s, best_key, gridDim.x, part_s,
-                                      keys_s, out_s, sigma_out_s, elites_s, arena);
+    update_finish<PL, Read::ReadOnly>(a_s, kn, w_blk, inc_r, noise_s, costs + (size_t)s * N,
+                                      best_key, gridDim.x, part_s, keys_s, out_s, sigma_out_s,
+                                      elites_s, arena);
   }
 }
 
@@ -792,7 +838,9 @@ fleet_update_kernel(const __grid_constant__ RSArgs a, const __grid_constant__ Fl
 static inline int fleet_update_smem(int P, int cem, int n_elite, int num_blocks, bool regen) {
   if (!regen) return sm_update_smem(P, cem, n_elite, num_blocks);
   int finish = sm_tile_bytes(P, num_blocks);
-  if (cem) {
+  if (cem && n_elite > SM_KMAX) {
+    finish += SM_KMAX * P * 4;  // a batch of the elites' noise (refit_in_batches)
+  } else if (cem) {
     const int m = num_blocks * n_elite;
     const int keys =
         ((m < FLEET_REGEN_STAGE_KEYS ? m : FLEET_REGEN_STAGE_KEYS) + n_elite * n_elite) * 8;
@@ -870,22 +918,18 @@ static int fleet_launch_t(const RSArgs* a, const FleetArgs* f, const SMKnobs* kn
                                           incumbent, sigma_in, noise_in, noise_out, costs,
                                           argmin, stream);
     }
+  } else if (method == 0) {
+    err = launch_rollout_four<H, PL, 0>(*a, *f, kn->sigma_mppi, w_blk, scen, seeds, offsets,
+                                        incumbent, sigma_in, noise_in, noise_out, costs, argmin,
+                                        stream);
+  } else if (method == 1) {
+    err = launch_rollout_four<H, PL, 1>(*a, *f, kn->sigma_mppi, w_blk, scen, seeds, offsets,
+                                        incumbent, sigma_in, noise_in, noise_out, costs, argmin,
+                                        stream);
   } else {
-    const dim3 grid((a->num_samples + ROLLOUT_SAMPLES - 1) / ROLLOUT_SAMPLES, S);
-    if (method == 0) {
-      fleet_rollout_kernel<H, PL, 0><<<grid, ROLLOUT_THREADS, 0, stream>>>(
-          *a, *f, kn->sigma_mppi, w_blk, scen, seeds, offsets, incumbent, sigma_in, noise_in,
-          noise_out, costs, argmin);
-    } else if (method == 1) {
-      fleet_rollout_kernel<H, PL, 1><<<grid, ROLLOUT_THREADS, 0, stream>>>(
-          *a, *f, kn->sigma_mppi, w_blk, scen, seeds, offsets, incumbent, sigma_in, noise_in,
-          noise_out, costs, argmin);
-    } else {
-      fleet_rollout_kernel<H, PL, 2><<<grid, ROLLOUT_THREADS, 0, stream>>>(
-          *a, *f, kn->sigma_mppi, w_blk, scen, seeds, offsets, incumbent, sigma_in, noise_in,
-          noise_out, costs, argmin);
-    }
-    err = cudaGetLastError();
+    err = launch_rollout_four<H, PL, 2>(*a, *f, kn->sigma_mppi, w_blk, scen, seeds, offsets,
+                                        incumbent, sigma_in, noise_in, noise_out, costs, argmin,
+                                        stream);
   }
   if (err != cudaSuccess) return (int)err;
   if (method == 0) {
@@ -917,7 +961,8 @@ int fleet_block(void) { return RS_BLOCK; }
 
 int fleet_rollout_samples(void) { return ROLLOUT_SAMPLES; }
 
-int fleet_max_elite(void) { return SM_KMAX; }
+// The most elites whose CEM keeps per-block key lists; above it the radix select.
+int fleet_list_elite(void) { return SM_KMAX; }
 
 int fleet_horizon(void) { return SAMPLING_H; }
 
@@ -954,7 +999,8 @@ const char* fleet_error_string(int code) { return cudaGetErrorString((cudaError_
 // read); noise_out (S, P, N) or nullptr, where the rollout writes the noise it
 // drew (MPPI and CEM without FLEET_REGEN read it back, so they need one of the
 // two); costs (S, N); out (S, 26 + P) packed as K1a's; sigma_out (S, P) and
-// elites (S, K) for CEM. Scratch: argmin (2 S: each scenario's key and ticket,
+// elites (S, K) for CEM (2 <= K <= N; above SM_KMAX in index order and block_keys
+// not read). Scratch: argmin (2 S: each scenario's key and ticket,
 // reset here), partials (S, part_stride) and, for CEM, block_keys (S,
 // key_stride), with part_stride >= B (P + 1) and key_stride >= B K for B =
 // ceil(N / fleet_block()). Returns 0, a CUDA error code, or -1 for a shape, knob,
@@ -983,9 +1029,9 @@ int fleet_launch(const RSArgs* a, const FleetArgs* f, const SMKnobs* kn, int met
     if (((uintptr_t)partials & 15) != 0 || f->part_stride % 4 != 0 ||
         f->part_stride < blocks * (P + 1))
       return -1;
-    if (method == 2 && (kn->n_elite < 2 || kn->n_elite > SM_KMAX || kn->n_elite > a->num_samples ||
+    if (method == 2 && (kn->n_elite < 2 || kn->n_elite > a->num_samples ||
                         ((uintptr_t)block_keys & 15) != 0 || f->key_stride % 2 != 0 ||
-                        f->key_stride < blocks * kn->n_elite))
+                        (kn->n_elite <= SM_KMAX && f->key_stride < blocks * kn->n_elite)))
       return -1;
   }
   return fleet_launch_t<SAMPLING_H, SAMPLING_PL>(a, f, kn, method, layout, win, w_blk, scen, seeds,

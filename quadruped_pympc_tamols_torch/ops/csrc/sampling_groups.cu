@@ -125,7 +125,7 @@ const char* sg_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 // above; w0_blk: the static basis's own-leg blocks (zero-padded rows), of which
 // rows 0..11 are read.
 // Scratch, and for MPPI and CEM the noise buffer, as sm_launch: argmin (2),
-// partials (B, P + 1) and, for CEM, block_keys (B, K), with
+// partials (B, P + 1) and, for CEM with K <= SM_KMAX, block_keys (B, K), with
 // B = ceil(K * Ng / sg_block()). Returns 0, a CUDA error code, or -1 for a shape
 // or knob this build does not take (a horizon or parameter count other than
 // SAMPLING_H, SAMPLING_PL), no noise buffer, or a buffer that is not 16-byte
@@ -144,8 +144,7 @@ int sg_launch(const RSArgs* a, const SMKnobs* kn, int method, int params_per_leg
   if (method > 0 && (!(kn->temperature > 0.f) || (noise_in == nullptr && noise_out == nullptr) ||
                      ((uintptr_t)partials & 15) != 0))
     return -1;
-  if (method == 2 && (kn->n_elite < 2 || kn->n_elite > SM_KMAX || kn->n_elite > a->num_samples))
-    return -1;
+  if (method == 2 && (kn->n_elite < 2 || kn->n_elite > a->num_samples)) return -1;
   return sg_launch_t<SAMPLING_H, SAMPLING_PL>(a, kn, method, num_groups, group_size, groups,
                                               w0_blk, incumbent, sigma_in, noise_in, noise_out,
                                               costs, argmin, partials, block_keys, out, sigma_out,

@@ -23,13 +23,14 @@
 //                      not 0 compacted and their noise read back (noise_in, or the
 //                      noise the rollout pass wrote to noise_out); each block's
 //                      (P + 1) partial row of (w * noise, w) and, for CEM, its K
-//                      lowest keys. The
+//                      lowest keys (K <= SM_KMAX). The
 //                      block that takes the last ticket sums the partials in block
 //                      order and writes incumbent + S / Z, then on warp 0 the
 //                      step-0 GRFs and one-step state of the new parameters (four
-//                      lanes, one per leg) and, for CEM, on warps 1-3 the global K
-//                      lowest of the B*K candidate keys, those elites' noise and
-//                      the sigma refit. Output layout as K1a: [beta, grf(12),
+//                      lanes, one per leg) and, for CEM, on warps 4-15 the global K
+//                      lowest of the B*K candidate keys (above SM_KMAX elites: a
+//                      radix select over the N keys), those elites' noise and the
+//                      sigma refit. Output layout as K1a: [beta, grf(12),
 //                      state(12), index of beta, new parameters (P)], plus sigma'
 //                      (P) and the elite indices (K) for CEM.
 //
@@ -73,7 +74,8 @@ int sm_block(void) { return RS_BLOCK; }
 
 int sm_rollout_samples(void) { return ROLLOUT_SAMPLES; }
 
-int sm_max_elite(void) { return SM_KMAX; }
+// The most elites whose CEM keeps per-block key lists; above it the radix select.
+int sm_list_elite(void) { return SM_KMAX; }
 
 int sm_horizon(void) { return SAMPLING_H; }
 
@@ -98,8 +100,11 @@ int sm_update_blocks_per_sm(int cem, int n_elite, int num_samples) {
 const char* sm_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // One MPPI (kn->cem == 0) or CEM-MPPI iteration. Scratch: argmin (2: the argmin key
-// and the update pass's ticket), partials (B, P + 1) and, for CEM, block_keys
-// (B, K), with B = ceil(N / sm_block()); block_keys and partials 16-byte aligned.
+// and the update pass's ticket), partials (B, P + 1) and, for CEM with K <= SM_KMAX,
+// block_keys (B, K), with B = ceil(N / sm_block()); block_keys and partials 16-byte
+// aligned. CEM takes 2 <= K <= N elites; above SM_KMAX they are selected from the
+// costs, block_keys is not read, and elites lists them in index order (else in
+// (cost, index) order).
 // sigma_in, sigma_out and elites are read or written only for CEM. The update
 // pass reads the iteration's noise back: noise_in, or else noise_out, which the
 // rollout pass fills, so one of them must be given. Returns 0, a CUDA error code,
@@ -124,8 +129,7 @@ int sm_launch(const RSArgs* a, const SMKnobs* kn, int params_per_leg, const floa
   if (((uintptr_t)w_blk & 15) != 0) return -1;
   if (!(kn->temperature > 0.f)) return -1;
   if ((noise_in == nullptr && noise_out == nullptr) || ((uintptr_t)partials & 15) != 0) return -1;
-  if (kn->cem && (kn->n_elite < 2 || kn->n_elite > SM_KMAX || kn->n_elite > a->num_samples))
-    return -1;
+  if (kn->cem && (kn->n_elite < 2 || kn->n_elite > a->num_samples)) return -1;
   return sm_launch_t<SAMPLING_H, SAMPLING_PL>(a, kn, w_blk, incumbent, sigma_in, noise_in,
                                               noise_out, costs, argmin, partials, block_keys,
                                               out, sigma_out, elites, phases, beta_in, sums_out,

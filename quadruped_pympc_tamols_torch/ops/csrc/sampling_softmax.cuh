@@ -92,6 +92,13 @@ static inline ScaledNormals<> scaled_normals(const SMKnobs& kn, const float* sig
 // Every sum keeps the order of the two kernels this pass replaced (per block in
 // thread order, then over blocks in block order), so the bits are theirs; no
 // float atomics, so a rerun repeats them.
+//
+// CEM with K > SM_KMAX elites (up to K = N) takes another path from step 1 on: the
+// blocks write no key lists, and warps 4-15 of the finish select the elites from
+// all N keys (cost_key of the costs) by a radix select of the K-th lowest key,
+// then compact the keys at or below it in index order and refit sigma over them
+// in batches of SM_KMAX elites (kth_lowest_key, compact_elites, refit_in_batches
+// below). K <= SM_KMAX keeps the path above and its bits.
 
 #define SM_UPDATE_THREADS 512
 // 157 blocks at N = 10 000 resident at once on 132 SMs. At P = 144 a CEM block
@@ -104,6 +111,10 @@ static inline ScaledNormals<> scaled_normals(const SMKnobs& kn, const float* sig
 #define SM_RANK_LANES (SM_UPDATE_THREADS / RS_BLOCK)  // threads ranking one key of a block
 #define SM_BATCH 32          // nonzero-weight samples whose noise a round loads
 #define SM_TILE_ROWS 160     // partial rows copied into shared memory at once (a multiple of 4)
+// ... and at most this many bytes of them: 160 rows up to P = 144, 80 at P = 288,
+// so that the chain kernel's largest pair keeps its basis, the tile and the CEM
+// stage within a block's 227 KB.
+#define SM_TILE_BYTES (SM_TILE_ROWS * 145 * 4)
 #define SM_STAGE_KEYS 4096   // CEM candidate keys staged in shared memory (the rest read from L2)
 
 // Named barrier ID of the THREADS threads that reach it.
@@ -112,10 +123,18 @@ __device__ __forceinline__ void group_sync() {
   asm volatile("bar.sync %0, %1;" ::"n"(ID), "n"(THREADS) : "memory");
 }
 
+// Partial rows of P + 1 floats the finish copies at once: SM_TILE_ROWS, or fewer
+// (a multiple of 4) where they would pass SM_TILE_BYTES.
+__host__ __device__ constexpr int sm_tile_rows(int P) {
+  return SM_TILE_BYTES / ((P + 1) * 4) / 4 * 4 < SM_TILE_ROWS
+             ? SM_TILE_BYTES / ((P + 1) * 4) / 4 * 4
+             : SM_TILE_ROWS;
+}
+
 // Bytes of the finish's partials tile, rounded to 16 so that what follows stays
 // aligned for cp.async.
 __host__ __device__ inline int sm_tile_bytes(int P, int num_blocks) {
-  const int rows = num_blocks < SM_TILE_ROWS ? num_blocks : SM_TILE_ROWS;
+  const int rows = num_blocks < sm_tile_rows(P) ? num_blocks : sm_tile_rows(P);
   return (rows * (P + 1) * 4 + 15) / 16 * 16;
 }
 
@@ -126,7 +145,9 @@ __host__ __device__ inline int sm_tile_bytes(int P, int num_blocks) {
 static inline int sm_update_smem(int P, int cem, int n_elite, int num_blocks) {
   const int batch = SM_BATCH * (P + 1) * 4;
   int finish = sm_tile_bytes(P, num_blocks);
-  if (cem) {
+  if (cem && n_elite > SM_KMAX) {
+    finish += SM_KMAX * P * 4;  // a batch of the elites' noise (refit_in_batches)
+  } else if (cem) {
     const int m = num_blocks * n_elite;
     const int keys = ((m < SM_STAGE_KEYS ? m : SM_STAGE_KEYS) + n_elite * n_elite) * 8;
     const int noise = n_elite * P * 4;
@@ -227,7 +248,7 @@ __device__ __forceinline__ void update_tile(const RSArgs& a, const SMKnobs& kn,
     __syncthreads();
   }
   if (t < ROW) partials[(size_t)b * ROW + t] = acc;
-  if (kn.cem) {
+  if (kn.cem && kn.n_elite <= SM_KMAX) {
     // Rank of each key in the block, SM_RANK_LANES threads a key; equal keys (only
     // the ~0ull of missing samples) rank by thread. The K lowest land in rank order.
     constexpr int SPAN = RS_BLOCK / SM_RANK_LANES;
@@ -259,21 +280,178 @@ __device__ __forceinline__ bool last_ticket(unsigned long long* ticket, int tile
   return last_s;
 }
 
+// -- CEM with more than SM_KMAX elites: the finish's selection and refit ---------------
+//
+// By the SM_CEM_THREADS threads of warps 4-15 (ct = threadIdx.x - SM_COL_THREADS),
+// which alone pass group barrier 1. Keys are unique, so the K lowest are exactly the
+// keys at or below the K-th: jax.lax.top_k's set, with its lowest index first on
+// equal costs.
+
+#define SM_RADIX_BINS 256  // 8 bits of the key a round of the radix select
+
+template <Read R>
+__device__ __forceinline__ unsigned long long sample_key(const float* costs, int i) {
+  return cost_key(load_in<R>(&costs[i]), i);
+}
+
+// The K-th lowest (1 <= K <= N) of the keys of samples 0..N-1, by an MSD radix
+// select: eight rounds from the top byte down, each a shared histogram of that
+// byte over the keys whose higher bytes equal the K-th key's found so far (one
+// atomic a warp and bin, __match_any_sync), and one warp's prefix sum to find the
+// bin that holds it.
+template <Read R>
+__device__ unsigned long long kth_lowest_key(const float* costs, int N, int K, int ct) {
+  __shared__ unsigned int hist_s[SM_RADIX_BINS];
+  __shared__ unsigned long long prefix_s;
+  __shared__ int need_s;
+  constexpr int PER_LANE = SM_RADIX_BINS / 32;
+  const int lane = ct & 31;
+  unsigned long long prefix = 0ull, mask = 0ull;
+  int need = K;  // the rank sought among the keys under the prefix, from 1
+  for (int shift = 56; shift >= 0; shift -= 8) {
+    for (int q = ct; q < SM_RADIX_BINS; q += SM_CEM_THREADS) hist_s[q] = 0u;
+    group_sync<1, SM_CEM_THREADS>();
+    for (int base = 0; base < N; base += SM_CEM_THREADS) {  // uniform: whole warps
+      const int i = base + ct;
+      int bin = SM_RADIX_BINS;  // none
+      if (i < N) {
+        const unsigned long long k = sample_key<R>(costs, i);
+        if ((k & mask) == prefix) bin = (int)((k >> shift) & 0xFFull);
+      }
+      const unsigned int peers = __match_any_sync(0xffffffffu, bin);
+      if (bin < SM_RADIX_BINS && lane == __ffs(peers) - 1)
+        atomicAdd(&hist_s[bin], (unsigned int)__popc(peers));
+    }
+    group_sync<1, SM_CEM_THREADS>();
+    if (ct < 32) {
+      unsigned int c[PER_LANE], local = 0u;
+#pragma unroll
+      for (int u = 0; u < PER_LANE; ++u) {
+        c[u] = hist_s[ct * PER_LANE + u];
+        local += c[u];
+      }
+      unsigned int incl = local;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const unsigned int v = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += v;
+      }
+      const unsigned int excl = incl - local, want = (unsigned int)need;
+      if (excl < want && want <= incl) {  // one lane
+        unsigned int below = excl;  // keys under the prefix in the bins before d
+        int d = PER_LANE - 1;
+        for (int u = 0; u < PER_LANE; ++u) {
+          if (below + c[u] >= want) {
+            d = u;
+            break;
+          }
+          below += c[u];
+        }
+        prefix_s = prefix | ((unsigned long long)(ct * PER_LANE + d) << shift);
+        need_s = need - (int)below;
+      }
+    }
+    group_sync<1, SM_CEM_THREADS>();
+    prefix = prefix_s;
+    need = need_s;
+    mask |= 0xFFull << shift;
+  }
+  return prefix;
+}
+
+// The samples whose keys are at or below tk, in index order, into elites.
+template <Read R>
+__device__ void compact_elites(const float* costs, int N, unsigned long long tk, int* elites,
+                               int ct) {
+  constexpr int WARPS = SM_CEM_THREADS / 32;
+  __shared__ int count_s[2][WARPS];  // two rounds' counts: one barrier a round
+  const int lane = ct & 31, warp = ct >> 5;
+  int total = 0;
+  for (int base = 0, r = 0; base < N; base += SM_CEM_THREADS, r ^= 1) {
+    const int i = base + ct;
+    const bool sel = i < N && sample_key<R>(costs, i) <= tk;
+    const unsigned int bal = __ballot_sync(0xffffffffu, sel);
+    if (lane == 0) count_s[r][warp] = __popc(bal);
+    group_sync<1, SM_CEM_THREADS>();
+    int pos = total + __popc(bal & ((1u << lane) - 1u)), sum = 0;
+#pragma unroll
+    for (int u = 0; u < WARPS; ++u) {
+      const int c = count_s[r][u];
+      pos += u < warp ? c : 0;
+      sum += c;
+    }
+    if (sel) elites[pos] = i;
+    total += sum;
+  }
+}
+
+// Sigma refit over the K elites, elites[0..K) (written before a group barrier), in
+// batches of SM_KMAX: fill(i, c, row) writes chunk c < CHUNKS of sample i's noise
+// into row (P floats) of x_s (SM_KMAX, P); thread ct sums parameters ct, ct +
+// SM_CEM_THREADS, ... over the elites in their order, the mean and then the
+// squared deviations (ddof 1, + 1e-8, sqrt, clipped), as the refit below SM_KMAX.
+template <int P, int CHUNKS, class Fill>
+__device__ void refit_in_batches(const SMKnobs& kn, const int* elites, int K, const Fill& fill,
+                                 float* x_s, float* sigma_out, int ct) {
+  constexpr int PC = (P + SM_CEM_THREADS - 1) / SM_CEM_THREADS;
+  float mean[PC], ss[PC];
+#pragma unroll
+  for (int u = 0; u < PC; ++u) mean[u] = ss[u] = 0.f;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int e0 = 0; e0 < K; e0 += SM_KMAX) {
+      const int ne = K - e0 < SM_KMAX ? K - e0 : SM_KMAX;
+      for (int j = ct; j < ne * CHUNKS; j += SM_CEM_THREADS) {
+        const int e = j % ne;
+        fill(elites[e0 + e], j / ne, &x_s[e * P]);
+      }
+      group_sync<1, SM_CEM_THREADS>();
+#pragma unroll
+      for (int u = 0; u < PC; ++u) {
+        const int p = ct + u * SM_CEM_THREADS;
+        if (p < P) {
+          for (int e = 0; e < ne; ++e) {
+            const float x = x_s[e * P + p];
+            if (pass == 0) {
+              mean[u] += x;
+            } else {
+              const float d = x - mean[u];
+              ss[u] += d * d;
+            }
+          }
+        }
+      }
+      group_sync<1, SM_CEM_THREADS>();
+    }
+    if (pass == 0) {
+#pragma unroll
+      for (int u = 0; u < PC; ++u) mean[u] = mean[u] / (float)K;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < PC; ++u) {
+    const int p = ct + u * SM_CEM_THREADS;
+    if (p < P) {
+      const float var = ss[u] / (float)(K - 1) + 1e-8f;
+      sigma_out[p] = clip_nan(sqrtf(var), kn.sigma_min, kn.sigma_max);
+    }
+  }
+}
+
 // Part 3, the finish, in the block whose tile took the last ticket, after a fence:
 // warps 0-3 sum the B partial rows' columns in block order, write out's new
 // parameters (inc_r + S / Z, inc_r from finish_incumbent) and, on warp 0, the
 // step-0 extraction, beta and its index from best_key; for CEM, warps 4-15 select
-// the elites from the B*K block keys and refit sigma. sums_out (P + 1), if not
-// nullptr, receives the unnormalized sums [S (P), Z] as well, for a caller that
-// merges them with other shards' (a sample-sharded solve). R: how the noise is
-// read.
+// the elites from the B*K block keys (above SM_KMAX elites: from the N costs) and
+// refit sigma. sums_out (P + 1), if not nullptr, receives the unnormalized sums
+// [S (P), Z] as well, for a caller that merges them with other shards' (a
+// sample-sharded solve). R: how the noise and the costs are read.
 template <int PL, Read R>
 __device__ __forceinline__ void update_finish(const RSArgs& a, const SMKnobs& kn,
                                               const float* w_blk, const float* inc_r,
-                                              const float* noise, unsigned long long best_key,
-                                              int B, float* partials,
-                                              unsigned long long* block_keys, float* out,
-                                              float* sigma_out, int* elites,
+                                              const float* noise, const float* costs,
+                                              unsigned long long best_key, int B,
+                                              float* partials, unsigned long long* block_keys,
+                                              float* out, float* sigma_out, int* elites,
                                               unsigned char* arena, float* sums_out = nullptr) {
   constexpr int P = 4 * PL;
   constexpr int CH = P / 4;
@@ -281,8 +459,8 @@ __device__ __forceinline__ void update_finish(const RSArgs& a, const SMKnobs& kn
   constexpr int COLS = (ROW + SM_COL_THREADS - 1) / SM_COL_THREADS;  // finish columns a thread
   constexpr int PCOLS = (P + SM_COL_THREADS - 1) / SM_COL_THREADS;   // new parameters a thread
   constexpr int PLP = padded_pl(PL);
-  static_assert(3 * PLP <= SM_COL_THREADS && P <= SM_CEM_THREADS && SM_TILE_ROWS % 4 == 0,
-                "one basis chunk or parameter of the refit a thread; aligned tiles");
+  constexpr int TILE = sm_tile_rows(P);
+  static_assert(TILE % 4 == 0 && TILE > 0, "aligned tiles");
   __shared__ float sum_s[ROW];
   __shared__ float prm_s[P];
   __shared__ __align__(16) float w0_s[12 * PLP];
@@ -297,14 +475,14 @@ __device__ __forceinline__ void update_finish(const RSArgs& a, const SMKnobs& kn
     float s[COLS];
 #pragma unroll
     for (int u = 0; u < COLS; ++u) s[u] = 0.f;
-    for (int b0 = 0; b0 < B; b0 += SM_TILE_ROWS) {
-      const int rows = B - b0 < SM_TILE_ROWS ? B - b0 : SM_TILE_ROWS;
+    for (int b0 = 0; b0 < B; b0 += TILE) {
+      const int rows = B - b0 < TILE ? B - b0 : TILE;
       const float* src = partials + (size_t)b0 * ROW;  // 16-byte aligned: b0 % 4 == 0
       const int n = rows * ROW;
       for (int q = t; q < n / 4; q += SM_COL_THREADS) cp_async16(&tile_s[4 * q], &src[4 * q]);
       for (int q = (n / 4) * 4 + t; q < n; q += SM_COL_THREADS) tile_s[q] = __ldcg(&src[q]);
-      if (b0 == 0 && t < 3 * PLP)  // the step-0 basis rows (12, PLP), 16-byte aligned
-        cp_async16(&w0_s[4 * t], &w_blk[4 * t]);
+      if (b0 == 0)  // the step-0 basis rows (12, PLP), 16-byte aligned
+        for (int q = t; q < 3 * PLP; q += SM_COL_THREADS) cp_async16(&w0_s[4 * q], &w_blk[4 * q]);
       cp_async_wait_all();
       group_sync<3, SM_COL_THREADS>();
 #pragma unroll
@@ -354,6 +532,22 @@ __device__ __forceinline__ void update_finish(const RSArgs& a, const SMKnobs& kn
   const int mk = B * K;
   unsigned long long* stage_s =
       reinterpret_cast<unsigned long long*>(arena + sm_tile_bytes(P, B));
+  if (K > SM_KMAX) {
+    const int n = a.num_samples;
+    compact_elites<R>(costs, n, kth_lowest_key<R>(costs, n, K, ct), elites, ct);
+    group_sync<1, SM_CEM_THREADS>();
+    refit_in_batches<P, CH>(
+        kn, elites, K,
+        [&](int i, int c, float* row) {
+          const float4 z = load_noise4<R>(noise, n, i, c);
+          row[4 * c + 0] = z.x;
+          row[4 * c + 1] = z.y;
+          row[4 * c + 2] = z.z;
+          row[4 * c + 3] = z.w;
+        },
+        reinterpret_cast<float*>(stage_s), sigma_out, ct);
+    return;
+  }
   const int staged = mk < SM_STAGE_KEYS ? mk : SM_STAGE_KEYS;
   for (int q = ct; q < staged / 2; q += SM_CEM_THREADS)
     cp_async16(&stage_s[2 * q], &block_keys[2 * q]);  // block_keys is 16-byte aligned
@@ -419,8 +613,7 @@ __device__ __forceinline__ void update_finish(const RSArgs& a, const SMKnobs& kn
     xe[3] = z.w;
   }
   group_sync<1, SM_CEM_THREADS>();
-  if (ct < P) {
-    const int p = ct;
+  for (int p = ct; p < P; p += SM_CEM_THREADS) {
     float mean = 0.f;
 #pragma unroll 4
     for (int e = 0; e < K; ++e) mean += x_s[e * P + p];
@@ -461,8 +654,9 @@ sm_update_kernel(const RSArgs a, const SMKnobs kn, const float* __restrict__ w_b
                                   arena);
   if (!last_ticket(ticket, gridDim.x)) return;
   __threadfence();
-  update_finish<PL, Read::ReadOnly>(a, kn, w_blk, inc_r, noise, best_key, gridDim.x, partials,
-                                    block_keys, out, sigma_out, elites, arena, sums_out);
+  update_finish<PL, Read::ReadOnly>(a, kn, w_blk, inc_r, noise, costs, best_key, gridDim.x,
+                                    partials, block_keys, out, sigma_out, elites, arena,
+                                    sums_out);
 }
 
 // Above 48 KB dynamic shared memory needs an opt-in, given once for the most the
@@ -471,7 +665,8 @@ template <int PL>
 static cudaError_t update_opt_in() {
   static bool opted_in = false;
   if (opted_in) return cudaSuccess;
-  const int most = sm_tile_bytes(4 * PL, SM_TILE_ROWS) + (SM_STAGE_KEYS + SM_KMAX * SM_KMAX) * 8;
+  const int most =
+      sm_tile_bytes(4 * PL, SM_TILE_ROWS) + (SM_STAGE_KEYS + SM_KMAX * SM_KMAX) * 8;
   cudaError_t err = cudaFuncSetAttribute(sm_update_kernel<PL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, most);
   if (err == cudaSuccess)

@@ -157,7 +157,7 @@ def _strides(num_samples: int, num_parameters: int, knobs) -> tuple:
     aligned for the update pass's cp.async."""
     B = -(-num_samples // sm.BLOCK)
     part = B * (num_parameters + 1)
-    keys = B * knobs.n_elite if knobs.cem else 0
+    keys = B * knobs.n_elite if knobs.cem and knobs.n_elite <= sm.LIST_ELITE else 0
     return part + (-part) % 4, keys + keys % 2
 
 
@@ -212,7 +212,7 @@ def fleet_iteration_reference(plan: rs.RSPlan, knobs, tick: FleetTick, incumbent
     scenario on the given noise (S, P, N) (column 0 the incumbent's zero), the
     incumbents (S, P) and, for CEM, sigma (S, P). Each scenario's costs, argmin
     (lowest index on ties), softmax update, elites in (cost, index) order and refit
-    follow K1a/K1b/K1c's plain versions; the ZMP-band cost exists only here.
+    follow K1a/K1b/K1c's plain versions.
     Given ``costs`` (S, N) (a kernel's own), only the optimizer step and the
     extraction run on them."""
     S, P, N = noise.shape
@@ -234,7 +234,7 @@ def fleet_iteration_reference(plan: rs.RSPlan, knobs, tick: FleetTick, incumbent
         w = w / torch.sum(w, dim=1, keepdim=True)
         new = incumbent + torch.matmul(noise, w[:, :, None])[..., 0]
         if knobs.cem:
-            elites = torch.argsort(costs, dim=1, stable=True)[:, :knobs.n_elite]
+            elites = sm.cem_elites(costs, knobs.n_elite)
             picked = noise.gather(2, elites[:, None, :].expand(S, P, knobs.n_elite))
             var = torch.var(picked, dim=2, unbiased=True) + 1e-8
             new_sigma = torch.clamp(torch.sqrt(var), knobs.sigma_min, knobs.sigma_max)
@@ -267,13 +267,13 @@ _LIBS: dict = {}
 
 def load_library(horizon: int, params_per_leg: int) -> ctypes.CDLL:
     """Build (if needed) and load the K1f library of the (horizon, parameters per
-    leg) pair; raises on any failure, NotImplementedError for a pair that is not
-    built (``build.INSTANTIATIONS``)."""
+    leg) pair; raises on any failure, NotImplementedError for a pair beyond the
+    kernels' bounds (``build.check_pair``)."""
     key = (horizon, params_per_leg)
     if key not in _LIBS:
         lib = build.load("sampling_fleet", horizon, params_per_leg)
         rs.int_getters(lib, ("fleet_args_size", "fleet_layout_size", "fleet_knobs_size",
-                             "fleet_block", "fleet_rollout_samples", "fleet_max_elite",
+                             "fleet_block", "fleet_rollout_samples", "fleet_list_elite",
                              "fleet_horizon", "fleet_params_per_leg",
                              "fleet_padded_params_per_leg", "fleet_row_floats",
                              "fleet_layout_wide", "fleet_layout_regen", "fleet_wide_samples",
@@ -283,7 +283,7 @@ def load_library(horizon: int, params_per_leg: int) -> ctypes.CDLL:
                 or lib.fleet_knobs_size() != ctypes.sizeof(sm.SMKnobs)
                 or lib.fleet_block() != sm.BLOCK
                 or lib.fleet_rollout_samples() != rs.ROLLOUT_SAMPLES
-                or lib.fleet_max_elite() != sm.MAX_ELITE
+                or lib.fleet_list_elite() != sm.LIST_ELITE
                 or (lib.fleet_horizon(), lib.fleet_params_per_leg()) != key
                 or lib.fleet_padded_params_per_leg() != rs.padded_params_per_leg(params_per_leg)
                 or lib.fleet_row_floats() != row_floats(horizon)

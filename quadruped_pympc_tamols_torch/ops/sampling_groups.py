@@ -87,9 +87,9 @@ class GroupInputs(NamedTuple):
 
 
 def check_kernel(plan: GroupPlan, knobs: sm.Knobs) -> None:
-    """Raise NotImplementedError for what K1e does not compute: K1a's shapes and
-    the ZMP-band cost (``rs.check_kernel_shape``), or an elite count outside
-    [2, min(32, K*Ng)]."""
+    """Raise for what K1e does not take: a pair beyond the kernels' bounds
+    (``rs.check_kernel_shape``), a temperature <= 0, or an elite count outside
+    [2, K*Ng]."""
     used = dataclasses.replace(plan.base, num_samples=plan.num_used)
     sm.check_kernel_knobs(used, knobs)
 
@@ -190,8 +190,8 @@ _METHOD = {"random_sampling": 0, "mppi": 1, "cem_mppi": 2}
 
 def load_library(horizon: int, params_per_leg: int) -> ctypes.CDLL:
     """Build (if needed) and load the K1e library of the (horizon, parameters per
-    leg) pair; raises on any failure, NotImplementedError for a pair that is not
-    built (``build.INSTANTIATIONS``)."""
+    leg) pair; raises on any failure, NotImplementedError for a pair beyond the
+    kernels' bounds (``build.check_pair``)."""
     key = (horizon, params_per_leg)
     if key not in _LIBS:
         lib = build.load("sampling_groups", horizon, params_per_leg)

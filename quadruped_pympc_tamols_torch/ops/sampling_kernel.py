@@ -20,12 +20,14 @@ launches, counted once in ``sampling_rs.launches``) or raises; on CPU tensors it
 runs ``sampling_iteration_reference``, the plain torch version of the same
 function. There is no fallback from one to the other.
 
-The kernel is built with ``nvcc`` at first use from the source in this package
-into ``quadruped_pympc_tamols_torch/_build/`` and bound with ``ctypes``
-(``ops/build.py``), one library for each (horizon, parameters per leg) pair of
-``build.INSTANTIATIONS``: cubic splines, linear splines and zero-order holds at
-horizon 12. A leg's basis rows reach the kernel zero-padded to a multiple of
-four (``pad_blocks``); every other layout keeps P = 4 * P_leg.
+The kernel is built with ``nvcc`` from the source in this package into
+``quadruped_pympc_tamols_torch/_build/`` and bound with ``ctypes``
+(``ops/build.py``), one library for each (horizon, parameters per leg) pair, the
+first time a solver asks for the pair: any parametrization up to horizon 24
+(``build.check_pair``). A leg's basis rows reach the kernel zero-padded to a
+multiple of four (``pad_blocks``); every other layout keeps P = 4 * P_leg. The
+rollout adds the ZMP-band cost each step where ``sampling.zmp_weight > 0``, as
+the plain version does.
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ from . import build
 # Samples per block of the rollout pass, four lanes each (ROLLOUT_SAMPLES in
 # csrc/sampling_common.cuh; every library's getter is checked against it).
 ROLLOUT_SAMPLES = 16
-_HMAX = 16
+_HMAX = build.MAX_HORIZON  # RS_HMAX: the argument block's per-step arrays
 OUT_WINNER = 26  # packed output: [cost, grf(12), state(12), index, winner(P)]
 COST_SATURATION = 1.0e6
 
@@ -73,7 +75,8 @@ class RSArgs(ctypes.Structure):
                 ("ref", ctypes.c_float * 12),
                 ("contact", ctypes.c_float * (_HMAX * 4)),
                 ("share", ctypes.c_float * (_HMAX * 4)),
-                ("draw_col0", ctypes.c_int)]
+                ("draw_col0", ctypes.c_int),
+                ("zmp_weight", ctypes.c_float), ("zmp_margin", ctypes.c_float)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,7 +94,7 @@ class RSPlan:
     q_diag: np.ndarray  # (12,) float32, >= 0
     srbd: SRBDParams  # on the solver's device
     fm: ForceModelParams
-    zmp_weight: float  # ZMP-band cost (plain version only; the kernel refuses > 0)
+    zmp_weight: float  # ZMP-band cost (0: none)
     zmp_margin: float
     args_template: bytes  # RSArgs with every constant filled, per-tick fields zero
     # Sample 0 draws noise as the others do instead of being the incumbent: the
@@ -152,6 +155,7 @@ def make_rs_plan(cfg: Config, num_samples: int, device) -> RSPlan:
     m.scale_x, m.scale_y, m.grf_min, m.grf_max, m.mu = (fm.scale_x, fm.scale_y, fm.grf_min,
                                                         fm.grf_max, fm.mu)
     a.sigma1, a.sigma2, a.sigma3 = sp.sigma_random
+    a.zmp_weight, a.zmp_margin = sp.zmp_weight, sp.zmp_margin
     np.ctypeslib.as_array(a.dts)[:min(H, _HMAX)] = cfg.mpc.dts()[:_HMAX]
     np.ctypeslib.as_array(a.q_diag)[:] = q_diag
     return RSPlan(num_samples=N, horizon=H, params_per_leg=P_leg,
@@ -193,14 +197,9 @@ def pad_blocks(blocks: np.ndarray) -> np.ndarray:
 
 
 def check_kernel_shape(plan: RSPlan) -> None:
-    """Raise NotImplementedError for what the CUDA kernels (K1a-K1e) do not
-    compute: a (horizon, parameters per leg) pair their sources are not built for
-    (``build.INSTANTIATIONS``), or the ZMP-band cost."""
-    if plan.zmp_weight > 0.0:
-        raise NotImplementedError(
-            "sampling.zmp_weight > 0: the CUDA sampling kernels have no ZMP-band cost yet "
-            "(the plain path, device='cpu', has it)")
-    build.check_instantiated(plan.horizon, plan.params_per_leg)
+    """Raise NotImplementedError, naming the bound, for a (horizon, parameters per
+    leg) pair beyond what the CUDA kernels (K1a-K1f) hold (``build.check_pair``)."""
+    build.check_pair(plan.horizon, plan.params_per_leg)
 
 
 # -- the plain version ------------------------------------------------------------
@@ -235,8 +234,8 @@ def sampling_iteration_reference(noise, incumbent, W, state12, feet, ref12, cont
     noise (P, N), incumbent (P,), W (H*12, P); state12/ref12 (12,), feet (4, 3),
     contact_seq (4, H), share (H, 4) or (H,), all on one device; dts and q_diag
     host arrays. Returns every cost, the argmin (lowest index on ties), the
-    winner's parameters, its step-0 GRFs and its one-step Euler state. The
-    ZMP-band cost (``zmp_weight > 0``) exists only here, not in the kernel."""
+    winner's parameters, its step-0 GRFs and its one-step Euler state, with the
+    ZMP-band cost where ``zmp_weight > 0``."""
     params = incumbent[:, None] + noise
     costs = rollout_costs_reference(params, W, state12, feet, ref12, contact_seq, share, dts,
                                     q_diag, srbd, fm, zmp_weight, zmp_margin)
@@ -310,8 +309,8 @@ def int_getters(lib, names) -> None:
 
 def load_library(horizon: int, params_per_leg: int) -> ctypes.CDLL:
     """Build (if needed) and load the kernel library of the (horizon, parameters
-    per leg) pair; raises on any failure, NotImplementedError for a pair that is
-    not built (``build.INSTANTIATIONS``)."""
+    per leg) pair; raises on any failure, NotImplementedError for a pair beyond
+    the kernels' bounds (``build.check_pair``)."""
     key = (horizon, params_per_leg)
     if key not in _LIBS:
         lib = build.load("sampling_rs", horizon, params_per_leg)

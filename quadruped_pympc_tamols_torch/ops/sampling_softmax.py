@@ -8,12 +8,13 @@ rollout_pallas.py:make_pallas_iteration(...).kernel``, in the XLA solver's forms
 ``incumbent + noise @ w`` with softmax weights ``w = exp(-(c - beta)/T)``
 normalized, ``beta`` the lowest cost; CEM-MPPI draws its noise with a
 per-parameter sigma and refits it from the ``cem_elite`` lowest-cost samples'
-noise (variance with ddof 1, + 1e-8, square root, clipped). Elites are taken in
-(cost, index) order, lowest index first on equal costs, as ``jax.lax.top_k`` takes
-them. One iteration is a memset and two launches: the rollout pass and the
-update pass, whose blocks each sum their samples' weighted noise and whose last
-block to arrive (an atomic ticket) finishes the step; every sum runs in a fixed
-order, so a run repeats its bits. The step-0 GRFs and one-step state come from
+noise (variance with ddof 1, + 1e-8, square root, clipped). The elites are
+``jax.lax.top_k``'s set, the lowest index first on equal costs (any 2 <= K <= N);
+the plain version lists them in (cost, index) order, the kernels too up to
+``LIST_ELITE`` and in index order above it. One iteration is a memset and two
+launches: the rollout pass and the update pass, whose blocks each sum their
+samples' weighted noise and whose last block to arrive (an atomic ticket)
+finishes the step; every sum runs in a fixed order, so a run repeats its bits. The step-0 GRFs and one-step state come from
 the new parameters (the mean), not from a sample. See the source for the design.
 
 K1d, chained iterations (``num_chained > 1`` in the Pallas kernel), is
@@ -56,7 +57,10 @@ from . import sampling_kernel as rs
 BLOCK = 64  # samples per block of the update pass (RS_BLOCK): sizes the partials and keys
 PHASE_ROLLOUT, PHASE_UPDATE = 1, 2  # SM_PHASE_*: the phases of an iteration a C entry runs
 BOTH_PHASES = PHASE_ROLLOUT | PHASE_UPDATE
-MAX_ELITE = 32  # SM_KMAX
+# SM_KMAX: up to this many CEM elites the update pass keeps per-block key lists
+# and lists the elites in (cost, index) order; above it (up to N) a radix select
+# over the N keys takes them, listed in index order.
+LIST_ELITE = 32
 METHODS = ("random_sampling", "mppi", "cem_mppi")  # the chain kernel's method codes 0, 1, 2
 
 
@@ -98,18 +102,17 @@ def make_knobs(cfg: Config, method: str | None = None) -> Knobs:
 
 
 def check_kernel_knobs(plan: rs.RSPlan, knobs: Knobs) -> None:
-    """Raise for what the CUDA kernels do not take: K1a's shapes (see
-    ``check_kernel_shape``), a temperature <= 0, or an elite count outside
-    [2, min(32, N)]."""
+    """Raise for what the CUDA kernels do not take: a pair beyond their bounds
+    (``check_kernel_shape``), a temperature <= 0 (ValueError), or an elite count
+    outside [2, N] (the variance of one elite has no ddof-1 estimate)."""
     rs.check_kernel_shape(plan)
     if knobs.method == "random_sampling":
         return
     if not knobs.temperature > 0.0:
         raise ValueError(f"sampling.mppi_temperature must be > 0, got {knobs.temperature}")
-    if knobs.cem and not 2 <= knobs.n_elite <= min(MAX_ELITE, plan.num_samples):
-        raise NotImplementedError(
-            f"the CUDA CEM-MPPI kernel takes 2 to {min(MAX_ELITE, plan.num_samples)} elites, "
-            f"not {knobs.n_elite}")
+    if knobs.cem and not 2 <= knobs.n_elite <= plan.num_samples:
+        raise NotImplementedError(f"CEM-MPPI takes 2 to {plan.num_samples} elites (the samples), "
+                                  f"not {knobs.n_elite}")
 
 
 # -- the plain version ------------------------------------------------------------
@@ -142,9 +145,10 @@ def mppi_update(costs, noise, incumbent, temperature: float):
 
 
 def cem_elites(costs, n_elite: int):
-    """Indices of the ``n_elite`` lowest costs in (cost, index) order: on equal costs
-    the lowest index first, as ``jax.lax.top_k(-costs, n_elite)`` takes them."""
-    return torch.argsort(costs, stable=True)[:n_elite]
+    """Indices of the ``n_elite`` lowest costs (..., N) -> (..., n_elite) in (cost,
+    index) order: on equal costs the lowest index first, as
+    ``jax.lax.top_k(-costs, n_elite)`` takes them."""
+    return torch.argsort(costs, dim=-1, stable=True)[..., :n_elite]
 
 
 def cem_refit(noise, elites, sigma_min: float, sigma_max: float):
@@ -190,7 +194,7 @@ def softmax_iteration_reference(noise, incumbent, W, state12, feet, ref12, conta
 
     Arguments as ``sampling_iteration_reference``: noise (P, N) (column 0 the
     incumbent's zero), incumbent (P,), W (H*12, P), the tick's tensors on one
-    device, dts and q_diag host arrays. The ZMP-band cost exists only here."""
+    device, dts and q_diag host arrays."""
     costs = rs.rollout_costs_reference(incumbent[:, None] + noise, W, state12, feet, ref12,
                                        contact_seq, share, dts, q_diag, srbd, fm, zmp_weight,
                                        zmp_margin)
@@ -236,20 +240,20 @@ _LIBS: dict = {}
 
 def load_library(horizon: int, params_per_leg: int) -> ctypes.CDLL:
     """Build (if needed) and load the K1b/K1c library of the (horizon, parameters
-    per leg) pair; raises on any failure, NotImplementedError for a pair that is
-    not built (``build.INSTANTIATIONS``)."""
+    per leg) pair; raises on any failure, NotImplementedError for a pair beyond
+    the kernels' bounds (``build.check_pair``)."""
     key = (horizon, params_per_leg)
     if key not in _LIBS:
         lib = build.load("sampling_softmax", horizon, params_per_leg)
         rs.int_getters(lib, ("sm_args_size", "sm_knobs_size", "sm_block", "sm_rollout_samples",
-                             "sm_max_elite", "sm_horizon", "sm_params_per_leg",
+                             "sm_list_elite", "sm_horizon", "sm_params_per_leg",
                              "sm_padded_params_per_leg", "sm_phase_rollout", "sm_phase_update"))
         if (lib.sm_args_size() != ctypes.sizeof(rs.RSArgs)
                 or (lib.sm_phase_rollout(), lib.sm_phase_update()) != (PHASE_ROLLOUT,
                                                                         PHASE_UPDATE)
                 or lib.sm_knobs_size() != ctypes.sizeof(SMKnobs)
                 or lib.sm_block() != BLOCK or lib.sm_rollout_samples() != rs.ROLLOUT_SAMPLES
-                or lib.sm_max_elite() != MAX_ELITE
+                or lib.sm_list_elite() != LIST_ELITE
                 or (lib.sm_horizon(), lib.sm_params_per_leg()) != key
                 or lib.sm_padded_params_per_leg() != rs.padded_params_per_leg(params_per_leg)):
             raise RuntimeError(f"sampling_softmax.cu for {key} and its ctypes mirror disagree")
@@ -282,7 +286,7 @@ class Workspace(NamedTuple):
     costs: torch.Tensor  # (N,)
     out: torch.Tensor  # (26 + P,) [beta, grf(12), state(12), index, new params(P)]
     sigma: torch.Tensor | None  # (P,) CEM refit
-    elites: torch.Tensor | None  # (K,) int32 CEM elite indices
+    elites: torch.Tensor | None  # (K,) int32 CEM elite indices (index order above LIST_ELITE)
     # int64: [argmin, ticket | block keys (B*K, CEM; an even count) | partials
     # (B*(P+1) f32)]; the iteration's memset resets the first two words (the chain
     # kernel sets them itself).
@@ -293,10 +297,11 @@ class Workspace(NamedTuple):
 
 
 def _key_words(num_samples: int, knobs) -> int:
-    """int64 words of the block keys: B*K for CEM rounded up to even, so that the
-    partials after them are 16-byte aligned (the update pass copies them with
-    cp.async)."""
-    n = -(-num_samples // BLOCK) * knobs.n_elite if knobs.cem else 0
+    """int64 words of the block keys: B*K for CEM with K <= LIST_ELITE, rounded up
+    to even, so that the partials after them are 16-byte aligned (the update pass
+    copies them with cp.async); none above LIST_ELITE."""
+    n = -(-num_samples // BLOCK) * knobs.n_elite if knobs.cem and knobs.n_elite <= LIST_ELITE \
+        else 0
     return n + n % 2
 
 

@@ -5,8 +5,11 @@ run_simulation, simulation/simulation.py:395-806): builds the env (scene,
 velocity and friction randomization), the per-leg heightmap sensing and the
 QuadrupedPyMPCWrapper, then runs the episode loop — MuJoCo state reads ->
 compute_actions -> swing-leg joint PD -> torque clipping -> env.step — with the
-fall test and per-episode metrics. Headless and deterministic. The MPC solve and
-the TAMOLS planner run on ``device``; MuJoCo and the torque path on the host.
+fall test and per-episode metrics. Headless and deterministic unless asked for
+video (``video_path``: ``sim/video.py``'s offscreen recorder) or the live viewer
+(``render``), both of which need a GL backend, as in the JAX package. The MPC
+solve and the TAMOLS planner run on ``device``; MuJoCo and the torque path on the
+host.
 """
 from __future__ import annotations
 
@@ -20,9 +23,6 @@ from ..interfaces.wrapper import QuadrupedPyMPCWrapper
 from ..utils.device import resolve_device
 from ..utils.legs import Legs
 from .mujoco_env import QuadrupedEnv
-
-# Where the JAX package's video recorder and live viewer wait to be ported.
-VIDEO_ITEM = "sim/video.py (ROADMAP queue 1 item 4, MuJoCo tier)"
 
 
 @dataclasses.dataclass
@@ -58,10 +58,11 @@ def run_simulation(
     ``ref_base_lin_vel`` is a fixed (vx, vy), a ("random", lo, hi) tuple for
     randomized-velocity datagen (reference simulation.py:433-442), or a callable
     t -> (vx, vy) (or (t, base_pos) -> (vx, vy)) evaluated every step.
-    ``video_path`` and ``render`` need ``sim/video.py``, not ported yet.
+    ``video_path`` records each episode at ``video_fps`` (``sim/video.py``; a '%d'
+    in the path takes the episode index); ``render`` opens MuJoCo's passive
+    viewer with the debug overlays and its 'V' key toggles a recording into
+    ``recordings/``.
     """
-    if video_path is not None or render:
-        raise NotImplementedError(f"video_path and render need {VIDEO_ITEM}")
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     results = []
@@ -92,6 +93,14 @@ def run_simulation(
 
         wrapper = QuadrupedPyMPCWrapper(cfg, env.feet_pos(), seed=seed + ep, device=device)
         tau_max = np.asarray(env.model.actuator_ctrlrange[:, 1]).reshape(4, 3)
+        recorder = None
+        if video_path is not None:
+            from .video import VideoRecorder
+            recorder = VideoRecorder(env, video_path, fps=video_fps)
+        viewer, live_rec = None, {"rec": None}
+        if render:
+            viewer = _launch_viewer(env, live_rec, video_fps)
+            next_sync = 0.0
 
         n_steps = int(round(episode_duration_s / env.sim_dt))
         hist = np.zeros((n_steps, 12))
@@ -151,10 +160,32 @@ def run_simulation(
             height_err.append(abs(x[2] - cfg.sim.ref_z))
             if logger is not None:
                 logger.log(t * env.sim_dt, env, wrapper)
+            if recorder is not None:
+                recorder.maybe_capture(t * env.sim_dt, wrapper)
+            if live_rec["rec"] is not None:
+                live_rec["rec"].maybe_capture(t * env.sim_dt, wrapper)
+            if viewer is not None:
+                if not viewer.is_running():
+                    break
+                if t * env.sim_dt >= next_sync:
+                    # The live overlays (reference simulation.py:713-764) at 30 Hz.
+                    from .video import draw_overlays
+                    viewer.user_scn.ngeom = 0
+                    draw_overlays(viewer.user_scn, env, wrapper)
+                    viewer.sync()
+                    next_sync = t * env.sim_dt + 1.0 / 30.0
             if x[2] < 0.5 * cfg.sim.ref_z or abs(x[6]) > 0.8 or abs(x[7]) > 0.8:
                 fell = True
                 hist = hist[: t + 1]
                 break
+
+        if recorder is not None:
+            recorder.close(episode=ep)
+        if live_rec["rec"] is not None:  # still recording at the episode's end
+            print(f"[video] saved {live_rec['rec'].close()}", flush=True)
+            live_rec["rec"] = None
+        if viewer is not None:
+            viewer.close()
 
         results.append(EpisodeResult(
             duration=len(hist) * env.sim_dt,
@@ -165,3 +196,29 @@ def run_simulation(
             state_history=hist,
         ))
     return results
+
+
+def _launch_viewer(env, live_rec, video_fps):
+    """MuJoCo's passive viewer of ``env`` (reference simulation.py:713-770), its 'V'
+    key toggling a recording (reference simulation/video_recorder.py:17-207) into
+    ``live_rec["rec"]``, saved under ``recordings/``. Raises where there is no
+    display, as the JAX package's does."""
+    import mujoco.viewer as mj_viewer
+
+    def key_cb(keycode):
+        if keycode not in (ord("v"), ord("V")):
+            return
+        if live_rec["rec"] is None:
+            import os
+            import time
+
+            from .video import VideoRecorder
+            os.makedirs("recordings", exist_ok=True)
+            fname = time.strftime("recordings/live_%Y%m%d_%H%M%S.mp4")
+            live_rec["rec"] = VideoRecorder(env, fname, fps=video_fps)
+            print(f"[video] recording -> {fname}", flush=True)
+        else:
+            print(f"[video] saved {live_rec['rec'].close()}", flush=True)
+            live_rec["rec"] = None
+
+    return mj_viewer.launch_passive(env.model, env.data, key_callback=key_cb)

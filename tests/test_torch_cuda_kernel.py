@@ -241,21 +241,41 @@ def test_group_kernel_matches_plain_version(cuda_device, method):
 
 
 def test_cuda_solver_refuses_unported_paths(cuda_device):
-    """The solvers refuse only the ZMP-band cost and a (horizon, parameters per
-    leg) pair the sources are not built for; every method at 1 and 3 iterations
-    (K1a/K1b/K1c once, or the chain kernel K1d once), and the gait-adaptive
-    solver's three, build and solve on the kernels with each parametrization."""
+    """The solvers refuse only a (horizon, parameters per leg) pair beyond the
+    kernels' bounds, with one NotImplementedError naming them; the ZMP-band cost
+    and other pairs (horizon 10 with cubic splines and zero-order holds) solve on
+    the kernels, the sampling solver and the gait-adaptive one. Every method at 1
+    and 3 iterations (K1a/K1b/K1c once, or the chain kernel K1d once), and the
+    gait-adaptive solver's three, build and solve on the kernels with each
+    parametrization."""
     from quadruped_pympc_tamols_torch.controllers.sampling import (make_gait_adaptive_solver,
                                                                    make_sampling_solver)
     from quadruped_pympc_tamols_torch.controllers.sampling.sampling_mpc import SamplingState
     base = {"sim.visual_foothold_adaptation": "blind"}
     gait = {**base, "mpc.optimize_step_freq": True}
+    ones = np.ones(4, np.float32)
     for over in ({"mpc.sampling.zmp_weight": 500.0}, {"mpc.horizon": 10},
                  {"mpc.horizon": 10, "mpc.sampling.parametrization": "zero_order"}):
-        with pytest.raises(NotImplementedError):
+        cfg = make_config("aliengo", **base, **over)
+        tick = _tick(cfg)
+        solve, P = make_sampling_solver(cfg, 1000, device=cuda_device)
+        state = SamplingState(torch.zeros(P, device=cuda_device), 0, 0,
+                              torch.full((P,), 2.0, device=cuda_device))
+        out, _ = solve(tick.state12, tick.feet, tick.ref12, tick.feet, tick.contact_seq, ones,
+                       ones, state)
+        assert bool(torch.isfinite(out.summary).all())
+        gsolve, P = make_gait_adaptive_solver(make_config("aliengo", **gait, **over), 1000,
+                                              "mppi", cuda_device)
+        out, _ = gsolve(tick.state12, tick.feet, tick.ref12, tick.feet,
+                        np.array([0.3, 0.8, 0.8, 0.3], np.float32), 1.4, True, tick.contact_seq,
+                        ones, ones, state)
+        assert bool(torch.isfinite(out.summary).all())
+    for over in ({"mpc.horizon": 25},
+                 {"mpc.horizon": 25, "mpc.sampling.parametrization": "zero_order"}):
+        with pytest.raises(NotImplementedError, match="horizon <= 24"):
             make_sampling_solver(make_config("aliengo", **base, **over), 1000,
                                  device=cuda_device)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="horizon <= 24"):
             make_gait_adaptive_solver(make_config("aliengo", **gait, **over), 1000,
                                       device=cuda_device)
     tick = _tick(make_config("aliengo", **base))

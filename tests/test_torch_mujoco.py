@@ -291,12 +291,16 @@ def test_wrapper_closed_loop_matches_jax(tmp_path, monkeypatch):
         assert f["ctrl__nmpc_GRFs"].shape == (200, 4, 3)
 
 
-def test_unported_pieces_raise():
+def test_unported_pieces_raise(tmp_path, monkeypatch):
     """The gradient variants (mpc.type "lyapunov") and the DDP solver
     (mpc.gradient.use_DDP), refused before the variant slice, now build a
-    wrapper on the CPU and solve a tick; video and the live viewer still wait for
-    sim/video.py; the wrapper, run_simulation and the heightmaps refuse a
+    wrapper on the CPU and solve a tick; video and the live viewer, refused before
+    the last slice, now run (with a stub renderer and a stub viewer: there is no
+    GL here): run_simulation writes the episode's frames at video_fps and syncs
+    the viewer at 30 Hz; the wrapper, run_simulation and the heightmaps refuse a
     missing card instead of using the CPU."""
+    import mujoco
+    import mujoco.viewer
     from quadruped_pympc_tamols_torch.interfaces import QuadrupedPyMPCWrapper
 
     cfg = make_config("aliengo", mpc_type="sampling",
@@ -308,9 +312,43 @@ def test_unported_pieces_raise():
                                   device="cpu")
         tau = w.compute_actions(**{**TRACE.inputs(0), "heightmaps": None})
         assert np.all(np.isfinite(tau.data)) and np.any(w.nmpc_GRFs.data), over
-    for kw in ({"video_path": "x.mp4"}, {"render": True}):
-        with pytest.raises(NotImplementedError, match="sim/video.py"):
-            simulation.run_simulation(cfg, episode_duration_s=0.01, device="cpu", **kw)
+    class StubRenderer:
+        def __init__(self, model, height, width):
+            self.scene = mujoco.MjvScene(model, maxgeom=64)
+            self.frames = 0
+
+        def update_scene(self, data, camera=None):
+            self.scene.ngeom = 0
+
+        def render(self):  # frames that differ: a GIF writer merges equal ones
+            self.frames += 1
+            return np.full((8, 8, 3), 60 * self.frames + self.scene.ngeom, np.uint8)
+
+        def close(self):
+            pass
+
+    class StubViewer(StubRenderer):
+        syncs = 0
+
+        def __init__(self, model):
+            super().__init__(model, 0, 0)
+            self.user_scn = self.scene
+
+        def is_running(self):
+            return True
+
+        def sync(self):
+            StubViewer.syncs += 1
+
+    monkeypatch.setattr(mujoco, "Renderer", StubRenderer)
+    monkeypatch.setattr(mujoco.viewer, "launch_passive",
+                        lambda model, data, key_callback=None: StubViewer(model))
+    simulation.run_simulation(cfg, episode_duration_s=0.07, device="cpu",
+                              video_path=str(tmp_path / "ep%d.gif"), video_fps=30.0)
+    import imageio
+    assert len(imageio.mimread(tmp_path / "ep0.gif")) == 3  # t = 0, 1/30, 2/30
+    simulation.run_simulation(cfg, episode_duration_s=0.07, device="cpu", render=True)
+    assert StubViewer.syncs == 3
     if not torch.cuda.is_available():
         env = QuadrupedEnv(cfg)
         for call in (lambda: QuadrupedPyMPCWrapper(cfg, env.feet_pos()),

@@ -153,14 +153,16 @@ def test_padded_basis_blocks_reproduce_the_step_major_basis():
     (``RSPlan.W_blocks``) and the group buffer's blocks (``pack_groups``) are
     padded to 12 columns at linear splines' 9 parameters per leg and not padded at
     24 and 36; the padding is zero, and unpadded and placed on the block diagonal
-    they give make_step_major_basis and the groups' dense bases. Every pair the
-    sources are built for passes the shape check; horizon 10 raises and names them."""
+    they give make_step_major_basis and the groups' dense bases. Every pair passes
+    the shape check, horizon 10 too; a pair beyond the kernels' bounds (horizon
+    25, zero-order holds at horizon 25, seven cubic splines) raises and names
+    them."""
     for parametrization, P_leg, stride in (("cubic_spline", 24, 24), ("linear_spline", 9, 12),
                                            ("zero_order", 36, 36)):
         cfg = make_config("aliengo", **{"mpc.sampling.parametrization": parametrization,
                                         "mpc.optimize_step_freq": True})
         plan = sk.make_rs_plan(cfg, 64, "cpu")
-        assert (plan.horizon, plan.params_per_leg) in build.INSTANTIATIONS
+        assert (plan.horizon, plan.params_per_leg) in build.MAIN_PAIRS
         sk.check_kernel_shape(plan)
         assert sk.padded_params_per_leg(P_leg) == stride
         H = plan.horizon
@@ -180,6 +182,12 @@ def test_padded_basis_blocks_reproduce_the_step_major_basis():
         unpadded = sg.GroupInputs(groups.contact, groups.share, packed[:, :, :P_leg],
                                   groups.offsets)
         np.testing.assert_array_equal(unpadded.dense("cpu").numpy(), groups.dense("cpu").numpy())
-    plan = sk.make_rs_plan(make_config("aliengo", **{"mpc.horizon": 10}), 64, "cpu")
-    with pytest.raises(NotImplementedError, match=r"\(12, 24\), \(12, 9\), \(12, 36\)"):
-        sk.check_kernel_shape(plan)
+    sk.check_kernel_shape(sk.make_rs_plan(make_config("aliengo", **{"mpc.horizon": 10}), 64,
+                                          "cpu"))
+    for over in ({"mpc.horizon": 25},
+                 {"mpc.horizon": 25, "mpc.sampling.parametrization": "zero_order"},
+                 {"mpc.sampling.num_splines": 7}):
+        plan = sk.make_rs_plan(make_config("aliengo", **over), 64, "cpu")
+        with pytest.raises(NotImplementedError, match=r"horizon <= 24 and 4 <= parameters per "
+                                                      r"leg <= 72"):
+            sk.check_kernel_shape(plan)

@@ -7,12 +7,14 @@ For each TREE (the root of a checkout of this repository), in a process of its
 own, imports that tree's ``quadruped_pympc_tamols_torch``, runs kernels K1a, K1b,
 K1c and K1e (each method) once at N = 10 000 on the card, on numpy noise from a
 seed and on Philox noise, and keeps every output; K1b and K1c also at temperature
-1e6 (every weight nonzero) and on a NaN state (every cost tied at 1e6); and, for
+1e6 (every weight nonzero) and on a NaN state (every cost tied at 1e6); for
 each parametrization, K1a and K1e's random sampling on Philox noise and three
-chained iterations of each method through ``sampling_chain`` (K1d). Then
-prints, for each output, whether the two trees' bits are equal, and where they
-are not, how many elements differ and the largest absolute difference. Exits 1
-if any output differs.
+chained iterations of each method through ``sampling_chain`` (K1d); and K1f,
+each method in both layouts, for 4 scenarios of 1000 samples on numpy noise and
+on Philox noise. Every configuration has the sampling knobs' defaults (no
+ZMP-band cost, 10 CEM elites). Then prints, for each output, whether the two
+trees' bits are equal, and where they are not, how many elements differ and the
+largest absolute difference. Exits 1 if any output differs.
 """
 from __future__ import annotations
 
@@ -115,8 +117,51 @@ def run_tree(path: str) -> None:
         keep(f"K1e random_sampling {par} philox",
              sg.sampling_groups(pgplan, sm.make_knobs(pgcfg, "random_sampling"), tick, pgroups,
                                 pinc, psigma, 3, 1))
+    fleet_outputs(cfg, tick, keep, dev)
     torch.cuda.synchronize()
     np.savez(sys.argv[3], **res)
+
+
+def fleet_outputs(cfg, tick, keep, dev, S=4, n=1000) -> None:
+    """K1f's outputs, each method in both layouts, on numpy noise and on Philox."""
+    import torch
+    from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+
+    plan = sk.make_rs_plan(cfg, n, dev)
+    P = plan.num_parameters
+    rng = np.random.default_rng(2)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+
+    def rows(x):
+        return np.repeat(x[None], S, 0)
+
+    ftick = fl.FleetTick(t(rows(tick.state12) + 0.01 * rng.standard_normal((S, 12))),
+                         t(rows(tick.feet)), t(rows(tick.ref12)), t(rows(tick.contact_seq)),
+                         t(rows(tick.share)))
+    inc = t(rng.standard_normal((S, P)))
+    sigma = t(rng.uniform(0.3, 4.0, (S, P)))
+    noise = t(rng.standard_normal((S, P, n)) * 3.0)
+    noise[:, :, 0] = 0.0
+    seeds = torch.arange(S, dtype=torch.int64, device=dev) + 3
+    offsets = torch.arange(S, dtype=torch.int64, device=dev)
+    for method in sm.METHODS:
+        knobs = sm.make_knobs(cfg, method)
+        for layout in (fl.FOUR_LANE, fl.LARGE_BATCH):
+            keep(f"K1f {method} layout {layout} numpy noise",
+                 fl.fleet_iteration(plan, knobs, ftick, inc, sigma, seeds, offsets,
+                                    noise_in=noise, layout=layout))
+            keep(f"K1f {method} layout {layout} philox",
+                 fl.fleet_iteration(plan, knobs, ftick, inc, sigma, seeds, offsets,
+                                    layout=layout))
+
+
+def run_child(tree: str, out: str) -> dict:
+    subprocess.run([sys.executable, os.path.abspath(__file__), "--child", tree, out], check=True)
+    return dict(np.load(out))
 
 
 def main() -> int:
@@ -130,10 +175,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         outs = []
         for k, tree in enumerate(sys.argv[1:]):
-            out = os.path.join(tmp, f"{k}.npz")
-            subprocess.run([sys.executable, os.path.abspath(__file__), "--child", tree, out],
-                           check=True)
-            outs.append(dict(np.load(out)))
+            outs.append(run_child(tree, os.path.join(tmp, f"{k}.npz")))
     a, b = outs
     if a.keys() != b.keys():
         print(f"the trees return different outputs: {sorted(a)} vs {sorted(b)}")

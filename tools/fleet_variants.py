@@ -134,7 +134,7 @@ def time_copy(root: str, name: str) -> None:
 
     if not build.__file__.startswith(root):
         raise RuntimeError(f"imported {build.__file__}, not the copy at {root}")
-    build.SOURCES, build.INSTANTIATIONS = ("sampling_fleet",), ((12, 24),)
+    build.SOURCES = ("sampling_fleet",)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda:0")
     card = torch.cuda.get_device_name(0)
@@ -165,7 +165,8 @@ def time_copy(root: str, name: str) -> None:
                                   "event_ms": pt.event_ms(one),
                                   "digest": h.hexdigest()[:16]}), flush=True)
     p = cs.fleet_inputs(cs.fleet_cfg(), 1, 1, "cpu", np.random.default_rng(0))[0]
-    log = build.build_all()[("sampling_fleet", p.horizon, p.params_per_leg)].with_suffix(".log")
+    pair = (p.horizon, p.params_per_leg)
+    log = build.build_all((pair,))[("sampling_fleet", *pair)].with_suffix(".log")
     print(json.dumps({"variant": name, "ptxas": pt.ptxas(log)}), flush=True)
 
 
