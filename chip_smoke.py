@@ -269,11 +269,9 @@ WALK_S, WALK_VEL = 3.0, np.array([0.3, 0.0, 0.0])
 # Published FP32 (non-tensor) peak and HBM rate of one H100 SXM at 700 W.
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-# Tolerances of the kernels against their plain version. Both run in float32 on
-# the card; they differ by FMA contraction in the kernel and by the order of the
-# basis product's sums (torch.matmul blocks it, the kernel sums each leg block
-# sequentially). Costs reach 1e3-1e6, so a relative bound with a small floor.
-COST_RTOL, COST_ATOL = 1e-4, 1e-2
+# The kernels' costs are held to their plain version by ops/cost_checks.py: sample
+# by sample, and beyond its DRIFT_H (the long pairs of PAIR_GRID, on its
+# standing_trot_tick) with the plain version's float64 costs beside.
 GRF_ATOL = 1e-3  # N: forces are O(100 N); ~1e-5 relative rounding
 STATE_ATOL = 1e-5  # one 0.02 s Euler step from O(1) states
 PARAM_ATOL = 1e-6  # the winner is incumbent + noise, rounded once
@@ -371,10 +369,14 @@ def plain_on_device(plan, tick, incumbent, noise):
 
 def check_against_plain(plan, tick, incumbent, noise, costs_k, out_k, label):
     """Phase-1 checks; returns the error figures."""
+    import torch
     from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+    from quadruped_pympc_tamols_torch.ops.cost_checks import COST_ATOL, COST_RTOL, DRIFT_H
 
     ref = plain_on_device(plan, tick, incumbent, noise)
-    cost_err = check_costs(costs_k, ref.costs, label)
+    cost_err = check_costs(costs_k, ref.costs, label, plan.horizon,
+                           plain_costs_f64(plan, tick, incumbent, noise)
+                           if plan.horizon > DRIFT_H else None)
     k_idx, r_idx = int(out_k[25]), int(ref.best_index)
     if k_idx != r_idx:
         a, b = float(ref.costs[k_idx]), float(ref.costs[r_idx])
@@ -400,16 +402,28 @@ def check_against_plain(plan, tick, incumbent, noise, costs_k, out_k, label):
     return errs, ref
 
 
-def check_costs(costs_k, costs_p, label) -> float:
-    """Kernel costs against plain costs; returns the largest absolute error."""
-    import torch
-    err = (costs_k - costs_p).abs()
-    bound = COST_ATOL + COST_RTOL * costs_p.abs()
-    if not bool((err <= bound).all()):
-        i = int(torch.argmax(err - bound))
-        raise AssertionError(f"{label}: cost {i} kernel {float(costs_k[i])} plain "
-                             f"{float(costs_p[i])}")
-    return float(err.max())
+def plain_costs_f64(plan, tick, incumbent, noise):
+    """The plain rollout's costs in float64 (the tick's float32 inputs promoted)."""
+    from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
+    from quadruped_pympc_tamols_torch.ops.cost_checks import f64
+    t = sk.tick_tensors(tick, incumbent.device)
+    return sk.rollout_costs_reference(incumbent.double()[:, None] + noise.double(),
+                                      plan.W.double(), *t, plan.dts, plan.q_diag, f64(plan.srbd),
+                                      plan.fm, plan.zmp_weight, plan.zmp_margin)
+
+
+def check_costs(costs_k, costs_p, label, horizon=0, costs_64=None):
+    """Kernel costs (..., N) against plain costs by ``cost_checks.check_sample_costs``
+    (beyond DRIFT_H with the plain version's float64 costs, whose figures it logs);
+    returns the largest absolute error over the samples it holds."""
+    from quadruped_pympc_tamols_torch.ops.cost_checks import DRIFT_H, check_sample_costs
+    try:
+        r = check_sample_costs(costs_k, costs_p, costs_64 if horizon > DRIFT_H else None)
+    except AssertionError as e:
+        raise AssertionError(f"{label}: {e}") from None
+    if horizon > DRIFT_H:
+        log(f"{label} costs: {json.dumps(r)}")
+    return r["max_abs_err"]
 
 
 def gap(a, b) -> float:
@@ -425,12 +439,15 @@ def check_softmax(plan, knobs, tick, inc, noise, costs_k, out_k, sigma_k, elites
     the fully plain result's distance printed beside. Returns the error figures."""
     from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
     from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+    from quadruped_pympc_tamols_torch.ops.cost_checks import DRIFT_H
 
     t = sk.tick_tensors(tick, inc.device)
     plain = sm.softmax_iteration_reference(noise, inc, plan.W, *t, plan.dts, plan.q_diag,
                                            plan.srbd, plan.fm, knobs, plan.zmp_weight,
                                            plan.zmp_margin)
-    errs = {"cost": check_costs(costs_k, plain.costs, label)}
+    errs = {"cost": check_costs(costs_k, plain.costs, label, plan.horizon,
+                                plain_costs_f64(plan, tick, inc, noise)
+                                if plan.horizon > DRIFT_H else None)}
     ref = sm.softmax_combine_reference(costs_k, noise, inc, plan.W, t[0], t[1], t[3], t[4],
                                        plan.dts, plan.srbd, plan.fm, knobs)
     if float(out_k[0]) != float(ref.beta) or int(out_k[25]) != int(ref.best_index):
@@ -836,18 +853,24 @@ def constant_loads(lib_path, kernel) -> list:
 
 def iteration_flops(plan, nnz) -> int:
     """Operations one K1a iteration needs per sample: one FMA per nonzero of the
-    own-leg basis blocks it evaluates (``nnz``; make_rs_plan checks that W is
-    zero outside them, and inside them a zero-order hold's row has one nonzero in
-    36, a linear spline's two in 9), ~250 flops per rollout step (force model,
+    basis it evaluates (``nnz``; make_rs_plan checks that W is zero outside the
+    own-leg blocks, and basis_windows that each row's nonzeros lie in its window:
+    one for a zero-order hold, two for a linear spline), ~250 flops per rollout step (force model,
     torques, rotations, gyroscopic term, Euler update, cost), ~30 flops per
     Box-Muller normal."""
     return 2 * nnz + 250 * plan.horizon + 30 * plan.num_parameters
 
 
 def basis_nnz(blocks) -> int:
-    """Nonzeros of basis blocks (a tensor or an array)."""
+    """Nonzeros of basis blocks or of the weights of basis windows (a tensor or an
+    array)."""
     import torch
     return int(torch.count_nonzero(torch.as_tensor(blocks)))
+
+
+def window_floats(plan) -> int:
+    """Floats of the plan's basis windows, the kernels' basis input."""
+    return int(plan.windows.numel())
 
 
 def bound_ms(flops, nbytes) -> tuple:
@@ -857,11 +880,11 @@ def bound_ms(flops, nbytes) -> tuple:
 
 def k1a_bound_ms(plan, iterations=1) -> tuple:
     """Least time of ``iterations`` K1a solves on an H100: (ms, "bytes" or
-    "operations"). Bytes: the leg blocks of W and the incumbent read once, N costs
+    "operations"). Bytes: the basis windows and the incumbent read once, N costs
     and the packed output written once, per iteration."""
-    H, P_leg, P, N = plan.horizon, plan.params_per_leg, plan.num_parameters, plan.num_samples
-    return bound_ms(iterations * N * iteration_flops(plan, basis_nnz(plan.W_blocks)),
-                    iterations * 4 * (H * 12 * P_leg + P + N + 26 + P))  # out: [cost, 12, 12, index, P]
+    P, N = plan.num_parameters, plan.num_samples
+    return bound_ms(iterations * N * iteration_flops(plan, basis_nnz(plan.windows[:, :4])),
+                    iterations * 4 * (window_floats(plan) + P + N + 26 + P))  # out: [cost, 12, 12, index, P]
 
 
 def softmax_bound_ms(plan, knobs, iterations=1) -> tuple:
@@ -870,11 +893,11 @@ def softmax_bound_ms(plan, knobs, iterations=1) -> tuple:
     exponential and the weighted sum (writing the noise and reading it back is
     the design's choice and not counted; the K-elite selection and refit are
     O(N + K P)).
-    Bytes: W's leg blocks, the incumbent (and sigma) read, N costs, the packed
+    Bytes: the basis windows, the incumbent (and sigma) read, N costs, the packed
     output (and sigma', elites) written, once per iteration."""
-    H, P_leg, P, N = plan.horizon, plan.params_per_leg, plan.num_parameters, plan.num_samples
-    flops = N * (iteration_flops(plan, basis_nnz(plan.W_blocks)) + 2 * P + 20)
-    nbytes = 4 * (H * 12 * P_leg + P + N + 26 + P)
+    P, N = plan.num_parameters, plan.num_samples
+    flops = N * (iteration_flops(plan, basis_nnz(plan.windows[:, :4])) + 2 * P + 20)
+    nbytes = 4 * (window_floats(plan) + P + N + 26 + P)
     if knobs.cem:
         nbytes += 4 * (2 * P + knobs.n_elite)
     return bound_ms(iterations * flops, iterations * nbytes)
@@ -884,16 +907,15 @@ def group_bound_ms(gplan, knobs, groups) -> tuple:
     """Least time of one K1e solve on an H100: per evaluated sample (K*Ng) K1a's
     count with its group's basis block, plus the softmax's ~2P + 20 flops for MPPI
     / CEM. Bytes: the per-tick
-    group buffer (K basis blocks, contact and share columns, offsets), the static
-    step-0 rows, the incumbent (and sigma) read; K*Ng costs and the packed output
-    (and sigma', elites) written."""
+    group buffer (K groups' basis windows, contact and share columns, offsets), the
+    static step-0 windows, the incumbent (and sigma) read; K*Ng costs and the
+    packed output (and sigma', elites) written."""
     p = gplan.base
-    H, P_leg, P, n, K = p.horizon, p.params_per_leg, p.num_parameters, gplan.num_used, \
-        gplan.num_groups
+    H, P, n, K = p.horizon, p.num_parameters, gplan.num_used, gplan.num_groups
     softmax = knobs.method != "random_sampling"
     flops = sum(gplan.group_size * iteration_flops(p, basis_nnz(b)) for b in groups.blocks)
     flops += n * (2 * P + 20 if softmax else 0)
-    nbytes = 4 * (K * (H * 12 * P_leg + 8 * H + 1) + 12 * P_leg + P + n + 26 + P)
+    nbytes = 4 * (K * (window_floats(p) + 8 * H + 1) + 12 * 8 + P + n + 26 + P)
     if knobs.cem:
         nbytes += 4 * (2 * P + knobs.n_elite)
     return bound_ms(flops, nbytes)
@@ -936,10 +958,11 @@ def read_counts() -> dict:
             "K1f_cem_wide": fw["cem_mppi"]}
 
 
-def walk(cfg, label, want_counts):
+def walk(cfg, label, want_counts, min_dist=None):
     """The README quickstart walk on the card with the launch counts zeroed just
     before and read just after; raises unless it walks the band of
-    tests/test_closed_loop_walking.py:18-29 with ``want_counts(ticks)`` launches."""
+    tests/test_closed_loop_walking.py:18-29 (``min_dist`` in place of its
+    distance, if given) with ``want_counts(ticks)`` launches."""
     import torch
     from quadruped_pympc_tamols_torch.sim import SRBClosedLoopHarness
 
@@ -955,7 +978,7 @@ def walk(cfg, label, want_counts):
     wall = time.perf_counter() - t0
     counts = read_counts()
     ticks = int(round(WALK_S / cfg.sim.dt)) // h._mpc_every
-    dist, min_z, tilt, _ = walk_band(label, cfg, hist)
+    dist, min_z, tilt, _ = walk_band(label, cfg, hist, min_dist)
     check_counts(label, counts, want_counts, ticks)
     log(f"{label}: ok; walked {dist:.4f} m in {WALK_S} s, min z {min_z:.4f}, "
         f"max |roll|,|pitch| {tilt:.4f}; launches {counts} for "
@@ -965,9 +988,10 @@ def walk(cfg, label, want_counts):
     return counts, wall, (dist, min_z, tilt)
 
 
-def walk_band(label, cfg, hist) -> tuple:
+def walk_band(label, cfg, hist, min_dist=None) -> tuple:
     """Raise unless the history stays in the band of
-    tests/test_closed_loop_walking.py:18-29; returns (distance, min z, max
+    tests/test_closed_loop_walking.py:18-29 (walking ``min_dist``, if given, in
+    place of half the commanded distance); returns (distance, min z, max
     |roll|,|pitch|, mean z of the second half - ref_z)."""
     z = hist[:, 2]
     dist = hist[-1, 0] - hist[0, 0]
@@ -976,7 +1000,7 @@ def walk_band(label, cfg, hist) -> tuple:
     if not (np.all(z > 0.15) and np.all(np.abs(hist[:, 6:8]) < 0.5)):
         raise AssertionError(f"{label}: fell (min z {z.min()}, max |rp| "
                              f"{np.abs(hist[:, 6:8]).max()})")
-    if not dist > 0.5 * WALK_VEL[0] * WALK_S:
+    if not dist > (0.5 * WALK_VEL[0] * WALK_S if min_dist is None else min_dist):
         raise AssertionError(f"{label}: walked {dist} m of {WALK_VEL[0] * WALK_S}")
     dz = np.mean(z[len(z) // 2:]) - cfg.sim.ref_z
     if not abs(dz) < 0.08:
@@ -1272,6 +1296,7 @@ def check_groups(gplan, knobs, tick, groups, inc, noise, res, label) -> dict:
     from quadruped_pympc_tamols_torch.ops import sampling_groups as sg
     from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
     from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+    from quadruped_pympc_tamols_torch.ops.cost_checks import DRIFT_H, f64
 
     costs_k, out_k, sigma_k, elites_k = res
     p, dev = gplan.base, inc.device
@@ -1280,7 +1305,12 @@ def check_groups(gplan, knobs, tick, groups, inc, noise, res, label) -> dict:
     plain = sg.group_costs_reference(inc[:, None] + noise, groups.dense(dev), *g, t[0], t[1],
                                      t[2], p.dts, p.q_diag, p.srbd, p.fm, p.zmp_weight,
                                      p.zmp_margin)
-    errs = {"cost": check_costs(costs_k, plain, label)}
+    plain64 = None
+    if p.horizon > DRIFT_H:
+        plain64 = sg.group_costs_reference(
+            inc.double()[:, None] + noise.double(), groups.dense(dev).double(), *(f64(x) for x in g), t[0],
+            t[1], t[2], p.dts, p.q_diag, f64(p.srbd), p.fm, p.zmp_weight, p.zmp_margin)
+    errs = {"cost": check_costs(costs_k, plain, label, p.horizon, plain64)}
     k = int(out_k[25])
     if k != int(torch.argmin(costs_k)) or float(out_k[0]) != float(costs_k[k]):
         raise AssertionError(f"{label}: best {k} ({float(out_k[0])}) is not the argmin of the "
@@ -1556,7 +1586,7 @@ def rs_times(dev, rng, par=MAIN_PAR, phase="phase 4"):
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch():
-        rc = lib.rs_launch(sk.ctypes.byref(args), plan.params_per_leg, plan.W_blocks.data_ptr(),
+        rc = lib.rs_launch(sk.ctypes.byref(args), plan.params_per_leg, plan.windows.data_ptr(),
                            inc.data_ptr(), None, None, costs_t.data_ptr(), argmin_t.data_ptr(),
                            out_t.data_ptr(), stream)
         if rc != 0:
@@ -1573,11 +1603,11 @@ def rs_times(dev, rng, par=MAIN_PAR, phase="phase 4"):
 
 
 def tick_loop(mpc, tick, label, want_counts, n=TICK_LOOP):
-    """n solve ticks of a controller on the flagship inputs, through compute_control
-    and the read of its host summary, with the launch counts zeroed just before and
-    read just after; raises unless they are ``want_counts(n)``, every summary is
-    finite and, for CEM-MPPI, every sigma stays inside [cem_sigma_min,
-    cem_sigma_max]. Returns the counts."""
+    """n solve ticks of a controller on ``tick``, through compute_control and the
+    read of its host summary, with the launch counts zeroed just before and read
+    just after; raises unless they are ``want_counts(n)``, every summary is finite
+    with its best cost under the 1e6 saturation and, for CEM-MPPI, every sigma
+    stays inside [cem_sigma_min, cem_sigma_max]. Returns the counts."""
     import torch
     from quadruped_pympc_tamols_torch.controllers.sampling import (GaitAdaptiveSamplingMPC,
                                                                    host_summary)
@@ -1596,13 +1626,14 @@ def tick_loop(mpc, tick, label, want_counts, n=TICK_LOOP):
     counts = read_counts()
     if counts != want_counts(n):
         raise AssertionError(f"{label}: launches {counts} for {n} ticks, want {want_counts(n)}")
-    if not np.isfinite(np.stack(summaries)).all():
-        raise AssertionError(f"{label}: a non-finite summary")
+    if not (np.isfinite(np.stack(summaries)).all()
+            and max(x[-1] for x in summaries) < 1e6):
+        raise AssertionError(f"{label}: a non-finite summary or a saturated best cost")
     sig = torch.stack(sigmas)
     if sp.method == "cem_mppi" and not bool(((sig >= sp.cem_sigma_min)
                                              & (sig <= sp.cem_sigma_max)).all()):
         raise AssertionError(f"{label}: sigma left [{sp.cem_sigma_min}, {sp.cem_sigma_max}]")
-    log(f"{label}: ok; {n} ticks on the flagship inputs with finite summaries (last best cost "
+    log(f"{label}: ok; {n} ticks with finite summaries (last best cost "
         f"{summaries[-1][-1]:.4f}); launches {counts}")
     return counts
 
@@ -2847,9 +2878,10 @@ def fleet_cfg(method="random_sampling"):
     return make_config("aliengo", mpc_type="sampling", **{"mpc.sampling.method": method})
 
 
-def fleet_inputs(cfg, S, N, dev, rng):
+def fleet_inputs(cfg, S, N, dev, rng, rest=False):
     """(plan, tick, incumbents, sigmas, seeds, offsets) of S distinct scenarios on
-    the card: trot sequences at random phases, perturbed states and feet."""
+    the card: trot sequences at random phases, perturbed states and feet; with
+    ``rest`` the base at rest under a reference at rest (the long pairs)."""
     import torch
     from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
     from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
@@ -2858,10 +2890,10 @@ def fleet_inputs(cfg, S, N, dev, rng):
     H, P = plan.horizon, plan.num_parameters
     st = np.zeros((S, 12), np.float32)
     st[:, 2] = cfg.sim.ref_z - 0.03 + 0.01 * rng.standard_normal(S)
-    st[:, 3] = 0.2 * rng.standard_normal(S)
+    st[:, 3] = 0.0 if rest else 0.2 * rng.standard_normal(S)
     feet = NOMINAL_FEET + 0.01 * rng.standard_normal((S, 4, 3))
     ref = np.zeros((S, 12), np.float32)
-    ref[:, 2], ref[:, 3] = cfg.sim.ref_z, 0.3
+    ref[:, 2], ref[:, 3] = cfg.sim.ref_z, 0.0 if rest else 0.3
     ph = rng.random((S, 1)) + np.array([0.0, 0.5, 0.5, 0.0])
     contact = np.mod(ph[:, :, None] + 1.4 * 0.02 * np.arange(H), 1.0) < 0.6
     n = contact.sum(1)
@@ -2896,9 +2928,14 @@ def fleet_check(plan, knobs, tick, inc, sigma, noise, res, label) -> dict:
     softmax parameters and sigma' (COMBINE_ATOL), the elites exactly, GRFs
     (GRF_ATOL) and states (STATE_ATOL). Returns the largest errors."""
     from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
+    from quadruped_pympc_tamols_torch.ops.cost_checks import DRIFT_H, f64
     costs_k, out_k, sigma_k, elites_k = res
     plain = fl.fleet_iteration_reference(plan, knobs, tick, inc, sigma, noise)
-    errs = {"cost": check_costs(costs_k, plain.costs, label)}
+    errs = {"cost": check_costs(costs_k, plain.costs, label, plan.horizon,
+                                fl.fleet_iteration_reference(f64(plan), knobs, f64(tick),
+                                                             inc.double(), f64(sigma),
+                                                             noise.double()).costs
+                                if plan.horizon > DRIFT_H else None)}
     ref = fl.fleet_iteration_reference(plan, knobs, tick, inc, sigma, noise, costs=costs_k)
     if not (bool((out_k[:, 0] == ref.out[:, 0]).all())
             and bool((out_k[:, 25] == ref.out[:, 25]).all())):
@@ -2924,18 +2961,18 @@ def fleet_check(plan, knobs, tick, inc, sigma, noise, res, label) -> dict:
 def fleet_bound_ms(plan, knobs, S) -> tuple:
     """Least time of one K1f iteration for S scenarios on an H100: S times K1a's
     (random sampling) or K1b/K1c's operations (``k1a_bound_ms``,
-    ``softmax_bound_ms``); bytes: W's leg blocks once (shared by the scenarios),
+    ``softmax_bound_ms``); bytes: the basis windows once (shared by the scenarios),
     and per scenario its tick row, seed and offset, incumbent (and sigma) read and
     its N costs and packed output (and sigma', elites) written."""
     from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
-    H, P_leg, P, N = plan.horizon, plan.params_per_leg, plan.num_parameters, plan.num_samples
-    flops = N * iteration_flops(plan, basis_nnz(plan.W_blocks))
+    H, P, N = plan.horizon, plan.num_parameters, plan.num_samples
+    flops = N * iteration_flops(plan, basis_nnz(plan.windows[:, :4]))
     if knobs.method != "random_sampling":
         flops += N * (2 * P + 20)
     per = 4 * (fl.row_floats(H) + P + N + 26 + P) + 16
     if knobs.cem:
         per += 4 * (2 * P + knobs.n_elite)
-    return bound_ms(S * flops, 4 * H * 12 * P_leg + S * per)
+    return bound_ms(S * flops, 4 * window_floats(plan) + S * per)
 
 
 def fleet_layouts(method) -> dict:
@@ -3560,6 +3597,7 @@ def gloo_child(store: str, rank: int) -> int:
     import torch.distributed as dist
     from quadruped_pympc_tamols_torch.controllers.sampling import SamplingState
     from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+    from quadruped_pympc_tamols_torch.ops.cost_checks import COST_RTOL
     from quadruped_pympc_tamols_torch.parallel import (init_multihost,
                                                        make_sharded_sampling_solver,
                                                        scenario_mesh)
@@ -3827,10 +3865,20 @@ JAX_CPU_ZMP_WALKS = {(2000, "blind", "flat"): (0.95, 0.3423, 0.0512),
                      (2000, "tamols", "step"): (0.8978, 0.3428, 0.1148),
                      (10_000, "blind", "flat"): (0.874, 0.3341, 0.0866),
                      (10_000, "tamols", "step"): (0.9064, 0.3314, 0.1189)}
-# Phase 33's (horizon, splines) pairs: name -> (parametrization, H, splines).
+# Phase 33's (horizon, splines) pairs: name -> (parametrization, H, splines); the
+# last four (LONG_PAIRS) beyond the bound the kernels had before their basis windows.
 PAIR_GRID = {"8-cubic-2": ("cubic_spline", 8, 2), "16-cubic-3": ("cubic_spline", 16, 3),
              "24-cubic-4": ("cubic_spline", 24, 4), "12-linear-4": ("linear_spline", 12, 4),
-             "24-zero_order": ("zero_order", 24, 2)}
+             "24-zero_order": ("zero_order", 24, 2), "32-cubic-2": ("cubic_spline", 32, 2),
+             "40-cubic-8": ("cubic_spline", 40, 8), "48-zero_order": ("zero_order", 48, 2),
+             "85-zero_order": ("zero_order", 85, 2)}
+LONG_PAIRS = ("32-cubic-2", "40-cubic-8", "48-zero_order", "85-zero_order")
+LONG_TICKS = 5  # phase 36: solve ticks of each entry point at each long pair
+LONG_WALK = "32-cubic-2"  # phase 36's 3 s SRB walk, random sampling, N = 10 000
+# The JAX package's walk of the same configuration on the CPU (distance, min z, max
+# |roll|,|pitch|): `PYTHONPATH=. python tests/test_torch_harness.py horizon 32 0`.
+# It walks short of the band's 0.45 m (the port's walk is held to half its distance).
+JAX_CPU_LONG_WALK = (0.4263, 0.3115, 0.0731)
 PAIR_N = 2000  # samples of phase 33's K1d, K1e and K1f checks (K1a-K1c at N_MAIN)
 LARGE_ELITES = (33, 100, 1000)  # phase 34's CEM elite counts
 SWING_STEPS = 300  # phase 35's scripted control steps
@@ -3865,8 +3913,8 @@ def zmp_tick(cfg, H):
     return TickInputs(state12, feet, ref12, seq, np.ascontiguousarray(share))
 
 
-def fleet_of(tick, S, rng, dev):
-    """The single tick as S scenarios, each state and foot nudged by 1 cm."""
+def fleet_of(tick, S, rng, dev, nudge=0.01):
+    """The single tick as S scenarios, each state and foot nudged by ``nudge``."""
     import torch
     from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
 
@@ -3874,8 +3922,8 @@ def fleet_of(tick, S, rng, dev):
         return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
 
     return fl.FleetTick(
-        t(np.repeat(tick.state12[None], S, 0) + 0.01 * rng.standard_normal((S, 12))),
-        t(np.repeat(tick.feet[None], S, 0) + 0.01 * rng.standard_normal((S, 4, 3))),
+        t(np.repeat(tick.state12[None], S, 0) + nudge * rng.standard_normal((S, 12))),
+        t(np.repeat(tick.feet[None], S, 0) + nudge * rng.standard_normal((S, 4, 3))),
         t(np.repeat(tick.ref12[None], S, 0)), t(np.repeat(tick.contact_seq[None], S, 0)),
         t(np.repeat(tick.share[None], S, 0)))
 
@@ -3931,7 +3979,7 @@ def k1a_pass_us(plan, tick, inc, dev, passes=("rollout",)) -> dict:
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch():
-        rc = lib.rs_launch(sk.ctypes.byref(args), plan.params_per_leg, plan.W_blocks.data_ptr(),
+        rc = lib.rs_launch(sk.ctypes.byref(args), plan.params_per_leg, plan.windows.data_ptr(),
                            inc.data_ptr(), None, None, costs_t.data_ptr(), argmin_t.data_ptr(),
                            out_t.data_ptr(), stream)
         if rc != 0:
@@ -4077,9 +4125,9 @@ def phase_zmp(dev, rng) -> dict:
             f"plain version with the band {r}")
     # The rollout pass with the band and without (K1a's C entry, the same inputs).
     times = {w: k1a_pass_us(plans[w], tick, inc, dev) for w in (ZMP_WEIGHT, 0.0)}
-    flops = iteration_flops(plan, basis_nnz(plan.W_blocks)) * N_MAIN
+    flops = iteration_flops(plan, basis_nnz(plan.windows[:, :4])) * N_MAIN
     bound = bound_ms(flops + N_MAIN * plan.horizon * ZMP_FLOPS_PER_STEP, 4 * (
-        plan.horizon * 12 * plan.params_per_leg + P + N_MAIN + 26 + P))
+        window_floats(plan) + P + N_MAIN + 26 + P))
     r = {"rollout_us_band": times[ZMP_WEIGHT]["passes"]["rollout"][1],
          "rollout_us_no_band": times[0.0]["passes"]["rollout"][1],
          "k1a_ms_band": times[ZMP_WEIGHT]["ms"], "k1a_ms_no_band": times[0.0]["ms"],
@@ -4149,7 +4197,8 @@ def phase_pairs(dev, rng) -> dict:
     N = 10 000 against their plain versions with their times, passes and bounds,
     and K1d (MPPI x 3 and CEM x 3, bit-equal to single iterations), K1e (each
     method) and K1f (each method, both layouts, 2 scenarios) at PAIR_N against
-    theirs."""
+    theirs. The pairs up to DRIFT_H run on phase 31's zmp_tick, the long ones on
+    cost_checks.standing_trot_tick."""
     import torch
     from quadruped_pympc_tamols_torch.controllers.sampling import group_operators
     from quadruped_pympc_tamols_torch.ops import build
@@ -4157,13 +4206,15 @@ def phase_pairs(dev, rng) -> dict:
     from quadruped_pympc_tamols_torch.ops import sampling_groups as sg
     from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
     from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+    from quadruped_pympc_tamols_torch.ops.cost_checks import (DRIFT_H, MAX_SATURATED,
+                                                              standing_trot_tick)
 
     pairs = {}
     for name in PAIR_GRID:
         p = sk.make_rs_plan(pair_cfg(name), 1, "cpu")
         pairs[name] = (p.horizon, p.params_per_leg)
     t0 = time.perf_counter()
-    build.build_all(tuple(pairs.values()))
+    libs = build.build_all(tuple(pairs.values()))
     total = time.perf_counter() - t0
     build_s = {pair: max(build.nvcc_seconds(name, *pair) or 0.0 for name in build.SOURCES)
                for pair in pairs.values()}
@@ -4173,12 +4224,21 @@ def phase_pairs(dev, rng) -> dict:
     for name, pair in pairs.items():
         cfg = pair_cfg(name)
         plan = sk.make_rs_plan(cfg, N_MAIN, dev)
-        tick = zmp_tick(cfg, plan.horizon)
+        long = plan.horizon > DRIFT_H
+        tick = (standing_trot_tick if long else zmp_tick)(cfg, plan.horizon)
         P = plan.num_parameters
         inc = torch.as_tensor(rng.standard_normal(P).astype(np.float32), device=dev)
         sigma = torch.as_tensor(rng.uniform(0.3, 4.0, P).astype(np.float32), device=dev)
+        # The plain version takes 0.16-0.39 s a call beyond H = 24: fewer timed runs.
+        plain_runs = 5 if long else 20
         r = {"horizon": pair[0], "params_per_leg": pair[1], "P": P,
-             "build_s": build_s[pair]}
+             "build_s": build_s[pair],
+             "ptxas": {"rollout": ptxas_of(libs[("sampling_rs", *pair)].with_suffix(".log"),
+                                           "rollout_kernel"),
+                       "update": ptxas_of(libs[("sampling_softmax", *pair)].with_suffix(".log"),
+                                          "sm_update_kernel"),
+                       "chain": ptxas_of(libs[("sampling_chain", *pair)].with_suffix(".log"),
+                                         *PTXAS_ENTRY["chain"])}}
         noise = torch.as_tensor(numpy_noise(plan, rng), device=dev)
         res = sk.sampling_rs(plan, tick, inc, 0, 0, noise_in=noise)
         torch.cuda.synchronize()
@@ -4187,7 +4247,7 @@ def phase_pairs(dev, rng) -> dict:
         r["K1a"].update(ms=k1a["ms"], passes=k1a["passes"], bound_ms=k1a_bound_ms(plan)[0],
                         bound_by=k1a_bound_ms(plan)[1],
                         plain_ms=time_cuda(lambda: plain_on_device(plan, tick, inc, noise),
-                                           runs=20))
+                                           runs=plain_runs, warmup=2))
         for method, short in (("mppi", "K1b"), ("cem_mppi", "K1c")):
             knobs = sm.make_knobs(cfg, method)
             z = torch.as_tensor(rng.standard_normal((P, N_MAIN)).astype(np.float32), device=dev)
@@ -4206,7 +4266,7 @@ def phase_pairs(dev, rng) -> dict:
                      bound_ms=b[0], bound_by=b[1],
                      plain_ms=time_cuda(lambda knobs=knobs, z=z: sm.softmax_iteration_reference(
                          z, inc, plan.W, *t_, plan.dts, plan.q_diag, plan.srbd, plan.fm, knobs),
-                         runs=20))
+                         runs=plain_runs, warmup=2))
             r[short] = e
         small = sk.make_rs_plan(cfg, PAIR_N, dev)
         for method in ("mppi", "cem_mppi"):
@@ -4219,6 +4279,10 @@ def phase_pairs(dev, rng) -> dict:
                 if not (torch.equal(a.costs, b[0]) and torch.equal(a.out, b[1])):
                     raise AssertionError(f"phase 33 {name} K1d {method}: the chain differs "
                                          "from its single iterations")
+                saturated = float((a.costs == sk.COST_SATURATION).double().mean())
+                if long and not saturated <= MAX_SATURATED:
+                    raise AssertionError(f"phase 33 {name} K1d {method}: {saturated} of "
+                                         f"iteration {it}'s costs saturate")
                 x, s = b[1][sk.OUT_WINNER:].clone(), b[2]
         r["K1d"] = "bit-equal to single iterations (MPPI x 3, CEM x 3)"
         gcfg = pair_cfg(name, **{"mpc.optimize_step_freq": True})
@@ -4235,7 +4299,7 @@ def phase_pairs(dev, rng) -> dict:
             r[f"K1e {method}"] = check_groups(gplan, knobs, tick, groups, inc, z, res,
                                               f"phase 33 {name} K1e {method}")
         S = 2
-        ftick = fleet_of(tick, S, rng, dev)
+        ftick = fleet_of(tick, S, rng, dev, 0.001 if long else 0.01)
         finc, fsig = inc.repeat(S, 1), sigma.repeat(S, 1)
         seeds = torch.arange(S, dtype=torch.int64, device=dev) + 5
         offsets = torch.zeros(S, dtype=torch.int64, device=dev)
@@ -4257,6 +4321,103 @@ def phase_pairs(dev, rng) -> dict:
             "versions")
         out[name] = r
     return {"build_total_s": total, "pairs": out}
+
+
+def phase_long_paths(dev, rng) -> dict:
+    """Phase 36: the entry points at each of LONG_PAIRS, each driven with the launch
+    counts zeroed just before and read just after: SamplingMPC with random sampling
+    (K1a) and MPPI x 3 (K1d), GaitAdaptiveSamplingMPC with MPPI (K1e), LONG_TICKS
+    ticks each at N = 10 000 on cost_checks.standing_trot_tick with finite
+    summaries; the fleet solve for 2 scenarios of PAIR_N samples (K1f four-lane,
+    random sampling) and 4 of 10 000 (K1f large-batch, MPPI) at rest, finite
+    outputs, at most MAX_SATURATED of the costs saturated; the sharded solve at world size 1 (NCCL,
+    its own group) with MPPI (K1b), its best parameters bit-equal to the single
+    iteration's on the same noise. Then the 3 s SRB walk at LONG_WALK, random
+    sampling, N = 10 000 (K1a once a tick), upright and at least half as far as
+    JAX_CPU_LONG_WALK."""
+    import torch
+    import torch.distributed as dist
+    from quadruped_pympc_tamols_torch.controllers.sampling import (FleetSamplingState,
+                                                                   GaitAdaptiveSamplingMPC,
+                                                                   SamplingMPC, SamplingState,
+                                                                   make_fleet_sampling_solver)
+    from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
+    from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+    from quadruped_pympc_tamols_torch.ops.cost_checks import MAX_SATURATED, standing_trot_tick
+    from quadruped_pympc_tamols_torch.ops.sampling_kernel import COST_SATURATION
+    from quadruped_pympc_tamols_torch.parallel import (find_free_port, init_multihost,
+                                                       make_sharded_sampling_solver,
+                                                       scenario_mesh)
+
+    init_multihost(f"127.0.0.1:{find_free_port()}", 1, 0, device="cuda")
+    mesh = scenario_mesh(1, 1)
+    out = {}
+    for name in LONG_PAIRS:
+        par, H, splines = PAIR_GRID[name]
+        r, label = {}, f"phase 36 {name}"
+
+        def cfg_of(**over):
+            return pair_cfg(name, **over)
+
+        tick = standing_trot_tick(cfg_of(), H)
+        for key, mpc in (("K1a", SamplingMPC(cfg_of(), device="cuda")),
+                         ("K1d_mppi", SamplingMPC(cfg_of(**{"mpc.sampling.method": "mppi",
+                                                            "mpc.sampling.num_iterations": 3}),
+                                                  device="cuda")),
+                         ("K1e_mppi", GaitAdaptiveSamplingMPC(cfg_of(**{
+                             "mpc.optimize_step_freq": True, "mpc.sampling.method": "mppi"}),
+                             device="cuda"))):
+            r[key] = tick_loop(mpc, tick, f"{label} {type(mpc).__name__} {key}",
+                               counts_of(**{key: 1}), n=LONG_TICKS)[key]
+        for method, S, N in (("random_sampling", 2, PAIR_N), ("mppi", 4, N_MAIN)):
+            fcfg = cfg_of(**{"mpc.sampling.method": method})
+            _, ftick, inc, sigma, seeds, offsets = fleet_inputs(fcfg, S, N, dev, rng, rest=True)
+            solve, _ = make_fleet_sampling_solver(fcfg, N, device="cuda")
+            key = {"random_sampling": "K1f_rs", "mppi": "K1f_mppi"}[method]
+            key += "_wide" if fl.fleet_layout(S, N) & fl.WIDE else ""
+            ones = torch.ones(S, 4, device=dev)
+            reset_counts()
+            res, st = solve(ftick.state12, ftick.feet, ftick.ref12, ftick.feet,
+                            ftick.contact_seq, ones, ones,
+                            FleetSamplingState(inc, sigma, seeds, offsets))
+            torch.cuda.synchronize()
+            check_counts(f"{label} fleet {method}", read_counts(), counts_of(**{key: 1}), 1)
+            if not all(bool(torch.isfinite(x).all()) for x in (res.grfs, res.predicted_state,
+                                                               st.best_parameters)):
+                raise AssertionError(f"{label} fleet {method}: non-finite outputs")
+            saturated = float((res.costs == COST_SATURATION).double().mean())
+            if not (saturated <= MAX_SATURATED and bool((res.best_cost < COST_SATURATION).all())):
+                raise AssertionError(f"{label} fleet {method}: {saturated} of the costs saturate, "
+                                     f"best costs {res.best_cost.tolist()}")
+            r[key] = 1
+        scfg = cfg_of(**{"mpc.sampling.method": "mppi"})
+        knobs = sm.make_knobs(scfg)
+        solve, P = make_sharded_sampling_solver(scfg, mesh, N_MAIN, "mppi")
+        inc = torch.as_tensor(0.3 * rng.standard_normal(P).astype(np.float32), device=dev)
+        sigma = torch.full((P,), scfg.mpc.sampling.sigma_cem_mppi, device=dev)
+        noise, _ = sharded_noise(scfg, knobs, rng, dev, sigma, 1)
+        reset_counts()
+        grfs, st, best = solve(tick.state12, tick.feet, tick.ref12, tick.contact_seq,
+                               SamplingState(inc, 21, 4, sigma), noise=noise)
+        torch.cuda.synchronize()
+        check_counts(f"{label} sharded", read_counts(), counts_of(K1b=1), 1)
+        ref = single_iteration(solve.plan, knobs, tick, inc, sigma, 21, 4, noise)
+        if not (torch.equal(best, ref[1][0:1]) and torch.equal(st.best_parameters, ref[1][26:])):
+            raise AssertionError(f"{label} sharded: off the single iteration")
+        r["K1b_sharded"] = 1
+        out[name] = {"horizon": H, "launches": r}
+        log(f"{label} (H={H}, {par}, {splines} splines): ok; SamplingMPC (random sampling, "
+            f"MPPI x 3), GaitAdaptiveSamplingMPC, the fleet solve (both layouts) and the "
+            f"sharded solve on the card; launches {r}")
+    dist.destroy_process_group()
+    counts, wall, (dist_m, min_z, tilt) = walk(pair_cfg(LONG_WALK), f"phase 36 walk {LONG_WALK}",
+                                               counts_of(K1a=1), 0.5 * JAX_CPU_LONG_WALK[0])
+    out["walk"] = {"pair": LONG_WALK, "distance": dist_m, "min_z": min_z, "max_tilt": tilt,
+                   "launches": counts["K1a"], "harness_s_per_sim_s": wall / WALK_S,
+                   "jax_cpu": JAX_CPU_LONG_WALK}
+    log(f"phase 36 walk {LONG_WALK}: JAX package on the CPU (distance, min z, max "
+        f"|roll|,|pitch|): {JAX_CPU_LONG_WALK}")
+    return out
 
 
 def phase_large_k(dev, rng) -> dict:
@@ -4627,6 +4788,8 @@ def main() -> int:
     large_k = phase_large_k(dev, rng)
     lap("phase 35")
     swing_ik = phase_swing_ik()
+    lap("phase 36")
+    long_paths = phase_long_paths(dev, rng)
 
     def row(name, source, short, par, err, ms, plain, bound, passes, **extra):
         return {"name": f"{name} ({short}{PAR_SUFFIX[par]})", "route": "cuda",
@@ -4735,8 +4898,17 @@ def main() -> int:
                 name: {"ms": g[short]["ms"], "passes_us": {k: v[1] for k, v in
                                                            g[short]["passes"].items()},
                        "bound_ms": g[short]["bound_ms"], "plain_ms": g[short]["plain_ms"],
-                       "max_abs_err": g[short]["cost"], "build_s": g["build_s"]}
+                       "max_abs_err": g[short]["cost"], "build_s": g["build_s"],
+                       "ptxas": g["ptxas"]["rollout" if short == "K1a" else "update"]}
                 for name, g in pair_grid["pairs"].items()}
+        # Phase 36's paths at the long pairs, on the rows whose kernels they launch.
+        key36 = {"K1a": "K1a", "K1b": "K1b_sharded", "K1d": "K1d_mppi", "K1e-mppi": "K1e_mppi",
+                 "K1f-rs": "K1f_rs", "K1f-mppi-wide": "K1f_mppi_wide"}.get(short)
+        if key36 and r["parametrization"] == MAIN_PAR:
+            r["launches_long_pairs"] = {name: p["launches"][key36] for name, p in
+                                        long_paths.items() if name in LONG_PAIRS}
+        if short == "K1a" and r["parametrization"] == MAIN_PAR:
+            r["launches_long_walk"] = long_paths["walk"]["launches"]
         if short == "K1c":
             r["large_k"] = {str(K): {"ms": v["K1c"]["ms"],
                                      "update_us": v["K1c"]["passes"]["update"][1],
@@ -4762,7 +4934,7 @@ def main() -> int:
             "large_k": {str(K): {k: v[k] for k in ("K1c", "K1e-cem", "K1f-cem",
                                                     "K1f-cem-wide", "K1f-cem-regen")}
                         for K, v in large_k.items()},
-            "swing_ik": swing_ik}
+            "swing_ik": swing_ik, "long_paths": long_paths}
     log(f"last slice: {json.dumps(last, default=str)}")
     lap("the kernels line")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,8 +15,9 @@ Part 1 is host numpy in float32, in the JAX functions' order of operations:
 through ``ops.sampling_groups.sampling_groups``: kernel K1e on CUDA, the plain
 version on the CPU. Like the JAX package's XLA solver, it runs one iteration a
 tick, always uses the gravity share (not ``sampling.equilibrium_share``) and does
-not shift the solution; it keeps the ZMP-band cost on the CPU, and on CUDA raises
-NotImplementedError for it.
+not shift the solution; it keeps the ZMP-band cost (``sampling.zmp_weight > 0``)
+on both devices. Each group's traced basis reaches K1e as its rows' windows of
+four weights (``ops.sampling_kernel.basis_windows``).
 """
 from __future__ import annotations
 
@@ -54,26 +55,37 @@ def timer_sequence(phase, freq, duty, mpc_dt, horizon) -> np.ndarray:
     return cols
 
 
-def leg_basis(parametrization: str, counters, horizon_legs, H: int, S: int,
-              P_leg: int) -> np.ndarray:
+def leg_windows(parametrization: str, counters, horizon_legs, H: int, S: int,
+                P_leg: int) -> tuple:
     """Per-leg spline basis with data-dependent stance phase, as JAX
-    ``_traced_leg_basis``: counters (..., 4, H') stance-step counters, horizon_legs
-    (..., 4) per-leg stance count + 1. Returns (..., 4, H', 3, P_leg) float32
-    weights with f_a(leg, n) = params_leg @ W[leg, n, a].
+    ``_traced_leg_basis``, as each row's window of four weights: counters (..., 4,
+    H') stance-step counters, horizon_legs (..., 4) per-leg stance count + 1.
+    Returns (weights (..., 4, H', 3, 4) float32, first (..., 4, H', 3) int): row
+    (leg, n, a) is params_leg[first:first + 4] @ weights, every other parameter's
+    weight 0; first is the row's first nonzero moved left as far as the window
+    must to end within the leg (a zero-order hold or a linear spline at the leg's
+    last parameters).
 
     The chunk index comes from the static horizon boundaries and is clipped;
     q = s / (hl / S) - idx is not clipped (negative on a leg that starts in swing,
-    whose counter is -1); the cubic layout keeps the stride-10 quirk."""
+    whose counter is -1); the cubic layout keeps the stride-10 quirk. Each weight
+    is the JAX basis's sum of one-hot terms restricted to the window, so it has
+    its bits."""
     s = np.asarray(counters, np.float32)
     hl = np.asarray(horizon_legs, np.float32)[..., None]
-    iota = np.arange(P_leg)
+    iota = np.arange(4)
 
-    def onehot(idx):
-        return (iota == idx[..., None]).astype(np.float32)
+    def placed(start, coefs):
+        """The window of each axis a (the last axis of start) holding coefs at
+        start, start + 1, ...: (weights, first)."""
+        first = np.minimum(start, P_leg - 4)
+        off = (start - first)[..., None]
+        w = sum(c[..., None] * (iota == off + k) for k, c in enumerate(coefs))
+        return np.asarray(w, np.float32), first
 
     if parametrization == "zero_order":
         idx = np.clip(s.astype(np.int32), 0, H - 1)
-        return np.stack([onehot(idx), onehot(idx + H), onehot(idx + 2 * H)], axis=-2)
+        return placed(idx[..., None] + H * np.arange(3), [np.float32(1.0)])
 
     boundaries = np.linspace(0.0, float(H), S + 1).astype(np.float32)
     idx = np.sum(s[..., None] >= boundaries[:-1], axis=-1) - 1
@@ -81,9 +93,7 @@ def leg_basis(parametrization: str, counters, horizon_legs, H: int, S: int,
     q = (s / (hl / np.float32(S)) - idx.astype(np.float32))[..., None]
     one = np.float32(1.0)
     if parametrization == "linear_spline":
-        shift = S + 1
-        return np.stack([(one - q) * onehot(idx + a * shift) + q * onehot(idx + 1 + a * shift)
-                         for a in range(3)], axis=-2)
+        return placed(idx[..., None] + (S + 1) * np.arange(3), [one - q, q])
     if parametrization != "cubic_spline":
         raise ValueError(f"unknown parametrization {parametrization!r}")
     q2, q3 = q * q, q * q * q
@@ -92,18 +102,29 @@ def leg_basis(parametrization: str, counters, horizon_legs, H: int, S: int,
     b_b = q3 - two * q2 + q
     c_b = -two * q3 + three * q2
     d_b = q3 - q2
-    si = 10 * idx
-    return np.stack([(-b_b / two) * onehot(si + 4 * a) + (a_b - d_b / two) * onehot(si + 4 * a + 1)
-                     + (b_b / two + c_b) * onehot(si + 4 * a + 2)
-                     + (d_b / two) * onehot(si + 4 * a + 3) for a in range(3)], axis=-2)
+    # si + 4a + 3 <= 10 (S - 1) + 11 < 12 S = P_leg: no window moves.
+    w = np.stack([-b_b / two, a_b - d_b / two, b_b / two + c_b, d_b / two], axis=-1)
+    return (np.broadcast_to(w, q.shape[:-1] + (3, 4)),
+            (10 * idx)[..., None] + 4 * np.arange(3))
+
+
+def leg_basis(parametrization: str, counters, horizon_legs, H: int, S: int,
+              P_leg: int) -> np.ndarray:
+    """``leg_windows`` as dense weights: (..., 4, H', 3, P_leg) float32 with
+    f_a(leg, n) = params_leg @ W[leg, n, a], the JAX ``_traced_leg_basis``."""
+    w, first = leg_windows(parametrization, counters, horizon_legs, H, S, P_leg)
+    W = np.zeros(first.shape + (P_leg,), np.float32)
+    np.put_along_axis(W, first[..., None] + np.arange(4), w, axis=-1)
+    return W
 
 
 def group_operators(cfg: Config, phase, freqs) -> sg.GroupInputs:
     """The K candidate groups' operators for the gait phase (4,) and the candidate
     frequencies (K,), as the JAX solver builds them per group: the timer contact
     sequence, the stance counters cumsum(seq) - 1 and per-leg stance counts + 1,
-    their own-leg basis blocks in step-major rows, the gravity share
-    m*g/max(n_stance, 1) and the offset (f - 1.3)^2 * 100."""
+    their own-leg basis blocks in step-major rows (and the same rows' windows,
+    the kernel's layout), the gravity share m*g/max(n_stance, 1) and the offset
+    (f - 1.3)^2 * 100."""
     sp = cfg.mpc.sampling
     H, S = cfg.mpc.horizon, sp.num_splines
     P_leg = num_params_per_leg(sp.parametrization, H, S)
@@ -112,12 +133,21 @@ def group_operators(cfg: Config, phase, freqs) -> sg.GroupInputs:
     seq = timer_sequence(phase, freqs, cfg.gait_params.duty_factor, cfg.mpc.dt, H)  # (K, 4, H)
     counters = np.cumsum(seq, axis=-1) - np.float32(1.0)
     horizon_legs = np.sum(seq, axis=-1) + np.float32(1.0)
-    W = leg_basis(sp.parametrization, counters, horizon_legs, H, S, P_leg)  # (K, 4, H, 3, P_leg)
-    blocks = np.ascontiguousarray(W.transpose(0, 2, 1, 3, 4).reshape(K, H * 12, P_leg))
+    w, first = leg_windows(sp.parametrization, counters, horizon_legs, H, S, P_leg)
+    # Step-major rows n*12 + leg*3 + axis: (K, 4, H, 3, ...) -> (K, H*12, ...).
+    w, first = w.transpose(0, 2, 1, 3, 4), first.transpose(0, 2, 1, 3)
+    blocks = np.zeros((K, H, 4, 3, P_leg), np.float32)
+    np.put_along_axis(blocks, first[..., None] + np.arange(4), w, axis=-1)
+    windows = np.empty((K, H, 4, 3, rs.WINDOW_FLOATS), np.float32)
+    windows[..., :4] = w
+    ints = windows[..., 4:].view(np.int32)
+    ints[..., 1:] = 0
+    ints[..., 0] = first + P_leg * np.arange(4)[:, None]
     mg = np.float32(cfg.robot.mass) * np.float32(9.81)
     share = mg / np.maximum(np.sum(seq, axis=-2), np.float32(1.0))
     d = freqs - np.float32(1.3)
-    return sg.GroupInputs(seq, share.astype(np.float32), blocks, d * d * np.float32(100.0))
+    return sg.GroupInputs(seq, share.astype(np.float32), blocks.reshape(K, H * 12, P_leg),
+                          d * d * np.float32(100.0), windows.reshape(K, H * 12, -1))
 
 
 def host_best_freq(out: SolveOutput) -> float:

@@ -19,10 +19,11 @@ Where the iterations run:
   stay on the card; the host copies back one 25-float summary [best cost, GRFs
   (12), predicted state (12)] per tick (``SamplingMPC`` starts that copy,
   ``host_summary`` reads it). The kernels are built for a (horizon, parameters
-  per leg) pair the first time a solver asks for it (``ops/build.py``): any
-  parametrization up to horizon 24, beyond which ``build.check_pair`` raises
-  NotImplementedError naming the bound; they compute the ZMP-band cost
-  (``sampling.zmp_weight > 0``) and CEM with any elite count 2 <= K <= N.
+  per leg) pair the first time a solver asks for it (``ops/build.py``): every
+  pair with 2 <= H <= 128 and P = 4 * P_leg <= 1024 (the Pallas kernel's own
+  bound), beyond which ``build.check_pair`` raises NotImplementedError naming the
+  bound; they compute the ZMP-band cost (``sampling.zmp_weight > 0``) and CEM with
+  any elite count 2 <= K <= N.
 * CPU: the kernels' plain versions through the same wrappers, for all three
   methods and the ZMP-band cost.
 

@@ -8,9 +8,10 @@ its sources at once, so a first use waits for the slowest build and builds no
 other pair; ``build_all`` builds several pairs together. The kernels take
 ``2 <= H <= MAX_HORIZON`` and ``MIN_PARAMS_PER_LEG <= P_leg <=
 MAX_PARAMS_PER_LEG`` (``check_pair``): every parametrization of
-``controllers/sampling/splines.py`` up to horizon 24 with up to six splines. A
-library's file name carries a hash of its source, of the headers in ``csrc/``
-and of the flags (the pair included), so an edit to any of them rebuilds it.
+``controllers/sampling/splines.py`` with P = 4 * P_leg <= 1024, the Pallas
+kernel's own bound, up to horizon 128. A library's file name carries a hash of
+its source, of the headers in ``csrc/`` and of the flags (the pair included), so
+an edit to any of them rebuilds it.
 The libraries and the compiler's ``-Xptxas -v`` reports (``.log`` beside each,
 ending with the build's wall seconds) go to the git-ignored
 ``quadruped_pympc_tamols_torch/_build/``.
@@ -32,12 +33,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # csrc/<name>.cu
 SOURCES = ("sampling_rs", "sampling_softmax", "sampling_groups", "sampling_chain", "sampling_fleet")
-# The bounds of check_pair: RS_HMAX and RS_MAX_PL of csrc/sampling_common.cuh (the
-# per-step arrays of the argument block; the staged basis and the update pass's
-# one parameter of the refit a thread, P = 4 * P_leg <= 384), and the large-batch
-# fleet rollout's window of four weights a basis row (sampling_fleet.cu).
-MAX_HORIZON = 24
-MAX_PARAMS_PER_LEG = 72
+# The bounds of check_pair: RS_MAX_H and RS_MAX_PL of csrc/sampling_common.cuh.
+# P = 4 * P_leg <= 1024 is the Pallas kernel's own bound (quadruped_pympc_tamols_tpu/
+# ops/rollout_pallas.py:219-223); H <= 128 keeps the chain kernel's staged windows
+# (384 bytes a step) beside its largest arena in a block's 227 KB; a basis window
+# of four weights needs P_leg >= 4.
+MAX_HORIZON = 128
+MAX_PARAMS_PER_LEG = 256
 MIN_PARAMS_PER_LEG = 4
 # The pairs of the three parametrizations at the flagship's horizon 12 with 2
 # splines: cubic splines (the main path), linear splines and zero-order holds.
@@ -135,6 +137,6 @@ def check_pair(horizon: int, params_per_leg: int) -> None:
             and MIN_PARAMS_PER_LEG <= params_per_leg <= MAX_PARAMS_PER_LEG):
         raise NotImplementedError(
             f"the CUDA sampling kernels take 2 <= horizon <= {MAX_HORIZON} and "
-            f"{MIN_PARAMS_PER_LEG} <= parameters per leg <= {MAX_PARAMS_PER_LEG} (the per-step "
-            "arrays of their argument block, the basis in shared memory and one refit "
-            f"parameter a thread), not ({horizon}, {params_per_leg})")
+            f"{MIN_PARAMS_PER_LEG} <= parameters per leg <= {MAX_PARAMS_PER_LEG} (P = 4 * P_leg "
+            f"<= {4 * MAX_PARAMS_PER_LEG}, the Pallas kernel's bound; the chain kernel's "
+            f"staged windows), not ({horizon}, {params_per_leg})")

@@ -13,13 +13,14 @@
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs), launched by
 // cudaLaunchCooperativeKernel, whose co-residency guarantee is what makes the grid
 // barrier (cooperative_groups' grid.sync) safe; a grid that would not be
-// co-resident is refused. Each block stages the basis and the contact and share
-// columns in shared memory once, block 0 sets the argmin key and the ticket, and
-// after a grid barrier, for iteration i:
+// co-resident is refused. Each block stages the basis windows and the contact
+// and share columns in shared memory once, block 0 sets the argmin key and the
+// ticket, and after a grid barrier, for iteration i:
 //
 //   1. the rollout pass of sampling_common.cuh: the blocks stride over its
-//      16-sample tiles, CHAIN_ROLLOUT_TILES at once a block, spread over the
-//      blocks first. Each sample's parameters are drawn at Philox offset
+//      16-sample tiles, chain_tiles<PL>() at once a block (eight up to PL = 72;
+//      the lanes' staged parameters share the update pass's arena), spread over
+//      the blocks first. Each sample's parameters are drawn at Philox offset
 //      offset + i around the incumbent (the caller's at i = 0, then iteration
 //      i - 1's new parameters), with CEM's sigma likewise; the costs (and, for
 //      MPPI and CEM, the noise) are written and the argmin key folded.
@@ -54,14 +55,22 @@
 
 namespace cg = cooperative_groups;
 
-// The update pass's block: eight rollout tiles at once.
+// The update pass's block: up to eight rollout tiles at once, as many as the
+// lanes' staged parameters (PL floats a lane) allow in CHAIN_PARAM_BYTES: eight up
+// to PL = 72, two at PL = 255.
 #define CHAIN_THREADS SM_UPDATE_THREADS
-#define CHAIN_ROLLOUT_TILES (CHAIN_THREADS / ROLLOUT_THREADS)
+#define CHAIN_PARAM_BYTES (8 * 72 * ROLLOUT_THREADS * 4)
+template <int PL>
+__host__ __device__ constexpr int chain_tiles() {
+  return CHAIN_PARAM_BYTES / lane_param_bytes<PL>() < CHAIN_THREADS / ROLLOUT_THREADS
+             ? CHAIN_PARAM_BYTES / lane_param_bytes<PL>()
+             : CHAIN_THREADS / ROLLOUT_THREADS;
+}
 
 // The chain's device buffers; iteration i's outputs are costs + i * N,
 // out + i * (26 + P), sigma_out + i * P and elites + i * K.
 struct ChainBuffers {
-  const float* w_blk;      // (H*12, padded_pl(PL)), zero-padded rows, 16-byte aligned
+  const BasisWindow* win;  // (H*12), 16-byte aligned
   const float* incumbent;  // (P,) iteration 0's
   const float* sigma_in;   // (P,) iteration 0's (CEM)
   float* noise;            // (P, N), written by the rollout pass and read back (MPPI, CEM)
@@ -79,12 +88,14 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1)
 chain_kernel(const RSArgs a, const SMKnobs kn, const ChainBuffers buf, int iterations) {
   constexpr int P = 4 * PL;
   constexpr int OUT = RS_OUT_WINNER + P;
-  static_assert(CHAIN_THREADS % ROLLOUT_THREADS == 0, "whole rollout tiles");
-  // The staged basis (basis_smem: the start of the dynamic shared memory for the
-  // largest pairs), then the update pass's arena.
+  constexpr int TILES = chain_tiles<PL>();
+  static_assert(CHAIN_THREADS % ROLLOUT_THREADS == 0 && TILES >= 1, "whole rollout tiles");
+  // The staged windows (window_smem: the start of the dynamic shared memory above
+  // H = 64), then the arena: the rollout lanes' parameters (TILES, PL,
+  // ROLLOUT_THREADS), and in its place the update pass's buffers.
   extern __shared__ __align__(16) unsigned char dyn_s[];
-  float* w_s = basis_smem<H, PL>(dyn_s);
-  unsigned char* arena = dyn_s + basis_dyn_bytes<H, PL>();
+  BasisWindow* w_s = window_smem<H>(dyn_s);
+  unsigned char* arena = dyn_s + window_dyn_bytes<H>();
   __shared__ __align__(16) float c_s[H * 4];
   __shared__ __align__(16) float sh_s[H * 4];
   __shared__ __align__(8) unsigned long long bar;
@@ -95,7 +106,7 @@ chain_kernel(const RSArgs a, const SMKnobs kn, const ChainBuffers buf, int itera
   const int N = a.num_samples;
   unsigned long long* argmin = buf.scratch;
   unsigned long long* ticket = buf.scratch + 1;
-  const StaticSource<H, PL> src{buf.w_blk, N, 1};
+  const StaticSource<H, PL> src{buf.win, N, 1};
   if (t == 0) bulk_barrier_init(&bar);
   src.stage(a, c_s, sh_s);
   if (blockIdx.x == 0 && t == 0) {
@@ -111,6 +122,7 @@ chain_kernel(const RSArgs a, const SMKnobs kn, const ChainBuffers buf, int itera
   const int B = (N + RS_BLOCK - 1) / RS_BLOCK;
   const int sub = t / ROLLOUT_THREADS, leg = t % ROLLOUT_LANES;
   const int slot = (t % ROLLOUT_THREADS) / ROLLOUT_LANES;
+  float* prm = reinterpret_cast<float*>(arena) + sub * PL * ROLLOUT_THREADS + t % ROLLOUT_THREADS;
   for (int it = 0; it < iterations; ++it) {
     const unsigned long long offset = a.offset + (unsigned long long)it;
     const float* inc =
@@ -127,14 +139,14 @@ chain_kernel(const RSArgs a, const SMKnobs kn, const ChainBuffers buf, int itera
     }
     __syncthreads();
 
-    // 1. The rollout pass. Both warps of a 64-thread tile take the same tiles, so
-    // every lane reaches the exchanges and the argmin fold. 2. A grid barrier.
-    for (int tile = blockIdx.x + sub * gridDim.x; tile < tiles;
-         tile += CHAIN_ROLLOUT_TILES * gridDim.x) {
+    // 1. The rollout pass, on the block's first TILES 64-thread tiles. Both warps
+    // of a tile take the same sample tiles, so every lane reaches the exchanges and
+    // the argmin fold. 2. A grid barrier.
+    for (int tile = blockIdx.x + sub * gridDim.x; sub < TILES && tile < tiles;
+         tile += TILES * gridDim.x) {
       const int j = tile * ROLLOUT_SAMPLES + slot;
       const bool live = j < N;
       const int i = live ? j : N - 1;
-      float prm[PL];
       if constexpr (RS) {
         draw_params<PL, Read::Shared>(a, RandomBands{}, offset, inc_s, nullptr, nullptr, i, live,
                                       leg, prm);
@@ -154,7 +166,7 @@ chain_kernel(const RSArgs a, const SMKnobs kn, const ChainBuffers buf, int itera
     // ticket: every other reader of the key has read it before then.
     if constexpr (RS) {
       if (blockIdx.x == 0) {
-        rs_extract<PL, Read::Shared>(a, offset, buf.w_blk, inc_s, nullptr, __ldcg(argmin), out);
+        rs_extract<PL, Read::Shared>(a, offset, buf.win, inc_s, nullptr, __ldcg(argmin), out);
         if (t == 0) *argmin = ~0ull;
       }
     } else {
@@ -167,7 +179,7 @@ chain_kernel(const RSArgs a, const SMKnobs kn, const ChainBuffers buf, int itera
                                   buf.block_keys, arena);
         if (last_ticket(ticket, B)) {
           __threadfence();
-          update_finish<PL, Read::L2>(a, kn, buf.w_blk, inc_r, buf.noise, costs, best_key, B,
+          update_finish<PL, Read::L2>(a, kn, buf.win, inc_r, buf.noise, costs, best_key, B,
                                       buf.partials, buf.block_keys, out,
                                       kn.cem ? buf.sigma_out + (size_t)it * P : nullptr,
                                       kn.cem ? buf.elites + (size_t)it * kn.n_elite : nullptr,
@@ -183,16 +195,25 @@ chain_kernel(const RSArgs a, const SMKnobs kn, const ChainBuffers buf, int itera
   }
 }
 
-// Above 48 KB dynamic shared memory needs an opt-in, given once for the most the
-// update pass can ask for (as update_opt_in), after the staged basis where it is
-// dynamic.
+// The arena of a chain launch: the rollout lanes' parameters, or the update
+// pass's buffers (none for random sampling) where they take more.
+static inline int chain_arena(int update_bytes) {
+  const int prm = lane_param_bytes<SAMPLING_PL>(chain_tiles<SAMPLING_PL>());
+  return prm > update_bytes ? prm : update_bytes;
+}
+
+// Above 48 KB dynamic shared memory needs an opt-in, given once for the most a
+// launch can ask for: the staged windows where they are dynamic and the largest
+// arena (the update pass's as update_opt_in's).
 template <int H, int PL, bool RS>
 static cudaError_t chain_opt_in() {
   static bool opted_in = false;
   if (opted_in) return cudaSuccess;
   const int most =
-      basis_dyn_bytes<H, PL>() +
-      (RS ? 0 : sm_tile_bytes(4 * PL, SM_TILE_ROWS) + (SM_STAGE_KEYS + SM_KMAX * SM_KMAX) * 8);
+      window_dyn_bytes<H>() +
+      chain_arena(RS ? 0
+                     : sm_tile_bytes(4 * PL, SM_TILE_ROWS) +
+                           (SM_STAGE_KEYS + SM_KMAX * SM_KMAX) * 8);
   cudaError_t err = cudaFuncSetAttribute(chain_kernel<H, PL, RS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, most);
   if (err == cudaSuccess)
@@ -203,13 +224,13 @@ static cudaError_t chain_opt_in() {
   return err;
 }
 
-// Dynamic shared memory of a chain launch: the staged basis where it is dynamic,
-// then the update pass's (none for random sampling).
+// Dynamic shared memory of a chain launch: the staged windows where they are
+// dynamic, then the arena.
 static int chain_smem(int method, const SMKnobs& kn, int num_samples) {
-  const int basis = basis_dyn_bytes<SAMPLING_H, SAMPLING_PL>();
-  if (method == 0) return basis;
-  return basis + sm_update_smem(4 * SAMPLING_PL, kn.cem, kn.n_elite,
-                                (num_samples + RS_BLOCK - 1) / RS_BLOCK);
+  const int update = method == 0 ? 0
+                                 : sm_update_smem(4 * SAMPLING_PL, kn.cem, kn.n_elite,
+                                                  (num_samples + RS_BLOCK - 1) / RS_BLOCK);
+  return window_dyn_bytes<SAMPLING_H>() + chain_arena(update);
 }
 
 // Blocks of the chain kernel one SM holds at once with smem bytes of dynamic
@@ -264,9 +285,11 @@ int chain_horizon(void) { return SAMPLING_H; }
 
 int chain_params_per_leg(void) { return SAMPLING_PL; }
 
-// The stride of a basis row in the own-leg blocks the launch reads, which the
-// host pads to (sampling_kernel.pad_blocks).
-int chain_padded_params_per_leg(void) { return padded_pl(SAMPLING_PL); }
+// Bytes of a basis window (sampling_kernel.basis_windows).
+int chain_window_bytes(void) { return (int)sizeof(BasisWindow); }
+
+// Rollout tiles a chain block runs at once.
+int chain_rollout_tiles(void) { return chain_tiles<SAMPLING_PL>(); }
 
 const char* chain_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
@@ -294,15 +317,15 @@ int chain_blocks_per_sm(int method, int cem, int n_elite, int num_samples) {
 // bits do not depend on it). Returns 0, a CUDA error code (among them
 // cudaErrorCooperativeLaunchTooLarge for a grid that would not be co-resident, and
 // cudaErrorNotSupported for a device without cooperative launches), or -1 for a
-// shape or knob this build does not take, a missing buffer, or a basis or partials
+// shape or knob this build does not take, a missing buffer, or windows or partials
 // that are not 16-byte aligned.
 int chain_launch(const RSArgs* a, const SMKnobs* kn, int method, int params_per_leg,
-                 int iterations, int max_blocks, const float* w_blk, const float* incumbent,
+                 int iterations, int max_blocks, const BasisWindow* win, const float* incumbent,
                  const float* sigma_in, float* noise, float* costs, unsigned long long* scratch,
                  float* partials, unsigned long long* block_keys, float* out, float* sigma_out,
                  int* elites, void* stream) {
   if (a->horizon != SAMPLING_H || params_per_leg != SAMPLING_PL || a->num_samples < 1) return -1;
-  if (iterations < 1 || max_blocks < 0 || ((uintptr_t)w_blk & 15) != 0) return -1;
+  if (iterations < 1 || max_blocks < 0 || ((uintptr_t)win & 15) != 0) return -1;
   if (method < 0 || method > 2 || (kn->cem != 0) != (method == 2)) return -1;
   if (incumbent == nullptr || costs == nullptr || scratch == nullptr || out == nullptr) return -1;
   if (method > 0 && (!(kn->temperature > 0.f) || noise == nullptr || partials == nullptr ||
@@ -313,7 +336,7 @@ int chain_launch(const RSArgs* a, const SMKnobs* kn, int method, int params_per_
                       ((uintptr_t)block_keys & 15) != 0 || sigma_out == nullptr ||
                       elites == nullptr))
     return -1;
-  const ChainBuffers buf{w_blk,    incumbent,  sigma_in, noise, costs,    scratch,
+  const ChainBuffers buf{win,      incumbent,  sigma_in, noise, costs,    scratch,
                          partials, block_keys, out,      sigma_out, elites};
   const int smem = chain_smem(method, *kn, a->num_samples);
   if (method == 0)

@@ -1,6 +1,7 @@
 // Device code shared by the sampling-MPC kernels (sampling_rs.cu, K1a;
-// sampling_softmax.cu, K1b-K1c; sampling_groups.cu, K1e; sampling_chain.cu, K1d):
-// the per-tick argument block, Philox4x32-10 and Box-Muller, the NaN-propagating
+// sampling_softmax.cu, K1b-K1c; sampling_groups.cu, K1e; sampling_chain.cu, K1d;
+// sampling_fleet.cu, K1f): the per-tick argument block, the basis windows,
+// Philox4x32-10 and Box-Muller, the NaN-propagating
 // clamps, the force model and the SRB Euler step, the argmin fold, the four-lane
 // step-0 extraction, and the one rollout pass that all of them run
 // (rollout_kernel, at the end; the chain kernel runs its parts in its own loop).
@@ -12,8 +13,8 @@
 // over four lanes, one per leg (40 000 threads): each lane draws its leg's noise
 // and computes its leg's basis rows and forces, and the lanes share the body
 // update's sines, cosines and divisions; blocks of ROLLOUT_SAMPLES samples (625
-// at N = 10 000) spread evenly over the SMs, and the basis reaches shared memory
-// by a bulk asynchronous copy that overlaps the noise.
+// at N = 10 000) spread evenly over the SMs, and the basis windows reach shared
+// memory by a bulk asynchronous copy that overlaps the noise.
 //
 // The random numbers go through __fmul_rn/__fadd_rn so that a kernel that
 // regenerates a sample's noise from its Philox counter gets the same bits as the
@@ -23,25 +24,29 @@
 // Each library is built for one (horizon, parameters per leg) pair, given as
 // -DSAMPLING_H and -DSAMPLING_PL: ops/build.py builds a pair's libraries the first
 // time a solver asks for the pair, one nvcc per source. The kernels take H up to
-// RS_HMAX and PL up to RS_MAX_PL (zero-order holds at H = 24, cubic splines with
-// six splines); a basis above RS_STATIC_BASIS_BYTES is staged in dynamic shared
-// memory (basis_smem). A leg's PL parameters are drawn as
-// ceil(PL/4) Philox chunks of four (the last one cut short when PL % 4 != 0, as
-// for linear splines with 9), and its basis rows arrive padded to a stride of
-// padded_pl(PL) with zero weights; every other layout (the incumbent, sigma, the
-// (P, N) noise, the outputs) keeps P = 4 * PL.
+// RS_MAX_H and PL up to RS_MAX_PL (P = 4 * PL <= 1024, the Pallas kernel's own
+// bound). The basis reaches them as one BasisWindow a row (four weights and the
+// first parameter's index; every row of every parametrization has at most four
+// adjacent nonzero weights), and a lane stages its leg's parameters in shared
+// memory, so neither grows with the product H * PL. A leg's PL parameters are
+// drawn as ceil(PL/4) Philox chunks of four (the last one cut short when PL % 4
+// != 0, as for linear splines with 9); every layout of parameters (the incumbent,
+// sigma, the (P, N) noise, the outputs) keeps P = 4 * PL.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 #if !defined(SAMPLING_H) || !defined(SAMPLING_PL)
 #error "build with -DSAMPLING_H=<horizon> -DSAMPLING_PL=<parameters per leg> (see ops/build.py)"
 #endif
 
-#define RS_HMAX 24    // the per-step arrays of RSArgs
-#define RS_MAX_PL 72  // 3 * RS_HMAX: a zero-order hold at the longest horizon
-static_assert(SAMPLING_H >= 2 && SAMPLING_H <= RS_HMAX && SAMPLING_PL >= 4 &&
+// The bounds of ops/build.py:check_pair. RS_MAX_H: the chain kernel's staged
+// windows (384 bytes a step) beside its largest arena; RS_MAX_PL: P = 4 * PL <= 1024.
+#define RS_MAX_H 128
+#define RS_MAX_PL 256
+static_assert(SAMPLING_H >= 2 && SAMPLING_H <= RS_MAX_H && SAMPLING_PL >= 4 &&
                   SAMPLING_PL <= RS_MAX_PL,
               "ops/build.py:check_pair refuses the pair");
 #define RS_BLOCK 64  // threads of the extraction kernel; samples a block of the update pass
@@ -53,8 +58,8 @@ static_assert(SAMPLING_H >= 2 && SAMPLING_H <= RS_HMAX && SAMPLING_PL >= 4 &&
 #define ROLLOUT_MIN_BLOCKS 8
 #define RS_OUT_WINNER 26  // out = [cost, grf(12), state(12), index, parameters(P)]
 
-// A leg's parameters rounded up to whole Philox chunks of four: the stride of the
-// staged basis rows and the values a lane draws.
+// A leg's parameters rounded up to whole Philox chunks of four: the values a lane
+// draws.
 __host__ __device__ constexpr int padded_pl(int PL) { return (PL + 3) / 4 * 4; }
 
 struct RSModel {
@@ -64,8 +69,11 @@ struct RSModel {
   float scale_x, scale_y, grf_min, grf_max, mu;
 };
 
-// Everything a solve needs besides W, the incumbent and the outputs. Passed by
-// value as a kernel parameter, so the per-tick inputs ride the launch itself.
+// Everything a solve needs besides the basis, the incumbent and the outputs.
+// Passed by value as a kernel parameter, so the per-tick inputs ride the launch
+// itself. The per-step arrays come last and are sized by the pair's horizon: 352 +
+// 36 H bytes, 4 960 at H = 128, within the 32 KB of kernel parameters that CUDA
+// 12.1 and later take (ops/sampling_kernel.py:args_type mirrors it).
 struct RSArgs {
   int num_samples;  // N
   int horizon;      // H
@@ -73,15 +81,12 @@ struct RSArgs {
   int band2;        // first sample of the uniform band (1 + 2*(N/3)); random sampling only
   unsigned long long seed;
   unsigned long long offset;
-  float dts[RS_HMAX];
   float q_diag[12];
   RSModel model;
   float sigma1, sigma2, sigma3;  // random sampling only
   float state[12];
-  float feet[12];               // leg-major xyz
+  float feet[12];  // leg-major xyz
   float ref[12];
-  float contact[RS_HMAX * 4];   // step-major: n*4 + leg
-  float share[RS_HMAX * 4];     // step-major: n*4 + leg
   // 0: sample 0 is the incumbent (zero noise). 1: sample 0 draws noise as the
   // others do (random sampling: N(0, sigma2)), for the shards of a sample-sharded
   // solve other than the first, which must not each add a copy of the incumbent.
@@ -89,6 +94,26 @@ struct RSArgs {
   // The ZMP-band cost (config sampling.zmp_weight, zmp_margin; zmp_band); a
   // weight of 0 skips it.
   float zmp_weight, zmp_margin;
+  int pad;  // the per-step arrays start at 352, 8-byte aligned, as in the ctypes mirror
+  float dts[SAMPLING_H];
+  float contact[SAMPLING_H * 4];  // step-major: n*4 + leg
+  float share[SAMPLING_H * 4];    // step-major: n*4 + leg
+};
+static_assert(offsetof(RSArgs, dts) == 352, "the ctypes mirror's header");
+
+// Row r of the basis as a window of four weights: w of parameters param ..
+// param + 3 (leg-major, all within the row's own leg), every other weight of the
+// row zero. Built once a plan (or once a tick for K1e's groups) by
+// ops/sampling_kernel.py:basis_windows, which refuses a basis whose rows'
+// nonzeros span more than four parameters (a cubic spline row holds 1 or 4
+// contiguous nonzeros, a linear one 1 or 2, a zero-order hold 1). A window's sum
+// in parameter order has the bits of the dense row's: the dense products outside
+// it are fmaf(0, p, acc), which return acc for finite p.
+#define RS_WINDOW 4
+struct __align__(16) BasisWindow {
+  float4 w;
+  int param;
+  int pad[3];
 };
 
 __device__ __forceinline__ float max_nan(float x, float y) { return (x > y || x != x) ? x : y; }
@@ -361,26 +386,29 @@ __device__ __forceinline__ void fold_argmin(unsigned long long key, unsigned lon
   if ((threadIdx.x & 31) == 0 && key != ~0ull) atomicMin(argmin, key);
 }
 
-// Step-0 GRFs (12) and one-step state (12) under parameters prm and the basis's
-// first 12 rows w_rows (12, padded_pl(PL)), written to out[1..24], by the four
-// lanes of each group of a full warp (lane % 4 = leg): the plain version's
-// arithmetic (forces row by row in parameter order, legs summed 0..3), with the
-// body update of the rollout pass.
-template <int PL>
-__device__ __forceinline__ void step0_extract_lanes(const RSArgs& a, const float* w_rows,
+// Row c of this leg's window w under the parameters x, where parameter j of the
+// window is x[j * stride]: the window's four products in parameter order.
+__device__ __forceinline__ float window_sum(float4 w, const float* x, int stride) {
+  float acc = 0.f;
+  acc = fmaf(w.x, x[0], acc);
+  acc = fmaf(w.y, x[stride], acc);
+  acc = fmaf(w.z, x[2 * stride], acc);
+  acc = fmaf(w.w, x[3 * stride], acc);
+  return acc;
+}
+
+// Step-0 GRFs (12) and one-step state (12) under parameters prm (P, leg-major)
+// and the basis's first 12 windows w0, written to out[1..24], by the four lanes of
+// each group of a full warp (lane % 4 = leg): the plain version's arithmetic
+// (forces row by row in parameter order, legs summed 0..3), with the body update
+// of the rollout pass.
+__device__ __forceinline__ void step0_extract_lanes(const RSArgs& a, const BasisWindow* w0,
                                                     const float* prm, float* out) {
-  constexpr int PLP = padded_pl(PL);
   const int leg = threadIdx.x % ROLLOUT_LANES;
   const RSModel md = a.model;
   float raw[3];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    float acc = 0.f;
-#pragma unroll
-    for (int j = 0; j < PL; ++j)
-      acc = fmaf(w_rows[(3 * leg + c) * PLP + j], prm[leg * PL + j], acc);
-    raw[c] = acc;
-  }
+  for (int c = 0; c < 3; ++c) raw[c] = window_sum(w0[3 * leg + c].w, prm + w0[3 * leg + c].param, 1);
   float fx, fy, fz, f[12], st[12], ft[12];
   leg_forces(raw[0], raw[1], raw[2], a.contact[leg], a.share[leg], md, fx, fy, fz);
 #pragma unroll
@@ -407,19 +435,26 @@ __device__ __forceinline__ void step0_extract_lanes(const RSArgs& a, const float
   }
 }
 
-// -- the rollout pass (K1a-K1e) ------------------------------------------------------
+// -- the rollout pass (K1a-K1f) ------------------------------------------------------
 //
 // One sample is one group of ROLLOUT_LANES = 4 lanes of a warp, one lane per leg.
-// The parameters are leg-major (prm[leg * PL + j]), and W is block-diagonal per
-// leg, so lane `leg` draws, holds and multiplies only its leg's PL parameters
-// (Philox chunks leg * CH .. leg * CH + CH - 1 with CH = ceil(PL/4); when PL % 4
-// == 0 these are the counters one thread per sample drew for parameters
-// 4k..4k+3), and each step computes its leg's 3 raw force rows and
-// applies the force model to its leg. The four lanes then exchange their clamped
-// forces with __shfl_sync and run the body update of srb_body<true> on the same
-// twelve values, summing the legs in order 0..3, and share the step's
-// sine-cosine pairs and divisions. The same arithmetic as one thread per sample,
-// so the same bits.
+// The parameters are leg-major (leg * PL + j), and W is block-diagonal per leg,
+// so lane `leg` draws and multiplies only its leg's PL parameters (Philox chunks
+// leg * CH .. leg * CH + CH - 1 with CH = ceil(PL/4); when PL % 4 == 0 these are
+// the counters one thread per sample drew for parameters 4k..4k+3), and each
+// step computes its leg's 3 raw force rows, each on its row's window of four
+// weights, and applies the force model to its leg. The four lanes then exchange
+// their clamped forces with __shfl_sync and run the body update of
+// srb_body<true> on the same twelve values, summing the legs in order 0..3, and
+// share the step's sine-cosine pairs and divisions. The same arithmetic as one
+// thread per sample, so the same bits.
+//
+// A lane stages its leg's parameters in shared memory, parameter j at
+// prm[j * ROLLOUT_THREADS] from its own column (lane_params): a step's window
+// starts at a parameter the step decides, which a register array cannot be
+// indexed by, and at PL = 255 (zero-order holds at H = 85) a leg's parameters
+// would not fit in registers anyway. The four legs of a uniform basis read the
+// same j, so a warp's reads fall on 32 distinct banks.
 //
 // What the H100 showed (tools/rollout_variants.py times each choice): the pass
 // is bound by each sample's serial chain more than by the SM's issue rate (with
@@ -429,40 +464,66 @@ __device__ __forceinline__ void step0_extract_lanes(const RSArgs& a, const float
 // divisions; and the unrolled loop cost more in instruction fetch than its
 // scheduling freedom saved, so it is rolled.
 
-// Bytes of a solve's staged own-leg basis blocks (H*12, padded_pl(PL)). Up to
-// RS_STATIC_BASIS_BYTES (27.6 KB at (24, 24) and at (16, 36)) they are a
-// static shared array, as for the first pairs; above it (55 KB for cubic splines
-// with four splines at H = 24, 83 KB for zero-order holds there) static shared
-// memory cannot hold them, and they take the first basis_dyn_bytes of the kernel's
-// dynamic shared memory, which its launch asks for (and opts in to above 48 KB).
-// Both paths keep the bits, but at the flagship's (12, 24) the rollout pass took
-// 9 % longer on an H100 with the basis in dynamic shared memory (19.2-19.5 us
-// against 17.7-17.9, tools/pass_times.py), so the smaller pairs keep the array.
-#define RS_STATIC_BASIS_BYTES 32768
-template <int H, int PL>
-__host__ __device__ constexpr int basis_bytes() {
-  return H * 12 * padded_pl(PL) * 4;
+// The staged windows and lane parameters of a rollout block. Up to
+// RS_STATIC_WINDOW_BYTES of windows (H <= 64) and RS_STATIC_PARAM_BYTES of
+// parameters (PL <= 64) they are static shared arrays; above, they take the
+// kernel's dynamic shared memory (windows first), which its launch asks for and
+// opts in to above 48 KB. At the flagship's (12, 24): 4.6 KB of windows and 6 KB of
+// parameters, both static. With both always dynamic (these two bounds at 0) the
+// flagship's rollout pass kept its bits and took 16.56-16.67 us against 15.88-15.98
+// for K1b and K1c and 16.19-16.22 against 15.83-15.88 for K1e-mppi (H100,
+// tools/pass_times.py static, dynamic, dynamic, static in one call; PERF.md §6).
+#define RS_STATIC_WINDOW_BYTES 24576
+#define RS_STATIC_PARAM_BYTES 16384
+template <int H>
+__host__ __device__ constexpr int window_bytes() {
+  return H * 12 * (int)sizeof(BasisWindow);
+}
+template <int H>
+__host__ __device__ constexpr int window_dyn_bytes() {
+  return window_bytes<H>() > RS_STATIC_WINDOW_BYTES ? window_bytes<H>() : 0;
+}
+// Bytes of the parameters of `tiles` rollout tiles of ROLLOUT_THREADS lanes.
+template <int PL>
+__host__ __device__ constexpr int lane_param_bytes(int tiles = 1) {
+  return tiles * PL * ROLLOUT_THREADS * 4;
+}
+template <int PL>
+__host__ __device__ constexpr int lane_param_dyn_bytes() {
+  return lane_param_bytes<PL>() > RS_STATIC_PARAM_BYTES ? lane_param_bytes<PL>() : 0;
 }
 template <int H, int PL>
-__host__ __device__ constexpr int basis_dyn_bytes() {
-  return basis_bytes<H, PL>() > RS_STATIC_BASIS_BYTES ? basis_bytes<H, PL>() : 0;
+__host__ __device__ constexpr int rollout_dyn_bytes() {
+  return window_dyn_bytes<H>() + lane_param_dyn_bytes<PL>();
 }
-// The staged basis of the pair: a static array, or the start of dyn.
-template <int H, int PL>
-__device__ __forceinline__ float* basis_smem(unsigned char* dyn) {
-  if constexpr (basis_dyn_bytes<H, PL>() > 0) {
-    return reinterpret_cast<float*>(dyn);
+// The staged windows of the pair: a static array, or the start of dyn.
+template <int H>
+__device__ __forceinline__ BasisWindow* window_smem(unsigned char* dyn) {
+  if constexpr (window_dyn_bytes<H>() > 0) {
+    return reinterpret_cast<BasisWindow*>(dyn);
   } else {
-    __shared__ __align__(16) float w_s[H * 12 * padded_pl(PL)];
+    __shared__ BasisWindow w_s[H * 12];
     return w_s;
   }
 }
+// The block's lane parameters (PL, ROLLOUT_THREADS): a static array, or dyn after
+// the windows.
+template <int H, int PL>
+__device__ __forceinline__ float* lane_param_smem(unsigned char* dyn) {
+  if constexpr (lane_param_dyn_bytes<PL>() > 0) {
+    return reinterpret_cast<float*>(dyn + window_dyn_bytes<H>());
+  } else {
+    __shared__ __align__(16) float prm_s[PL * ROLLOUT_THREADS];
+    return prm_s;
+  }
+}
 
-// Opts kernel in to `bytes` of dynamic shared memory once (above 48 KB a launch
-// needs it), with the carveout that gives shared memory the most of an SM.
+// Opts kernel in to `bytes` of dynamic shared memory once (a launch needs it when
+// its static and dynamic shared memory pass 48 KB together), with the carveout
+// that gives shared memory the most of an SM.
 template <class Kernel>
 static cudaError_t opt_in_smem(Kernel kernel, int bytes, bool& done) {
-  if (done || bytes <= 48 * 1024) return cudaSuccess;
+  if (done || bytes == 0) return cudaSuccess;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess)
@@ -486,6 +547,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+}
+
+// The first 12 windows (step 0's rows) into w0_s by cp.async, by threads t of
+// `threads` (the caller waits with cp_async_wait_all and syncs).
+__device__ __forceinline__ void cp_async_step0_windows(BasisWindow* w0_s, const BasisWindow* win,
+                                                       int t, int threads) {
+  static_assert(sizeof(BasisWindow) == 32, "two 16-byte copies a window");
+  for (int q = t; q < 24; q += threads)
+    cp_async16(reinterpret_cast<float4*>(w0_s) + q, reinterpret_cast<const float4*>(win) + q);
 }
 
 // An mbarrier that completes when one arrival and the announced bytes have landed.
@@ -529,14 +599,13 @@ __device__ __forceinline__ void bulk_wait(unsigned long long* bar, unsigned pari
 }
 
 // One lane's share of a sample's H-step rollout cost, NaN/Inf -> 1e6: prm holds
-// this lane's leg's PL parameters, w_s the (H*12, padded_pl(PL)) own-leg basis
-// blocks, c_s and sh_s the step-major (n*4 + leg) stance masks and per-leg shares.
-// All four lanes of the sample return the same cost.
+// this lane's leg's PL parameters (parameter j at prm[j * ROLLOUT_THREADS]), w_s
+// the (H*12) windows, c_s and sh_s the step-major (n*4 + leg) stance masks and
+// per-leg shares. All four lanes of the sample return the same cost.
 template <int H, int PL>
-__device__ __forceinline__ float lane_rollout_cost(const RSArgs& a, const float* w_s,
+__device__ __forceinline__ float lane_rollout_cost(const RSArgs& a, const BasisWindow* w_s,
                                                    const float* prm, const float* c_s,
                                                    const float* sh_s, int leg) {
-  constexpr int PLP = padded_pl(PL);
   const RSModel md = a.model;
   float st[12], ft[12], ref[12];
 #pragma unroll
@@ -548,24 +617,13 @@ __device__ __forceinline__ float lane_rollout_cost(const RSArgs& a, const float*
   float cost = 0.f;
 #pragma unroll 1  // see the note above: rolled, the body fits the instruction cache
   for (int n = 0; n < H; ++n) {
-    // This leg's rows n*12 + 3*leg + c, summed over j < PL in order as
-    // step_forces does (the padding's products are not formed); they do not depend
-    // on the state, so they overlap the previous step's chain. At PL = 24 the four
-    // legs' rows start 72 floats (8 banks) apart, so a warp's 16-byte reads touch
-    // four distinct bank quads and are otherwise broadcasts.
+    // This leg's rows n*12 + 3*leg + c on their windows; they do not depend on
+    // the state, so they overlap the previous step's chain.
     float raw[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const float4* row = reinterpret_cast<const float4*>(&w_s[(n * 12 + 3 * leg + c) * PLP]);
-      float acc = 0.f;
-#pragma unroll
-      for (int q = 0; q < PLP / 4; ++q) {
-        const float4 w = row[q];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (4 * q + e < PL) acc = fmaf(comp(w, e), prm[4 * q + e], acc);
-      }
-      raw[c] = acc;
+      const BasisWindow& bw = w_s[n * 12 + 3 * leg + c];
+      raw[c] = window_sum(bw.w, prm + (bw.param - leg * PL) * ROLLOUT_THREADS, ROLLOUT_THREADS);
     }
     float fx, fy, fz, f[12];
     leg_forces(raw[0], raw[1], raw[2], c_s[n * 4 + leg], sh_s[n * 4 + leg], md, fx, fy, fz);
@@ -592,13 +650,13 @@ __device__ __forceinline__ float lane_rollout_cost(const RSArgs& a, const float*
   return cost;
 }
 
-// The column source of K1a-K1c: one static basis (H*12, padded_pl(PL)) for every
-// sample and the argument block's contact and share columns; no cost offset.
+// The column source of K1a-K1c: one static set of windows (H*12) for every sample
+// and the argument block's contact and share columns; no cost offset.
 template <int H, int PL>
 struct StaticSource {
-  const float* w_blk;  // 16-byte aligned, zero-padded rows
-  int group_size;      // N
-  int num_groups;      // 1
+  const BasisWindow* win;  // 16-byte aligned
+  int group_size;          // N
+  int num_groups;          // 1
 
   __device__ void stage(const RSArgs& a, float* c_s, float* sh_s) const {
     for (int k = threadIdx.x; k < H * 4; k += blockDim.x) {
@@ -606,30 +664,29 @@ struct StaticSource {
       sh_s[k] = a.share[k];
     }
   }
-  __device__ void copy(float* w_s, float*, float*, unsigned long long* bar) const {
-    constexpr int bytes = H * 12 * padded_pl(PL) * 4;
+  __device__ void copy(BasisWindow* w_s, float*, float*, unsigned long long* bar) const {
+    constexpr int bytes = window_bytes<H>();
     bulk_expect(bar, bytes);
-    bulk_load(w_s, w_blk, bytes, bar);
+    bulk_load(w_s, win, bytes, bar);
   }
   __device__ float finish(float cost) const { return cost; }
 };
 
-// This lane's PL parameters of sample i (its leg `leg`), prm[j] = incumbent[leg * PL
-// + j] + noise: Noise(a, offset, i, k, p, valid) gives the noise of parameters
-// p..p+valid-1 of sample i from its Philox chunk k at the offset (unless noise_in
-// is given; the rest of the float4 is not used), written to noise_out for a live
-// sample. R: how the incumbent is read.
+// This lane's PL parameters of sample i (its leg `leg`), incumbent[leg * PL + j] +
+// noise into prm[j * ROLLOUT_THREADS]: Noise(a, offset, i, k, p, valid) gives the
+// noise of parameters p..p+valid-1 of sample i from its Philox chunk k at the
+// offset (unless noise_in is given; the rest of the float4 is not used), written
+// to noise_out for a live sample. R: how the incumbent is read.
 template <int PL, Read R, class Noise>
 __device__ __forceinline__ void draw_params(const RSArgs& a, const Noise& noise,
                                             unsigned long long offset, const float* incumbent,
                                             const float* noise_in, float* noise_out, int i,
                                             bool live, int leg, float* prm) {
   constexpr int CH = padded_pl(PL) / 4;  // Philox chunks of one leg
+  constexpr int last = PL - 4 * (CH - 1);  // values of the leg's last chunk
   const int N = a.num_samples;
-#pragma unroll
-  for (int q = 0; q < CH; ++q) {
+  auto chunk = [&](int q) {
     const int k = leg * CH + q, p = leg * PL + 4 * q;  // Philox chunk, first parameter
-    constexpr int last = PL - 4 * (CH - 1);           // values of the leg's last chunk
     const int valid = q < CH - 1 ? 4 : last;
     const float4 z = noise_in != nullptr ? load_params4(noise_in, N, i, p, valid)
                                          : noise(a, offset, i, k, p, valid);
@@ -637,14 +694,21 @@ __device__ __forceinline__ void draw_params(const RSArgs& a, const Noise& noise,
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       if (4 * q + e < PL)
-        prm[4 * q + e] = __fadd_rn(load_in<R>(&incumbent[p + e]), comp(z, e));
+        prm[(4 * q + e) * ROLLOUT_THREADS] = __fadd_rn(load_in<R>(&incumbent[p + e]), comp(z, e));
+  };
+  if constexpr (CH <= 18) {  // up to PL = 72: unrolled, as before the windows
+#pragma unroll
+    for (int q = 0; q < CH; ++q) chunk(q);
+  } else {
+#pragma unroll 2
+    for (int q = 0; q < CH; ++q) chunk(q);
   }
 }
 
 // The rollout pass: grid (ceil(group_size / ROLLOUT_SAMPLES), num_groups), one
 // sample per ROLLOUT_LANES lanes. Sample j of group g is global sample
 // i = g * group_size + j, its parameters drawn by draw_params at a.offset; Source
-// gives the block's basis, contact and share columns (bulk-copied or staged into
+// gives the block's windows, contact and share columns (bulk-copied or staged into
 // shared memory) and the cost's offset. Writes every cost and folds (cost bits
 // << 32 | i) into one 64-bit atomicMin. A sample past the group's end runs on the
 // group's last sample, so that every lane reaches the exchanges, and writes
@@ -656,11 +720,11 @@ rollout_kernel(const RSArgs a, const Noise noise, const Source src,
                float* __restrict__ noise_out, float* __restrict__ costs,
                unsigned long long* __restrict__ argmin) {
   static_assert(ROLLOUT_LANES == 4, "one lane per leg");
-  constexpr int PLP = padded_pl(PL);
-  static_assert((H * 12 * PLP * 4) % 16 == 0 && (H * 4 * 4) % 16 == 0,
+  static_assert(window_bytes<H>() % 16 == 0 && (H * 4 * 4) % 16 == 0,
                 "bulk copies move multiples of 16 bytes");
   extern __shared__ __align__(16) unsigned char dyn_s[];
-  float* w_s = basis_smem<H, PL>(dyn_s);
+  BasisWindow* w_s = window_smem<H>(dyn_s);
+  float* prm_s = lane_param_smem<H, PL>(dyn_s);
   __shared__ __align__(16) float c_s[H * 4];
   __shared__ __align__(16) float sh_s[H * 4];
   __shared__ __align__(8) unsigned long long bar;
@@ -669,12 +733,13 @@ rollout_kernel(const RSArgs a, const Noise noise, const Source src,
   __syncthreads();
   if (threadIdx.x == 0) src.copy(w_s, c_s, sh_s, &bar);
 
-  // The noise and the parameters overlap the copy: they do not read it.
+  // The noise and the parameters overlap the copy: they do not read it. Each lane
+  // reads back only what it wrote itself.
   const int leg = threadIdx.x % ROLLOUT_LANES;
   const int j = blockIdx.x * ROLLOUT_SAMPLES + threadIdx.x / ROLLOUT_LANES;
   const bool live = j < src.group_size;
   const int i = blockIdx.y * src.group_size + (live ? j : src.group_size - 1);
-  float prm[PL];
+  float* prm = prm_s + threadIdx.x;
   draw_params<PL, Read::ReadOnly>(a, noise, a.offset, incumbent, noise_in, noise_out, i, live, leg,
                                   prm);
   bulk_wait(&bar, 0);
@@ -690,7 +755,7 @@ static cudaError_t launch_rollout(const RSArgs& a, const Noise& noise, const Sou
                                   const float* incumbent, const float* noise_in,
                                   float* noise_out, float* costs, unsigned long long* argmin,
                                   cudaStream_t stream) {
-  constexpr int smem = basis_dyn_bytes<H, PL>();
+  constexpr int smem = rollout_dyn_bytes<H, PL>();
   static bool opted_in = false;
   const cudaError_t err = opt_in_smem(rollout_kernel<H, PL, Noise, Source>, smem, opted_in);
   if (err != cudaSuccess) return err;

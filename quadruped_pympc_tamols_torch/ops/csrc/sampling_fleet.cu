@@ -25,18 +25,18 @@
 //
 //   0            K1a's four-lane rollout (fleet_rollout_kernel, grid (ceil(N/16),
 //                S)): block (x, s) stages a shared copy of the argument block and
-//                bulk-copies the whole basis for its 16 samples, then runs K1a's
+//                bulk-copies the basis windows for its 16 samples, then runs K1a's
 //                draw_params and lane_rollout_cost. Its latency per wave is K1a's,
 //                so it is the faster layout while S * N fills the card about once;
 //                the update pass reads back the (S, P, N) noise the rollout wrote.
 //   FLEET_WIDE   the large-batch rollout (fleet_rollout_wide_kernel): one thread
-//                a sample, FLEET_WIDE_SAMPLES samples of one scenario a block. It
-//                pays the staging once for 128 samples, runs the body update once
-//                a sample instead of on four lanes, and forms the basis product on
-//                each row's window of nonzero weights only (BasisWindow, built once
-//                a plan): about 14 000 instructions a sample, and half the
-//                four-lane layout's time at 64 x 10 000. A sample's parameters
-//                live in shared memory.
+//                a sample, fleet_wide_samples(P) samples of one scenario a block
+//                (128 up to P = 288, 32 at P = 1024). It pays the staging once for
+//                128 samples and runs the body update once a sample instead of on
+//                four lanes; both layouts form the basis product on the same
+//                windows (BasisWindow, built once a plan): about 14 000
+//                instructions a sample, and half the four-lane layout's time at 64
+//                x 10 000. A sample's parameters live in shared memory.
 //   FLEET_REGEN  the update pass regenerates each nonzero-weight sample's noise
 //                (and the CEM elites') from its Philox counter; the rollout writes
 //                none, so no (S, P, N) buffer exists.
@@ -49,8 +49,8 @@
 // What bounds it: at the fleet's small N (128 samples, 8 rollout blocks a
 // scenario) the four-lane pass is latency-bound as K1a is (see
 // sampling_common.cuh); at S * N = 640 000 (64 scenarios of 10 000) it had 40 000
-// blocks in ~38 waves of 8 blocks an SM and paid its staging, its body update
-// and the basis's zero weights in every wave: the SMs' issue rate is the limit,
+// blocks in ~38 waves of 8 blocks an SM and paid its staging and its body update
+// in every wave: the SMs' issue rate is the limit,
 // which the large-batch layout spends on fewer instructions, and which bounds it
 // in turn. The bytes stay small but for the noise of the read-back update, 2 x 4
 // S P N bytes an iteration.
@@ -111,7 +111,7 @@ __device__ __forceinline__ void stage_scenario(const RSArgs& a, const FleetArgs&
 template <int H, int PL, int METHOD>
 __global__ void __launch_bounds__(ROLLOUT_THREADS, ROLLOUT_MIN_BLOCKS)
 fleet_rollout_kernel(const __grid_constant__ RSArgs a, const __grid_constant__ FleetArgs f,
-                     const float sigma_mppi, const float* __restrict__ w_blk,
+                     const float sigma_mppi, const BasisWindow* __restrict__ win,
                      const float* __restrict__ scen, const unsigned long long* __restrict__ seeds,
                      const unsigned long long* __restrict__ offsets,
                      const float* __restrict__ incumbent, const float* __restrict__ sigma,
@@ -119,11 +119,11 @@ fleet_rollout_kernel(const __grid_constant__ RSArgs a, const __grid_constant__ F
                      float* __restrict__ costs, unsigned long long* __restrict__ argmin) {
   static_assert(ROLLOUT_LANES == 4, "one lane per leg");
   constexpr int P = 4 * PL;
-  constexpr int PLP = padded_pl(PL);
-  constexpr int bytes = H * 12 * PLP * 4;
+  constexpr int bytes = window_bytes<H>();
   static_assert(bytes % 16 == 0, "bulk copies move multiples of 16 bytes");
   extern __shared__ __align__(16) unsigned char dyn_s[];
-  float* w_s = basis_smem<H, PL>(dyn_s);
+  BasisWindow* w_s = window_smem<H>(dyn_s);
+  float* prm_s = lane_param_smem<H, PL>(dyn_s);
   __shared__ __align__(16) RSArgs a_s;
   __shared__ __align__(8) unsigned long long bar;
   const int s = blockIdx.y;
@@ -131,7 +131,7 @@ fleet_rollout_kernel(const __grid_constant__ RSArgs a, const __grid_constant__ F
   stage_scenario<H>(a, f, scen, seeds, offsets, s, &a_s);
   if (threadIdx.x == 0) {
     bulk_expect(&bar, bytes);
-    bulk_load(w_s, w_blk, bytes, &bar);
+    bulk_load(w_s, win, bytes, &bar);
   }
 
   // The noise and the parameters overlap the copy: they do not read it.
@@ -144,7 +144,7 @@ fleet_rollout_kernel(const __grid_constant__ RSArgs a, const __grid_constant__ F
   const float* inc = incumbent + (size_t)s * f.inc_stride;
   const float* nin = noise_in != nullptr ? noise_in + s * PN : nullptr;
   float* nout = noise_out != nullptr ? noise_out + s * PN : nullptr;
-  float prm[PL];
+  float* prm = prm_s + threadIdx.x;
   if constexpr (METHOD == 0) {
     draw_params<PL, Read::ReadOnly>(a_s, RandomBands{}, a_s.offset, inc, nin, nout, i, live, leg,
                                     prm);
@@ -160,22 +160,22 @@ fleet_rollout_kernel(const __grid_constant__ RSArgs a, const __grid_constant__ F
 }
 
 // The four-lane rollout's launch, with the dynamic shared memory of the largest
-// pairs' staged basis (basis_smem).
+// pairs' staged windows and parameters (window_smem, lane_param_smem).
 template <int H, int PL, int METHOD>
 static cudaError_t launch_rollout_four(const RSArgs& a, const FleetArgs& f, float sigma_mppi,
-                                       const float* w_blk, const float* scen,
+                                       const BasisWindow* win, const float* scen,
                                        const unsigned long long* seeds,
                                        const unsigned long long* offsets, const float* incumbent,
                                        const float* sigma, const float* noise_in,
                                        float* noise_out, float* costs,
                                        unsigned long long* argmin, cudaStream_t stream) {
-  constexpr int smem = basis_dyn_bytes<H, PL>();
+  constexpr int smem = rollout_dyn_bytes<H, PL>();
   static bool opted_in = false;
   const cudaError_t err = opt_in_smem(fleet_rollout_kernel<H, PL, METHOD>, smem, opted_in);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.num_samples + ROLLOUT_SAMPLES - 1) / ROLLOUT_SAMPLES, f.num_scenarios);
   fleet_rollout_kernel<H, PL, METHOD><<<grid, ROLLOUT_THREADS, smem, stream>>>(
-      a, f, sigma_mppi, w_blk, scen, seeds, offsets, incumbent, sigma, noise_in, noise_out, costs,
+      a, f, sigma_mppi, win, scen, seeds, offsets, incumbent, sigma, noise_in, noise_out, costs,
       argmin);
   return cudaGetLastError();
 }
@@ -184,23 +184,20 @@ static cudaError_t launch_rollout_four(const RSArgs& a, const FleetArgs& f, floa
 
 #define FLEET_WIDE 1   // layout bit: the rollout pass one thread a sample
 #define FLEET_REGEN 2  // layout bit: the update pass regenerates the noise from Philox
-// Samples (threads) of a block of the large-batch rollout, and the blocks an SM its
-// register budget must allow (65 536 / (4 * 128) = 128 a thread); at P = 96 its
-// parameters take 48 KB of shared memory a block, so four blocks fill an SM.
+// Samples (threads) of a block of the large-batch rollout: FLEET_WIDE_SAMPLES up
+// to P = 288, where its parameters take at most FLEET_WIDE_PARAM_BYTES (48 KB at P
+// = 96, so that four blocks fill an SM), and fewer whole warps above (32 at P =
+// 1024); and the blocks an SM its register budget must allow (65 536 / (4 * 128)
+// = 128 a thread).
 #define FLEET_WIDE_SAMPLES 128
+#define FLEET_WIDE_PARAM_BYTES (FLEET_WIDE_SAMPLES * 288 * 4)
 #define FLEET_WIDE_MIN_BLOCKS 4
-#define FLEET_WINDOW 4  // weights of a basis row's window
-
-// Row r of the basis as a window of FLEET_WINDOW weights: w of parameters param ..
-// param + 3 (leg-major, all within the row's own leg), every other weight of the
-// row zero. Built once a plan by ops/sampling_fleet.py:basis_windows, which
-// refuses a basis whose rows' nonzeros span more than the window (a cubic spline
-// row holds 1 or 4 contiguous nonzeros, a linear one 1 or 2, a zero-order hold 1).
-struct __align__(16) BasisWindow {
-  float4 w;
-  int param;
-  int pad[3];
-};
+__host__ __device__ constexpr int fleet_wide_samples(int P) {
+  return FLEET_WIDE_PARAM_BYTES / (P * 4) >= FLEET_WIDE_SAMPLES
+             ? FLEET_WIDE_SAMPLES
+             : (FLEET_WIDE_PARAM_BYTES / (P * 4) / 32 < 1 ? 32
+                                                          : FLEET_WIDE_PARAM_BYTES / (P * 4) / 32 * 32);
+}
 
 // Noise of parameters p..p+valid-1 of sample i (its Philox chunk k) of a scenario
 // with the given seed and offset, as the rollout pass draws it: K1a's bands
@@ -312,13 +309,13 @@ __device__ __forceinline__ void srb_body_wide(float* s, const float* f, float dt
 
 // One sample's H-step rollout cost, NaN/Inf -> 1e6, by one thread: lane_rollout_cost
 // of all four legs. prm: this thread's parameters in shared memory, parameter p at
-// prm[p * FLEET_WIDE_SAMPLES]; w_s, off_s: each row's window weights and its first
-// parameter's offset (param * FLEET_WIDE_SAMPLES); row_s the scenario's staged row.
+// prm[p * T]; w_s, off_s: each row's window weights and its first parameter's
+// offset (param * T); row_s the scenario's staged row.
 template <int H, int PL>
 __device__ __forceinline__ float wide_rollout_cost(const RSArgs& a, const float4* w_s,
                                                    const int* off_s, const float* prm,
                                                    const float* row_s) {
-  constexpr int T = FLEET_WIDE_SAMPLES;
+  constexpr int T = fleet_wide_samples(4 * PL);
   const RSModel md = a.model;
   const float* c_s = row_s + 36;
   const float* sh_s = row_s + 36 + 4 * H;
@@ -342,14 +339,7 @@ __device__ __forceinline__ float wide_rollout_cost(const RSArgs& a, const float4
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         const int r = n * 12 + 3 * leg + c;
-        const float4 w = w_s[r];
-        const float* x = prm + off_s[r];
-        float acc = 0.f;
-        acc = fmaf(w.x, x[0], acc);
-        acc = fmaf(w.y, x[T], acc);
-        acc = fmaf(w.z, x[2 * T], acc);
-        acc = fmaf(w.w, x[3 * T], acc);
-        raw[c] = acc;
+        raw[c] = window_sum(w_s[r], prm + off_s[r], T);
       }
       leg_forces(raw[0], raw[1], raw[2], c_s[n * 4 + leg], sh_s[n * 4 + leg], md, fl[3 * leg],
                  fl[3 * leg + 1], fl[3 * leg + 2]);
@@ -373,8 +363,8 @@ __device__ __forceinline__ float wide_rollout_cost(const RSArgs& a, const float4
   return cost;
 }
 
-// The large-batch rollout pass: grid (ceil(N / FLEET_WIDE_SAMPLES), S), thread t of
-// block (x, s) sample j = x * FLEET_WIDE_SAMPLES + t of scenario s. The block
+// The large-batch rollout pass: grid (ceil(N / T), S) with T = fleet_wide_samples(P),
+// thread t of block (x, s) sample j = x * T + t of scenario s. The block
 // stages the basis windows and the scenario's row once; each thread draws its
 // parameters (incumbent + noise, as draw_params: the noise from noise_in, or drawn
 // and, given noise_out, written there) into shared memory and rolls its sample
@@ -383,7 +373,7 @@ __device__ __forceinline__ float wide_rollout_cost(const RSArgs& a, const float4
 // fmaf(0, p, acc) terms; for an infinite or NaN parameter outside a row's window
 // the four-lane pass's cost saturates where this one's may not).
 template <int H, int PL, int METHOD>
-__global__ void __launch_bounds__(FLEET_WIDE_SAMPLES, FLEET_WIDE_MIN_BLOCKS)
+__global__ void __launch_bounds__(fleet_wide_samples(4 * PL), FLEET_WIDE_MIN_BLOCKS)
 fleet_rollout_wide_kernel(const __grid_constant__ RSArgs a, const __grid_constant__ FleetArgs f,
                           const float sigma_mppi, const BasisWindow* __restrict__ win,
                           const float* __restrict__ scen,
@@ -393,9 +383,9 @@ fleet_rollout_wide_kernel(const __grid_constant__ RSArgs a, const __grid_constan
                           const float* __restrict__ noise_in, float* __restrict__ noise_out,
                           float* __restrict__ costs, unsigned long long* __restrict__ argmin) {
   constexpr int P = 4 * PL;
-  constexpr int T = FLEET_WIDE_SAMPLES;
+  constexpr int T = fleet_wide_samples(P);
   constexpr int CH = padded_pl(PL) / 4;  // Philox chunks of one leg
-  static_assert(PL >= FLEET_WINDOW && T % 32 == 0, "a window within a leg; whole warps");
+  static_assert(PL >= RS_WINDOW && T % 32 == 0, "a window within a leg; whole warps");
   extern __shared__ __align__(16) float prm_s[];  // (P, T): parameter p of thread t at p*T + t
   __shared__ float4 w_s[H * 12];
   __shared__ int off_s[H * 12];
@@ -419,20 +409,26 @@ fleet_rollout_wide_kernel(const __grid_constant__ RSArgs a, const __grid_constan
   const float* nin = noise_in != nullptr ? noise_in + s * PN : nullptr;
   float* nout = noise_out != nullptr ? noise_out + s * PN : nullptr;
   const float* sig = METHOD == 2 ? sigma + (size_t)s * P : nullptr;
+  auto chunk = [&](int leg, int q) {
+    const int k = leg * CH + q, p = leg * PL + 4 * q;  // Philox chunk, first parameter
+    constexpr int last = PL - 4 * (CH - 1);           // values of the leg's last chunk
+    const int valid = q < CH - 1 ? 4 : last;
+    const float4 z = nin != nullptr
+                         ? load_params4(nin, N, i, p, valid)
+                         : fleet_noise4<METHOD>(a, seed, offset, sigma_mppi, sig, i, k, p, valid);
+    if (nout != nullptr && live) store_params4(nout, N, i, p, valid, z);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (4 * q + e < PL) prm_s[(p + e) * T + t] = __fadd_rn(__ldg(&inc[p + e]), comp(z, e));
+  };
 #pragma unroll 1
   for (int leg = 0; leg < 4; ++leg) {
+    if constexpr (CH <= 18) {  // up to PL = 72: unrolled, as draw_params
 #pragma unroll
-    for (int q = 0; q < CH; ++q) {
-      const int k = leg * CH + q, p = leg * PL + 4 * q;  // Philox chunk, first parameter
-      constexpr int last = PL - 4 * (CH - 1);           // values of the leg's last chunk
-      const int valid = q < CH - 1 ? 4 : last;
-      const float4 z = nin != nullptr
-                           ? load_params4(nin, N, i, p, valid)
-                           : fleet_noise4<METHOD>(a, seed, offset, sigma_mppi, sig, i, k, p, valid);
-      if (nout != nullptr && live) store_params4(nout, N, i, p, valid, z);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (4 * q + e < PL) prm_s[(p + e) * T + t] = __fadd_rn(__ldg(&inc[p + e]), comp(z, e));
+      for (int q = 0; q < CH; ++q) chunk(leg, q);
+    } else {
+#pragma unroll 2
+      for (int q = 0; q < CH; ++q) chunk(leg, q);
     }
   }
   __syncthreads();
@@ -453,7 +449,8 @@ static cudaError_t launch_rollout_wide(const RSArgs& a, const FleetArgs& f, floa
                                        const float* sigma, const float* noise_in,
                                        float* noise_out, float* costs,
                                        unsigned long long* argmin, cudaStream_t stream) {
-  constexpr int smem = 4 * PL * FLEET_WIDE_SAMPLES * 4;
+  constexpr int T = fleet_wide_samples(4 * PL);
+  constexpr int smem = 4 * PL * T * 4;
   static bool opted_in = false;
   if (!opted_in) {
     cudaError_t err = cudaFuncSetAttribute(fleet_rollout_wide_kernel<H, PL, METHOD>,
@@ -465,8 +462,8 @@ static cudaError_t launch_rollout_wide(const RSArgs& a, const FleetArgs& f, floa
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
-  const dim3 grid((a.num_samples + FLEET_WIDE_SAMPLES - 1) / FLEET_WIDE_SAMPLES, f.num_scenarios);
-  fleet_rollout_wide_kernel<H, PL, METHOD><<<grid, FLEET_WIDE_SAMPLES, smem, stream>>>(
+  const dim3 grid((a.num_samples + T - 1) / T, f.num_scenarios);
+  fleet_rollout_wide_kernel<H, PL, METHOD><<<grid, T, smem, stream>>>(
       a, f, sigma_mppi, win, scen, seeds, offsets, incumbent, sigma, noise_in, noise_out, costs,
       argmin);
   return cudaGetLastError();
@@ -477,7 +474,7 @@ static cudaError_t launch_rollout_wide(const RSArgs& a, const FleetArgs& f, floa
 template <int H, int PL>
 __global__ void __launch_bounds__(RS_BLOCK)
 fleet_extract_kernel(const __grid_constant__ RSArgs a, const __grid_constant__ FleetArgs f,
-                     const float* __restrict__ w_blk, const float* __restrict__ scen,
+                     const BasisWindow* __restrict__ win, const float* __restrict__ scen,
                      const unsigned long long* __restrict__ seeds,
                      const unsigned long long* __restrict__ offsets,
                      const float* __restrict__ incumbent, const float* __restrict__ noise_in,
@@ -488,7 +485,7 @@ fleet_extract_kernel(const __grid_constant__ RSArgs a, const __grid_constant__ F
   stage_scenario<H>(a, f, scen, seeds, offsets, s, &a_s);
   const float* nin =
       noise_in != nullptr ? noise_in + (size_t)s * P * a.num_samples : nullptr;
-  rs_extract<PL, Read::ReadOnly>(a_s, a_s.offset, w_blk, incumbent + (size_t)s * f.inc_stride,
+  rs_extract<PL, Read::ReadOnly>(a_s, a_s.offset, win, incumbent + (size_t)s * f.inc_stride,
                                  nin, argmin[2 * s], out + (size_t)s * (RS_OUT_WINNER + P));
 }
 
@@ -506,6 +503,24 @@ fleet_extract_kernel(const __grid_constant__ RSArgs a, const __grid_constant__ F
 // scenario) a CEM block then fits three to an SM as an MPPI block does, and the
 // pass took 205 us in place of 227 (tools/fleet_variants.py, regen-stage-512).
 #define FLEET_REGEN_STAGE_KEYS 512
+// Bytes of the regenerating update's row buffer: every parameter of the
+// FLEET_REGEN_TILES tiles' rows up to P = 288; above, the parameters in passes of
+// regen_pass_chunks<PL>() Philox chunks (72, 288 parameters), each pass's columns
+// summed over the same rows in the same order.
+#define FLEET_REGEN_BUF_BYTES (FLEET_REGEN_TILES * RS_BLOCK * 289 * 4)
+#define FLEET_REGEN_MAX_CHUNKS ((FLEET_REGEN_BUF_BYTES / (FLEET_REGEN_TILES * RS_BLOCK * 4) - 1) / 4)
+template <int PL>
+__host__ __device__ constexpr int regen_pass_chunks() {
+  return 4 * (padded_pl(PL) / 4) <= FLEET_REGEN_MAX_CHUNKS ? 4 * (padded_pl(PL) / 4)
+                                                           : FLEET_REGEN_MAX_CHUNKS;
+}
+// Floats of a row of that buffer (odd: no bank conflicts): P + 1 in one pass, the
+// pass's parameters and the weight else.
+template <int PL>
+__host__ __device__ constexpr int regen_row_floats() {
+  return regen_pass_chunks<PL>() == 4 * (padded_pl(PL) / 4) ? 4 * PL + 1
+                                                            : 4 * regen_pass_chunks<PL>() + 1;
+}
 
 // v[i] of a register array by selects (an index unknown to the compiler would move
 // the array to local memory).
@@ -584,45 +599,57 @@ __device__ __forceinline__ void regen_update_tiles(const RSArgs& a, const SMKnob
   __syncthreads();
 
   // 2. The tiles' rows of (w * noise, w): the (row, chunk) pairs of tile 0's m[0]
-  // rows first, then tile 1's, ..., one pair a thread at a time.
-  float* buf_s = reinterpret_cast<float*>(arena);  // (T * RS_BLOCK, ROW); ROW odd
-  int pairs = 0;
+  // rows first, then tile 1's, ..., one pair a thread at a time, for the pass's
+  // chunks [k0, k0 + kc), whose parameters [p_lo, p_hi) are contiguous. 3. Each
+  // tile's partial row over the pass's columns (and, in the first pass, the
+  // weights'): each column summed over the tile's nonzero rows in order.
+  constexpr int KC = 4 * CH;  // Philox chunks of a sample
+  constexpr int KB = regen_pass_chunks<PL>();
+  constexpr int RB = regen_row_floats<PL>();  // buffer row; column RB - 1 the weight
+  float* buf_s = reinterpret_cast<float*>(arena);  // (T * RS_BLOCK, RB)
+  for (int k0 = 0; k0 < KC; k0 += KB) {
+    const int kc = KC - k0 < KB ? KC - k0 : KB;
+    const int p_lo = (k0 / CH) * PL + 4 * (k0 % CH);
+    const int kl = k0 + kc - 1;
+    const int p_hi = (kl / CH) * PL + 4 * (kl % CH) + min(4, PL - 4 * (kl % CH));
+    int pairs = 0;
 #pragma unroll
-  for (int u = 0; u < T; ++u) pairs += m[u] * 4 * CH;
-  for (int j = t; j < pairs; j += SM_UPDATE_THREADS) {
-    int tl = 0, jj = j;
+    for (int u = 0; u < T; ++u) pairs += m[u] * kc;
+    for (int j = t; j < pairs; j += SM_UPDATE_THREADS) {
+      int tl = 0, jj = j;
 #pragma unroll
-    for (int u = 0; u < T - 1; ++u)
-      if (tl == u && jj >= m[u] * 4 * CH) {
-        jj -= m[u] * 4 * CH;
-        tl = u + 1;
-      }
-    const int nb = pick(m, tl);
-    const int r = jj % nb, k = jj / nb;  // row of the tile, Philox chunk
-    const int q = k % CH, p = (k / CH) * PL + 4 * q;
-    const int valid = min(4, PL - 4 * q);
-    const int row = tl * RS_BLOCK + r;
-    const float wr = nzw_s[row];
-    const float4 z =
-        fleet_noise4<1>(a, seed, offset, kn.sigma_mppi, sigma, i0 + tl * RS_BLOCK + nz_s[row], k,
-                        p, valid);
-    float* out_row = &buf_s[row * ROW + p];
+      for (int u = 0; u < T - 1; ++u)
+        if (tl == u && jj >= m[u] * kc) {
+          jj -= m[u] * kc;
+          tl = u + 1;
+        }
+      const int nb = pick(m, tl);
+      const int r = jj % nb, k = k0 + jj / nb;  // row of the tile, Philox chunk
+      const int q = k % CH, p = (k / CH) * PL + 4 * q;
+      const int valid = min(4, PL - 4 * q);
+      const int row = tl * RS_BLOCK + r;
+      const float wr = nzw_s[row];
+      const float4 z = fleet_noise4<1>(a, seed, offset, kn.sigma_mppi, sigma,
+                                       i0 + tl * RS_BLOCK + nz_s[row], k, p, valid);
+      float* out_row = &buf_s[row * RB + p - p_lo];
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (c < valid) out_row[c] = __fmul_rn(wr, comp(z, c));
-  }
-  if (t < T * RS_BLOCK && t % RS_BLOCK < pick(m, t / RS_BLOCK)) buf_s[t * ROW + P] = nzw_s[t];
-  __syncthreads();
-
-  // 3. Each tile's partial row: its columns summed over its nonzero rows in order
-  // (two columns a thread above P = 255).
-  for (int tc = t; tc < T * ROW; tc += SM_UPDATE_THREADS) {
-    const int tl = tc / ROW, col = tc % ROW, nb = pick(m, tl);
-    float acc = 0.f;
-    const float* rows = &buf_s[tl * RS_BLOCK * ROW + col];
+      for (int c = 0; c < 4; ++c)
+        if (c < valid) out_row[c] = __fmul_rn(wr, comp(z, c));
+    }
+    if (k0 == 0 && t < T * RS_BLOCK && t % RS_BLOCK < pick(m, t / RS_BLOCK))
+      buf_s[t * RB + RB - 1] = nzw_s[t];
+    __syncthreads();
+    for (int tc = t; tc < T * RB; tc += SM_UPDATE_THREADS) {
+      const int tl = tc / RB, col = tc % RB, nb = pick(m, tl);
+      const int gcol = col == RB - 1 ? (k0 == 0 ? P : -1) : (col < p_hi - p_lo ? p_lo + col : -1);
+      if (gcol < 0) continue;
+      float acc = 0.f;
+      const float* rows = &buf_s[tl * RS_BLOCK * RB + col];
 #pragma unroll 8
-    for (int r = 0; r < nb; ++r) acc = __fadd_rn(acc, rows[r * ROW]);
-    if (b0 + tl < B) partials[(size_t)(b0 + tl) * ROW + col] = acc;
+      for (int r = 0; r < nb; ++r) acc = __fadd_rn(acc, rows[r * RB]);
+      if (b0 + tl < B) partials[(size_t)(b0 + tl) * ROW + gcol] = acc;
+    }
+    __syncthreads();
   }
   if (kn.cem && kn.n_elite <= SM_KMAX) {
     // Rank of each key in its tile, LANES threads a key; equal keys (only the ~0ull
@@ -665,23 +692,22 @@ __device__ __forceinline__ void regen_cem_finish(const RSArgs& a, const SMKnobs&
   const int mk = B * K;
   unsigned long long* stage_s =
       reinterpret_cast<unsigned long long*>(arena + sm_tile_bytes(P, B));
+  // One elite's noise chunk k (of 4 * CH) into row (P floats), drawn again.
+  auto fill = [&](int i, int k, float* row) {
+    const int q = k % CH, p = (k / CH) * PL + 4 * q;
+    const int valid = min(4, PL - 4 * q);
+    const float4 z = fleet_noise4<1>(a, a.seed, a.offset, kn.sigma_mppi, sigma, i, k, p, valid);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (c < valid) row[p + c] = comp(z, c);
+  };
   if (K > SM_KMAX) {
     const int n = a.num_samples;
     compact_elites<Read::ReadOnly>(costs, n, kth_lowest_key<Read::ReadOnly>(costs, n, K, ct),
                                    elites, ct);
     group_sync<1, SM_CEM_THREADS>();
-    refit_in_batches<P, 4 * CH>(
-        kn, elites, K,
-        [&](int i, int k, float* row) {
-          const int q = k % CH, p = (k / CH) * PL + 4 * q;
-          const int valid = min(4, PL - 4 * q);
-          const float4 z =
-              fleet_noise4<1>(a, a.seed, a.offset, kn.sigma_mppi, sigma, i, k, p, valid);
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            if (c < valid) row[p + c] = comp(z, c);
-        },
-        reinterpret_cast<float*>(stage_s), sigma_out, ct);
+    refit_in_batches<P, 4 * CH>(kn, elites, K, fill, reinterpret_cast<float*>(stage_s), sigma_out,
+                                ct);
     return;
   }
   const int staged = mk < FLEET_REGEN_STAGE_KEYS ? mk : FLEET_REGEN_STAGE_KEYS;
@@ -731,8 +757,13 @@ __device__ __forceinline__ void regen_cem_finish(const RSArgs& a, const SMKnobs&
     if (rank < K) elite_s[rank] = (int)(ki & 0xffffffffull);
   }
   group_sync<1, SM_CEM_THREADS>();
-  // The elites' noise, one Philox chunk a thread, over the staged keys.
-  float* x_s = reinterpret_cast<float*>(stage_s);  // (K, P)
+  float* x_s = reinterpret_cast<float*>(stage_s);  // (K, P), over the staged keys
+  if (K * P * 4 > SM_ELITE_BYTES) {  // above P = 288: the elites' noise in batches
+    refit_in_batches<P, 4 * CH>(kn, elite_s, K, fill, x_s, sigma_out, ct);
+    if (ct < K) elites[ct] = elite_s[ct];
+    return;
+  }
+  // The elites' noise, one Philox chunk a thread.
   for (int j = ct; j < K * 4 * CH; j += SM_CEM_THREADS) {
     const int e = j % K, k = j / K;
     const int q = k % CH, p = (k / CH) * PL + 4 * q;
@@ -779,7 +810,7 @@ template <int H, int PL, bool REGEN>
 __global__ void __launch_bounds__(SM_UPDATE_THREADS,
                                   REGEN ? FLEET_REGEN_MIN_BLOCKS : SM_UPDATE_MIN_BLOCKS)
 fleet_update_kernel(const __grid_constant__ RSArgs a, const __grid_constant__ FleetArgs f,
-                    const SMKnobs kn, const float* __restrict__ w_blk,
+                    const SMKnobs kn, const BasisWindow* __restrict__ win,
                     const float* __restrict__ scen, const unsigned long long* __restrict__ seeds,
                     const unsigned long long* __restrict__ offsets,
                     const float* __restrict__ incumbent, const float* __restrict__ sigma_in,
@@ -819,35 +850,43 @@ fleet_update_kernel(const __grid_constant__ RSArgs a, const __grid_constant__ Fl
   if constexpr (REGEN) {
     SMKnobs cols = kn;
     cols.cem = 0;  // update_finish's warps 0-3 only: the column sums and the extraction
-    update_finish<PL, Read::ReadOnly>(a_s, cols, w_blk, inc_r, nullptr, nullptr, best_key, B,
+    update_finish<PL, Read::ReadOnly>(a_s, cols, win, inc_r, nullptr, nullptr, best_key, B,
                                       part_s, nullptr, out_s, nullptr, nullptr, arena);
     if (kn.cem && threadIdx.x >= SM_COL_THREADS)
       regen_cem_finish<PL>(a_s, kn, sigma_s, costs + (size_t)s * N, B, keys_s, sigma_out_s,
                            elites_s, arena);
   } else {
-    update_finish<PL, Read::ReadOnly>(a_s, kn, w_blk, inc_r, noise_s, costs + (size_t)s * N,
+    update_finish<PL, Read::ReadOnly>(a_s, kn, win, inc_r, noise_s, costs + (size_t)s * N,
                                       best_key, gridDim.x, part_s, keys_s, out_s, sigma_out_s,
                                       elites_s, arena);
   }
+}
+
+// Bytes of the regenerating update's row buffer.
+template <int PL>
+__host__ __device__ constexpr int regen_buf_bytes() {
+  return FLEET_REGEN_TILES * RS_BLOCK * regen_row_floats<PL>() * 4;
 }
 
 // Dynamic shared memory of the update pass over num_blocks tiles: sm_update_smem's;
 // for REGEN the FLEET_REGEN_TILES tiles' row buffer, and in the last block the
 // finish's partials tile and, for CEM, FLEET_REGEN_STAGE_KEYS staged keys at most
 // and the elites' candidates, then their noise.
-static inline int fleet_update_smem(int P, int cem, int n_elite, int num_blocks, bool regen) {
+template <int PL>
+static inline int fleet_update_smem(int cem, int n_elite, int num_blocks, bool regen) {
+  constexpr int P = 4 * PL;
   if (!regen) return sm_update_smem(P, cem, n_elite, num_blocks);
   int finish = sm_tile_bytes(P, num_blocks);
   if (cem && n_elite > SM_KMAX) {
-    finish += SM_KMAX * P * 4;  // a batch of the elites' noise (refit_in_batches)
+    finish += sm_elite_batch(P) * P * 4;  // a batch of the elites' noise (refit_in_batches)
   } else if (cem) {
     const int m = num_blocks * n_elite;
     const int keys =
         ((m < FLEET_REGEN_STAGE_KEYS ? m : FLEET_REGEN_STAGE_KEYS) + n_elite * n_elite) * 8;
-    const int noise = n_elite * P * 4;
+    const int noise = sm_elite_noise_bytes(P, n_elite);
     finish += keys > noise ? keys : noise;
   }
-  const int batch = FLEET_REGEN_TILES * RS_BLOCK * (P + 1) * 4;
+  const int batch = regen_buf_bytes<PL>();
   return batch > finish ? batch : finish;
 }
 
@@ -858,7 +897,7 @@ static cudaError_t fleet_update_opt_in() {
   static bool opted_in = false;
   if (opted_in) return cudaSuccess;
   int most = sm_tile_bytes(4 * PL, SM_TILE_ROWS) + (SM_STAGE_KEYS + SM_KMAX * SM_KMAX) * 8;
-  const int batch = FLEET_REGEN_TILES * RS_BLOCK * (4 * PL + 1) * 4;
+  const int batch = regen_buf_bytes<PL>();
   most = most > batch ? most : batch;
   cudaError_t err = cudaFuncSetAttribute(fleet_update_kernel<H, PL, REGEN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, most);
@@ -872,7 +911,7 @@ static cudaError_t fleet_update_opt_in() {
 
 template <int H, int PL, bool REGEN>
 static cudaError_t launch_fleet_update(const RSArgs& a, const FleetArgs& f, const SMKnobs& kn,
-                                       const float* w_blk, const float* scen,
+                                       const BasisWindow* win, const float* scen,
                                        const unsigned long long* seeds,
                                        const unsigned long long* offsets, const float* incumbent,
                                        const float* sigma_in, const float* noise,
@@ -882,18 +921,18 @@ static cudaError_t launch_fleet_update(const RSArgs& a, const FleetArgs& f, cons
   cudaError_t err = fleet_update_opt_in<H, PL, REGEN>();
   if (err != cudaSuccess) return err;
   const int tiles = (a.num_samples + RS_BLOCK - 1) / RS_BLOCK;
-  const int smem = fleet_update_smem(4 * PL, kn.cem, kn.n_elite, tiles, REGEN);
+  const int smem = fleet_update_smem<PL>(kn.cem, kn.n_elite, tiles, REGEN);
   const int blocks = REGEN ? (tiles + FLEET_REGEN_TILES - 1) / FLEET_REGEN_TILES : tiles;
   const dim3 grid(blocks, f.num_scenarios);
   fleet_update_kernel<H, PL, REGEN><<<grid, SM_UPDATE_THREADS, smem, stream>>>(
-      a, f, kn, w_blk, scen, seeds, offsets, incumbent, sigma_in, noise, costs, argmin, partials,
+      a, f, kn, win, scen, seeds, offsets, incumbent, sigma_in, noise, costs, argmin, partials,
       block_keys, out, sigma_out, elites);
   return cudaGetLastError();
 }
 
 template <int H, int PL>
 static int fleet_launch_t(const RSArgs* a, const FleetArgs* f, const SMKnobs* kn, int method,
-                          int layout, const BasisWindow* win, const float* w_blk,
+                          int layout, const BasisWindow* win,
                           const float* scen, const unsigned long long* seeds,
                           const unsigned long long* offsets, const float* incumbent,
                           const float* sigma_in, const float* noise_in, float* noise_out,
@@ -919,30 +958,30 @@ static int fleet_launch_t(const RSArgs* a, const FleetArgs* f, const SMKnobs* kn
                                           argmin, stream);
     }
   } else if (method == 0) {
-    err = launch_rollout_four<H, PL, 0>(*a, *f, kn->sigma_mppi, w_blk, scen, seeds, offsets,
+    err = launch_rollout_four<H, PL, 0>(*a, *f, kn->sigma_mppi, win, scen, seeds, offsets,
                                         incumbent, sigma_in, noise_in, noise_out, costs, argmin,
                                         stream);
   } else if (method == 1) {
-    err = launch_rollout_four<H, PL, 1>(*a, *f, kn->sigma_mppi, w_blk, scen, seeds, offsets,
+    err = launch_rollout_four<H, PL, 1>(*a, *f, kn->sigma_mppi, win, scen, seeds, offsets,
                                         incumbent, sigma_in, noise_in, noise_out, costs, argmin,
                                         stream);
   } else {
-    err = launch_rollout_four<H, PL, 2>(*a, *f, kn->sigma_mppi, w_blk, scen, seeds, offsets,
+    err = launch_rollout_four<H, PL, 2>(*a, *f, kn->sigma_mppi, win, scen, seeds, offsets,
                                         incumbent, sigma_in, noise_in, noise_out, costs, argmin,
                                         stream);
   }
   if (err != cudaSuccess) return (int)err;
   if (method == 0) {
-    fleet_extract_kernel<H, PL><<<S, RS_BLOCK, 0, stream>>>(*a, *f, w_blk, scen, seeds, offsets,
+    fleet_extract_kernel<H, PL><<<S, RS_BLOCK, 0, stream>>>(*a, *f, win, scen, seeds, offsets,
                                                             incumbent, noise_in, argmin, out);
     return (int)cudaGetLastError();
   }
   if (layout & FLEET_REGEN)
-    return (int)launch_fleet_update<H, PL, true>(*a, *f, *kn, w_blk, scen, seeds, offsets,
+    return (int)launch_fleet_update<H, PL, true>(*a, *f, *kn, win, scen, seeds, offsets,
                                                  incumbent, sigma_in, nullptr, costs, argmin,
                                                  partials, block_keys, out, sigma_out, elites,
                                                  stream);
-  return (int)launch_fleet_update<H, PL, false>(*a, *f, *kn, w_blk, scen, seeds, offsets,
+  return (int)launch_fleet_update<H, PL, false>(*a, *f, *kn, win, scen, seeds, offsets,
                                                 incumbent, sigma_in,
                                                 noise_in ? noise_in : noise_out, costs, argmin,
                                                 partials, block_keys, out, sigma_out, elites,
@@ -968,8 +1007,6 @@ int fleet_horizon(void) { return SAMPLING_H; }
 
 int fleet_params_per_leg(void) { return SAMPLING_PL; }
 
-int fleet_padded_params_per_leg(void) { return padded_pl(SAMPLING_PL); }
-
 // Floats of a scenario's row of the tick buffer before padding.
 int fleet_row_floats(void) { return FLEET_ROW(SAMPLING_H); }
 
@@ -979,9 +1016,9 @@ int fleet_layout_wide(void) { return FLEET_WIDE; }
 
 int fleet_layout_regen(void) { return FLEET_REGEN; }
 
-int fleet_wide_samples(void) { return FLEET_WIDE_SAMPLES; }
+int fleet_wide_samples(void) { return fleet_wide_samples(4 * SAMPLING_PL); }
 
-int fleet_window(void) { return FLEET_WINDOW; }
+int fleet_window(void) { return RS_WINDOW; }
 
 int fleet_window_bytes(void) { return (int)sizeof(BasisWindow); }
 
@@ -991,8 +1028,7 @@ const char* fleet_error_string(int code) { return cudaGetErrorString((cudaError_
 // 2 only) for S = f->num_scenarios scenarios of a->num_samples samples each, in
 // `layout` (0: the four-lane rollout; the bits FLEET_WIDE, the large-batch
 // rollout, and FLEET_REGEN, the update pass drawing the noise again).
-// win (H*12): the basis windows (FLEET_WIDE; 16-byte aligned); w_blk the basis
-// blocks; scen (S, scen_stride): the tick buffer; seeds, offsets (S): each
+// win (H*12): the basis windows (16-byte aligned); scen (S, scen_stride): the tick buffer; seeds, offsets (S): each
 // scenario's Philox key and offset, to which f->iteration is added; incumbent
 // (S, P) at f->inc_stride; sigma_in (S, P) for CEM; noise_in (S, P, N) in place
 // of the drawn noise (then FLEET_REGEN is refused: injected noise can only be
@@ -1006,7 +1042,7 @@ const char* fleet_error_string(int code) { return cudaGetErrorString((cudaError_
 // ceil(N / fleet_block()). Returns 0, a CUDA error code, or -1 for a shape, knob,
 // layout or alignment this build does not take.
 int fleet_launch(const RSArgs* a, const FleetArgs* f, const SMKnobs* kn, int method,
-                 int params_per_leg, int layout, const BasisWindow* win, const float* w_blk,
+                 int params_per_leg, int layout, const BasisWindow* win,
                  const float* scen, const unsigned long long* seeds,
                  const unsigned long long* offsets, const float* incumbent,
                  const float* sigma_in, const float* noise_in, float* noise_out, float* costs,
@@ -1017,10 +1053,9 @@ int fleet_launch(const RSArgs* a, const FleetArgs* f, const SMKnobs* kn, int met
   if (f->num_scenarios < 1 || f->num_scenarios > 65535 ||
       f->scen_stride < FLEET_ROW(SAMPLING_H) || f->inc_stride < P)
     return -1;
-  if (((uintptr_t)w_blk & 15) != 0) return -1;
+  if (win == nullptr || ((uintptr_t)win & 15) != 0) return -1;
   if (method < 0 || method > 2 || (kn->cem != 0) != (method == 2)) return -1;
   if (layout < 0 || layout > (FLEET_WIDE | FLEET_REGEN)) return -1;
-  if ((layout & FLEET_WIDE) && (win == nullptr || ((uintptr_t)win & 15) != 0)) return -1;
   if ((layout & FLEET_REGEN) && noise_in != nullptr) return -1;
   if (method > 0) {
     const int blocks = (a->num_samples + RS_BLOCK - 1) / RS_BLOCK;
@@ -1034,7 +1069,7 @@ int fleet_launch(const RSArgs* a, const FleetArgs* f, const SMKnobs* kn, int met
                         (kn->n_elite <= SM_KMAX && f->key_stride < blocks * kn->n_elite)))
       return -1;
   }
-  return fleet_launch_t<SAMPLING_H, SAMPLING_PL>(a, f, kn, method, layout, win, w_blk, scen, seeds,
+  return fleet_launch_t<SAMPLING_H, SAMPLING_PL>(a, f, kn, method, layout, win, scen, seeds,
                                                  offsets, incumbent, sigma_in, noise_in,
                                                  noise_out, costs, argmin, partials, block_keys,
                                                  out, sigma_out, elites, (cudaStream_t)stream);

@@ -11,7 +11,7 @@
 //
 //   rollout_kernel     the shared rollout pass of sampling_common.cuh over a grid
 //                      (ceil(Ng/16), K), four lanes per sample (one per leg), each
-//                      block inside one group: the group's own-leg basis blocks and
+//                      block inside one group: the group's basis windows and
 //                      contact and share columns bulk-copied into shared memory, and
 //                      its cost offset; the method's noise (K1a's three bands, or
 //                      K1b/K1c's normals times sigma) from Philox keyed on the
@@ -24,16 +24,19 @@
 //   softmax update with beta from the atomicMin, the elites and the refit.
 //   Their step-0 extraction reads step 0 of the argument block's contact and share
 //   (the host's contact sequence column and its gravity share) and the static
-//   basis's first 12 rows, which are the counter-zero basis: not the winning group's.
+//   basis's first 12 windows, which are the counter-zero basis: not the winning
+//   group's.
 //
 // What bounds it: the rollout pass, as in K1a (latency; see sampling_common.cuh),
 // with the same work per sample. Costs plus offsets are >= 0, so the keys still
 // order like (cost, index): the argmin and the elites take the lowest index on
 // ties. The groups' operators reach the card in one host-to-device copy per tick,
-// [blocks (K, H*12, padded_pl(PL)) | contact (K, H, 4) | share (K, H, 4) | offsets
-// (K)]: the basis blocks (41 KB at K = 3 and PL = 24, 62 KB at PL = 36) do not fit
-// in the 4 KB of kernel parameters, and building them here would repeat the
-// spline formulas in device code.
+// [windows (K, H*12) | contact (K, H, 4) | share (K, H, 4) | offsets (K)]: the
+// windows (13.8 KB at K = 3 and H = 12, whatever PL) would crowd the kernel
+// parameters, and building them here would repeat the spline formulas in device
+// code. Every row of the gait-adaptive traced basis (stance counters for the
+// spline phase) holds its nonzeros in four adjacent parameters, as the static
+// basis does; the host's basis_windows refuses one that does not.
 #include "sampling_rs.cuh"
 #include "sampling_softmax.cuh"
 
@@ -49,10 +52,9 @@ struct GroupNoise {
   }
 };
 
-// K1e's column source: group blockIdx.y's basis blocks, contact and share columns
-// (bulk-copied) and cost offset, from the per-tick buffer [blocks (K, H*12,
-// padded_pl(PL)), zero-padded | contact (K, H, 4) | share (K, H, 4) | offsets (K)]
-// (16-byte aligned).
+// K1e's column source: group blockIdx.y's basis windows, contact and share columns
+// (bulk-copied) and cost offset, from the per-tick buffer [windows (K, H*12) |
+// contact (K, H, 4) | share (K, H, 4) | offsets (K)] (16-byte aligned).
 template <int H, int PL>
 struct GroupSource {
   const float* groups;
@@ -60,8 +62,8 @@ struct GroupSource {
   int num_groups;  // K
 
   __device__ void stage(const RSArgs&, float*, float*) const {}
-  __device__ void copy(float* w_s, float* c_s, float* sh_s, unsigned long long* bar) const {
-    constexpr int WG = H * 12 * padded_pl(PL);
+  __device__ void copy(BasisWindow* w_s, float* c_s, float* sh_s, unsigned long long* bar) const {
+    constexpr int WG = window_bytes<H>() / 4;  // floats of a group's windows
     const size_t g = blockIdx.y, K = num_groups;
     const float* c_g = groups + K * WG + g * H * 4;
     bulk_expect(bar, (WG + 2 * H * 4) * 4);
@@ -70,7 +72,7 @@ struct GroupSource {
     bulk_load(sh_s, c_g + K * H * 4, H * 4 * 4, bar);
   }
   __device__ float finish(float cost) const {
-    constexpr int WG = H * 12 * padded_pl(PL);
+    constexpr int WG = window_bytes<H>() / 4;
     const size_t K = num_groups;
     return __fadd_rn(cost, __ldg(&groups[K * WG + 2 * K * H * 4 + blockIdx.y]));
   }
@@ -78,7 +80,7 @@ struct GroupSource {
 
 template <int H, int PL>
 static int sg_launch_t(const RSArgs* a, const SMKnobs* kn, int method, int num_groups,
-                       int group_size, const float* groups, const float* w0_blk,
+                       int group_size, const float* groups, const BasisWindow* win0,
                        const float* incumbent, const float* sigma_in, const float* noise_in,
                        float* noise_out, float* costs, unsigned long long* argmin,
                        float* partials, unsigned long long* block_keys, float* out,
@@ -90,11 +92,11 @@ static int sg_launch_t(const RSArgs* a, const SMKnobs* kn, int method, int num_g
                              noise_in, noise_out, costs, argmin, stream);
   if (err != cudaSuccess) return (int)err;
   if (method == 0) {
-    rs_extract_kernel<H, PL><<<1, RS_BLOCK, 0, stream>>>(*a, w0_blk, incumbent, noise_in, argmin,
+    rs_extract_kernel<H, PL><<<1, RS_BLOCK, 0, stream>>>(*a, win0, incumbent, noise_in, argmin,
                                                          out);
     return (int)cudaGetLastError();
   }
-  return (int)launch_update<PL>(*a, *kn, w0_blk, incumbent, noise_in ? noise_in : noise_out,
+  return (int)launch_update<PL>(*a, *kn, win0, incumbent, noise_in ? noise_in : noise_out,
                                 costs, argmin, partials, block_keys, out, sigma_out, elites,
                                 stream);
 }
@@ -113,17 +115,15 @@ int sg_horizon(void) { return SAMPLING_H; }
 
 int sg_params_per_leg(void) { return SAMPLING_PL; }
 
-// The stride of a basis row in the own-leg blocks the launch reads, which the
-// host pads to (sampling_kernel.pad_blocks).
-int sg_padded_params_per_leg(void) { return padded_pl(SAMPLING_PL); }
+// Bytes of a basis window (sampling_kernel.basis_windows).
+int sg_window_bytes(void) { return (int)sizeof(BasisWindow); }
 
 const char* sg_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // One gait-adaptive iteration: method 0 random sampling, 1 MPPI, 2 CEM-MPPI
 // (kn->cem set for 2 only). a->num_samples is K * Ng, the samples evaluated, and
 // a->band1, a->band2 are N's band edges. groups: the per-group buffer described
-// above; w0_blk: the static basis's own-leg blocks (zero-padded rows), of which
-// rows 0..11 are read.
+// above; win0: the static basis's windows, of which rows 0..11 are read.
 // Scratch, and for MPPI and CEM the noise buffer, as sm_launch: argmin (2),
 // partials (B, P + 1) and, for CEM with K <= SM_KMAX, block_keys (B, K), with
 // B = ceil(K * Ng / sg_block()). Returns 0, a CUDA error code, or -1 for a shape
@@ -131,12 +131,12 @@ const char* sg_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 // SAMPLING_H, SAMPLING_PL), no noise buffer, or a buffer that is not 16-byte
 // aligned (the bulk copy's and cp.async's rule).
 int sg_launch(const RSArgs* a, const SMKnobs* kn, int method, int params_per_leg, int num_groups,
-              int group_size, const float* groups, const float* w0_blk, const float* incumbent,
+              int group_size, const float* groups, const BasisWindow* win0, const float* incumbent,
               const float* sigma_in, const float* noise_in, float* noise_out, float* costs,
               unsigned long long* argmin, float* partials, unsigned long long* block_keys,
               float* out, float* sigma_out, int* elites, void* stream) {
   if (a->horizon != SAMPLING_H || params_per_leg != SAMPLING_PL) return -1;
-  if ((((uintptr_t)groups | (uintptr_t)w0_blk) & 15) != 0) return -1;
+  if ((((uintptr_t)groups | (uintptr_t)win0) & 15) != 0) return -1;
   if (method < 0 || method > 2 || (kn->cem != 0) != (method == 2)) return -1;
   if (num_groups < 1 || num_groups > 65535 || group_size < 1 ||
       (long long)num_groups * group_size != a->num_samples)
@@ -146,7 +146,7 @@ int sg_launch(const RSArgs* a, const SMKnobs* kn, int method, int params_per_leg
     return -1;
   if (method == 2 && (kn->n_elite < 2 || kn->n_elite > a->num_samples)) return -1;
   return sg_launch_t<SAMPLING_H, SAMPLING_PL>(a, kn, method, num_groups, group_size, groups,
-                                              w0_blk, incumbent, sigma_in, noise_in, noise_out,
+                                              win0, incumbent, sigma_in, noise_in, noise_out,
                                               costs, argmin, partials, block_keys, out, sigma_out,
                                               elites, (cudaStream_t)stream);
 }

@@ -19,9 +19,9 @@
 //                      one-step state (12), index, winner parameters (P)].
 //
 // What bounds it: latency, not bytes or FP32 throughput. W is block-diagonal per
-// leg, so per sample the basis product needs H*12 x P_leg FMAs (144 x 24 at the
-// main path), the rollout ~250 flops a step and the noise 4*P_leg/2 Box-Muller
-// pairs; inputs and outputs are a few hundred KB. At N = 10 000 that is
+// leg with at most four adjacent nonzeros a row, so per sample the basis product
+// needs H*12 x 4 FMAs on the rows' windows, the rollout ~250 flops a step and the
+// noise 4*P_leg/2 Box-Muller pairs; inputs and outputs are a few hundred KB. At N = 10 000 that is
 // ~0.13 GFLOP, about 2 us of FP32 peak, but one thread per sample left each
 // scheduler less than a warp to hide the latency of a long dependent chain. The
 // rollout pass therefore runs a sample on four lanes with its basis rows off the
@@ -39,15 +39,15 @@
 #include "sampling_rs.cuh"
 
 template <int H, int PL>
-static int rs_launch_t(const RSArgs* a, const float* w_blk, const float* incumbent,
+static int rs_launch_t(const RSArgs* a, const BasisWindow* win, const float* incumbent,
                        const float* noise_in, float* noise_out, float* costs,
                        unsigned long long* argmin, float* out, cudaStream_t stream) {
   cudaError_t err = cudaMemsetAsync(argmin, 0xFF, sizeof(unsigned long long), stream);
   if (err != cudaSuccess) return (int)err;
-  err = launch_rollout<H, PL>(*a, RandomBands{}, StaticSource<H, PL>{w_blk, a->num_samples, 1},
+  err = launch_rollout<H, PL>(*a, RandomBands{}, StaticSource<H, PL>{win, a->num_samples, 1},
                              incumbent, noise_in, noise_out, costs, argmin, stream);
   if (err != cudaSuccess) return (int)err;
-  rs_extract_kernel<H, PL><<<1, RS_BLOCK, 0, stream>>>(*a, w_blk, incumbent, noise_in, argmin, out);
+  rs_extract_kernel<H, PL><<<1, RS_BLOCK, 0, stream>>>(*a, win, incumbent, noise_in, argmin, out);
   return (int)cudaGetLastError();
 }
 
@@ -61,22 +61,21 @@ int rs_horizon(void) { return SAMPLING_H; }
 
 int rs_params_per_leg(void) { return SAMPLING_PL; }
 
-// The stride of a basis row in the own-leg blocks the launch reads, which the
-// host pads to (sampling_kernel.pad_blocks).
-int rs_padded_params_per_leg(void) { return padded_pl(SAMPLING_PL); }
+// Bytes of a basis window (sampling_kernel.basis_windows).
+int rs_window_bytes(void) { return (int)sizeof(BasisWindow); }
 
 const char* rs_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// w_blk: the (H*12, padded_pl(PL)) own-leg basis blocks, zero-padded. Returns 0, a
-// CUDA error code, or -1 for a shape this build does not instantiate (a horizon or
-// parameter count other than SAMPLING_H, SAMPLING_PL) or a basis that is not
-// 16-byte aligned (the bulk copy's rule).
-int rs_launch(const RSArgs* a, int params_per_leg, const float* w_blk, const float* incumbent,
+// win: the (H*12) basis windows. Returns 0, a CUDA error code, or -1 for a shape
+// this build does not instantiate (a horizon or parameter count other than
+// SAMPLING_H, SAMPLING_PL) or windows that are not 16-byte aligned (the bulk
+// copy's rule).
+int rs_launch(const RSArgs* a, int params_per_leg, const BasisWindow* win, const float* incumbent,
               const float* noise_in, float* noise_out, float* costs,
               unsigned long long* argmin, float* out, void* stream) {
   if (a->horizon != SAMPLING_H || params_per_leg != SAMPLING_PL || a->num_samples < 1) return -1;
-  if (((uintptr_t)w_blk & 15) != 0) return -1;
-  return rs_launch_t<SAMPLING_H, SAMPLING_PL>(a, w_blk, incumbent, noise_in, noise_out, costs,
+  if (((uintptr_t)win & 15) != 0) return -1;
+  return rs_launch_t<SAMPLING_H, SAMPLING_PL>(a, win, incumbent, noise_in, noise_out, costs,
                                               argmin, out, (cudaStream_t)stream);
 }
 

@@ -37,23 +37,22 @@ struct RandomBands {
 // regenerates the winner's parameters from Philox at the offset (or reads them
 // from noise_in), and writes out = [best cost, step-0 GRFs (12), one-step state
 // (12), index, winner parameters (P)]. The winner's parameters and the basis's
-// first 12 rows (16-byte aligned, padded rows) are staged in shared memory, and
+// first 12 windows (16-byte aligned) are staged in shared memory, and
 // the GRFs and state come from step0_extract_lanes, one lane per leg, as the
 // update pass extracts them: the same arithmetic as one thread, so the same bits.
 // R: how the incumbent is read.
 template <int PL, Read R>
 __device__ __forceinline__ void rs_extract(const RSArgs& a, unsigned long long offset,
-                                           const float* w_blk, const float* incumbent,
+                                           const BasisWindow* win, const float* incumbent,
                                            const float* noise_in, unsigned long long key,
                                            float* out) {
   constexpr int P = 4 * PL;
-  constexpr int PLP = padded_pl(PL);
-  constexpr int CH = PLP / 4;  // Philox chunks of a leg, as rollout_kernel draws them
+  constexpr int CH = padded_pl(PL) / 4;  // Philox chunks of a leg, as rollout_kernel draws them
   __shared__ float prm_s[P];
-  __shared__ __align__(16) float w0_s[12 * PLP];
+  __shared__ BasisWindow w0_s[12];
   const int idx = (int)(key & 0xffffffffull);
   const int N = a.num_samples;
-  for (int q = threadIdx.x; q < 3 * PLP; q += blockDim.x) cp_async16(&w0_s[4 * q], &w_blk[4 * q]);
+  cp_async_step0_windows(w0_s, win, threadIdx.x, blockDim.x);
   for (int k = threadIdx.x; k < 4 * CH; k += blockDim.x) {
     const int q = k % CH, p = (k / CH) * PL + 4 * q;  // chunk q of leg k / CH
     const int valid = min(4, PL - 4 * q);
@@ -76,7 +75,7 @@ __device__ __forceinline__ void rs_extract(const RSArgs& a, unsigned long long o
   cp_async_wait_all();
   __syncthreads();
   if (threadIdx.x < 32) {
-    step0_extract_lanes<PL>(a, w0_s, prm_s, out);
+    step0_extract_lanes(a, w0_s, prm_s, out);
     if (threadIdx.x == 0) {
       out[0] = __uint_as_float((unsigned int)(key >> 32));
       out[25] = (float)idx;
@@ -86,8 +85,8 @@ __device__ __forceinline__ void rs_extract(const RSArgs& a, unsigned long long o
 
 template <int H, int PL>
 __global__ void __launch_bounds__(RS_BLOCK)
-rs_extract_kernel(const RSArgs a, const float* __restrict__ w_blk,
+rs_extract_kernel(const RSArgs a, const BasisWindow* __restrict__ win,
                   const float* __restrict__ incumbent, const float* __restrict__ noise_in,
                   const unsigned long long* __restrict__ argmin, float* __restrict__ out) {
-  rs_extract<PL, Read::ReadOnly>(a, a.offset, w_blk, incumbent, noise_in, *argmin, out);
+  rs_extract<PL, Read::ReadOnly>(a, a.offset, win, incumbent, noise_in, *argmin, out);
 }

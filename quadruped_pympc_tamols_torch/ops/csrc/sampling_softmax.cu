@@ -44,7 +44,7 @@
 #include "sampling_softmax.cuh"
 
 template <int H, int PL>
-static int sm_launch_t(const RSArgs* a, const SMKnobs* kn, const float* w_blk,
+static int sm_launch_t(const RSArgs* a, const SMKnobs* kn, const BasisWindow* win,
                        const float* incumbent, const float* sigma_in, const float* noise_in,
                        float* noise_out, float* costs, unsigned long long* argmin,
                        float* partials, unsigned long long* block_keys, float* out,
@@ -54,12 +54,12 @@ static int sm_launch_t(const RSArgs* a, const SMKnobs* kn, const float* w_blk,
     cudaError_t err = cudaMemsetAsync(argmin, 0xFF, 2 * sizeof(unsigned long long), stream);
     if (err != cudaSuccess) return (int)err;
     err = launch_rollout<H, PL>(*a, scaled_normals(*kn, sigma_in),
-                               StaticSource<H, PL>{w_blk, a->num_samples, 1}, incumbent, noise_in,
+                               StaticSource<H, PL>{win, a->num_samples, 1}, incumbent, noise_in,
                                noise_out, costs, argmin, stream);
     if (err != cudaSuccess) return (int)err;
   }
   if (!(phases & SM_PHASE_UPDATE)) return 0;
-  return (int)launch_update<PL>(*a, *kn, w_blk, incumbent, noise_in ? noise_in : noise_out,
+  return (int)launch_update<PL>(*a, *kn, win, incumbent, noise_in ? noise_in : noise_out,
                                 costs, argmin, partials, block_keys, out, sigma_out, elites,
                                 stream, beta_in, sums_out);
 }
@@ -81,9 +81,8 @@ int sm_horizon(void) { return SAMPLING_H; }
 
 int sm_params_per_leg(void) { return SAMPLING_PL; }
 
-// The stride of a basis row in the own-leg blocks the launch reads, which the
-// host pads to (sampling_kernel.pad_blocks).
-int sm_padded_params_per_leg(void) { return padded_pl(SAMPLING_PL); }
+// Bytes of a basis window (sampling_kernel.basis_windows).
+int sm_window_bytes(void) { return (int)sizeof(BasisWindow); }
 
 // The phase bits of sm_launch (ops/sampling_softmax.py checks its constants).
 int sm_phase_rollout(void) { return SM_PHASE_ROLLOUT; }
@@ -109,8 +108,8 @@ const char* sm_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 // pass reads the iteration's noise back: noise_in, or else noise_out, which the
 // rollout pass fills, so one of them must be given. Returns 0, a CUDA error code,
 // or -1 for a shape or knob this build does not take (a horizon or parameter
-// count other than SAMPLING_H, SAMPLING_PL), no noise buffer, or a basis
-// (zero-padded rows, as rs_launch) or partials that are not 16-byte aligned.
+// count other than SAMPLING_H, SAMPLING_PL), no noise buffer, or windows (as
+// rs_launch's) or partials that are not 16-byte aligned.
 //
 // phases: SM_PHASE_ROLLOUT (the memset and the rollout pass), SM_PHASE_UPDATE
 // (the update pass, after a launch of the rollout phase with the same buffers),
@@ -119,18 +118,18 @@ const char* sm_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 // nullptr, is then the weights' beta in place of this launch's lowest cost, and
 // sums_out (P + 1), if not nullptr, receives the unnormalized sums [S (P), Z] of
 // the finish. The default (both phases, two nullptrs) is the plain iteration.
-int sm_launch(const RSArgs* a, const SMKnobs* kn, int params_per_leg, const float* w_blk,
+int sm_launch(const RSArgs* a, const SMKnobs* kn, int params_per_leg, const BasisWindow* win,
               const float* incumbent, const float* sigma_in, const float* noise_in,
               float* noise_out, float* costs, unsigned long long* argmin, float* partials,
               unsigned long long* block_keys, float* out, float* sigma_out, int* elites,
               int phases, const float* beta_in, float* sums_out, void* stream) {
   if (a->horizon != SAMPLING_H || params_per_leg != SAMPLING_PL || a->num_samples < 1) return -1;
   if (phases < 1 || phases > (SM_PHASE_ROLLOUT | SM_PHASE_UPDATE)) return -1;
-  if (((uintptr_t)w_blk & 15) != 0) return -1;
+  if (((uintptr_t)win & 15) != 0) return -1;
   if (!(kn->temperature > 0.f)) return -1;
   if ((noise_in == nullptr && noise_out == nullptr) || ((uintptr_t)partials & 15) != 0) return -1;
   if (kn->cem && (kn->n_elite < 2 || kn->n_elite > a->num_samples)) return -1;
-  return sm_launch_t<SAMPLING_H, SAMPLING_PL>(a, kn, w_blk, incumbent, sigma_in, noise_in,
+  return sm_launch_t<SAMPLING_H, SAMPLING_PL>(a, kn, win, incumbent, sigma_in, noise_in,
                                               noise_out, costs, argmin, partials, block_keys,
                                               out, sigma_out, elites, phases, beta_in, sums_out,
                                               (cudaStream_t)stream);

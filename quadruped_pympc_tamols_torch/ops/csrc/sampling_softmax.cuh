@@ -64,9 +64,10 @@ static inline ScaledNormals<> scaled_normals(const SMKnobs& kn, const float* sig
 //
 // 1. Weights. w = exp(-(c - beta)/T). The block compacts the samples with w != 0,
 //    in thread order (a warp ballot and prefix), and loads their noise, one
-//    (sample, chunk of four parameters) pair a thread, SM_BATCH samples at a time,
-//    into a shared row buffer of w * noise; each column is then summed over the
-//    compacted rows in thread order. A zero row adds +0, a no-op on a sum that
+//    (sample, chunk of four parameters) pair a thread, sm_batch(P) samples at a
+//    time, into a shared row buffer of w * noise; each column is then summed over
+//    the compacted rows in thread order (above P = 511, two or three columns a
+//    thread). A zero row adds +0, a no-op on a sum that
 //    starts at +0, so the partial has the bits of the sum over all RS_BLOCK rows
 //    in thread order. On the flagship tick at T = 1 most weights are not 0
 //    (tools/pass_times.py counts them), so the noise is read back rather than
@@ -97,8 +98,9 @@ static inline ScaledNormals<> scaled_normals(const SMKnobs& kn, const float* sig
 // blocks write no key lists, and warps 4-15 of the finish select the elites from
 // all N keys (cost_key of the costs) by a radix select of the K-th lowest key,
 // then compact the keys at or below it in index order and refit sigma over them
-// in batches of SM_KMAX elites (kth_lowest_key, compact_elites, refit_in_batches
-// below). K <= SM_KMAX keeps the path above and its bits.
+// in batches of sm_elite_batch(P) elites (kth_lowest_key, compact_elites,
+// refit_in_batches below). K <= SM_KMAX keeps the path above and its bits; above P
+// = 288 its refit too runs in such batches.
 
 #define SM_UPDATE_THREADS 512
 // 157 blocks at N = 10 000 resident at once on 132 SMs. At P = 144 a CEM block
@@ -110,10 +112,16 @@ static inline ScaledNormals<> scaled_normals(const SMKnobs& kn, const float* sig
 #define SM_CEM_THREADS (SM_UPDATE_THREADS - SM_COL_THREADS)  // warps 4-15: elites and refit
 #define SM_RANK_LANES (SM_UPDATE_THREADS / RS_BLOCK)  // threads ranking one key of a block
 #define SM_BATCH 32          // nonzero-weight samples whose noise a round loads
+// ... and at most this many bytes of their rows: 32 rows up to P = 288, 9 at P = 1024.
+#define SM_BATCH_BYTES (SM_BATCH * 289 * 4)
+// Bytes of the CEM elites' noise the finish stages at once: all K <= SM_KMAX
+// elites up to P = 288 (K = 32), else batches of sm_elite_batch(P) elites (9 at P
+// = 1024), summed in elite order as the refit of one batch sums them.
+#define SM_ELITE_BYTES (SM_KMAX * 288 * 4)
 #define SM_TILE_ROWS 160     // partial rows copied into shared memory at once (a multiple of 4)
 // ... and at most this many bytes of them: 160 rows up to P = 144, 80 at P = 288,
-// so that the chain kernel's largest pair keeps its basis, the tile and the CEM
-// stage within a block's 227 KB.
+// 20 at P = 1024, so that the chain kernel keeps its windows, the tile and the
+// CEM stage within a block's 227 KB at every pair.
 #define SM_TILE_BYTES (SM_TILE_ROWS * 145 * 4)
 #define SM_STAGE_KEYS 4096   // CEM candidate keys staged in shared memory (the rest read from L2)
 
@@ -121,6 +129,21 @@ static inline ScaledNormals<> scaled_normals(const SMKnobs& kn, const float* sig
 template <int ID, int THREADS>
 __device__ __forceinline__ void group_sync() {
   asm volatile("bar.sync %0, %1;" ::"n"(ID), "n"(THREADS) : "memory");
+}
+
+// Nonzero-weight rows of P + 1 floats an update tile loads at once.
+__host__ __device__ constexpr int sm_batch(int P) {
+  return SM_BATCH_BYTES / ((P + 1) * 4) < SM_BATCH ? SM_BATCH_BYTES / ((P + 1) * 4) : SM_BATCH;
+}
+
+// CEM elites whose noise (P floats each) a refit batch stages.
+__host__ __device__ constexpr int sm_elite_batch(int P) {
+  return SM_ELITE_BYTES / (P * 4) < SM_KMAX ? SM_ELITE_BYTES / (P * 4) : SM_KMAX;
+}
+
+// Bytes of the staged noise of n_elite CEM elites: all of them, or one batch.
+__host__ __device__ inline int sm_elite_noise_bytes(int P, int n_elite) {
+  return n_elite * P * 4 <= SM_ELITE_BYTES ? n_elite * P * 4 : sm_elite_batch(P) * P * 4;
 }
 
 // Partial rows of P + 1 floats the finish copies at once: SM_TILE_ROWS, or fewer
@@ -143,14 +166,14 @@ __host__ __device__ inline int sm_tile_bytes(int P, int num_blocks) {
 // candidate keys and the elites' candidates, then the elites' noise in their
 // place.
 static inline int sm_update_smem(int P, int cem, int n_elite, int num_blocks) {
-  const int batch = SM_BATCH * (P + 1) * 4;
+  const int batch = sm_batch(P) * (P + 1) * 4;
   int finish = sm_tile_bytes(P, num_blocks);
   if (cem && n_elite > SM_KMAX) {
-    finish += SM_KMAX * P * 4;  // a batch of the elites' noise (refit_in_batches)
+    finish += sm_elite_batch(P) * P * 4;  // a batch of the elites' noise (refit_in_batches)
   } else if (cem) {
     const int m = num_blocks * n_elite;
     const int keys = ((m < SM_STAGE_KEYS ? m : SM_STAGE_KEYS) + n_elite * n_elite) * 8;
-    const int noise = n_elite * P * 4;
+    const int noise = sm_elite_noise_bytes(P, n_elite);
     finish += keys > noise ? keys : noise;
   }
   return batch > finish ? batch : finish;
@@ -186,10 +209,12 @@ __device__ __forceinline__ void update_tile(const RSArgs& a, const SMKnobs& kn,
   constexpr int P = 4 * PL;
   constexpr int CH = P / 4;  // chunks of four rows of the (P, N) noise
   constexpr int ROW = P + 1;
+  constexpr int BATCH = sm_batch(P);
+  constexpr int UCOLS = (ROW + SM_UPDATE_THREADS - 1) / SM_UPDATE_THREADS;  // columns a thread
   static_assert(RS_BLOCK % 32 == 0 && SM_RANK_LANES * RS_BLOCK == SM_UPDATE_THREADS &&
                     (SM_RANK_LANES & (SM_RANK_LANES - 1)) == 0,
                 "whole warps of samples; a power-of-two group of threads ranks each key");
-  static_assert(ROW <= SM_UPDATE_THREADS, "one partial column a thread");
+  static_assert(BATCH >= 1 && BATCH <= SM_UPDATE_THREADS, "a weight a thread");
   __shared__ int nz_s[RS_BLOCK];
   __shared__ float nzw_s[RS_BLOCK];
   __shared__ unsigned long long key_s[RS_BLOCK];
@@ -224,11 +249,15 @@ __device__ __forceinline__ void update_tile(const RSArgs& a, const SMKnobs& kn,
   }
   __syncthreads();
 
-  // This block's partial row: the nonzero rows' (w * noise, w), SM_BATCH at a time.
-  float* buf_s = reinterpret_cast<float*>(arena);  // (SM_BATCH, ROW); ROW odd: no bank conflicts
-  float acc = 0.f;
-  for (int base = 0; base < m; base += SM_BATCH) {
-    const int nb = m - base < SM_BATCH ? m - base : SM_BATCH;
+  // This block's partial row: the nonzero rows' (w * noise, w), BATCH at a time;
+  // columns t, t + SM_UPDATE_THREADS, ... of thread t, each summed over the rows in
+  // order.
+  float* buf_s = reinterpret_cast<float*>(arena);  // (BATCH, ROW); ROW odd: no bank conflicts
+  float acc[UCOLS];
+#pragma unroll
+  for (int u = 0; u < UCOLS; ++u) acc[u] = 0.f;
+  for (int base = 0; base < m; base += BATCH) {
+    const int nb = m - base < BATCH ? m - base : BATCH;
     for (int j = t; j < nb * CH; j += SM_UPDATE_THREADS) {
       const int r = j % nb, k = j / nb;
       const float wr = nzw_s[base + r];
@@ -241,13 +270,19 @@ __device__ __forceinline__ void update_tile(const RSArgs& a, const SMKnobs& kn,
     }
     if (t < nb) buf_s[t * ROW + P] = nzw_s[base + t];
     __syncthreads();
-    if (t < ROW) {
+#pragma unroll
+    for (int u = 0; u < UCOLS; ++u) {
+      const int col = t + u * SM_UPDATE_THREADS;
+      if (col < ROW) {
 #pragma unroll 8
-      for (int r = 0; r < nb; ++r) acc = __fadd_rn(acc, buf_s[r * ROW + t]);
+        for (int r = 0; r < nb; ++r) acc[u] = __fadd_rn(acc[u], buf_s[r * ROW + col]);
+      }
     }
     __syncthreads();
   }
-  if (t < ROW) partials[(size_t)b * ROW + t] = acc;
+#pragma unroll
+  for (int u = 0; u < UCOLS; ++u)
+    if (t + u * SM_UPDATE_THREADS < ROW) partials[(size_t)b * ROW + t + u * SM_UPDATE_THREADS] = acc[u];
   if (kn.cem && kn.n_elite <= SM_KMAX) {
     // Rank of each key in the block, SM_RANK_LANES threads a key; equal keys (only
     // the ~0ull of missing samples) rank by thread. The K lowest land in rank order.
@@ -386,20 +421,22 @@ __device__ void compact_elites(const float* costs, int N, unsigned long long tk,
 }
 
 // Sigma refit over the K elites, elites[0..K) (written before a group barrier), in
-// batches of SM_KMAX: fill(i, c, row) writes chunk c < CHUNKS of sample i's noise
-// into row (P floats) of x_s (SM_KMAX, P); thread ct sums parameters ct, ct +
-// SM_CEM_THREADS, ... over the elites in their order, the mean and then the
-// squared deviations (ddof 1, + 1e-8, sqrt, clipped), as the refit below SM_KMAX.
+// batches of EB = sm_elite_batch(P): fill(i, c, row) writes chunk c < CHUNKS of
+// sample i's noise into row (P floats) of x_s (EB, P); thread ct sums parameters
+// ct, ct + SM_CEM_THREADS, ... over the elites in their order, the mean and then
+// the squared deviations (ddof 1, + 1e-8, sqrt, clipped), as the refit of all the
+// elites at once.
 template <int P, int CHUNKS, class Fill>
 __device__ void refit_in_batches(const SMKnobs& kn, const int* elites, int K, const Fill& fill,
                                  float* x_s, float* sigma_out, int ct) {
   constexpr int PC = (P + SM_CEM_THREADS - 1) / SM_CEM_THREADS;
+  constexpr int EB = sm_elite_batch(P);
   float mean[PC], ss[PC];
 #pragma unroll
   for (int u = 0; u < PC; ++u) mean[u] = ss[u] = 0.f;
   for (int pass = 0; pass < 2; ++pass) {
-    for (int e0 = 0; e0 < K; e0 += SM_KMAX) {
-      const int ne = K - e0 < SM_KMAX ? K - e0 : SM_KMAX;
+    for (int e0 = 0; e0 < K; e0 += EB) {
+      const int ne = K - e0 < EB ? K - e0 : EB;
       for (int j = ct; j < ne * CHUNKS; j += SM_CEM_THREADS) {
         const int e = j % ne;
         fill(elites[e0 + e], j / ne, &x_s[e * P]);
@@ -447,7 +484,7 @@ __device__ void refit_in_batches(const SMKnobs& kn, const int* elites, int K, co
 // sample-sharded solve). R: how the noise and the costs are read.
 template <int PL, Read R>
 __device__ __forceinline__ void update_finish(const RSArgs& a, const SMKnobs& kn,
-                                              const float* w_blk, const float* inc_r,
+                                              const BasisWindow* win, const float* inc_r,
                                               const float* noise, const float* costs,
                                               unsigned long long best_key, int B,
                                               float* partials, unsigned long long* block_keys,
@@ -458,12 +495,11 @@ __device__ __forceinline__ void update_finish(const RSArgs& a, const SMKnobs& kn
   constexpr int ROW = P + 1;
   constexpr int COLS = (ROW + SM_COL_THREADS - 1) / SM_COL_THREADS;  // finish columns a thread
   constexpr int PCOLS = (P + SM_COL_THREADS - 1) / SM_COL_THREADS;   // new parameters a thread
-  constexpr int PLP = padded_pl(PL);
   constexpr int TILE = sm_tile_rows(P);
   static_assert(TILE % 4 == 0 && TILE > 0, "aligned tiles");
   __shared__ float sum_s[ROW];
   __shared__ float prm_s[P];
-  __shared__ __align__(16) float w0_s[12 * PLP];
+  __shared__ BasisWindow w0_s[12];
   __shared__ int elite_s[SM_KMAX];
   __shared__ unsigned long long t0_s;
   __shared__ int ncand_s;
@@ -481,8 +517,7 @@ __device__ __forceinline__ void update_finish(const RSArgs& a, const SMKnobs& kn
       const int n = rows * ROW;
       for (int q = t; q < n / 4; q += SM_COL_THREADS) cp_async16(&tile_s[4 * q], &src[4 * q]);
       for (int q = (n / 4) * 4 + t; q < n; q += SM_COL_THREADS) tile_s[q] = __ldcg(&src[q]);
-      if (b0 == 0)  // the step-0 basis rows (12, PLP), 16-byte aligned
-        for (int q = t; q < 3 * PLP; q += SM_COL_THREADS) cp_async16(&w0_s[4 * q], &w_blk[4 * q]);
+      if (b0 == 0) cp_async_step0_windows(w0_s, win, t, SM_COL_THREADS);
       cp_async_wait_all();
       group_sync<3, SM_COL_THREADS>();
 #pragma unroll
@@ -515,7 +550,7 @@ __device__ __forceinline__ void update_finish(const RSArgs& a, const SMKnobs& kn
     }
     group_sync<3, SM_COL_THREADS>();
     if (warp == 0) {
-      step0_extract_lanes<PL>(a, w0_s, prm_s, out);
+      step0_extract_lanes(a, w0_s, prm_s, out);
       if (t == 0) {
         out[0] = beta;
         out[25] = (float)(int)(best_key & 0xffffffffull);
@@ -601,8 +636,22 @@ __device__ __forceinline__ void update_finish(const RSArgs& a, const SMKnobs& kn
     if (rank < K) elite_s[rank] = (int)(ki & 0xffffffffull);
   }
   group_sync<1, SM_CEM_THREADS>();
-  // The elites' noise, one chunk of four parameters a thread, over the staged keys.
-  float* x_s = reinterpret_cast<float*>(stage_s);  // (K, P)
+  float* x_s = reinterpret_cast<float*>(stage_s);  // (K, P), over the staged keys
+  if (K * P * 4 > SM_ELITE_BYTES) {  // above P = 288: the elites' noise in batches
+    refit_in_batches<P, CH>(
+        kn, elite_s, K,
+        [&](int i, int c, float* row) {
+          const float4 z = load_noise4<R>(noise, N, i, c);
+          row[4 * c + 0] = z.x;
+          row[4 * c + 1] = z.y;
+          row[4 * c + 2] = z.z;
+          row[4 * c + 3] = z.w;
+        },
+        x_s, sigma_out, ct);
+    if (ct < K) elites[ct] = elite_s[ct];
+    return;
+  }
+  // The elites' noise, one chunk of four parameters a thread.
   for (int j = ct; j < K * CH; j += SM_CEM_THREADS) {
     const int e = j % K, k = j / K;
     const float4 z = load_noise4<R>(noise, N, elite_s[e], k);
@@ -637,7 +686,7 @@ __device__ __forceinline__ void update_finish(const RSArgs& a, const SMKnobs& kn
 // passes the lowest over every shard); sums_out as update_finish's.
 template <int PL>
 __global__ void __launch_bounds__(SM_UPDATE_THREADS, SM_UPDATE_MIN_BLOCKS)
-sm_update_kernel(const RSArgs a, const SMKnobs kn, const float* __restrict__ w_blk,
+sm_update_kernel(const RSArgs a, const SMKnobs kn, const BasisWindow* __restrict__ win,
                  const float* __restrict__ incumbent, const float* __restrict__ noise,
                  const float* __restrict__ costs, const unsigned long long* __restrict__ argmin,
                  unsigned long long* ticket, float* partials, unsigned long long* block_keys,
@@ -654,7 +703,7 @@ sm_update_kernel(const RSArgs a, const SMKnobs kn, const float* __restrict__ w_b
                                   arena);
   if (!last_ticket(ticket, gridDim.x)) return;
   __threadfence();
-  update_finish<PL, Read::ReadOnly>(a, kn, w_blk, inc_r, noise, costs, best_key, gridDim.x,
+  update_finish<PL, Read::ReadOnly>(a, kn, win, inc_r, noise, costs, best_key, gridDim.x,
                                     partials, block_keys, out, sigma_out, elites, arena,
                                     sums_out);
 }
@@ -695,7 +744,7 @@ static int update_blocks_per_sm(int cem, int n_elite, int num_samples) {
 // (P, N) noise the rollout pass read or wrote; beta_in and sums_out as
 // sm_update_kernel's (nullptr: the iteration's own beta, no sums).
 template <int PL>
-static cudaError_t launch_update(const RSArgs& a, const SMKnobs& kn, const float* w_blk,
+static cudaError_t launch_update(const RSArgs& a, const SMKnobs& kn, const BasisWindow* win,
                                  const float* incumbent, const float* noise, const float* costs,
                                  unsigned long long* argmin, float* partials,
                                  unsigned long long* block_keys, float* out, float* sigma_out,
@@ -706,7 +755,7 @@ static cudaError_t launch_update(const RSArgs& a, const SMKnobs& kn, const float
   const int blocks = (a.num_samples + RS_BLOCK - 1) / RS_BLOCK;
   const int smem = sm_update_smem(4 * PL, kn.cem, kn.n_elite, blocks);
   sm_update_kernel<PL><<<blocks, SM_UPDATE_THREADS, smem, stream>>>(
-      a, kn, w_blk, incumbent, noise, costs, argmin, argmin + 1, partials, block_keys, out,
+      a, kn, win, incumbent, noise, costs, argmin, argmin + 1, partials, block_keys, out,
       sigma_out, elites, beta_in, sums_out);
   return cudaGetLastError();
 }

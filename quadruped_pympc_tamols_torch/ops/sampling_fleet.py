@@ -17,11 +17,11 @@ K1f has two layouts, one int of its C entry, and the wrapper picks one from S *
 N (``fleet_layout``): below ``CROSSOVER`` the four-lane rollout of K1a (grid
 (ceil(N/16), S)) and an update pass that reads back the (S, P, N) noise the
 rollout wrote; from it the large-batch layout (``LARGE_BATCH``): one thread a
-sample in blocks of ``WIDE_SAMPLES`` samples of one scenario, the basis product
-on each row's window of nonzero weights (``basis_windows``, once a plan), and an
-update pass that draws each nonzero-weight sample's noise again from its Philox
-counter, so that no (S, P, N) buffer exists. Both give the same bits on finite
-inputs.
+sample in blocks of ``wide_samples(P)`` samples of one scenario, and an update
+pass that draws each nonzero-weight sample's noise again from its Philox
+counter, so that no (S, P, N) buffer exists. Both form the basis product on each
+row's window of nonzero weights (the plan's ``windows``, ``rs.basis_windows``)
+and give the same bits on finite inputs.
 
 ``fleet_iteration`` is the wrapper: on CUDA tensors it launches K1f (adding one
 to ``fleet_iteration.launches[method]`` for the four-lane layout and
@@ -39,7 +39,6 @@ For a sample-sharded fleet (``parallel/sharded.py``) K1f takes the plan's
 from __future__ import annotations
 
 import ctypes
-import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -47,7 +46,6 @@ import torch
 
 from ..controllers.sampling.rollout import apply_force_model_rows, rollout_costs_soa
 from ..dynamics.srbd import integrate_euler
-from ..utils.device import device_constant
 from ..utils.graphs import count_launch
 from . import build
 from . import sampling_kernel as rs
@@ -62,8 +60,7 @@ FOUR_LANE = 0
 WIDE = 1  # the rollout pass one thread a sample (fleet_rollout_wide_kernel)
 REGEN = 2  # the update pass draws the noise again from Philox instead of reading it
 LARGE_BATCH = WIDE | REGEN
-WIDE_SAMPLES = 128  # samples a block of the large-batch rollout (FLEET_WIDE_SAMPLES)
-WINDOW = 4  # weights of a basis row's window (FLEET_WINDOW)
+WIDE_SAMPLES = 128  # samples a block of the large-batch rollout up to P = 288 (FLEET_WIDE_SAMPLES)
 # S * N from which fleet_iteration runs LARGE_BATCH: 192 scenarios of 128 samples.
 # chip_smoke.py phase 25's crossover sweep (one H100 80GB HBM3, 700.00 W; device
 # us of an iteration's two passes in each layout, random sampling and MPPI, at
@@ -81,27 +78,12 @@ def fleet_layout(num_scenarios: int, num_samples: int) -> int:
     return LARGE_BATCH if num_scenarios * num_samples >= CROSSOVER else FOUR_LANE
 
 
-def basis_windows(blocks: np.ndarray, params_per_leg: int) -> np.ndarray:
-    """The large-batch rollout's basis table (``struct BasisWindow``): for each row r
-    of the own-leg blocks (H*12, >= P_leg), WINDOW weights as float32 [0:4] and, as
-    int32 bits in [4], the leg-major index of the window's first parameter
-    (leg * P_leg + j0, the leg (r % 12) // 3), with j0 the row's first nonzero
-    moved left as far as the window must to end within the leg; (H*12, 8) float32.
-    Raises NotImplementedError for a row whose nonzeros span more than WINDOW."""
-    R = blocks.shape[0]
-    if params_per_leg < WINDOW:
-        raise NotImplementedError(f"the large-batch rollout needs at least {WINDOW} "
-                                  f"parameters a leg, not {params_per_leg}")
-    out = np.zeros((R, 8), np.float32)
-    for r in range(R):
-        nz = np.flatnonzero(blocks[r, :params_per_leg])
-        j0 = min(int(nz[0]) if nz.size else 0, params_per_leg - WINDOW)
-        if nz.size and nz[-1] >= j0 + WINDOW:
-            raise NotImplementedError(f"basis row {r} has nonzeros at {nz.tolist()}: wider than "
-                                      f"the large-batch rollout's window of {WINDOW}")
-        out[r, :WINDOW] = blocks[r, j0:j0 + WINDOW]
-        out[r:r + 1, 4:5].view(np.int32)[0, 0] = (r % 12) // 3 * params_per_leg + j0
-    return out
+def wide_samples(num_parameters: int) -> int:
+    """Samples a block of the large-batch rollout (``fleet_wide_samples``): its
+    parameters take at most WIDE_SAMPLES * 288 floats of shared memory, so
+    WIDE_SAMPLES up to P = 288 and fewer whole warps above (32 at P = 1024)."""
+    fit = WIDE_SAMPLES * 288 // num_parameters
+    return WIDE_SAMPLES if fit >= WIDE_SAMPLES else max(32, fit // 32 * 32)
 
 
 class FleetArgs(ctypes.Structure):
@@ -274,29 +256,28 @@ def load_library(horizon: int, params_per_leg: int) -> ctypes.CDLL:
         lib = build.load("sampling_fleet", horizon, params_per_leg)
         rs.int_getters(lib, ("fleet_args_size", "fleet_layout_size", "fleet_knobs_size",
                              "fleet_block", "fleet_rollout_samples", "fleet_list_elite",
-                             "fleet_horizon", "fleet_params_per_leg",
-                             "fleet_padded_params_per_leg", "fleet_row_floats",
+                             "fleet_horizon", "fleet_params_per_leg", "fleet_row_floats",
                              "fleet_layout_wide", "fleet_layout_regen", "fleet_wide_samples",
                              "fleet_window", "fleet_window_bytes"))
-        if (lib.fleet_args_size() != ctypes.sizeof(rs.RSArgs)
+        if (lib.fleet_args_size() != ctypes.sizeof(rs.args_type(horizon))
                 or lib.fleet_layout_size() != ctypes.sizeof(FleetArgs)
                 or lib.fleet_knobs_size() != ctypes.sizeof(sm.SMKnobs)
                 or lib.fleet_block() != sm.BLOCK
                 or lib.fleet_rollout_samples() != rs.ROLLOUT_SAMPLES
                 or lib.fleet_list_elite() != sm.LIST_ELITE
                 or (lib.fleet_horizon(), lib.fleet_params_per_leg()) != key
-                or lib.fleet_padded_params_per_leg() != rs.padded_params_per_leg(params_per_leg)
                 or lib.fleet_row_floats() != row_floats(horizon)
                 or (lib.fleet_layout_wide(), lib.fleet_layout_regen()) != (WIDE, REGEN)
-                or lib.fleet_wide_samples() != WIDE_SAMPLES or lib.fleet_window() != WINDOW
-                or lib.fleet_window_bytes() != 4 * 8):
+                or lib.fleet_wide_samples() != wide_samples(4 * params_per_leg)
+                or lib.fleet_window() != rs.WINDOW
+                or lib.fleet_window_bytes() != 4 * rs.WINDOW_FLOATS):
             raise RuntimeError(f"sampling_fleet.cu for {key} and its ctypes mirror disagree")
         lib.fleet_error_string.restype = ctypes.c_char_p
         lib.fleet_error_string.argtypes = [ctypes.c_int]
         lib.fleet_launch.restype = ctypes.c_int
         lib.fleet_launch.argtypes = ([ctypes.POINTER(rs.RSArgs), ctypes.POINTER(FleetArgs),
                                       ctypes.POINTER(sm.SMKnobs), ctypes.c_int, ctypes.c_int,
-                                      ctypes.c_int] + [ctypes.c_void_p] * 17)
+                                      ctypes.c_int] + [ctypes.c_void_p] * 16)
         _LIBS[key] = lib
     return _LIBS[key]
 
@@ -306,21 +287,6 @@ def _check(name, x, shape, dtype=torch.float32):
             and x.stride(-1) == 1):
         raise ValueError(f"{name} must be a CUDA {dtype} tensor of shape {shape} with unit "
                          f"inner stride, got {x.dtype} {tuple(x.shape)} on {x.device}")
-
-
-_WINDOWS: dict = {}  # id(plan.W_blocks) -> (weak reference to it, its windows on its device)
-
-
-def plan_windows(plan: rs.RSPlan) -> torch.Tensor:
-    """``basis_windows`` of the plan on its device, made once a plan: code inside a
-    CUDA-graph capture must not copy between host and device, and a graph's
-    warm-up runs make it before the capture."""
-    W = plan.W_blocks
-    hit = _WINDOWS.get(id(W))
-    if hit is None or hit[0]() is not W:
-        hit = _WINDOWS[id(W)] = (weakref.ref(W), device_constant(
-            basis_windows(W.cpu().numpy(), plan.params_per_leg), W.device))
-    return hit[1]
 
 
 def fleet_iteration(plan: rs.RSPlan, knobs, tick: FleetTick, incumbent: torch.Tensor,
@@ -375,7 +341,7 @@ def fleet_iteration(plan: rs.RSPlan, knobs, tick: FleetTick, incumbent: torch.Te
                          "its noise buffer (fleet_workspace with the same layout)")
     part, keys = _strides(N, P, knobs)
     fleet_args = FleetArgs(S, scen.stride(0), incumbent.stride(0), int(iteration), part, keys)
-    args = rs.RSArgs.from_buffer_copy(plan.args_template)
+    args = rs.args_type(plan.horizon).from_buffer_copy(plan.args_template)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -384,8 +350,7 @@ def fleet_iteration(plan: rs.RSPlan, knobs, tick: FleetTick, incumbent: torch.Te
     rc = lib.fleet_launch(ctypes.byref(args), ctypes.byref(fleet_args),
                           ctypes.byref(knobs.struct()), METHODS.index(knobs.method),
                           plan.params_per_leg, int(layout),
-                          plan_windows(plan).data_ptr() if layout & WIDE else None,
-                          plan.W_blocks.data_ptr(), scen.data_ptr(), seeds.data_ptr(),
+                          plan.windows.data_ptr(), scen.data_ptr(), seeds.data_ptr(),
                           offsets.data_ptr(), incumbent.data_ptr(),
                           ptr(sigma) if knobs.cem else None, ptr(noise_in),
                           None if noise_in is not None else ptr(ws.noise), ws.costs.data_ptr(),

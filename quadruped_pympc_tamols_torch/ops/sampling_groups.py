@@ -19,9 +19,9 @@ first 12 rows), not from the winning group.
 
 One solve is a memset and two launches: the shared rollout pass over a
 (ceil(Ng/ROLLOUT_SAMPLES), K) grid, then K1a's extraction or K1b/K1c's update
-pass over the K*Ng samples. The groups' basis blocks, contact and share columns
-and offsets reach the card in one host-to-device copy a tick (from pinned
-memory); the basis does not fit in the by-value argument block.
+pass over the K*Ng samples. The groups' basis windows (``rs.basis_windows``),
+contact and share columns and offsets reach the card in one host-to-device copy
+a tick (from pinned memory).
 
 ``sampling_groups`` is the wrapper. On CUDA tensors it launches the kernel or
 raises; on CPU tensors it runs ``group_iteration_reference`` with noise from
@@ -75,6 +75,7 @@ class GroupInputs(NamedTuple):
     share: np.ndarray  # (K, H) gravity shares m*g/max(n_stance, 1)
     blocks: np.ndarray  # (K, H*12, P_leg) own-leg basis blocks, row n*12 + leg*3 + axis
     offsets: np.ndarray  # (K,) cost offsets (f - 1.3)^2 * 100
+    windows: np.ndarray  # (K, H*12, 8) the same rows as rs.basis_windows's (kernel input)
 
     def dense(self, device) -> torch.Tensor:
         """(K, H*12, 4*P_leg) block-diagonal bases on ``device``."""
@@ -196,14 +197,13 @@ def load_library(horizon: int, params_per_leg: int) -> ctypes.CDLL:
     if key not in _LIBS:
         lib = build.load("sampling_groups", horizon, params_per_leg)
         rs.int_getters(lib, ("sg_args_size", "sg_knobs_size", "sg_block", "sg_rollout_samples",
-                             "sg_horizon", "sg_params_per_leg",
-                             "sg_padded_params_per_leg"))
-        if (lib.sg_args_size() != ctypes.sizeof(rs.RSArgs)
+                             "sg_horizon", "sg_params_per_leg", "sg_window_bytes"))
+        if (lib.sg_args_size() != ctypes.sizeof(rs.args_type(horizon))
                 or lib.sg_knobs_size() != ctypes.sizeof(sm.SMKnobs)
                 or lib.sg_block() != sm.BLOCK
                 or lib.sg_rollout_samples() != rs.ROLLOUT_SAMPLES
                 or (lib.sg_horizon(), lib.sg_params_per_leg()) != key
-                or lib.sg_padded_params_per_leg() != rs.padded_params_per_leg(params_per_leg)):
+                or lib.sg_window_bytes() != 4 * rs.WINDOW_FLOATS):
             raise RuntimeError(f"sampling_groups.cu for {key} and its ctypes mirror disagree")
         lib.sg_error_string.restype = ctypes.c_char_p
         lib.sg_error_string.argtypes = [ctypes.c_int]
@@ -215,14 +215,18 @@ def load_library(horizon: int, params_per_leg: int) -> ctypes.CDLL:
 
 
 def pack_groups(groups: GroupInputs) -> np.ndarray:
-    """The kernel's per-tick group buffer: [basis blocks (K, H*12, P_leg rounded
-    up to 4), zero-padded as ``rs.pad_blocks`` | contact (K, H, 4) | share (K, H, 4)
-    | offsets (K,)], step-major columns."""
-    K, _, H = groups.contact.shape
-    share = np.broadcast_to(groups.share[:, :, None], (K, H, 4))
-    return np.concatenate([rs.pad_blocks(groups.blocks).ravel(),
-                           groups.contact.transpose(0, 2, 1).ravel(), share.ravel(),
-                           groups.offsets.ravel()]).astype(np.float32)
+    """The kernel's per-tick group buffer: [basis windows (K, H*12, 8) as
+    ``rs.basis_windows`` | contact (K, H, 4) | share (K, H, 4) | offsets (K,)],
+    step-major columns; float32."""
+    K, R, _ = groups.blocks.shape
+    H = groups.contact.shape[2]
+    n = K * R * rs.WINDOW_FLOATS
+    buf = np.empty(n + 8 * K * H + K, np.float32)
+    buf[:n] = groups.windows.reshape(-1)
+    buf[n:n + 4 * K * H].reshape(K, H, 4)[...] = groups.contact.transpose(0, 2, 1)
+    buf[n + 4 * K * H:n + 8 * K * H].reshape(K, H, 4)[...] = groups.share[:, :, None]
+    buf[n + 8 * K * H:] = groups.offsets
+    return buf
 
 
 def sampling_groups(plan: GroupPlan, knobs: sm.Knobs, tick: rs.TickInputs, groups: GroupInputs,
@@ -283,7 +287,7 @@ def launch(lib, args: rs.RSArgs, knobs: sm.Knobs, plan: GroupPlan, ws: sm.Worksp
         stream = torch.cuda.current_stream(incumbent.device).cuda_stream
     rc = lib.sg_launch(ctypes.byref(args), ctypes.byref(knobs.struct()), _METHOD[knobs.method],
                        plan.base.params_per_leg, plan.num_groups, plan.group_size,
-                       groups_buf.data_ptr(), plan.base.W_blocks.data_ptr(), incumbent.data_ptr(),
+                       groups_buf.data_ptr(), plan.base.windows.data_ptr(), incumbent.data_ptr(),
                        ptr(sigma) if knobs.cem else None, ptr(noise_in), ptr(noise_out),
                        ws.costs.data_ptr(), argmin, partials, keys, ws.out.data_ptr(),
                        ptr(ws.sigma), ptr(ws.elites), stream)

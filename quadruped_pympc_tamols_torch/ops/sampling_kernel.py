@@ -6,11 +6,12 @@ make_pallas_iteration(...).kernel`` (random_sampling, one group, fused cross-til
 combine, one iteration). Per sample it does a (H*12, P) basis product, an H-step
 SRB rollout and P normals, against a few hundred KB of inputs and outputs: far
 from both the card's FP32 rate and its memory rate, it is bound by the latency
-of each sample's dependent chain. The rollout pass (shared with K1b-K1e, in
+of each sample's dependent chain. The rollout pass (shared with K1b-K1f, in
 ``csrc/sampling_common.cuh``) therefore runs each sample on four lanes, one per
-leg, in blocks of ``ROLLOUT_SAMPLES`` samples; each lane keeps its leg's
-parameters in registers and reads only its leg's rows of the basis, which a
-bulk asynchronous copy brings into shared memory. The argmin folds into one
+leg, in blocks of ``ROLLOUT_SAMPLES`` samples; each lane stages its leg's
+parameters in shared memory and forms only its leg's rows of the basis, each on
+its window of four weights (``basis_windows``), which a bulk asynchronous copy
+brings into shared memory. The argmin folds into one
 64-bit atomicMin and the winner is regenerated from its Philox counter in a
 second tiny launch, so neither the noise nor the forces ever reach device
 memory. See the sources for the details.
@@ -23,11 +24,11 @@ function. There is no fallback from one to the other.
 The kernel is built with ``nvcc`` from the source in this package into
 ``quadruped_pympc_tamols_torch/_build/`` and bound with ``ctypes``
 (``ops/build.py``), one library for each (horizon, parameters per leg) pair, the
-first time a solver asks for the pair: any parametrization up to horizon 24
-(``build.check_pair``). A leg's basis rows reach the kernel zero-padded to a
-multiple of four (``pad_blocks``); every other layout keeps P = 4 * P_leg. The
-rollout adds the ZMP-band cost each step where ``sampling.zmp_weight > 0``, as
-the plain version does.
+first time a solver asks for the pair: every pair with 2 <= H <= 128 and P = 4 *
+P_leg <= 1024 (``build.check_pair``), which holds every parametrization the
+Pallas kernel takes. The argument block (``args_type``) carries the per-step
+arrays sized by the pair's horizon. The rollout adds the ZMP-band cost each step
+where ``sampling.zmp_weight > 0``, as the plain version does.
 """
 from __future__ import annotations
 
@@ -48,7 +49,8 @@ from . import build
 # Samples per block of the rollout pass, four lanes each (ROLLOUT_SAMPLES in
 # csrc/sampling_common.cuh; every library's getter is checked against it).
 ROLLOUT_SAMPLES = 16
-_HMAX = build.MAX_HORIZON  # RS_HMAX: the argument block's per-step arrays
+WINDOW = 4  # weights of a basis row's window (RS_WINDOW)
+WINDOW_FLOATS = 8  # a struct BasisWindow: the weights, the first parameter, padding
 OUT_WINNER = 26  # packed output: [cost, grf(12), state(12), index, winner(P)]
 COST_SATURATION = 1.0e6
 
@@ -62,21 +64,36 @@ class RSModel(ctypes.Structure):
 
 
 class RSArgs(ctypes.Structure):
-    """Mirror of ``struct RSArgs`` in sampling_rs.cu (checked against its size)."""
+    """Mirror of ``struct RSArgs`` in csrc/sampling_common.cuh up to its per-step
+    arrays (352 bytes); ``args_type(H)`` adds them. Reads any pair's argument
+    block (``from_buffer_copy``)."""
 
     _fields_ = [("num_samples", ctypes.c_int), ("horizon", ctypes.c_int),
                 ("band1", ctypes.c_int), ("band2", ctypes.c_int),
                 ("seed", ctypes.c_ulonglong), ("offset", ctypes.c_ulonglong),
-                ("dts", ctypes.c_float * _HMAX), ("q_diag", ctypes.c_float * 12),
+                ("q_diag", ctypes.c_float * 12),
                 ("model", RSModel),
                 ("sigma1", ctypes.c_float), ("sigma2", ctypes.c_float),
                 ("sigma3", ctypes.c_float),
                 ("state", ctypes.c_float * 12), ("feet", ctypes.c_float * 12),
                 ("ref", ctypes.c_float * 12),
-                ("contact", ctypes.c_float * (_HMAX * 4)),
-                ("share", ctypes.c_float * (_HMAX * 4)),
                 ("draw_col0", ctypes.c_int),
-                ("zmp_weight", ctypes.c_float), ("zmp_margin", ctypes.c_float)]
+                ("zmp_weight", ctypes.c_float), ("zmp_margin", ctypes.c_float),
+                ("pad", ctypes.c_int)]
+
+
+_ARGS_TYPES: dict = {}
+
+
+def args_type(horizon: int) -> type:
+    """The argument block of a pair at ``horizon``: ``RSArgs`` and its per-step
+    arrays dts (H,), contact and share (H*4, step-major), as each library sizes
+    them (checked against its ``*_args_size``)."""
+    if horizon not in _ARGS_TYPES:
+        _ARGS_TYPES[horizon] = type(f"RSArgs{horizon}", (RSArgs,), {"_fields_": [
+            ("dts", ctypes.c_float * horizon), ("contact", ctypes.c_float * (horizon * 4)),
+            ("share", ctypes.c_float * (horizon * 4))]})
+    return _ARGS_TYPES[horizon]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,15 +105,14 @@ class RSPlan:
     params_per_leg: int
     sigma_random: tuple
     W: torch.Tensor  # (H*12, 4*P_leg) dense basis on the solver's device
-    # (H*12, P_leg rounded up to 4) each row's own-leg block, zero-padded (kernel input)
-    W_blocks: torch.Tensor
+    windows: torch.Tensor  # (H*12, 8) each row's window of the basis (kernel input)
     dts: np.ndarray  # (H,) float32
     q_diag: np.ndarray  # (12,) float32, >= 0
     srbd: SRBDParams  # on the solver's device
     fm: ForceModelParams
     zmp_weight: float  # ZMP-band cost (0: none)
     zmp_margin: float
-    args_template: bytes  # RSArgs with every constant filled, per-tick fields zero
+    args_template: bytes  # args_type(H) with every constant filled, per-tick fields zero
     # Sample 0 draws noise as the others do instead of being the incumbent: the
     # shards of a sample-sharded solve after the first (``with_drawn_column0``).
     draw_col0: bool = False
@@ -144,7 +160,7 @@ def make_rs_plan(cfg: Config, num_samples: int, device) -> RSPlan:
     fm = ForceModelParams(sp.max_force_x / sp.max_force_z, sp.max_force_y / sp.max_force_z,
                           cfg.mpc.grf_min, cfg.mpc.grf_max, cfg.mpc.mu)
     N = int(num_samples)
-    a = RSArgs()
+    a = args_type(H)()
     a.num_samples, a.horizon = N, H
     a.band1, a.band2 = band_edges(N)
     m = a.model
@@ -156,12 +172,12 @@ def make_rs_plan(cfg: Config, num_samples: int, device) -> RSPlan:
                                                         fm.grf_max, fm.mu)
     a.sigma1, a.sigma2, a.sigma3 = sp.sigma_random
     a.zmp_weight, a.zmp_margin = sp.zmp_weight, sp.zmp_margin
-    np.ctypeslib.as_array(a.dts)[:min(H, _HMAX)] = cfg.mpc.dts()[:_HMAX]
+    np.ctypeslib.as_array(a.dts)[:] = cfg.mpc.dts()
     np.ctypeslib.as_array(a.q_diag)[:] = q_diag
     return RSPlan(num_samples=N, horizon=H, params_per_leg=P_leg,
                   sigma_random=tuple(float(s) for s in sp.sigma_random),
                   W=torch.as_tensor(W, device=device),
-                  W_blocks=torch.as_tensor(pad_blocks(blocks), device=device),
+                  windows=torch.as_tensor(basis_windows(blocks, P_leg), device=device),
                   dts=cfg.mpc.dts(), q_diag=q_diag,
                   srbd=make_params(cfg, device=device), fm=fm, zmp_weight=sp.zmp_weight,
                   zmp_margin=sp.zmp_margin, args_template=bytes(a))
@@ -174,25 +190,34 @@ def with_drawn_column0(plan: RSPlan) -> RSPlan:
     JAX package's sharded solver does on every shard but the first
     (``parallel/sharded.py:58-73``), so that the shards do not each add a copy of
     the incumbent."""
-    a = RSArgs.from_buffer_copy(plan.args_template)
+    a = args_type(plan.horizon).from_buffer_copy(plan.args_template)
     a.draw_col0 = 1
     return dataclasses.replace(plan, draw_col0=True, args_template=bytes(a))
 
 
-def padded_params_per_leg(P_leg: int) -> int:
-    """P_leg rounded up to a multiple of four: the stride of a basis row at which
-    the kernels stage the own-leg blocks (a leg draws ceil(P_leg/4) Philox chunks
-    of four). Each library reports its own (``*_padded_params_per_leg``, the
-    sources' ``padded_pl``) and ``load_library`` checks that the two agree."""
-    return -(-P_leg // 4) * 4
-
-
-def pad_blocks(blocks: np.ndarray) -> np.ndarray:
-    """Own-leg basis blocks (..., P_leg) with their last axis zero-padded to
-    ``padded_params_per_leg``; float32, contiguous."""
-    P_leg = blocks.shape[-1]
-    out = np.zeros(blocks.shape[:-1] + (padded_params_per_leg(P_leg),), np.float32)
-    out[..., :P_leg] = blocks
+def basis_windows(blocks: np.ndarray, params_per_leg: int) -> np.ndarray:
+    """The kernels' basis table (``struct BasisWindow``): for each row r of the
+    own-leg blocks (..., H*12, >= P_leg), WINDOW weights as float32 [0:4] and, as
+    int32 bits in [4], the leg-major index of the window's first parameter (leg *
+    P_leg + j0, the leg (r % 12) // 3), with j0 the row's first nonzero moved left
+    as far as the window must to end within the leg; (..., H*12, 8) float32.
+    Raises NotImplementedError for a row whose nonzeros span more than WINDOW."""
+    if params_per_leg < WINDOW:
+        raise NotImplementedError(f"the basis windows need at least {WINDOW} parameters a leg, "
+                                  f"not {params_per_leg}")
+    b = np.asarray(blocks, np.float32)[..., :params_per_leg]
+    nz = b != 0.0
+    j0 = np.minimum(nz.argmax(axis=-1), params_per_leg - WINDOW)  # 0 for a row of zeros
+    w = np.take_along_axis(b, j0[..., None] + np.arange(WINDOW), axis=-1)
+    wide = nz.sum(-1) != np.count_nonzero(w, axis=-1)
+    if wide.any():
+        r = tuple(int(x) for x in np.argwhere(wide)[0])
+        raise NotImplementedError(f"basis row {r} has nonzeros at {np.flatnonzero(nz[r]).tolist()}: "
+                                  f"wider than the kernels' window of {WINDOW}")
+    out = np.zeros(b.shape[:-1] + (WINDOW_FLOATS,), np.float32)
+    out[..., :WINDOW] = w
+    legs = (np.arange(b.shape[-2]) % 12) // 3
+    out[..., WINDOW].view(np.int32)[...] = legs * params_per_leg + j0
     return out
 
 
@@ -315,16 +340,16 @@ def load_library(horizon: int, params_per_leg: int) -> ctypes.CDLL:
     if key not in _LIBS:
         lib = build.load("sampling_rs", horizon, params_per_leg)
         int_getters(lib, ("rs_args_size", "rs_rollout_samples", "rs_horizon",
-                          "rs_params_per_leg", "rs_padded_params_per_leg"))
-        if lib.rs_args_size() != ctypes.sizeof(RSArgs):
+                          "rs_params_per_leg", "rs_window_bytes"))
+        if lib.rs_args_size() != ctypes.sizeof(args_type(horizon)):
             raise RuntimeError("RSArgs layout differs between sampling_rs.cu and ctypes")
         if lib.rs_rollout_samples() != ROLLOUT_SAMPLES:
             raise RuntimeError("sampling_rs.cu's rollout block differs from ROLLOUT_SAMPLES")
         if (lib.rs_horizon(), lib.rs_params_per_leg()) != key:
             raise RuntimeError(f"the sampling_rs library for {key} is built for "
                                f"{(lib.rs_horizon(), lib.rs_params_per_leg())}")
-        if lib.rs_padded_params_per_leg() != padded_params_per_leg(params_per_leg):
-            raise RuntimeError("sampling_rs.cu's basis row stride differs from pad_blocks")
+        if lib.rs_window_bytes() != 4 * WINDOW_FLOATS:
+            raise RuntimeError("sampling_rs.cu's BasisWindow differs from basis_windows")
         lib.rs_error_string.restype = ctypes.c_char_p
         lib.rs_error_string.argtypes = [ctypes.c_int]
         lib.rs_launch.restype = ctypes.c_int
@@ -334,15 +359,16 @@ def load_library(horizon: int, params_per_leg: int) -> ctypes.CDLL:
 
 
 def kernel_args(plan: RSPlan, tick: TickInputs, seed: int, offset: int) -> RSArgs:
-    """The kernel's by-value argument block: the plan's constants plus this tick."""
+    """The kernel's by-value argument block (``args_type(H)``): the plan's
+    constants plus this tick."""
     H = plan.horizon
-    a = RSArgs.from_buffer_copy(plan.args_template)
+    a = args_type(H).from_buffer_copy(plan.args_template)
     a.seed, a.offset = int(seed) % (1 << 64), int(offset) % (1 << 64)
     np.ctypeslib.as_array(a.state)[:] = np.asarray(tick.state12, np.float32).reshape(12)
     np.ctypeslib.as_array(a.feet)[:] = np.asarray(tick.feet, np.float32).reshape(12)
     np.ctypeslib.as_array(a.ref)[:] = np.asarray(tick.ref12, np.float32).reshape(12)
-    np.ctypeslib.as_array(a.contact)[:4 * H] = np.asarray(tick.contact_seq, np.float32).T.ravel()
-    np.ctypeslib.as_array(a.share)[:4 * H] = np.asarray(tick.share, np.float32).reshape(H, 4).ravel()
+    np.ctypeslib.as_array(a.contact)[:] = np.asarray(tick.contact_seq, np.float32).T.ravel()
+    np.ctypeslib.as_array(a.share)[:] = np.asarray(tick.share, np.float32).reshape(H, 4).ravel()
     return a
 
 
@@ -386,7 +412,7 @@ def sampling_rs(plan: RSPlan, tick: TickInputs, incumbent: torch.Tensor, seed: i
     argmin = torch.empty(1, dtype=torch.int64, device=dev)
     args = kernel_args(plan, tick, seed, offset)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.rs_launch(ctypes.byref(args), plan.params_per_leg, plan.W_blocks.data_ptr(),
+    rc = lib.rs_launch(ctypes.byref(args), plan.params_per_leg, plan.windows.data_ptr(),
                        incumbent.data_ptr(),
                        None if noise_in is None else noise_in.data_ptr(),
                        None if noise_out is None else noise_out.data_ptr(),

@@ -247,15 +247,15 @@ def load_library(horizon: int, params_per_leg: int) -> ctypes.CDLL:
         lib = build.load("sampling_softmax", horizon, params_per_leg)
         rs.int_getters(lib, ("sm_args_size", "sm_knobs_size", "sm_block", "sm_rollout_samples",
                              "sm_list_elite", "sm_horizon", "sm_params_per_leg",
-                             "sm_padded_params_per_leg", "sm_phase_rollout", "sm_phase_update"))
-        if (lib.sm_args_size() != ctypes.sizeof(rs.RSArgs)
+                             "sm_window_bytes", "sm_phase_rollout", "sm_phase_update"))
+        if (lib.sm_args_size() != ctypes.sizeof(rs.args_type(horizon))
                 or (lib.sm_phase_rollout(), lib.sm_phase_update()) != (PHASE_ROLLOUT,
                                                                         PHASE_UPDATE)
                 or lib.sm_knobs_size() != ctypes.sizeof(SMKnobs)
                 or lib.sm_block() != BLOCK or lib.sm_rollout_samples() != rs.ROLLOUT_SAMPLES
                 or lib.sm_list_elite() != LIST_ELITE
                 or (lib.sm_horizon(), lib.sm_params_per_leg()) != key
-                or lib.sm_padded_params_per_leg() != rs.padded_params_per_leg(params_per_leg)):
+                or lib.sm_window_bytes() != 4 * rs.WINDOW_FLOATS):
             raise RuntimeError(f"sampling_softmax.cu for {key} and its ctypes mirror disagree")
         lib.sm_error_string.restype = ctypes.c_char_p
         lib.sm_error_string.argtypes = [ctypes.c_int]
@@ -344,7 +344,7 @@ def launch(lib, args: rs.RSArgs, kn: SMKnobs, plan: rs.RSPlan, ws: Workspace, in
     if stream is None:
         stream = torch.cuda.current_stream(incumbent.device).cuda_stream
     rc = lib.sm_launch(ctypes.byref(args), ctypes.byref(kn), plan.params_per_leg,
-                       plan.W_blocks.data_ptr(), incumbent.data_ptr(),
+                       plan.windows.data_ptr(), incumbent.data_ptr(),
                        ptr(sigma) if kn.cem else None, ptr(noise_in), ptr(noise_out),
                        ws.costs.data_ptr(), argmin, partials, keys, ws.out.data_ptr(),
                        ptr(ws.sigma), ptr(ws.elites), phases, ptr(beta_in), ptr(sums_out),
@@ -435,13 +435,13 @@ def load_chain_library(horizon: int, params_per_leg: int) -> ctypes.CDLL:
     if key not in _CHAIN_LIBS:
         lib = build.load("sampling_chain", horizon, params_per_leg)
         rs.int_getters(lib, ("chain_args_size", "chain_knobs_size", "chain_block",
-                             "chain_horizon", "chain_params_per_leg",
-                             "chain_padded_params_per_leg"))
-        if (lib.chain_args_size() != ctypes.sizeof(rs.RSArgs)
+                             "chain_horizon", "chain_params_per_leg", "chain_window_bytes",
+                             "chain_rollout_tiles"))
+        if (lib.chain_args_size() != ctypes.sizeof(rs.args_type(horizon))
                 or lib.chain_knobs_size() != ctypes.sizeof(SMKnobs)
                 or lib.chain_block() != BLOCK
                 or (lib.chain_horizon(), lib.chain_params_per_leg()) != key
-                or lib.chain_padded_params_per_leg() != rs.padded_params_per_leg(params_per_leg)):
+                or lib.chain_window_bytes() != 4 * rs.WINDOW_FLOATS):
             raise RuntimeError(f"sampling_chain.cu for {key} and its ctypes mirror disagree")
         lib.chain_error_string.restype = ctypes.c_char_p
         lib.chain_error_string.argtypes = [ctypes.c_int]
@@ -481,7 +481,7 @@ def chain_launch(lib, args: rs.RSArgs, kn: SMKnobs, method: str, plan: rs.RSPlan
     if stream is None:
         stream = torch.cuda.current_stream(incumbent.device).cuda_stream
     rc = lib.chain_launch(ctypes.byref(args), ctypes.byref(kn), METHODS.index(method),
-                          plan.params_per_leg, iterations, max_blocks, plan.W_blocks.data_ptr(),
+                          plan.params_per_leg, iterations, max_blocks, plan.windows.data_ptr(),
                           incumbent.data_ptr(), ptr(sigma) if kn.cem else None, ptr(ws.noise),
                           ws.costs.data_ptr(), argmin, partials, keys, ws.out.data_ptr(),
                           ptr(ws.sigma), ptr(ws.elites), stream)

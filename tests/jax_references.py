@@ -27,9 +27,11 @@ FIXTURE = pathlib.Path(__file__).resolve().parent / "fixtures" / "torch_jax_refe
 RECORDERS = (
     ("ddp", "test_torch_ddp:jax_ddp_references"),
     ("nominal_loop", "test_torch_gradient_loop:jax_closed_loop"),
+    ("knobs", "test_torch_gradient_loop:jax_knob_references"),
     ("ladders", "test_torch_variants:jax_ladders"),
     ("kinodynamic_run", "test_torch_variants_loop:jax_kinodynamic_run"),
     ("parallel", "test_torch_parallel:jax_parallel_references"),
+    ("long_horizon", "test_torch_long_horizon:jax_long_horizon_references"),
 )
 _CACHE: dict = {}
 

@@ -6,7 +6,9 @@ Runs only where CUDA is present (it skips elsewhere): on the H100, run
 ``python -m pytest --noconftest -q tests/test_torch_cuda_cases.py`` (each pair's
 libraries are built at their first use). Each kernel runs on injected noise and
 is held against its plain torch version as ``chip_smoke.py`` holds it: costs
-rtol 1e-4 with a 1e-2 floor (FMA contraction and the order of the basis sums),
+rtol 1e-4 with a 1e-2 floor (FMA contraction and the order of the basis sums;
+beyond horizon 24, at the long pairs, on a standing trot, with the float64
+split of ``ops/cost_checks.py``: ``assert_costs``),
 the optimizer step against the plain step on the kernel's own costs (beta and
 the argmin exactly, new parameters atol 1e-5, GRFs atol 1e-3 N, the predicted
 state atol 1e-5), the elite set exactly. Sigma atol 1e-5 up to 32 elites; above
@@ -25,6 +27,8 @@ from quadruped_pympc_tamols_torch.ops import sampling_fleet as fl
 from quadruped_pympc_tamols_torch.ops import sampling_groups as sg
 from quadruped_pympc_tamols_torch.ops import sampling_kernel as sk
 from quadruped_pympc_tamols_torch.ops import sampling_softmax as sm
+from quadruped_pympc_tamols_torch.ops.cost_checks import (DRIFT_H, check_sample_costs, f64,
+                                                          standing_trot_tick)
 
 pytestmark = pytest.mark.cuda
 
@@ -32,7 +36,15 @@ ZMP_WEIGHT = 500.0  # the stone-field entry's (tests/test_closed_loop_walking.py
 # Phase 33's grid: (parametrization, horizon, splines).
 PAIRS = {"8-cubic-2": ("cubic_spline", 8, 2), "16-cubic-3": ("cubic_spline", 16, 3),
          "24-cubic-4": ("cubic_spline", 24, 4), "12-linear-4": ("linear_spline", 12, 4),
-         "24-zero_order": ("zero_order", 24, 2)}
+         "24-zero_order": ("zero_order", 24, 2), "32-cubic-2": ("cubic_spline", 32, 2),
+         "40-cubic-8": ("cubic_spline", 40, 8), "48-zero_order": ("zero_order", 48, 2),
+         "85-zero_order": ("zero_order", 85, 2)}
+
+
+def assert_costs(costs, ref, horizon, ref64):
+    """Kernel costs (..., N) against plain ones by ``cost_checks.check_sample_costs``;
+    beyond DRIFT_H with ``ref64()``, the plain version's costs in float64."""
+    check_sample_costs(costs, ref, ref64() if horizon > DRIFT_H else None)
 
 
 @pytest.fixture
@@ -70,6 +82,13 @@ def trot_tick(cfg):
             seq[[0, 3], n] = 0.0
     share = gravity_share(torch.from_numpy(seq), cfg.robot.mass)[:, None].expand(H, 4)
     return sk.TickInputs(state12, feet, ref12, seq, np.ascontiguousarray(share.numpy()))
+
+
+def pair_tick(cfg):
+    """trot_tick up to DRIFT_H; beyond it cost_checks.standing_trot_tick, on which
+    the long rollouts stay finite."""
+    H = cfg.mpc.horizon
+    return standing_trot_tick(cfg, H) if H > DRIFT_H else trot_tick(cfg)
 
 
 def inputs(plan, knobs, n, dev, seed, scale=1.0):
@@ -141,8 +160,8 @@ def check_single(plan, knobs, tick, inc, sigma, noise, dev):
         costs, out, sig, el = sm.softmax_iteration(plan, knobs, tick, inc, sigma, 0, 0,
                                                    noise_in=noise)
     torch.cuda.synchronize()
-    torch.testing.assert_close(costs, plain_costs(plan, tick, inc, noise, dev), rtol=1e-4,
-                               atol=1e-2)
+    assert_costs(costs, plain_costs(plan, tick, inc, noise, dev), plan.horizon,
+                 lambda: plain_costs(f64(plan), tick, inc.double(), noise.double(), dev))
     if knobs.method == "random_sampling":
         k = int(out[25])
         assert k == int(torch.argmin(costs)) and float(out[0]) == float(costs[k])
@@ -197,7 +216,10 @@ def check_groups(cfg, knobs, tick, n, dev, seed, scale=1.0):
     b = plan.base
     ref = sg.group_costs_reference(inc[:, None] + noise, groups.dense(dev), *g, t[0], t[1], t[2],
                                    b.dts, b.q_diag, b.srbd, b.fm, b.zmp_weight, b.zmp_margin)
-    torch.testing.assert_close(costs, ref, rtol=1e-4, atol=1e-2)
+    assert_costs(costs, ref, b.horizon, lambda: sg.group_costs_reference(
+        inc.double()[:, None] + noise.double(), groups.dense(dev).double(),
+        *(x.double() for x in g), t[0], t[1], t[2], b.dts, b.q_diag, f64(b.srbd), b.fm,
+        b.zmp_weight, b.zmp_margin))
     if knobs.method == "random_sampling":
         k = int(out[25])
         assert k == int(torch.argmin(costs)) and float(out[0]) == float(costs[k])
@@ -207,17 +229,19 @@ def check_groups(cfg, knobs, tick, n, dev, seed, scale=1.0):
 
 
 def fleet_case(cfg, knobs, S, N, dev, seed, scale=1.0):
-    """S scenarios of the trot tick, each with its own state and feet."""
+    """S scenarios of the pair's tick, each state and foot nudged by 1 cm (1 mm
+    beyond DRIFT_H)."""
     rng = np.random.default_rng(seed)
     plan = sk.make_rs_plan(cfg, N, dev)
-    tick = trot_tick(cfg)
+    tick = pair_tick(cfg)
+    nudge = 0.001 if plan.horizon > DRIFT_H else 0.01
     P = plan.num_parameters
 
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
 
-    st = np.repeat(tick.state12[None], S, 0) + 0.01 * rng.standard_normal((S, 12))
-    feet = np.repeat(tick.feet[None], S, 0) + 0.01 * rng.standard_normal((S, 4, 3))
+    st = np.repeat(tick.state12[None], S, 0) + nudge * rng.standard_normal((S, 12))
+    feet = np.repeat(tick.feet[None], S, 0) + nudge * rng.standard_normal((S, 4, 3))
     ftick = fl.FleetTick(t(st), t(feet), t(np.repeat(tick.ref12[None], S, 0)),
                          t(np.repeat(tick.contact_seq[None], S, 0)),
                          t(np.repeat(tick.share[None], S, 0)))
@@ -248,7 +272,8 @@ def check_fleet(cfg, knobs, S, N, layout, dev, seed, scale=1.0):
     if noise is None:  # random sampling's REGEN draw: the costs alone are its own
         return costs, None
     ref = fl.fleet_iteration_reference(plan, knobs, tick, inc, sigma, noise)
-    torch.testing.assert_close(costs, ref.costs, rtol=1e-4, atol=1e-2)
+    assert_costs(costs, ref.costs, plan.horizon, lambda: fl.fleet_iteration_reference(
+        f64(plan), knobs, f64(tick), inc.double(), sigma.double(), noise.double()).costs)
     own = fl.fleet_iteration_reference(plan, knobs, tick, inc, sigma, noise, costs=costs)
     torch.testing.assert_close(out[:, 0], own.out[:, 0], rtol=0, atol=0)
     torch.testing.assert_close(out[:, 25], own.out[:, 25], rtol=0, atol=0)
@@ -314,7 +339,7 @@ def test_pair_grid(cuda_device, pair, family):
     cfg = case_cfg(par, H, ns, **({"mpc.optimize_step_freq": True} if family == "K1e" else {}))
     plan = sk.make_rs_plan(cfg, 500, dev)
     build.check_pair(plan.horizon, plan.params_per_leg)
-    tick = trot_tick(cfg)
+    tick = pair_tick(cfg)
     for i, method in enumerate(sm.METHODS):
         knobs = sm.make_knobs(cfg, method)
         if family == "K1a-K1c":
@@ -330,10 +355,12 @@ def test_pair_grid(cuda_device, pair, family):
 
 
 def test_pair_beyond_the_bound_raises(cuda_device):
-    """A pair beyond the kernels' bounds raises one NotImplementedError naming them."""
+    """A pair beyond the kernels' bounds (H > 128, or P = 4 * P_leg > 1024: 22 cubic
+    splines) raises one NotImplementedError naming them."""
     from quadruped_pympc_tamols_torch.controllers.sampling import make_sampling_solver
-    for over in ({"mpc.horizon": 25}, {"mpc.sampling.num_splines": 7}):
-        with pytest.raises(NotImplementedError, match="horizon <= 24"):
+    for over in ({"mpc.horizon": 129}, {"mpc.sampling.num_splines": 22}):
+        with pytest.raises(NotImplementedError, match=r"horizon <= 128 and 4 <= parameters per "
+                                                      r"leg <= 256 \(P = 4 \* P_leg <= 1024"):
             make_sampling_solver(case_cfg(**over), 1000, device=cuda_device)
 
 

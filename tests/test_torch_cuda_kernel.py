@@ -270,12 +270,12 @@ def test_cuda_solver_refuses_unported_paths(cuda_device):
                         np.array([0.3, 0.8, 0.8, 0.3], np.float32), 1.4, True, tick.contact_seq,
                         ones, ones, state)
         assert bool(torch.isfinite(out.summary).all())
-    for over in ({"mpc.horizon": 25},
-                 {"mpc.horizon": 25, "mpc.sampling.parametrization": "zero_order"}):
-        with pytest.raises(NotImplementedError, match="horizon <= 24"):
+    for over in ({"mpc.horizon": 129},
+                 {"mpc.horizon": 86, "mpc.sampling.parametrization": "zero_order"}):
+        with pytest.raises(NotImplementedError, match="horizon <= 128"):
             make_sampling_solver(make_config("aliengo", **base, **over), 1000,
                                  device=cuda_device)
-        with pytest.raises(NotImplementedError, match="horizon <= 24"):
+        with pytest.raises(NotImplementedError, match="horizon <= 128"):
             make_gait_adaptive_solver(make_config("aliengo", **gait, **over), 1000,
                                       device=cuda_device)
     tick = _tick(make_config("aliengo", **base))

@@ -380,18 +380,18 @@ def test_large_batch_layout_plan():
         cfg = make_config("aliengo", mpc_type="sampling", **{"mpc.sampling.parametrization": par})
         plan = sk.make_rs_plan(cfg, 8, "cpu")
         PL, H = plan.params_per_leg, plan.horizon
-        win = fl.basis_windows(plan.W_blocks.numpy(), PL)
+        win = plan.windows.numpy()
         first = win[:, 4].copy().view(np.int32)
-        cols = first[:, None] + np.arange(fl.WINDOW)
+        cols = first[:, None] + np.arange(sk.WINDOW)
         dense = np.zeros((H * 12, 4 * PL), np.float64)
-        np.put_along_axis(dense, cols, win[:, :fl.WINDOW].astype(np.float64), axis=1)
+        np.put_along_axis(dense, cols, win[:, :sk.WINDOW].astype(np.float64), axis=1)
         W = np.asarray(jax_basis(par, H, cfg.mpc.sampling.num_splines), np.float64)
         np.testing.assert_array_equal(dense, W)
         assert np.all(cols // PL == (np.arange(H * 12) % 12 // 3)[:, None])  # within the leg
         prm = rng.standard_normal(4 * PL)
-        np.testing.assert_allclose((win[:, :fl.WINDOW] * prm[cols]).sum(1), W @ prm, atol=1e-6)
+        np.testing.assert_allclose((win[:, :sk.WINDOW] * prm[cols]).sum(1), W @ prm, atol=1e-6)
     assert fl.fleet_layout(1, fl.CROSSOVER - 1) == fl.FOUR_LANE
     assert fl.fleet_layout(1, fl.CROSSOVER) == fl.LARGE_BATCH
     assert fl.fleet_layout(64, 10_000) == fl.LARGE_BATCH == fl.WIDE | fl.REGEN
     with pytest.raises(NotImplementedError, match="window"):
-        fl.basis_windows(np.ones((12, 8), np.float32), 8)
+        sk.basis_windows(np.ones((12, 8), np.float32), 8)

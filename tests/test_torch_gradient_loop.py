@@ -118,6 +118,49 @@ def _extra_iteration_gaps(records, assemble):
     return np.asarray(gaps)
 
 
+def _knob_ticks(jc):
+    """The KNOB_TICKS ticks of test_knob_sets_match_jax: (state, ref, seq) of a trot
+    with the state drifting and the contact sequence rolling."""
+    rng = np.random.default_rng(7)
+    seq0 = _trot_seq(jc.mpc.horizon)
+    return [(_state(pos=(0.01 * k, 0.0, 0.31 + 0.005 * k), vel=rng.normal([0.2, 0, 0], 0.05),
+                    rpy=rng.normal(0, 0.03, 3), omega=rng.normal(0, 0.1, 3)),
+             _ref(jc, vel=(0.3, 0, 0)), np.roll(seq0, -k, axis=1)) for k in range(KNOB_TICKS)]
+
+
+def _tick_arrays(ticks) -> list:
+    """The ticks' dicts as (key, array) pairs, for the recording's digest."""
+    return [[sorted(st.items()), sorted(ref.items()), seq] for st, ref, seq in ticks]
+
+
+def jax_knob_references() -> dict:
+    """The JAX package's side of test_knob_sets_match_jax (tests/jax_references.py):
+    each knob set's controller over its ticks (GRFs, status and integral a tick)
+    and, for the float64 route, its first-stage gaps to float64 on its own QPs."""
+    out = {}
+    for knobs, (over, kwargs, route) in KNOBS.items():
+        jc, _ = _cfgs(**over)
+        jaxm = JaxMPC(jc)
+        jrec = _record(jaxm, route) if route else None
+        ticks = _knob_ticks(jc)
+        rows = []
+        for state, ref, seq in ticks:
+            want = jaxm.compute_control(state, ref, seq, **kwargs)
+            rows.append((np.asarray(want[0], np.float32), int(want[3]),
+                         np.asarray(jaxm.integral, np.float32)))
+            if jc.mpc.gradient.use_RTI:
+                jaxm.compute_rti_prepare()
+        out[f"{knobs}/grfs"] = np.stack([r[0] for r in rows])
+        out[f"{knobs}/status"] = np.array([r[1] for r in rows])
+        out[f"{knobs}/integral"] = np.stack([r[2] for r in rows])
+        if route == "solve":
+            out[f"{knobs}/gaps"] = _f64_gaps(jrec, *_jax_qp(jc))
+        elif route == "prepare":
+            out[f"{knobs}/gaps"] = _extra_iteration_gaps(jrec, _jax_qp(jc)[0])
+        out[f"digest/{knobs}"] = digest(jc, sorted(kwargs.items()), _tick_arrays(ticks))
+    return out
+
+
 def _assert_no_less_accurate(tgaps, jgaps, label):
     """The float64 route: over the recorded QPs, the port's largest and mean
     first-stage gaps to float64 are at most max(2 x the JAX package's, F64_FLOOR)."""
@@ -140,39 +183,34 @@ def test_knob_sets_match_jax(knobs):
     iteration produced (``_extra_iteration_gaps``), with the port's Hessian at
     the point it reached held to the JAX package's at the same point. With
     use_RTI both run the split: the preparation after each tick, the feedback
-    phase on the next."""
+    phase on the next. The JAX side is recorded (``jax_knob_references``); the
+    Hessian at the port's point is the JAX assembler's, live."""
     over, kwargs, route = KNOBS[knobs]
     jc, tc = _cfgs(**over)
-    port, jaxm = GradientMPC(tc, device="cpu"), JaxMPC(jc)
+    port = GradientMPC(tc, device="cpu")
     if route:
-        trec, jrec = _record(port, route), _record(jaxm, route)
-    rng = np.random.default_rng(7)
-    seq0 = _trot_seq(jc.mpc.horizon)
-    for k in range(KNOB_TICKS):
-        state = _state(pos=(0.01 * k, 0.0, 0.31 + 0.005 * k), vel=rng.normal([0.2, 0, 0], 0.05),
-                       rpy=rng.normal(0, 0.03, 3), omega=rng.normal(0, 0.1, 3))
-        ref = _ref(jc, vel=(0.3, 0, 0))
-        seq = np.roll(seq0, -k, axis=1)
+        trec = _record(port, route)
+    ticks = _knob_ticks(jc)
+    rec = load_jax("knobs")
+    check_inputs(rec, knobs, jc, sorted(kwargs.items()), _tick_arrays(ticks))
+    for k, (state, ref, seq) in enumerate(ticks):
         got = port.compute_control(state, ref, seq, **kwargs)
-        want = jaxm.compute_control(state, ref, seq, **kwargs)
-        assert got[3] == want[3] == 0, (knobs, k)
+        assert got[3] == rec[f"{knobs}/status"][k] == 0, (knobs, k)
         if not route:
-            np.testing.assert_allclose(got[0], want[0], rtol=0, atol=GRF_ATOL,
+            np.testing.assert_allclose(got[0], rec[f"{knobs}/grfs"][k], rtol=0, atol=GRF_ATOL,
                                        err_msg=f"{knobs} tick {k}")
-        np.testing.assert_allclose(port.integral, jaxm.integral, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(port.integral, rec[f"{knobs}/integral"][k], rtol=0,
+                                   atol=1e-6)
         if jc.mpc.gradient.use_RTI:
             assert port.compute_rti_prepare() is not None
-            jaxm.compute_rti_prepare()
     assert port.integral.any() == jc.mpc.gradient.use_integrators
     if route == "solve":
-        assert len(trec) == len(jrec) == KNOB_TICKS
-        _assert_no_less_accurate(_f64_gaps(trec, *_port_qp(tc)), _f64_gaps(jrec, *_jax_qp(jc)),
-                                 knobs)
+        assert len(trec) == len(rec[f"{knobs}/gaps"]) == KNOB_TICKS
+        _assert_no_less_accurate(_f64_gaps(trec, *_port_qp(tc)), rec[f"{knobs}/gaps"], knobs)
     elif route == "prepare":
-        assert len(trec) == len(jrec) == KNOB_TICKS
+        assert len(trec) == len(rec[f"{knobs}/gaps"]) == KNOB_TICKS
         (tasm, _), (jasm, _) = _port_qp(tc), _jax_qp(jc)
-        _assert_no_less_accurate(_extra_iteration_gaps(trec, tasm),
-                                 _extra_iteration_gaps(jrec, jasm), knobs)
+        _assert_no_less_accurate(_extra_iteration_gaps(trec, tasm), rec[f"{knobs}/gaps"], knobs)
         for ins, prep in trec:
             # Linearized again where the extra iteration landed: the preparation's
             # Hessian is the JAX package's at the same point.

@@ -167,19 +167,21 @@ WALKED = ((("random_sampling", 1, "cubic_spline"), ("mppi", 1, "cubic_spline"),
 
 
 def reference_walks(num_samples=10_000, duration=3.0, vel=(0.3, 0.0, 0.0), gait_adaptive=False,
-                    walks=None):
+                    walks=None, horizon=None):
     """The JAX package's SRB harness walking the README quickstart for the
     sampling methods, iteration counts and parametrizations of the port's slices
     (``walks``, by default all of ``WALKED``), or with ``mpc.optimize_step_freq``
-    for the gait-adaptive slice: (method, iterations, parametrization, distance
-    (m), min z (m), max |roll|,|pitch| (rad), step frequency at the end)."""
+    for the gait-adaptive slice, at the configuration's horizon or ``horizon``:
+    (method, iterations, parametrization, distance (m), min z (m), max
+    |roll|,|pitch| (rad), step frequency at the end)."""
     rows = []
     for method, iterations, parametrization in walks or WALKED[gait_adaptive]:
         cfg = jax_make_config("aliengo", mpc_type="sampling", **{
             **BLIND, "mpc.sampling.num_samples": num_samples, "mpc.sampling.method": method,
             "mpc.sampling.num_iterations": iterations,
             "mpc.sampling.parametrization": parametrization,
-            "mpc.optimize_step_freq": gait_adaptive})
+            "mpc.optimize_step_freq": gait_adaptive,
+            **({"mpc.horizon": horizon} if horizon else {})})
         h = JaxHarness(cfg, seed=0)
         hist = h.run(duration, np.asarray(vel))
         rows.append((method, iterations, parametrization, hist[-1, 0] - hist[0, 0],
@@ -191,13 +193,17 @@ if __name__ == "__main__":
     # python tests/test_torch_harness.py [gait] [row ...]: the JAX reference's
     # walks on the CPU, on the platform the tests use (tests/conftest.py), for
     # PERF.md; with "gait", the gait-adaptive walks (mpc.optimize_step_freq); with
-    # row numbers, only those rows of WALKED.
+    # row numbers, only those rows of WALKED; "horizon H row ...": those rows at
+    # horizon H (chip_smoke.py's JAX_CPU_LONG_WALK is "horizon 32 0").
     import sys
 
     import conftest  # noqa: F401
 
-    gait = sys.argv[1:2] == ["gait"]
-    picked = [WALKED[gait][int(a)] for a in sys.argv[1 + gait:]]
-    for row in reference_walks(gait_adaptive=gait, walks=picked):
+    args = sys.argv[1:]
+    horizon = int(args[1]) if args[:1] == ["horizon"] else None
+    args = args[2:] if horizon else args
+    gait = args[:1] == ["gait"]
+    picked = [WALKED[gait][int(a)] for a in args[gait:]]
+    for row in reference_walks(gait_adaptive=gait, walks=picked, horizon=horizon):
         print("method %s, iterations %d, %s: walked %.4f m, min z %.4f m, max |roll|,|pitch| "
               "%.4f rad, step frequency %.4f Hz" % row, flush=True)

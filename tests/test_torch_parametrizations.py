@@ -1,11 +1,11 @@
 """The linear-spline and zero-order parametrizations of the port (plain torch path)
-against the JAX package's solvers, and the padded basis layout the CUDA kernels
-take for them.
+against the JAX package's solvers, and the basis windows the CUDA kernels take for
+them.
 
 At horizon 12 with 2 splines, linear splines have 9 parameters per leg and
 zero-order holds 36 (cubic splines, the main path, 24). The kernels are built for
-these three (horizon, parameters per leg) pairs; a leg's basis rows reach them
-zero-padded to a multiple of four. Solvers are compared at zero noise with a
+these three (horizon, parameters per leg) pairs; each basis row reaches them as
+its window of four weights. Solvers are compared at zero noise with a
 nonzero incumbent, as in test_torch_sampling.py, with its tolerances
 (tests/test_pallas_solvers.py:66-73): GRFs and the predicted state 1e-5, the best
 cost rtol 1e-4, the best parameters atol 1e-6; CEM's refit sigma atol 1e-6. The
@@ -149,45 +149,46 @@ def test_gait_adaptive_zero_order_matches_jax_at_zero_noise():
 
 
 def test_padded_basis_blocks_reproduce_the_step_major_basis():
-    """The kernels' basis layouts, with numpy: the static own-leg blocks
-    (``RSPlan.W_blocks``) and the group buffer's blocks (``pack_groups``) are
-    padded to 12 columns at linear splines' 9 parameters per leg and not padded at
-    24 and 36; the padding is zero, and unpadded and placed on the block diagonal
-    they give make_step_major_basis and the groups' dense bases. Every pair passes
-    the shape check, horizon 10 too; a pair beyond the kernels' bounds (horizon
-    25, zero-order holds at horizon 25, seven cubic splines) raises and names
+    """The kernels' basis layouts, with numpy: the static basis windows
+    (``RSPlan.windows``) and the group buffer's windows (``pack_groups``), four
+    weights and the leg-major index of the first parameter a row, at linear
+    splines' 9 parameters per leg, cubic splines' 24 and zero-order holds' 36;
+    placed back on their rows they give make_step_major_basis and the groups'
+    dense bases. Every pair passes the shape check, horizon 10 and horizon 25 with
+    cubic splines too; a pair beyond the kernels' bounds (horizon 129, zero-order
+    holds at horizon 86, 22 cubic splines: P = 4 * P_leg > 1024) raises and names
     them."""
-    for parametrization, P_leg, stride in (("cubic_spline", 24, 24), ("linear_spline", 9, 12),
-                                           ("zero_order", 36, 36)):
+    def dense_of(win, P_leg):
+        cols = win[..., 4].copy().view(np.int32)[..., None] + np.arange(sk.WINDOW)
+        out = np.zeros(win.shape[:-1] + (4 * P_leg,), np.float32)
+        np.put_along_axis(out, cols, win[..., :sk.WINDOW], axis=-1)
+        return out
+
+    for parametrization, P_leg in (("cubic_spline", 24), ("linear_spline", 9),
+                                   ("zero_order", 36)):
         cfg = make_config("aliengo", **{"mpc.sampling.parametrization": parametrization,
                                         "mpc.optimize_step_freq": True})
         plan = sk.make_rs_plan(cfg, 64, "cpu")
         assert (plan.horizon, plan.params_per_leg) in build.MAIN_PAIRS
+        assert plan.params_per_leg == P_leg
         sk.check_kernel_shape(plan)
-        assert sk.padded_params_per_leg(P_leg) == stride
         H = plan.horizon
-        blocks = plan.W_blocks.numpy()
-        assert blocks.shape == (H * 12, stride) and not blocks[:, P_leg:].any()
-        dense = np.zeros((H * 12, 4 * P_leg), np.float32)
-        for r in range(H * 12):
-            leg = (r % 12) // 3
-            dense[r, leg * P_leg:(leg + 1) * P_leg] = blocks[r, :P_leg]
-        np.testing.assert_array_equal(dense, make_step_major_basis(parametrization, H, 2))
+        win = plan.windows.numpy()
+        assert win.shape == (H * 12, sk.WINDOW_FLOATS) and not win[:, 5:].any()
+        np.testing.assert_array_equal(dense_of(win, P_leg),
+                                      make_step_major_basis(parametrization, H, 2))
         groups = group_operators(cfg, np.array([0.3, 0.8, 0.8, 0.3], np.float32),
                                  np.asarray(cfg.mpc.step_freq_available, np.float32))
         K = groups.blocks.shape[0]
-        packed = sg.pack_groups(groups)[:K * H * 12 * stride].reshape(K, H * 12, stride)
-        assert not packed[:, :, P_leg:].any()
-        np.testing.assert_array_equal(packed[:, :, :P_leg], groups.blocks)
-        unpadded = sg.GroupInputs(groups.contact, groups.share, packed[:, :, :P_leg],
-                                  groups.offsets)
-        np.testing.assert_array_equal(unpadded.dense("cpu").numpy(), groups.dense("cpu").numpy())
-    sk.check_kernel_shape(sk.make_rs_plan(make_config("aliengo", **{"mpc.horizon": 10}), 64,
-                                          "cpu"))
-    for over in ({"mpc.horizon": 25},
-                 {"mpc.horizon": 25, "mpc.sampling.parametrization": "zero_order"},
-                 {"mpc.sampling.num_splines": 7}):
+        packed = sg.pack_groups(groups)[:K * H * 12 * sk.WINDOW_FLOATS].reshape(
+            K, H * 12, sk.WINDOW_FLOATS)
+        np.testing.assert_array_equal(dense_of(packed, P_leg), groups.dense("cpu").numpy())
+    for over in ({"mpc.horizon": 10}, {"mpc.horizon": 25}):
+        sk.check_kernel_shape(sk.make_rs_plan(make_config("aliengo", **over), 64, "cpu"))
+    for over in ({"mpc.horizon": 129},
+                 {"mpc.horizon": 86, "mpc.sampling.parametrization": "zero_order"},
+                 {"mpc.sampling.num_splines": 22}):
         plan = sk.make_rs_plan(make_config("aliengo", **over), 64, "cpu")
-        with pytest.raises(NotImplementedError, match=r"horizon <= 24 and 4 <= parameters per "
-                                                      r"leg <= 72"):
+        with pytest.raises(NotImplementedError, match=r"horizon <= 128 and 4 <= parameters per "
+                                                      r"leg <= 256 \(P = 4 \* P_leg <= 1024"):
             sk.check_kernel_shape(plan)

@@ -91,10 +91,9 @@ VARIANTS = {
     "regen-stage-4096": {SOURCE: [("#define FLEET_REGEN_STAGE_KEYS 512",
                                    "#define FLEET_REGEN_STAGE_KEYS SM_STAGE_KEYS")]},
     "regen-no-draw": {SOURCE: [(
-        """    const float4 z =
-        fleet_noise4<1>(a, seed, offset, kn.sigma_mppi, sigma, i0 + tl * RS_BLOCK + nz_s[row], k,
-                        p, valid);""",
-        """    const float4 z = make_float4(1.f, 1.f, 1.f, 1.f);""")]},
+        """      const float4 z = fleet_noise4<1>(a, seed, offset, kn.sigma_mppi, sigma,
+                                       i0 + tl * RS_BLOCK + nz_s[row], k, p, valid);""",
+        """      const float4 z = make_float4(1.f, 1.f, 1.f, 1.f);""")]},
     "cem-no-finish": {SOURCE: [("    if (kn.cem && threadIdx.x >= SM_COL_THREADS)\n"
                                 "      regen_cem_finish",
                                 "    if (false)\n      regen_cem_finish")]},

@@ -6,9 +6,11 @@
 Runs every recorder of ``tests/jax_references.py:RECORDERS`` (a ``jax_*``
 function of a port test module: the DDP solves and controllers of
 ``test_torch_ddp.py``, the nominal 1 s SRB walk of ``test_torch_gradient_loop.py``,
-the soft-QP ladders of ``test_torch_variants.py`` and the kinodynamic MuJoCo run
-of ``test_torch_variants_loop.py``) with the JAX package on the CPU, as pytest
-runs it, and writes ``tests/fixtures/torch_jax_references.npz``.
+the soft-QP ladders of ``test_torch_variants.py``, the kinodynamic MuJoCo run
+of ``test_torch_variants_loop.py``, the sharded solves of ``test_torch_parallel.py``
+and the long-horizon solves of ``test_torch_long_horizon.py``) with the JAX
+package on the CPU, as pytest runs it, and writes
+``tests/fixtures/torch_jax_references.npz``.
 """
 from __future__ import annotations
 

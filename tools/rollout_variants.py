@@ -131,7 +131,7 @@ def time_copy(root: str, counts: list) -> dict:
 
         def launch():
             rc = lib.rs_launch(sk.ctypes.byref(args), plan.params_per_leg,
-                               plan.W_blocks.data_ptr(), inc.data_ptr(), None, None,
+                               plan.windows.data_ptr(), inc.data_ptr(), None, None,
                                costs.data_ptr(), argmin.data_ptr(), out.data_ptr(), stream)
             if rc != 0:
                 raise RuntimeError(f"rs_launch returned {rc}")
